@@ -1,0 +1,209 @@
+"""The port's flash-attention forward against the JAX package's.
+
+On the CPU the port's wrapper takes the kernel's plain twin
+(``flash_attention_reference``); it is held against the Pallas kernel run in
+interpret mode, as tests/test_pallas_attention.py runs it. The CUDA kernel
+itself is held against the twin on the card (``cuda`` marker). The JAX
+side is imported per test, so the card's tests also run on a host that has
+torch and no JAX."""
+import contextlib
+import os
+
+import numpy as np
+import pytest
+import torch
+
+from univtg_tpu_torch.ops import flash_attention as fa
+
+torch.set_num_threads(1)
+
+
+@contextlib.contextmanager
+def pallas_interpret():
+    os.environ["UNIVTG_PALLAS_INTERPRET"] = "1"
+    try:
+        yield
+    finally:
+        os.environ.pop("UNIVTG_PALLAS_INTERPRET", None)
+
+
+def _inputs(seed, B, Lq, Lk, D):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Lq, D)).astype(np.float32)
+    k = rng.standard_normal((B, Lk, D)).astype(np.float32)
+    v = rng.standard_normal((B, Lk, D)).astype(np.float32)
+    mask = np.ones((B, Lk), np.float32)
+    mask[-1, Lk // 2:] = 0  # ragged: the last row keeps its first half
+    return q, k, v, mask
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.fixture
+def jax_ref():
+    """(jnp, pallas_attention module, jax attention module)."""
+    jnp = pytest.importorskip("jax.numpy")
+    import univtg_tpu.ops.attention as attn
+    import univtg_tpu.ops.pallas_attention as pa
+
+    return jnp, pa, attn
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written flash kernel has no "
+                    "CPU mode (run tests/test_torch_flash.py on an H100)")
+    return torch.device("cuda")
+
+
+@pytest.mark.parametrize("Lq,Lk", [(16, 16), (24, 40), (33, 7)])
+def test_twin_matches_pallas_flash(jax_ref, Lq, Lk):
+    jnp, pa, _ = jax_ref
+    B, H, D = 2, 4, 32
+    q, k, v, mask = _inputs(0, B, Lq, Lk, D)
+    with pallas_interpret():
+        want = pa.flash_attention.__wrapped__(
+            jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(mask),
+            num_heads=H, block_q=16, block_k=16,
+        )
+    got = fa.flash_attention(*_t(q, k, v, mask), num_heads=H)
+    assert got.shape == (B, Lq, D) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+
+
+@pytest.mark.parametrize("Lq,Lk", [(16, 16), (24, 40), (33, 7)])
+def test_twin_lse_matches_pallas_fwd_impl(jax_ref, Lq, Lk):
+    """out and lse of the head-split form against _fwd_impl. The JAX side
+    takes block multiples; rows and keys are padded there (padded keys
+    masked) and the padding sliced off before comparing."""
+    jnp, pa, _ = jax_ref
+    B, H, D = 2, 4, 32
+    dh = D // H
+    q, k, v, mask = _inputs(1, B, Lq, Lk, D)
+
+    def split(x):
+        L = x.shape[1]
+        return x.reshape(B, L, H, dh).transpose(0, 2, 1, 3).reshape(B * H, L, dh)
+
+    qh, kh, vh = split(q), split(k), split(v)
+    maskh = np.repeat(mask, H, axis=0)
+    blk = 8
+    pq, pk = (-Lq) % blk, (-Lk) % blk
+    with pallas_interpret():
+        out_j, lse_j = pa._fwd_impl(
+            jnp.zeros((1, 1), jnp.int32),
+            jnp.asarray(np.pad(maskh, ((0, 0), (0, pk))))[:, None, :],
+            jnp.asarray(np.pad(qh, ((0, 0), (0, pq), (0, 0)))),
+            jnp.asarray(np.pad(kh, ((0, 0), (0, pk), (0, 0)))),
+            jnp.asarray(np.pad(vh, ((0, 0), (0, pk), (0, 0)))),
+            block_q=blk, block_k=blk, sm_scale=dh**-0.5,
+        )
+    out, lse = fa.flash_attention_impl(*_t(qh, kh, vh, maskh), sm_scale=dh**-0.5)
+    assert lse.shape == (B * H, Lq) and lse.dtype == torch.float32
+    np.testing.assert_allclose(out.numpy(), np.asarray(out_j)[:, :Lq], atol=2e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(lse_j)[:, :Lq, 0],
+                               atol=2e-5)
+
+
+def test_fully_masked_row_is_mean_of_real_keys(jax_ref):
+    """A row whose keys are all masked gets the mean of V over its Lk real
+    keys -- what sdpa_xla gives -- not an average that includes padding."""
+    jnp, _, attn = jax_ref
+    B, H, D, L = 2, 2, 16, 11
+    q, k, v, mask = _inputs(2, B, L, L, D)
+    mask[0] = 0
+    want = attn.sdpa_xla(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                         attn.attention_scores_bias(jnp.asarray(mask)), H)
+    got = fa.flash_attention(*_t(q, k, v, mask), num_heads=H)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=2e-5)
+    np.testing.assert_allclose(
+        got[0].numpy(), np.broadcast_to(v[0].mean(axis=0), (L, D)), atol=2e-5
+    )
+
+
+def test_twin_bf16_casts_p_before_pv():
+    """bf16 inputs: out in bf16, lse in f32, p rounded to bf16 for PV while
+    the denominator sums the f32 p -- the Pallas kernel's dtype contract."""
+    B, H, D, L = 1, 2, 16, 9
+    q, k, v, mask = _inputs(3, B, L, L, D)
+    qh, kh, vh = [torch.from_numpy(x).reshape(B * H, L, D // H).bfloat16()
+                  for x in (q, k, v)]
+    maskh = torch.ones(B * H, L)
+    out, lse = fa.flash_attention_impl(qh, kh, vh, maskh, sm_scale=0.5)
+    assert out.dtype == torch.bfloat16 and lse.dtype == torch.float32
+    s = (qh.float() @ kh.float().transpose(1, 2)) * 0.5
+    p = torch.softmax(s, dim=-1)
+    # p rounded to bf16 relative to the row max, renormalized by the f32 sum
+    e = torch.exp(s - s.amax(-1, keepdim=True))
+    want = (e.bfloat16().float() @ vh.float()) / e.sum(-1, keepdim=True)
+    np.testing.assert_allclose(out.float().numpy(), want.bfloat16().float().numpy(),
+                               atol=1e-2)
+    np.testing.assert_allclose(lse.numpy(), torch.logsumexp(s, -1).numpy(),
+                               atol=1e-5)
+    assert not torch.allclose(want, (p @ vh.float()), atol=0, rtol=0)
+
+
+def test_cpu_tensor_never_counts_a_launch():
+    q, k, v, mask = _inputs(4, 2, 8, 8, 16)
+    fa.flash_attention.launches = 0
+    fa.flash_attention(*_t(q, k, v, mask), num_heads=2)
+    fa.flash_attention_impl(*_t(q, k, v), torch.ones(2, 8), sm_scale=0.25)
+    assert fa.flash_attention.launches == 0
+
+
+@pytest.mark.parametrize("D,H", [(36, 3), (8, 2), (272, 2)])
+def test_head_dims_outside_the_kernel_raise(D, H):
+    q, k, v, mask = _inputs(5, 2, 4, 4, D)
+    with pytest.raises(ValueError, match="head dim"):
+        fa.flash_attention(*_t(q, k, v, mask), num_heads=H)
+
+
+def test_dropout_and_bad_inputs_raise():
+    q, k, v, mask = _t(*_inputs(6, 2, 4, 4, 16))
+    with pytest.raises(NotImplementedError, match="training slice"):
+        fa.flash_attention(q, k, v, mask, num_heads=2, dropout_rate=0.1)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q.double(), k.double(), v.double(), mask,
+                           num_heads=2)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(0, 1).contiguous().transpose(0, 1),
+                           k, v, mask, num_heads=2)
+    with pytest.raises(ValueError, match="mask"):
+        fa.flash_attention(q, k, v, mask[:, :3], num_heads=2)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype,atol_out,atol_lse",
+                         [(torch.float32, 1e-4, 1e-4),
+                          (torch.bfloat16, 8e-3, 1e-4)])
+@pytest.mark.parametrize("B,Lq,Lk,H,dh", [(2, 33, 70, 4, 128),
+                                          (3, 130, 7, 2, 64),
+                                          (1, 64, 64, 8, 8)])
+def test_cuda_kernel_matches_twin(cuda_device, dtype, atol_out, atol_lse,
+                                  B, Lq, Lk, H, dh):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    D = H * dh
+    q, k, v, mask = _inputs(7, max(B, 2), Lq, Lk, D)
+    q, k, v, mask = [torch.from_numpy(x[:B]).to(cuda_device) for x in (q, k, v, mask)]
+    q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    before = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v, mask, num_heads=H)
+    assert fa.flash_attention.launches == before + 1
+
+    def split(x):
+        return x.reshape(B, -1, H, dh).transpose(1, 2).reshape(B * H, -1, dh).contiguous()
+
+    maskh = mask.repeat_interleave(H, 0)
+    out_h, lse = fa.flash_attention_impl(split(q), split(k), split(v), maskh,
+                                         sm_scale=dh**-0.5)
+    want, want_lse = fa.flash_attention_reference(
+        split(q), split(k), split(v), maskh, sm_scale=dh**-0.5
+    )
+    torch.cuda.synchronize()
+    assert (out_h.float() - want.float()).abs().max().item() <= atol_out
+    assert (lse - want_lse).abs().max().item() <= atol_lse
+    merged = out.reshape(B, Lq, H, dh).transpose(1, 2).reshape(B * H, Lq, dh)
+    assert torch.equal(merged, out_h)

@@ -1,0 +1,128 @@
+"""Command-line entry point of the PyTorch port.
+
+  python -m univtg_tpu_torch.cli serve --resume model_best.ckpt \\
+      [--config model.json] [--device cuda] [--port 8008] ...
+
+Only ``serve`` exists in this slice. ``--resume`` takes an upstream-format
+torch checkpoint ({'model': state_dict}); ``--config`` a ModelConfig JSON
+(the same JSON the JAX package writes), defaulting to the flagship with
+attention_impl="pallas", the hand-written CUDA flash kernel.
+"""
+from __future__ import annotations
+
+import argparse
+import signal
+
+from univtg_tpu_torch.models.config import ModelConfig
+
+
+def flagship_config(**kw) -> ModelConfig:
+    """The flagship: 2818-d video and 512-d text features, hidden 1024,
+    4 layers, 8 heads, FFN 1024, 75 clips and 32 tokens."""
+    base = dict(
+        vid_dim=2818, txt_dim=512, hidden_dim=1024, num_layers=4,
+        num_heads=8, ffn_dim=1024, max_v_l=75, max_q_l=32,
+        attention_impl="pallas",
+    )
+    base.update(kw)
+    return ModelConfig(**base)
+
+
+def cmd_serve(args):
+    """HTTP grounding service with dynamic micro-batching."""
+    from univtg_tpu_torch.interop import load_torch_checkpoint
+    from univtg_tpu_torch.serve import GroundingPipeline, GroundingServer
+
+    if args.config:
+        with open(args.config) as f:
+            cfg = ModelConfig.from_json(f.read())
+    else:
+        cfg = flagship_config()
+    # saliency + foreground ranking, as every JAX preset serves
+    pipe = GroundingPipeline(
+        cfg, load_torch_checkpoint(args.resume, cfg), eval_mode="add",
+        param_dtype=args.param_dtype, device=args.device,
+    )
+    # POST /reload takes a client-chosen filesystem path, so on a NON-local
+    # bind it stays disabled unless --reload-token gates it
+    local_hosts = ("127.0.0.1", "localhost", "::1")
+    reload_ok = args.host in local_hosts or args.reload_token is not None
+    if not reload_ok:
+        print(
+            f"note: /reload disabled (host {args.host} is non-local and no "
+            f"--reload-token was given)"
+        )
+    server = GroundingServer(
+        pipe, host=args.host, port=args.port,
+        max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
+        request_timeout_s=args.request_timeout_s,
+        param_loader=(
+            (lambda p: load_torch_checkpoint(p, cfg)) if reload_ok else None
+        ),
+        checkpoint_path=args.resume,
+        reload_token=args.reload_token,
+    )
+    if args.warmup is not None:
+        if args.warmup == "default":
+            lengths = None
+        else:
+            try:
+                lengths = [int(x) for x in args.warmup.split(",")]
+            except ValueError:
+                raise SystemExit(
+                    f"--warmup takes a comma-separated list of video "
+                    f"lengths (e.g. --warmup=128,512), got {args.warmup!r}"
+                )
+        print("warming the batch ladder before taking traffic...")
+        server.warmup(lengths)
+
+    def _sigterm(*_):
+        # SIGTERM drains like ctrl-c instead of killing mid-batch
+        raise KeyboardInterrupt
+
+    signal.signal(signal.SIGTERM, _sigterm)
+    print(f"serving on http://{args.host}:{server.port} "
+          f"({pipe.device.type})  (ctrl-c to stop)", flush=True)
+    try:
+        server.serve_forever()
+    except KeyboardInterrupt:
+        print("draining in-flight requests...")
+        server.close(drain_s=args.request_timeout_s)
+
+
+def build_parser():
+    p = argparse.ArgumentParser(prog="univtg_tpu_torch")
+    sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("serve")
+    sp.set_defaults(fn=cmd_serve)
+    sp.add_argument("--resume", required=True,
+                    help="upstream-format torch checkpoint ({'model': ...})")
+    sp.add_argument("--config", default=None,
+                    help="ModelConfig JSON (default: the flagship, "
+                         "attention_impl='pallas')")
+    sp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for explicitly")
+    sp.add_argument("--host", default="127.0.0.1")
+    sp.add_argument("--port", type=int, default=8008)
+    sp.add_argument("--max-batch", type=int, default=32)
+    sp.add_argument("--max-wait-ms", type=float, default=4.0)
+    sp.add_argument("--request-timeout-s", type=float, default=600.0)
+    sp.add_argument("--reload-token", default=None,
+                    help="require this X-Reload-Token header on POST "
+                         "/reload (set it whenever --host is not local)")
+    sp.add_argument("--param-dtype", default=None,
+                    choices=[None, "bfloat16", "float32"],
+                    help="cast weights at load; bfloat16 halves weight memory")
+    sp.add_argument("--warmup", nargs="?", const="default", default=None,
+                    help="run the batch ladder before accepting traffic; "
+                         "optionally a comma-separated list of video lengths")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    args.fn(args)
+
+
+if __name__ == "__main__":
+    main()

@@ -1,0 +1,97 @@
+"""Typed model configuration: the same fields, defaults and JSON as
+``univtg_tpu/models/config.py``, so one config file drives both packages.
+
+This slice of the port runs the dense encoder in eval mode. Fields of
+features that arrive in later slices still parse; ``check_supported`` names
+the ones a model built from this config cannot run yet.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+
+import torch
+
+ATTENTION_IMPLS = ("xla", "pallas")
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    # input feature dims (after TEF concat if used)
+    vid_dim: int = 2818  # slowfast 2304 + clip 512 + tef 2
+    txt_dim: int = 512
+    hidden_dim: int = 1024
+    # encoder
+    num_layers: int = 4
+    num_heads: int = 8
+    ffn_dim: int = 1024
+    dropout: float = 0.0
+    droppath: float = 0.1
+    input_dropout: float = 0.5
+    pre_norm: bool = False
+    # input projectors (LN -> dropout -> dense [-> relu]) stacks
+    n_input_proj: int = 2
+    # heads
+    span_loss_type: str = "l1"  # "l1" (offset regression) | "ce" (start/end cls)
+    max_v_l: int = 75
+    use_txt_pos: bool = False
+    max_q_l: int = 32
+    # numerics: params keep their own dtype; activations run in compute_dtype
+    compute_dtype: str = "float32"
+    # attention implementation:
+    #   "xla"    plain-torch attention (the counterpart of sdpa_xla)
+    #   "pallas" the hand-written CUDA flash kernel on a CUDA tensor
+    #            (ops/flash_attention.py), its plain twin on a CPU tensor
+    attention_impl: str = "xla"
+    # features of the JAX package that later slices port; they parse here
+    seq_shard: bool = False
+    remat: bool = False
+    scan_layers: bool = False
+    pipeline_stages: int = 0
+    pipeline_microbatches: int = 0
+    pipeline_interleave: int = 1
+    pipeline_pre_permuted: bool = False
+    moe_experts: int = 0
+    moe_top_k: int = 1
+    moe_capacity_factor: float = 1.25
+
+    @property
+    def dtype(self) -> torch.dtype:
+        dt = getattr(torch, self.compute_dtype, None)
+        if not isinstance(dt, torch.dtype) or not dt.is_floating_point:
+            raise ValueError(f"unknown compute_dtype {self.compute_dtype!r}")
+        return dt
+
+    @property
+    def head_dim(self) -> int:
+        assert self.hidden_dim % self.num_heads == 0
+        return self.hidden_dim // self.num_heads
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=1)
+
+    @classmethod
+    def from_json(cls, s: str) -> "ModelConfig":
+        return cls(**json.loads(s))
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for the config values this slice of the port cannot run."""
+    unsupported = {
+        "scan_layers": cfg.scan_layers,
+        "remat": cfg.remat,
+        "pipeline_stages>0": cfg.pipeline_stages > 0,
+        "moe_experts>1": cfg.moe_experts > 1,
+        "seq_shard": cfg.seq_shard,
+    }
+    named = [k for k, on in unsupported.items() if on]
+    if named:
+        raise NotImplementedError(
+            f"the PyTorch port does not run {', '.join(named)} yet "
+            f"(ROADMAP.md, queue 1)"
+        )
+    if cfg.attention_impl not in ATTENTION_IMPLS:
+        raise NotImplementedError(
+            f"attention_impl={cfg.attention_impl!r}: the PyTorch port runs "
+            f"{ATTENTION_IMPLS} (ring attention: ROADMAP.md, queue 2)"
+        )
