@@ -4,12 +4,21 @@
     python3 chip_smoke.py
 
 Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
-nothing of JAX or of the JAX package. Phases, each raising on failure:
+nothing of JAX or of the JAX package. Phases, each raising on failure and
+printing its seconds:
 
   1. device   -- the card's name and power limit; TF32 off for comparisons.
-  2. build    -- nvcc builds every kernel of the serving path from csrc/.
-  3. kernels  -- each kernel against its plain twin at the serving shapes,
-                 f32 and bf16, ragged masks; kernel, twin and library times.
+  2. build    -- nvcc builds every kernel source from csrc/, and the
+                 planted-fault copies of flash_bwd.cu (phase 3b), one
+                 process per source, all started together; ptxas lines
+                 printed.
+  3. kernels  -- each kernel against its plain twin: flash_fwd at the
+                 serving shapes; flash_fwd, flash_bwd_dq and flash_bwd_dkv
+                 at the two training shapes, f32 and bf16, dropout 0 and
+                 0.1; kernel, twin and library times and the bound.
+  3b. faults  -- each planted fault of flash_bwd.cu (a bf16 cast or the
+                 dropout keep left out, FAULTS) must fail the bf16 limit
+                 that phase 3 holds the real kernels to.
   4. pipeline -- the flagship (hidden 1024, 4 layers, 8 heads) at full
                  width with seeded random weights, attention_impl="pallas":
                  bf16, one 2048-clip video x 8 queries, held against the
@@ -20,17 +29,33 @@ nothing of JAX or of the JAX package. Phases, each raising on failure:
   6. profile  -- where the time of one bf16 dispatch goes, per serving cell
                  (torch.profiler): host ms, device-busy ms, idle share, the
                  flash kernel's share and the top kernels.
+  7. train    -- `cli train-mr` trains the flagship at full width on a
+                 synthetic corpus (96 items, 2816-d video, 512-d text, 75
+                 clips: 3 steps of 32), bf16, attention_impl="pallas",
+                 dropouts at their defaults: 4 launches of each kernel per
+                 step. Then the f32 "pallas" step held against the f32
+                 "xla" step (same weights, same 3 batches, dropouts 0), one
+                 seeded step with attention dropout 0.1 through the
+                 kernels, and the written checkpoint served.
+  8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16,
+                 "pallas" vs "xla": CUDA-event ms per step.
+  9. profile  -- where the time of one bf16 train step goes, per training
+                 cell (torch.profiler).
 
-The launch counters are zeroed just before phase 4 and read after phase 5:
-every kernel of the path must have run there. The last lines are the card
-line of nvidia-smi, one JSON line of per-kernel numbers, and
+Each main path is driven with the launch counters set to 0 just before it
+and read just after: serving is phases 4-5, training phase 7's train-mr
+run. Every kernel of a path must have run there. The last lines are the
+card line of nvidia-smi, one JSON line of per-kernel numbers, and
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
 
+import concurrent.futures
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 import urllib.request
@@ -41,9 +66,42 @@ TOL = {
     "float32": {"out": 1e-4, "lse": 1e-4},
     # out is bf16 and p is rounded to bf16 relative to a running max in the
     # kernel, to the final max in the twin: readings on an H100 were out
-    # 2.0e-3 (L=2080) and 3.9e-3 (L=160); lse is f32 on both sides (9.5e-7)
-    "bfloat16": {"out": 8e-3, "lse": 1e-4},
+    # 2.0e-3 (L=2080), 3.9e-3 (L=160) and, with dropout 0.1 (out scaled by
+    # 1/0.9), 7.8e-3 (L=107): one bf16 step at magnitude 1-2. The limit is
+    # one step at magnitude 2-4, where the dropped-out outputs reach; lse is
+    # f32 on both sides (9.5e-7)
+    "bfloat16": {"out": 1.6e-2, "lse": 1e-4},
 }
+# the backward kernels vs their twins: each of dq, dk and dv on its own, at
+# each shape, by max |kernel - twin| / max |twin| ("rel") and, in bf16, by
+# the share of elements that differ at all ("share"). Readings on an H100
+# (700 W): f32 rel <= 2.3e-7 (summation order). bf16 with dropout 0.1: rel
+# <= 1.9e-3, share <= 1.8e-4 (the kernel fuses dp * keep - delta into one
+# FMA, so a rare ds rounds the other way); dropout 0: 0 and 0. A one-step
+# flip of the largest value reads up to 2**-7 = 7.8e-3 rel, so rel alone
+# cannot tell a rare flip from a missing cast; the share can. The planted
+# faults (FAULTS, phase 3b) read: a missing cast rel 2.9e-3-7.1e-3 with
+# share 0.25-0.42, keep left out of dV rel 0.43-0.58 with share 0.60-0.67.
+BWD_TOL = {"float32": {"rel": 2e-6, "share": None},
+           "bfloat16": {"rel": 8e-3, "share": 1e-2}}
+# planted faults of csrc/flash_bwd.cu: name -> (the output it corrupts, the
+# line as written, the line with the fault). Each is built from a copy in a
+# temporary directory; phase 3b requires that the bf16 limits catch each.
+FAULTS = {
+    "dq_ds_not_cast": (
+        "dq", "dSs[(ty * ROWS + i) * LDP + tx + 16 * j] = to_f32(from_f32<T>(ds));",
+        "dSs[(ty * ROWS + i) * LDP + tx + 16 * j] = ds;"),
+    "dk_ds_not_cast": (
+        "dk", "dSs[(ty * ROWS + i) * LDP + slot] = to_f32(from_f32<T>(ds));",
+        "dSs[(ty * ROWS + i) * LDP + slot] = ds;"),
+    "dv_p_not_cast": (
+        "dv", "Ps[(ty * ROWS + i) * LDP + slot] = to_f32(from_f32<T>(p_drop));",
+        "Ps[(ty * ROWS + i) * LDP + slot] = p_drop;"),
+    "dv_keep_dropped": ("dv", "p_drop = p * keep;", "p_drop = p;"),
+}
+# the f32 train step on the flash kernels vs on plain attention (same
+# weights, same batches, dropouts 0): per-step loss and grad norm
+TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
 # the pipeline with the flash kernel vs the same pipeline with plain attention
 # (windows in seconds)
 PIPE_TOL = {
@@ -62,10 +120,29 @@ SHAPES = {  # (B, L, H, dh): L = video bucket + text bucket 32
     "long_video_2048": (8, 2048 + 32, 8, 128),
     "qvhighlights_128": (32, 128 + 32, 8, 128),
 }
+TRAIN_SHAPES = {  # (B, L, H, dh): L = clips + text tokens, no bucket
+    "train_qvhighlights": (32, 75 + 32, 8, 128),
+    "train_long_video": (8, 2048 + 32, 8, 128),
+}
+KERNEL_NOTES = {  # name -> (source, the Pallas kernel it replaces)
+    "flash_fwd": ("univtg_tpu_torch/csrc/flash_fwd.cu",
+                  "univtg_tpu/ops/pallas_attention.py:98"),
+    "flash_bwd_dq": ("univtg_tpu_torch/csrc/flash_bwd.cu",
+                     "univtg_tpu/ops/pallas_attention.py:210"),
+    "flash_bwd_dkv": ("univtg_tpu_torch/csrc/flash_bwd.cu",
+                      "univtg_tpu/ops/pallas_attention.py:254"),
+}
 
 
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def timed(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    return out
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -99,16 +176,47 @@ def phase_device(torch):
     return smi
 
 
-def phase_build():
+def _build_fault(name, out_dir):
+    """nvcc of csrc/flash_bwd.cu with FAULTS[name] planted, in out_dir."""
+    from pathlib import Path
+
+    from univtg_tpu_torch.ops import cuda_build
+
+    _, line, fault = FAULTS[name]
+    text = (cuda_build.CSRC_DIR / "flash_bwd.cu").read_text()
+    if text.count(line) != 1:
+        raise AssertionError(f"fault {name}: the line to edit is not in flash_bwd.cu once")
+    src = Path(out_dir) / f"flash_bwd_{name}.cu"
+    src.write_text(text.replace(line, fault))
+    so = src.with_suffix(".so")
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                    "-I", str(cuda_build.CSRC_DIR), "-o", str(so), str(src)],
+                   capture_output=True, text=True, check=True)
+    return so
+
+
+def phase_build(fault_dir):
+    """One nvcc per source and per planted fault, all started together.
+    Returns {fault name: library path}."""
     from univtg_tpu_torch.ops import cuda_build, flash_attention as fa
 
-    t0 = time.perf_counter()
-    cuda_build.build(fa.KERNEL_NAME)
-    fa._library()
-    log(f"[build] {fa.KERNEL_NAME}: {time.perf_counter() - t0:.2f} s")
-    for line in cuda_build.build_log(fa.KERNEL_NAME).splitlines():
-        if "registers" in line or "spill" in line:
-            log(f"[build]   {line.strip()}")
+    def build(name):
+        t0 = time.perf_counter()
+        cuda_build.build(name)
+        return time.perf_counter() - t0
+
+    with concurrent.futures.ThreadPoolExecutor(len(fa.KERNEL_SOURCES) + len(FAULTS)) as pool:
+        faults = {n: pool.submit(_build_fault, n, fault_dir) for n in FAULTS}
+        seconds = dict(zip(fa.KERNEL_SOURCES, pool.map(build, fa.KERNEL_SOURCES)))
+        faults = {n: f.result() for n, f in faults.items()}
+    for name in fa.KERNEL_SOURCES:
+        fa._library(name)
+        log(f"[build] {name}: {seconds[name]:.2f} s")
+        for line in cuda_build.build_log(name).splitlines():
+            if "registers" in line or "spill" in line or "Compiling entry" in line:
+                log(f"[build]   {line.strip()}")
+    log(f"[build] planted faults of flash_bwd.cu: {', '.join(faults)}")
+    return faults
 
 
 def _attention_inputs(torch, B, L, H, dh, dtype, seed):
@@ -140,7 +248,8 @@ def phase_kernels(torch):
 
             qh, kh, vh = split(q), split(k), split(v)
             maskh = mask.repeat_interleave(H, dim=0)
-            out = fa.flash_attention(q, k, v, mask, num_heads=H)
+            with torch.no_grad():
+                out = fa.flash_attention(q, k, v, mask, num_heads=H)
             out_h, lse = fa.flash_attention_impl(qh, kh, vh, maskh, sm_scale=sm_scale)
             want, want_lse = fa.flash_attention_reference(qh, kh, vh, maskh, sm_scale=sm_scale)
             torch.cuda.synchronize()
@@ -152,7 +261,8 @@ def phase_kernels(torch):
                   and err_lse <= TOL[dname]["lse"])
 
             iters = 10 if L > 1000 else 50
-            ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, num_heads=H), iters)
+            ms = cuda_ms(lambda: fa.flash_attention_impl(qh, kh, vh, maskh,
+                                                         sm_scale=sm_scale), iters)
             plain_ms = cuda_ms(
                 lambda: fa.flash_attention_reference(qh, kh, vh, maskh, sm_scale=sm_scale),
                 iters)
@@ -167,7 +277,8 @@ def phase_kernels(torch):
                       + 4 * B * L + 4 * BH * L)  # mask read; lse written
             t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
             rec = {
-                "shape": shape_name, "B": B, "L": L, "H": H, "dh": dh, "dtype": dname,
+                "kernel": "flash_fwd", "shape": shape_name, "B": B, "L": L, "H": H,
+                "dh": dh, "dtype": dname, "dropout": 0.0,
                 "err_out": max(err_out, err_out_h), "err_lse": err_lse,
                 "tol_out": TOL[dname]["out"], "tol_lse": TOL[dname]["lse"],
                 "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
@@ -245,11 +356,11 @@ def phase_pipeline(np, fa, card):
     def dispatch(name, fn, expect_launches):
         """One forward through the pipeline (its numpy results mean the card
         has finished); checks the flash launches it made."""
-        before = fa.flash_attention.launches
+        before = fa.launches["flash_fwd"]
         t = time.perf_counter()
         res = fn()
         ms = (time.perf_counter() - t) * 1e3
-        got = fa.flash_attention.launches - before
+        got = fa.launches["flash_fwd"] - before
         log(f"[pipeline] {name}: {ms:.2f} ms host clock ({card}), flash launches {got}")
         if got != expect_launches:
             raise AssertionError(f"{name}: {got} flash launches, expected {expect_launches}")
@@ -329,7 +440,7 @@ def phase_server(np, pipe, fa):
                  .astype(np.float32)) for i in range(8)]
         results = [None] * len(reqs)
         barrier = threading.Barrier(len(reqs))
-        before = fa.flash_attention.launches
+        before = fa.launches["flash_fwd"]
 
         def fire(i):
             barrier.wait()
@@ -345,7 +456,7 @@ def phase_server(np, pipe, fa):
         wall_ms = (time.perf_counter() - t) * 1e3
         if any(th.is_alive() for th in threads):
             raise AssertionError("a /ground request did not finish")
-        launches = fa.flash_attention.launches - before
+        launches = fa.launches["flash_fwd"] - before
         for (vid_id, q), (status, got) in zip(reqs, results):
             want = pipe.ground_features(videos[vid_id], q)
             if status != 200 or not (
@@ -364,16 +475,57 @@ def phase_server(np, pipe, fa):
         server.close()
 
 
-def phase_profile(torch, np, pipe, long_items, fa, card):
-    """Per serving cell, after two warm dispatches, three more under
-    torch.profiler: one JSON line each with host ms per dispatch, device-busy
-    ms (sum of kernel durations), the idle share of the window, the flash
-    kernel's share of busy time and the top kernels by time."""
+def _profile_window(torch, fn, n):
+    """fn() n times under torch.profiler after a synchronize; returns
+    (kernel device us by name, wall us of the window)."""
     from collections import defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = defaultdict(float)
+    for evt in prof.events():
+        # device kernels and copies; a user annotation mirrored onto the
+        # device timeline (the optimizer's "Optimizer.step#AdamW.step")
+        # spans other kernels and would count their time twice
+        if evt.device_type == DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
+            kernels[evt.name] += evt.time_range.elapsed_us()
+    return kernels, wall_us
+
+
+def _profile_record(cell, card, n, unit, kernels, wall_us, flash_names, **extra):
+    busy_us = sum(kernels.values())
+    flash = {name: sum(t for k, t in kernels.items() if f"{name}_kernel" in k)
+             for name in flash_names}
+    top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
+    plural = {"dispatch": "dispatches", "step": "steps"}[unit]
+    rec = {
+        "cell": cell, "device": card, plural: n, **extra,
+        f"host_ms_per_{unit}": wall_us / 1e3 / n,
+        f"device_busy_ms_per_{unit}": busy_us / 1e3 / n,
+        "idle_share": 1.0 - busy_us / wall_us if busy_us else None,
+        "flash_share_of_busy": sum(flash.values()) / busy_us if busy_us else None,
+        "flash_ms_per_" + unit: {k: t / 1e3 / n for k, t in flash.items()},
+        f"top_kernels_ms_per_{unit}": [[k[:90], t / 1e3 / n] for k, t in top],
+    }
+    if not busy_us:
+        rec["note"] = "torch.profiler recorded no device activity: not measured"
+    log(f"[profile] {json.dumps(rec)}")
+
+
+def phase_profile(torch, np, pipe, long_items, fa, card):
+    """Per serving cell, after two warm dispatches, three more under
+    torch.profiler: one JSON line each with host ms per dispatch, device-busy
+    ms (sum of kernel durations), the idle share of the window, the flash
+    kernel's share of busy time and the top kernels by time."""
     dispatches = 3
     rng = np.random.default_rng(2)
     d_vid = pipe.cfg.vid_dim - 2
@@ -385,33 +537,460 @@ def phase_profile(torch, np, pipe, long_items, fa, card):
     for name, items in cells.items():
         for _ in range(2):
             pipe.ground_prepared_many(items)
-        torch.cuda.synchronize()
-        launches = fa.flash_attention.launches
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            t0 = time.perf_counter()
-            for _ in range(dispatches):
-                pipe.ground_prepared_many(items)
-            torch.cuda.synchronize()
-            wall_us = (time.perf_counter() - t0) * 1e6
-        kernels = defaultdict(float)
-        for evt in prof.events():
-            if evt.device_type == DeviceType.CUDA:
-                kernels[evt.name] += evt.time_range.elapsed_us()
-        busy_us = sum(kernels.values())
-        flash_us = sum(t for k, t in kernels.items() if "flash_fwd_kernel" in k)
-        top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-        rec = {
-            "cell": name, "device": card, "B": len(items), "dispatches": dispatches,
-            "flash_launches": fa.flash_attention.launches - launches,
-            "host_ms_per_dispatch": wall_us / 1e3 / dispatches,
-            "device_busy_ms_per_dispatch": busy_us / 1e3 / dispatches,
-            "idle_share": 1.0 - busy_us / wall_us if busy_us else None,
-            "flash_share_of_busy": flash_us / busy_us if busy_us else None,
-            "top_kernels_ms_per_dispatch": [[k[:90], t / 1e3 / dispatches] for k, t in top],
-        }
-        if not busy_us:
-            rec["note"] = "torch.profiler recorded no device activity: not measured"
-        log(f"[profile] {json.dumps(rec)}")
+        launches = fa.launches["flash_fwd"]
+        kernels, wall_us = _profile_window(
+            torch, lambda: pipe.ground_prepared_many(items), dispatches)
+        _profile_record(name, card, dispatches, "dispatch", kernels, wall_us,
+                        ["flash_fwd"], B=len(items),
+                        flash_launches=fa.launches["flash_fwd"] - launches)
+
+
+def _bound(flops, nbytes, dname):
+    t_ops, t_bytes = flops / PEAK_FLOPS[dname], nbytes / PEAK_BYTES
+    return max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes"
+
+
+def _errs(a, b):
+    """(max |a - b|, that over max |b|, the share of elements that differ)."""
+    diff = (a.float() - b.float()).abs().max().item()
+    return (diff, diff / max(b.float().abs().max().item(), 1e-30),
+            (a != b).float().mean().item())
+
+
+def _train_kernel_inputs(torch, fa, B, L, H, dh, dtype, rate, seed):
+    """Head-split q, k, v, mask, dO, the dropout seed and the kernel's own
+    forward (out, lse) at one training shape."""
+    q, k, v, mask = _attention_inputs(torch, B, L, H, dh, dtype, seed=seed)
+    do = torch.randn(B, L, H * dh, device="cuda").to(dtype)
+
+    def split(x):
+        return x.reshape(B, L, H, dh).transpose(1, 2).reshape(B * H, L, dh).contiguous()
+
+    qh, kh, vh, doh = split(q), split(k), split(v), split(do)
+    maskh = mask.repeat_interleave(H, dim=0)
+    dseed = torch.tensor([4221 + seed], dtype=torch.int32, device="cuda")
+    kw = dict(sm_scale=dh**-0.5, dropout_rate=rate)
+    out, lse = fa.flash_attention_impl(qh, kh, vh, maskh, dropout_seed=dseed, **kw)
+    return (qh, kh, vh, maskh, out, lse, doh), mask, dseed, kw
+
+
+def _bwd_within(err, dname):
+    """One gradient's (max abs, rel, share) within BWD_TOL[dname]."""
+    tol = BWD_TOL[dname]
+    return err[1] <= tol["rel"] and (tol["share"] is None or err[2] <= tol["share"])
+
+
+def phase_train_kernels(torch):
+    """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their twins at the
+    two training shapes, f32 and bf16, dropout 0 and 0.1: each output on
+    its own, relative to the twin's largest value. Kernel times of the
+    backward pair come from torch.profiler (one call launches both); each
+    backward kernel is timed against its own twin. SDPA has no call for dQ
+    or dK/dV alone, so their library_ms is null and pair_library_ms is the
+    pair's yardstick: SDPA forward + backward through autograd minus SDPA
+    forward, beside pair_ms, the two kernels' times summed."""
+    import torch.nn.functional as F
+
+    from univtg_tpu_torch.ops import flash_attention as fa
+
+    records = []
+    for shape_name, (B, L, H, dh) in TRAIN_SHAPES.items():
+        for dname in ("float32", "bfloat16"):
+            for rate in (0.0, 0.1):
+                dtype = getattr(torch, dname)
+                D, BH, es = H * dh, B * H, torch.finfo(dtype).bits // 8
+                args, mask, seed, kw = _train_kernel_inputs(
+                    torch, fa, B, L, H, dh, dtype, rate, 100 + len(records))
+                qh, kh, vh, maskh, out, lse, doh = args
+                grads = fa.flash_attention_backward_impl(*args, dropout_seed=seed, **kw)
+                r_out, r_lse = fa.flash_attention_reference(qh, kh, vh, maskh, seed=seed, **kw)
+                r_dq = fa.flash_bwd_dq_reference(*args, seed=seed, **kw)
+                r_dk, r_dv = fa.flash_bwd_dkv_reference(*args, seed=seed, **kw)
+                torch.cuda.synchronize()
+                err = {n: _errs(a, b) for n, a, b in zip(
+                    ("out", "dq", "dk", "dv"), (out, *grads), (r_out, r_dq, r_dk, r_dv))}
+                err_lse = (lse - r_lse).abs().max().item()
+                finite = all(torch.isfinite(t).all().item() for t in (out, lse, *grads))
+                del r_out, r_lse, r_dq, r_dk, r_dv
+
+                iters = 5 if L > 1000 else 20
+                fwd_ms = cuda_ms(lambda: fa.flash_attention_impl(
+                    qh, kh, vh, maskh, dropout_seed=seed, **kw), iters)
+                plain = {
+                    "flash_fwd": cuda_ms(lambda: fa.flash_attention_reference(
+                        qh, kh, vh, maskh, seed=seed, **kw), iters),
+                    "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_reference(
+                        *args, seed=seed, **kw), iters),
+                    "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_reference(
+                        *args, seed=seed, **kw), iters),
+                }
+                kernels, _ = _profile_window(torch, lambda: fa.flash_attention_backward_impl(
+                    *args, dropout_seed=seed, **kw), iters)
+                ms = {name: sum(t for kname, t in kernels.items()
+                                if f"{name}_kernel" in kname) / 1e3 / iters
+                      for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+                ms["flash_fwd"] = fwd_ms
+
+                q4, k4, v4 = (x.reshape(B, H, L, dh).detach().requires_grad_()
+                              for x in (qh, kh, vh))
+                do4 = doh.reshape(B, H, L, dh)
+                bool_mask = mask.bool()[:, None, None, :]
+
+                def sdpa():
+                    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask,
+                                                          dropout_p=rate)
+
+                lib_fwd = cuda_ms(sdpa, iters)
+                lib_both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4),
+                                   iters)
+
+                n2 = BH * L * L * dh
+                side = 4 * B * L + 8 * BH * L  # mask read; lse (+ delta) read or written
+                work = {
+                    "flash_fwd": (4 * n2, 4 * B * L * D * es + 4 * B * L + 4 * BH * L),
+                    "flash_bwd_dq": (6 * n2, 5 * B * L * D * es + side),
+                    "flash_bwd_dkv": (8 * n2, 6 * B * L * D * es + side),
+                }
+                outputs = {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
+                           "flash_bwd_dkv": ("dk", "dv")}
+                for name in KERNEL_NOTES:
+                    bound_ms, bound_by = _bound(*work[name], dname)
+                    rec = {"kernel": name, "shape": shape_name, "B": B, "L": L, "H": H,
+                           "dh": dh, "dtype": dname, "dropout": rate,
+                           "err": max(err[o][0] for o in outputs[name]),
+                           **{f"rel_err_{o}": err[o][1] for o in outputs[name]},
+                           **{f"differ_{o}": err[o][2] for o in outputs[name]},
+                           "ms": ms[name], "plain_ms": plain[name],
+                           "library_ms": lib_fwd if name == "flash_fwd" else None,
+                           "flops": work[name][0], "bytes": work[name][1],
+                           "bound_ms": bound_ms, "bound_by": bound_by}
+                    if name == "flash_fwd":
+                        ok = err["out"][0] <= TOL[dname]["out"]
+                        rec["tol"] = TOL[dname]["out"]
+                    else:
+                        ok = all(_bwd_within(err[o], dname) for o in outputs[name])
+                        rec.update(tol=BWD_TOL[dname],
+                                   pair_ms=ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+                                   pair_library_ms=lib_both - lib_fwd)
+                    records.append(rec)
+                    log(f"[kernels] {json.dumps(rec)}")
+                    if not finite or not ok:
+                        raise AssertionError(f"{name} disagrees with its twin: {rec}")
+                if err_lse > TOL[dname]["lse"]:
+                    raise AssertionError(f"flash_fwd lse disagrees with its twin: {err_lse}")
+                del args, qh, kh, vh, doh, q4, k4, v4, do4, out, lse, grads
+                torch.cuda.empty_cache()
+    return records
+
+
+def phase_faults(torch, faults):
+    """Each planted fault of flash_bwd.cu, swapped in for the built library,
+    at the two training shapes in bf16 with dropout 0.1: the output it
+    corrupts must fail the bf16 limits of phase 3 at each shape."""
+    import ctypes
+
+    from univtg_tpu_torch.ops import cuda_build, flash_attention as fa
+
+    real = cuda_build._libraries["flash_bwd"]
+    caught = {}
+    try:
+        for shape_name, (B, L, H, dh) in TRAIN_SHAPES.items():
+            args, _, seed, kw = _train_kernel_inputs(
+                torch, fa, B, L, H, dh, torch.bfloat16, 0.1, 900)
+            want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_reference(
+                *args, seed=seed, **kw)))
+            for name, so in faults.items():
+                cuda_build._libraries["flash_bwd"] = ctypes.CDLL(str(so))
+                got = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_impl(
+                    *args, dropout_seed=seed, **kw)))
+                cuda_build._libraries["flash_bwd"] = real
+                output = FAULTS[name][0]
+                err = _errs(got[output], want[output])
+                caught[(name, shape_name)] = not _bwd_within(err, "bfloat16")
+                log(f"[faults] {name} at {shape_name} bf16 dropout 0.1: {output} "
+                    f"max abs err {err[0]:.3g}, rel {err[1]:.3g}, share that differs "
+                    f"{err[2]:.3g} (limits {BWD_TOL['bfloat16']})")
+            del args, want, got
+            torch.cuda.empty_cache()
+    finally:
+        cuda_build._libraries["flash_bwd"] = real
+    missed = [k for k, hit in caught.items() if not hit]
+    if missed:
+        raise AssertionError(f"planted faults within the bf16 limits: {missed}")
+
+
+def _train_batches(np, corpus, n, bsz=32):
+    """The first n collated batches of the corpus, as the driver's Loader
+    gives them in epoch 0."""
+    from univtg_tpu_torch.data.collate import collate_mr
+    from univtg_tpu_torch.data.loader import Loader
+    from univtg_tpu_torch.data.mr import MRDataConfig, MRDataset
+
+    ds = MRDataset(MRDataConfig(
+        data_path=corpus["train_path"], v_feat_dirs=corpus["v_feat_dirs"],
+        q_feat_dir=corpus["q_feat_dir"], v_feat_dim=corpus["v_dim"],
+        q_feat_dim=corpus["q_dim"], max_q_l=32, max_v_l=75))
+    loader = Loader(ds, bsz, lambda items, pad_batch_to: collate_mr(
+        items, 32, 75, pad_batch_to), shuffle=True, seed=2018, num_threads=4)
+    out = []
+    for batch in loader:
+        out.append(batch)
+        if len(out) == n:
+            break
+    return out
+
+
+def _run_steps(torch, cfg, state_dict, cpu_batches, seed=0):
+    """A fresh model holding state_dict, stepped over the batches by
+    make_train_step; returns (state, per-step metrics as floats)."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    model = UniVTG(cfg, device="meta")
+    model.load_state_dict({k: v.cuda() for k, v in state_dict.items()}, assign=True)
+    state = TrainState(model, make_optimizer(
+        model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 3), 1e-4, 0.1))
+    step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    history = []
+    for batch in cpu_batches:
+        mi, tg = (to_device(t, "cuda") for t in strip_meta(batch))
+        state, m = step(state, mi, tg, seed)
+        history.append({k: float(v) for k, v in m.items()})
+    return state, history
+
+
+def phase_train(torch, np, fa, card, tmp):
+    """The training main path: `cli train-mr` at full width, bf16, on the
+    flash kernels. Returns (corpus, seeded weights, kernel launches)."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.data.synthetic import create_synthetic_mr_corpus
+    from univtg_tpu_torch.interop import load_torch_checkpoint
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.serve import GroundingPipeline
+
+    t0 = time.perf_counter()
+    corpus = create_synthetic_mr_corpus(os.path.join(tmp, "corpus"), n_train=96, n_val=1,
+                                        v_dim=2816, q_dim=512, max_clips=75, seed=0)
+    log(f"[train] synthetic corpus: 96 items, 2816-d video, 512-d text "
+        f"({time.perf_counter() - t0:.1f} s)")
+    run_dir = os.path.join(tmp, "run")
+    argv = ["train-mr", "--preset", "qvhighlights_mr",
+            f"train_data.data_path={corpus['train_path']}",
+            f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
+            f"train_data.q_feat_dir={corpus['q_feat_dir']}",
+            "train_data.v_feat_dim=2816", "eval_data=None", "n_epoch=1", "bsz=32",
+            "model.attention_impl=pallas", "model.compute_dtype=bfloat16",
+            f"results_dir={run_dir}"]
+    for name in fa.launches:  # the training main path starts here
+        fa.launches[name] = 0
+    t0 = time.perf_counter()
+    cli.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(fa.launches)  # ... and ends here
+    with open(os.path.join(run_dir, "train_log.jsonl")) as f:
+        line = json.loads(f.readline())
+    steps = line["steps"]
+    log(f"[train] cli train-mr: {steps} steps, epoch {line['time']:.2f} s "
+        f"({card}), {wall:.2f} s with model build and checkpoint; "
+        f"loss {line['loss_overall']:.4f}, grad norm {line['grad_norm']:.4f}; "
+        f"launches {launches}")
+    if steps != 3 or not np.isfinite(line["loss_overall"]):
+        raise AssertionError(f"train-mr did not take 3 finite steps: {line}")
+    if launches != {name: 4 * steps for name in fa.launches}:
+        raise AssertionError(f"expected 4 launches of each kernel per step: {launches}")
+
+    # f32 on the flash kernels vs f32 on plain attention
+    sd = UniVTG(flagship_model(), device="cpu", seed=0).state_dict()
+    batches = _train_batches(np, corpus, 3)
+    quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
+    runs = {impl: _run_steps(torch, flagship_model(attention_impl=impl, **quiet), sd,
+                             batches)[1] for impl in ("pallas", "xla")}
+    for i, (got, want) in enumerate(zip(runs["pallas"], runs["xla"], strict=True)):
+        rel = {k: abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want}
+        log(f"[train] f32 step {i}: pallas loss {got['loss_overall']:.6f} grad norm "
+            f"{got['grad_norm']:.6f}; xla {want['loss_overall']:.6f} "
+            f"{want['grad_norm']:.6f}; rel err loss {rel['loss_overall']:.2e} "
+            f"grad norm {rel['grad_norm']:.2e} (limits {TRAIN_TOL})")
+        if rel["loss_overall"] > TRAIN_TOL["loss"] or rel["grad_norm"] > TRAIN_TOL["grad_norm"]:
+            raise AssertionError(f"f32 pallas train step {i} disagrees with xla: {rel}")
+
+    # one seeded step with attention dropout 0.1 through the kernels
+    before = dict(fa.launches)
+    drop_cfg = flagship_model(attention_impl="pallas", dropout=0.1)
+    a = _run_steps(torch, drop_cfg, sd, batches[:1], seed=7)[1][0]
+    b = _run_steps(torch, drop_cfg, sd, batches[:1], seed=7)[1][0]
+    c = _run_steps(torch, drop_cfg, sd, batches[:1], seed=8)[1][0]
+    made = {n: fa.launches[n] - before[n] for n in before}
+    log(f"[train] dropout 0.1 step: loss {a['loss_overall']:.6f} (seed 7, twice: "
+        f"{b['loss_overall']:.6f}), seed 8 {c['loss_overall']:.6f}; launches {made}")
+    # the losses come from the forward alone, which is deterministic here
+    if (made != {n: 12 for n in before} or a["loss_overall"] != b["loss_overall"]
+            or a["loss_overall"] == c["loss_overall"]):
+        raise AssertionError("the seeded dropout step did not reach the kernels "
+                             "deterministically")
+
+    # the written checkpoint serves
+    model_cfg = flagship_model(attention_impl="pallas", compute_dtype="bfloat16")
+    best = os.path.join(run_dir, "model_best.ckpt")
+    trained = load_torch_checkpoint(best, model_cfg)
+    init = UniVTG(flagship_model(), device="cpu", seed=2018).state_dict()  # train-mr's
+    moved = max((trained[k].float() - init[k]).abs().max().item() for k in init)
+    if not moved > 0:
+        raise AssertionError("the checkpoint holds the initial weights")
+    pipe = GroundingPipeline(model_cfg, trained, eval_mode="add", device="cuda")
+    rng = np.random.default_rng(3)
+    res = pipe.ground_features(rng.standard_normal((75, 2816)).astype(np.float32),
+                               rng.standard_normal((12, 512)).astype(np.float32))
+    _check_result(np, res, 75)
+    log(f"[train] served {best}: top-1 window {res['top1_window']}; largest weight "
+        f"change from the initial weights {moved:.3g}")
+    return corpus, sd, launches
+
+
+def _long_batch(torch, np, B=8, Lv=2048, Lt=32, d_vid=2818, d_txt=512):
+    """One random B x (Lv clips + Lt tokens) batch on the card, with the
+    dense targets the losses read."""
+    rng = np.random.default_rng(5)
+    ts = ((np.arange(Lv, dtype=np.float32) + 1.0) / Lv)[None, :, None].repeat(2, -1)
+    ts = np.broadcast_to(ts, (B, Lv, 2)).copy()
+    window = np.zeros((B, Lv), np.float32)
+    starts = rng.integers(0, Lv - 64, B)
+    for b, s0 in enumerate(starts):
+        window[b, s0: s0 + 48] = 1
+    mi = {"src_txt": rng.standard_normal((B, Lt, d_txt)).astype(np.float32),
+          "src_txt_mask": np.ones((B, Lt), np.float32),
+          "src_vid": rng.standard_normal((B, Lv, d_vid)).astype(np.float32),
+          "src_vid_mask": np.ones((B, Lv), np.float32)}
+    tg = {"timestamp": ts, "timestamp_mask": np.ones((B, Lv), np.float32),
+          "timestamp_window": window,
+          "span_labels_nn": np.stack([ts[..., 0] - 0.01, ts[..., 1] + 0.01], -1),
+          "saliency_scores": window * 3.0,
+          "saliency_pos_labels": (starts + 10)[:, None].astype(np.int32)}
+    to = lambda d: {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()  # noqa: E731
+                    for k, v in d.items()}
+    return to(mi), to(tg)
+
+
+def phase_long_train(torch, np, fa, sd, card):
+    """make_train_step at B=8, 2048 clips + 32 tokens, bf16, dropouts at
+    their defaults: CUDA-event ms per step, "pallas" vs "xla"."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    mi, tg = _long_batch(torch, np)
+    step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    kept = None
+    for impl in ("pallas", "xla"):
+        cfg = flagship_model(attention_impl=impl, compute_dtype="bfloat16", max_v_l=2048)
+        model = UniVTG(cfg, device="meta")
+        model.load_state_dict({k: v.cuda() for k, v in sd.items()}, assign=True)
+        state = TrainState(model, make_optimizer(
+            model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 100), 1e-4, 0.1))
+        holder = {"state": state}
+
+        def one():
+            holder["state"], holder["m"] = step(holder["state"], mi, tg, 0)
+
+        before = dict(fa.launches)
+        torch.cuda.reset_peak_memory_stats()
+        ms = cuda_ms(one, iters=3, warmup=2)
+        made = {n: fa.launches[n] - before[n] for n in before}
+        loss = float(holder["m"]["loss_overall"])
+        log(f"[long] bf16 B=8 L=2048+32 {impl}: {ms:.2f} ms per train step ({card}), "
+            f"loss {loss:.4f}, launches over 5 steps {made}, peak memory "
+            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+        if not np.isfinite(loss):
+            raise AssertionError(f"long-video {impl} step is not finite")
+        if impl == "pallas" and made != {n: 20 for n in before}:
+            raise AssertionError(f"long-video pallas step launches: {made}")
+        if impl == "pallas":
+            kept = holder["state"]
+        del model, state, holder
+        torch.cuda.empty_cache()
+    return kept, (mi, tg)
+
+
+def phase_train_profile(torch, np, fa, card, corpus, sd, long_state, long_batch):
+    """Per training cell, after two warm steps, three more under
+    torch.profiler: host ms per step, device-busy ms, idle share, the flash
+    kernels' share of busy time and the top kernels.
+
+    train_qvhighlights_bf16: the driver's step (run_train_epoch: batch cast
+    and copy in the prefetch thread, then make_train_step), B=32, 75 clips
+    + 32 tokens, dropouts at their defaults. train_long_video_bf16:
+    make_train_step on a device-resident B=8, 2048 + 32 batch."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.epoch_runner import run_train_epoch
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    batches = _train_batches(np, corpus, 3)
+    cfg = flagship_model(attention_impl="pallas", compute_dtype="bfloat16")
+    state, _ = _run_steps(torch, cfg, sd, batches[:2])  # the two warm steps
+    step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    holder = {"state": state}
+
+    def driver_epoch():
+        holder["state"], _ = run_train_epoch(batches, step, holder["state"], 0, "cuda",
+                                             prefetch_depth=2)
+
+    names = list(KERNEL_NOTES)
+    kernels, wall_us = _profile_window(torch, driver_epoch, 1)
+    _profile_record("train_qvhighlights_bf16", card, len(batches), "step", kernels,
+                    wall_us, names, B=32, L="75+32")
+
+    mi, tg = long_batch
+    holder = {"state": long_state}
+
+    def long_step():
+        holder["state"], _ = step(holder["state"], mi, tg, 0)
+
+    for _ in range(2):
+        long_step()
+    kernels, wall_us = _profile_window(torch, long_step, 3)
+    _profile_record("train_long_video_bf16", card, 3, "step", kernels, wall_us, names,
+                    B=8, L="2048+32")
+
+
+def _kernel_line(records_serving, records_train, by_path):
+    """One entry per kernel for the final JSON line: times of the headline
+    record (bf16 at the long shape, dropout 0), the largest error seen.
+    ``launches`` sums the main paths, ``launches_by_path`` splits them."""
+    out = []
+    for name, (source, replaces) in KERNEL_NOTES.items():
+        if name == "flash_fwd":
+            head = next(r for r in records_serving if r["shape"] == "long_video_2048"
+                        and r["dtype"] == "bfloat16")
+            errs = [r["err_out"] for r in records_serving]
+        else:
+            head = next(r for r in records_train if r["kernel"] == name
+                        and r["shape"] == "train_long_video" and r["dtype"] == "bfloat16"
+                        and r["dropout"] == 0.0)
+            errs = []
+        mine = [r for r in records_train if r["kernel"] == name]
+        errs += [r["err"] for r in mine]
+        entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
+                 "launches": sum(path[name] for path in by_path.values()),
+                 "launches_by_path": {p: path[name] for p, path in by_path.items()},
+                 "max_abs_err": max(errs), "ms": head["ms"], "plain_ms": head["plain_ms"],
+                 "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
+                 "library_ms": head["library_ms"]}
+        if name != "flash_fwd":
+            entry.update(
+                max_rel_err=max(v for r in mine for k, v in r.items()
+                                if k.startswith("rel_err_")),
+                pair_ms=head["pair_ms"], pair_library_ms=head["pair_library_ms"])
+        out.append(entry)
+    return out
 
 
 def main() -> int:
@@ -425,38 +1004,41 @@ def main() -> int:
 
     from univtg_tpu_torch.ops import flash_attention as fa
 
-    smi = phase_device(torch)
-    phase_build()
-    records = phase_kernels(torch)
+    t_start = time.perf_counter()
+    smi = timed("device", phase_device, torch)
+    with tempfile.TemporaryDirectory(prefix="univtg_chip_faults_") as fault_dir:
+        faults = timed("build", phase_build, fault_dir)
+        records = timed("kernels", phase_kernels, torch)
+        train_records = timed("kernels", phase_train_kernels, torch)
+        timed("faults", phase_faults, torch, faults)
 
-    fa.flash_attention.launches = 0  # the main path starts here
-    pipe_f32, pipe_bf16, long_items, timings = phase_pipeline(np, fa, smi)
-    phase_server(np, pipe_f32, fa)
-    launches = fa.flash_attention.launches  # ... and ends here
-    if launches == 0:
+    for name in fa.launches:  # the serving main path starts here
+        fa.launches[name] = 0
+    pipe_f32, pipe_bf16, long_items, timings = timed(
+        "pipeline", phase_pipeline, np, fa, smi)
+    timed("server", phase_server, np, pipe_f32, fa)
+    serve_launches = dict(fa.launches)  # ... and ends here
+    if serve_launches["flash_fwd"] == 0:
         raise AssertionError("the serving path never launched flash_fwd")
-    log(f"[main path] flash_fwd launches: {launches}; dispatch ms {json.dumps(timings)}")
-    phase_profile(torch, np, pipe_bf16, long_items, fa, smi)
+    log(f"[main path] serving launches: {serve_launches}; dispatch ms {json.dumps(timings)}")
+    timed("profile", phase_profile, torch, np, pipe_bf16, long_items, fa, smi)
+    del pipe_f32, pipe_bf16, long_items
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="univtg_chip_smoke_") as tmp:
+        corpus, sd, train_launches = timed("train", phase_train, torch, np, fa, smi, tmp)
+        log(f"[main path] training launches: {train_launches}")
+        long_state, long_batch = timed("long", phase_long_train, torch, np, fa, sd, smi)
+        timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
+              long_state, long_batch)
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "univtg_tpu")]
     if bad:
         raise AssertionError(f"JAX modules were imported: {bad}")
 
-    head = next(r for r in records if r["shape"] == "long_video_2048"
-                and r["dtype"] == "bfloat16")
-    kernels = [{
-        "name": "flash_fwd",
-        "route": "cuda",
-        "source": "univtg_tpu_torch/csrc/flash_fwd.cu",
-        "replaces": "univtg_tpu/ops/pallas_attention.py:98",
-        "launches": launches,
-        "max_abs_err": max(r["err_out"] for r in records),
-        "ms": head["ms"],
-        "plain_ms": head["plain_ms"],
-        "bound_ms": head["bound_ms"],
-        "bound_by": head["bound_by"],
-        "library_ms": head["library_ms"],
-    }]
+    kernels = _kernel_line(records, train_records,
+                           {"serving": serve_launches, "training": train_launches})
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -148,10 +148,17 @@ def test_twin_bf16_casts_p_before_pv():
 
 def test_cpu_tensor_never_counts_a_launch():
     q, k, v, mask = _inputs(4, 2, 8, 8, 16)
-    fa.flash_attention.launches = 0
-    fa.flash_attention(*_t(q, k, v, mask), num_heads=2)
-    fa.flash_attention_impl(*_t(q, k, v), torch.ones(2, 8), sm_scale=0.25)
-    assert fa.flash_attention.launches == 0
+    before = dict(fa.launches)
+    q, k, v = [t.requires_grad_() for t in _t(q, k, v)]
+    out = fa.flash_attention(q, k, v, torch.from_numpy(mask), num_heads=2,
+                             dropout_rate=0.1, dropout_seed=3)
+    out.sum().backward()
+    out_h, lse = fa.flash_attention_impl(q.detach(), k.detach(), v.detach(),
+                                         torch.ones(2, 8), sm_scale=0.25)
+    fa.flash_attention_backward_impl(q.detach(), k.detach(), v.detach(),
+                                     torch.ones(2, 8), out_h, lse, out_h,
+                                     sm_scale=0.25)
+    assert fa.launches == before
 
 
 @pytest.mark.parametrize("D,H", [(36, 3), (8, 2), (272, 2)])
@@ -163,8 +170,11 @@ def test_head_dims_outside_the_kernel_raise(D, H):
 
 def test_dropout_and_bad_inputs_raise():
     q, k, v, mask = _t(*_inputs(6, 2, 4, 4, 16))
-    with pytest.raises(NotImplementedError, match="training slice"):
+    with pytest.raises(ValueError, match="dropout_seed"):
         fa.flash_attention(q, k, v, mask, num_heads=2, dropout_rate=0.1)
+    with pytest.raises(ValueError, match="dropout_rate"):
+        fa.flash_attention(q, k, v, mask, num_heads=2, dropout_rate=1.0,
+                           dropout_seed=1)
     with pytest.raises(TypeError):
         fa.flash_attention(q.double(), k.double(), v.double(), mask,
                            num_heads=2)
@@ -189,9 +199,9 @@ def test_cuda_kernel_matches_twin(cuda_device, dtype, atol_out, atol_lse,
     q, k, v, mask = _inputs(7, max(B, 2), Lq, Lk, D)
     q, k, v, mask = [torch.from_numpy(x[:B]).to(cuda_device) for x in (q, k, v, mask)]
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
-    before = fa.flash_attention.launches
+    before = fa.launches["flash_fwd"]
     out = fa.flash_attention(q, k, v, mask, num_heads=H)
-    assert fa.flash_attention.launches == before + 1
+    assert fa.launches["flash_fwd"] == before + 1
 
     def split(x):
         return x.reshape(B, -1, H, dh).transpose(1, 2).reshape(B * H, -1, dh).contiguous()

@@ -223,11 +223,26 @@ def test_unported_config_values_raise(field, value):
 
 
 def test_train_mode_raises():
+    """Training draws dropout masks from an explicit generator: train mode
+    without one raises (unless every rate is 0), eval ignores it, and
+    model.train() only flips the default of ``train=``."""
     _, tcfg = _configs()
     model = UniVTG(tcfg, device="cpu")
-    args = [torch.from_numpy(a) for a in _inputs(10)]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model(*args, train=True)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        model.train()
     assert not model.training
+    args = [torch.from_numpy(a) for a in _inputs(10)]
+    with pytest.raises(ValueError, match="generator"):
+        model(*args, train=True)
+    model.train()
+    with pytest.raises(ValueError, match="generator"):
+        model(*args)
+    g = torch.Generator().manual_seed(0)
+    with torch.no_grad():
+        trained = model(*args, generator=g)["saliency_scores"]
+        evald = model(*args, train=False, generator=g)["saliency_scores"]
+        model.eval()
+        assert torch.equal(model(*args)["saliency_scores"], evald)
+    assert not torch.equal(trained, evald)
+    off = UniVTG(ModelConfig(**SMALL, droppath=0.0, input_dropout=0.0),
+                 device="cpu")
+    with torch.no_grad():
+        off(*args, train=True)

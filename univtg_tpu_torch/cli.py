@@ -1,31 +1,62 @@
 """Command-line entry point of the PyTorch port.
 
+  python -m univtg_tpu_torch.cli train-mr --preset qvhighlights_mr \\
+      [--resume ckpt] [--device cuda] [key=value ...]
   python -m univtg_tpu_torch.cli serve --resume model_best.ckpt \\
       [--config model.json] [--device cuda] [--port 8008] ...
 
-Only ``serve`` exists in this slice. ``--resume`` takes an upstream-format
-torch checkpoint ({'model': state_dict}); ``--config`` a ModelConfig JSON
-(the same JSON the JAX package writes), defaulting to the flagship with
-attention_impl="pallas", the hand-written CUDA flash kernel.
+``train-mr`` takes a preset (univtg_tpu_torch/presets.py) and dotted
+``key=value`` overrides of its TrainConfig, e.g. ``bsz=16
+model.attention_impl=pallas eval_data=None``; values parse as Python
+literals, else stay strings. ``serve --resume`` takes an upstream-format
+torch checkpoint ({'model': state_dict}), such as the ``model_best.ckpt``
+that train-mr writes; ``--config`` a ModelConfig JSON (the same JSON the
+JAX package writes), defaulting to the flagship with
+attention_impl="pallas", the hand-written CUDA flash kernels. Both run on
+CUDA unless ``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
+import ast
 import signal
 
 from univtg_tpu_torch.models.config import ModelConfig
 
 
 def flagship_config(**kw) -> ModelConfig:
-    """The flagship: 2818-d video and 512-d text features, hidden 1024,
-    4 layers, 8 heads, FFN 1024, 75 clips and 32 tokens."""
-    base = dict(
-        vid_dim=2818, txt_dim=512, hidden_dim=1024, num_layers=4,
-        num_heads=8, ffn_dim=1024, max_v_l=75, max_q_l=32,
-        attention_impl="pallas",
-    )
-    base.update(kw)
-    return ModelConfig(**base)
+    """The flagship (presets.flagship_model: 2818-d video and 512-d text
+    features, hidden 1024, 4 layers, 8 heads, FFN 1024, 75 clips and 32
+    tokens) on the hand-written flash kernels."""
+    from univtg_tpu_torch.presets import flagship_model
+
+    return flagship_model(**{"attention_impl": "pallas", **kw})
+
+
+def apply_overrides(cfg, pairs):
+    """Apply dotted ``key=value`` overrides to a TrainConfig."""
+    from univtg_tpu_torch.presets import _replace
+
+    for pair in pairs:
+        key, sep, raw = pair.partition("=")
+        if not sep:
+            raise SystemExit(f"override {pair!r} is not key=value")
+        try:
+            value = ast.literal_eval(raw)
+        except (ValueError, SyntaxError):
+            value = raw
+        cfg = _replace(cfg, key, value)
+    return cfg
+
+
+def cmd_train_mr(args):
+    """Moment-retrieval training (train/driver_mr.py)."""
+    from univtg_tpu_torch.presets import PRESETS
+    from univtg_tpu_torch.train.driver_mr import train_mr
+
+    cfg = apply_overrides(PRESETS[args.preset](), args.overrides)
+    _, best = train_mr(cfg, resume=args.resume, device=args.device)
+    print(f"best checkpoint: {best}")
 
 
 def cmd_serve(args):
@@ -93,6 +124,13 @@ def cmd_serve(args):
 def build_parser():
     p = argparse.ArgumentParser(prog="univtg_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    sp = sub.add_parser("train-mr")
+    sp.set_defaults(fn=cmd_train_mr)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--resume", default=None)
+    sp.add_argument("--device", default="cuda",
+                    help="torch device; 'cpu' must be asked for explicitly")
+    sp.add_argument("overrides", nargs="*")
     sp = sub.add_parser("serve")
     sp.set_defaults(fn=cmd_serve)
     sp.add_argument("--resume", required=True,

@@ -1,0 +1,56 @@
+"""Temporal span algebra; counterpart of ``univtg_tpu/core/spans.py``
+(``xx_to_cxw``, ``cxw_to_xx``, ``iou_paired``, ``giou_paired``).
+
+Span formats: xx = (start, end), cxw = (center, width); the last dim is 2.
+``torch.maximum``/``torch.minimum`` stand where the reference takes
+``jnp.maximum``/``jnp.clip``, so that ties split their gradient in half as
+JAX's do.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def xx_to_cxw(spans):
+    """(..., 2) xx -> cxw."""
+    center = (spans[..., 0] + spans[..., 1]) * 0.5
+    width = spans[..., 1] - spans[..., 0]
+    return torch.stack([center, width], dim=-1)
+
+
+def cxw_to_xx(spans):
+    """(..., 2) cxw -> xx."""
+    x1 = spans[..., 0] - 0.5 * spans[..., 1]
+    x2 = spans[..., 0] + 0.5 * spans[..., 1]
+    return torch.stack([x1, x2], dim=-1)
+
+
+def _relu(x):
+    """jnp.clip(x, 0, None): maximum(0, x), ties halved."""
+    return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def iou_paired(spans1, spans2):
+    """Element-wise IoU over aligned xx spans, with the enclosing hull as
+    the union (the paired variant R1/mIoU use). Zero hull -> 0."""
+    inter = _relu(torch.minimum(spans1[..., 1], spans2[..., 1])
+                  - torch.maximum(spans1[..., 0], spans2[..., 0]))
+    hull = (torch.maximum(spans1[..., 1], spans2[..., 1])
+            - torch.minimum(spans1[..., 0], spans2[..., 0]))
+    nonzero = hull != 0
+    return torch.where(nonzero, inter / torch.where(nonzero, hull, 1.0), 0.0)
+
+
+def giou_paired(spans1, spans2, eps: float = 1e-12):
+    """Element-wise generalized IoU over aligned xx spans (mask-safe: a
+    near-zero union or hull is replaced by eps)."""
+    areas1 = spans1[..., 1] - spans1[..., 0]
+    areas2 = spans2[..., 1] - spans2[..., 0]
+    inter = _relu(torch.minimum(spans1[..., 1], spans2[..., 1])
+                  - torch.maximum(spans1[..., 0], spans2[..., 0]))
+    union = areas1 + areas2 - inter
+    iou = inter / torch.where(union.abs() > eps, union, eps)
+    enclose = _relu(torch.maximum(spans1[..., 1], spans2[..., 1])
+                    - torch.minimum(spans1[..., 0], spans2[..., 0]))
+    enclose = torch.where(enclose.abs() > eps, enclose, eps)
+    return iou - (enclose - union) / enclose

@@ -2,13 +2,19 @@
 //
 // Replaces univtg_tpu/ops/pallas_attention.py:_fwd_kernel (launched from
 // _fwd_impl, wrapped by flash_attention): online-softmax attention with an
-// additive key-padding mask, returning the output and the per-row logsumexp.
+// additive key-padding mask and in-kernel attention dropout, returning the
+// output and the per-row logsumexp (which the backward kernels recompute P
+// from, flash_bwd.cu).
 //
 //   s   = (q . k^T) * sm_scale + (1 - mask) * (-1e30)    scale AFTER the dot
 //   m   = running row max, l = running row sum of exp(s - m), both f32
-//   acc = acc * exp(m_prev - m_new) + cast(p, T) . v     p rounded to the
-//                                                        input dtype first
+//   acc = acc * exp(m_prev - m_new) + cast(p * keep, T) . v
+//                                        p rounded to the input dtype first
 //   out = acc / max(l, 1e-30) in T,  lse = m + log(max(l, 1e-30)) in f32
+//
+// Dropout follows torch MHA: it drops AFTER normalisation, so the
+// denominator l sums the undropped p, and keep is 0 or 1/(1-rate) from the
+// reference's hash (flash_common.cuh), identical in the backward kernels.
 //
 // Keys past Lk (the ragged edge of the last tile) are excluded, not masked:
 // they add nothing to m, l or acc. So a row whose real keys are all masked
@@ -38,7 +44,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "flash_common.cuh"
+
 namespace {
+
+using flash::Dropout;
+using flash::from_f32;
+using flash::Layout;
+using flash::NEG_INF;
+using flash::to_f32;
 
 constexpr int BLOCK_M = 64;   // query rows per block
 constexpr int BLOCK_N = 64;   // keys per streamed tile
@@ -48,28 +62,6 @@ constexpr int SCOLS = BLOCK_N / 16;  // score columns per thread
 constexpr int MAX_DH = 128;
 constexpr int OCOLS = MAX_DH / 16;   // output columns per thread, at most
 constexpr int LDP = BLOCK_N + 1;     // P tile row stride
-constexpr float NEG_INF = -1e30f;    // the finite mask constant of the spec
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
-
-// Element strides of one operand: batch, head, row. The head dim is dense.
-struct Layout {
-  long long sb, sh, sl;
-};
 
 __device__ __forceinline__ float group_max(float x) {
   // the 16 threads of a row group are lanes [0,16) or [16,32) of one warp
@@ -91,7 +83,8 @@ __global__ void __launch_bounds__(THREADS)
 flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
                  const T* __restrict__ v, const float* __restrict__ mask,
                  T* __restrict__ out, float* __restrict__ lse, int H, int Lq,
-                 int Lk, int dh, Layout ql, Layout kl, float sm_scale) {
+                 int Lk, int dh, Layout ql, Layout kl, float sm_scale,
+                 Dropout drop) {
   extern __shared__ float smem[];
   const int ld = dh + 1;  // odd stride: column reads across rows hit distinct banks
   float* Qs = smem;                        // BLOCK_M x ld
@@ -113,6 +106,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const T* vp = v + b * kl.sb + h * kl.sh;
   T* op = out + b * ql.sb + h * ql.sh;
   const float* mp = mask + (long long)b * Lk;
+  const unsigned int seed_bh = drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
 
   for (int e = tid; e < BLOCK_M * dh; e += THREADS) {
     const int r = e / dh, c = e - r * dh;
@@ -181,8 +175,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < SCOLS; ++j) {
         const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;  // the denominator takes p before the cast
-        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = to_f32(from_f32<T>(p));
+        rs += p;  // the denominator takes p before dropout and the cast
+        float p_acc = p;
+        if (drop.seed && valid[j])
+          p_acc = p * flash::dropout_multiplier(drop, seed_bh,
+                                                q0 + ty * ROWS + i,
+                                                k0 + tx + 16 * j);
+        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = to_f32(from_f32<T>(p_acc));
       }
       l[i] = l[i] * alpha + group_sum(rs);
       m[i] = m_new;
@@ -226,7 +225,7 @@ template <typename T>
 cudaError_t launch(const void* q, const void* k, const void* v,
                    const float* mask, void* out, float* lse, int BH, int H,
                    int Lq, int Lk, int dh, Layout ql, Layout kl,
-                   float sm_scale, cudaStream_t stream) {
+                   float sm_scale, Dropout drop, cudaStream_t stream) {
   const int ld = dh + 1;
   const size_t smem =
       sizeof(float) * ((size_t)(BLOCK_M + 2 * BLOCK_N) * ld +
@@ -241,7 +240,7 @@ cudaError_t launch(const void* q, const void* k, const void* v,
   flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k),
       static_cast<const T*>(v), mask, static_cast<T*>(out), lse, H, Lq, Lk,
-      dh, ql, kl, sm_scale);
+      dh, ql, kl, sm_scale, drop);
   return cudaGetLastError();
 }
 
@@ -251,6 +250,9 @@ extern "C" {
 
 // q and out share one layout, k and v another; mask is (BH / H, Lk) f32 and
 // lse is (BH, Lq) f32, both dense. dtype: 0 = float32, 1 = bfloat16.
+// seed: null for no dropout, else one int32 on the device (read by the
+// kernel, so the wrapper never waits for it); thresh, drop_scale and the
+// dropout grid (drop_bq, drop_bk) as flash_common.cuh says.
 // Returns a cudaError_t; 0 on success. Launches on `stream`, allocates
 // nothing and does not synchronise.
 int univtg_flash_fwd(const void* q, const void* k, const void* v,
@@ -258,22 +260,26 @@ int univtg_flash_fwd(const void* q, const void* k, const void* v,
                      int H, int Lq, int Lk, int dh, long long q_sb,
                      long long q_sh, long long q_sl, long long k_sb,
                      long long k_sh, long long k_sl, float sm_scale,
-                     void* stream) {
+                     const void* seed, unsigned int thresh, float drop_scale,
+                     int drop_bq, int drop_bk, void* stream) {
   if (dh <= 0 || dh > MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
-      BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535)
+      BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535 ||
+      (seed && (drop_bq <= 0 || drop_bk <= 0)))
     return (int)cudaErrorInvalidValue;
   const Layout ql{q_sb, q_sh, q_sl};
   const Layout kl{k_sb, k_sh, k_sl};
+  const Dropout drop{static_cast<const int*>(seed), thresh, drop_scale,
+                     drop_bq, drop_bk};
   const float* m = static_cast<const float*>(mask);
   float* ls = static_cast<float*>(lse);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (dtype == 0)
     err = launch<float>(q, k, v, m, out, ls, BH, H, Lq, Lk, dh, ql, kl,
-                        sm_scale, s);
+                        sm_scale, drop, s);
   else if (dtype == 1)
     err = launch<__nv_bfloat16>(q, k, v, m, out, ls, BH, H, Lq, Lk, dh, ql,
-                                kl, sm_scale, s);
+                                kl, sm_scale, drop, s);
   else
     err = cudaErrorInvalidValue;
   return (int)err;

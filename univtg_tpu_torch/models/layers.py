@@ -8,6 +8,10 @@ over from the JAX package).
 Parameters keep their own dtype and each layer computes in the dtype of its
 input, as flax's ``dtype=`` does: a bfloat16 activation meets float32
 weights cast on use.
+
+Dropout draws its masks from an explicit ``torch.Generator`` handed down the
+forward (the training step's), never from torch's global RNG; without one
+it is the identity, which is eval mode.
 """
 from __future__ import annotations
 
@@ -31,6 +35,32 @@ def mask_log(mask):
         mask > 0, torch.log(mask.clamp_min(MASK_LOG_EPS)),
         torch.full_like(mask, MASK_LOG_NEG),
     )
+
+
+def dropout(x, rate: float, generator=None):
+    """flax ``nn.Dropout``: keep each element with probability 1 - rate and
+    scale the kept ones by 1 / (1 - rate). Identity without a generator."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep_prob = 1.0 - rate
+    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
+    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
+                                                        device=x.device))
+
+
+class Dropout(nn.Module):
+    """Parameterless dropout module over ``dropout``; it takes the place of
+    ``nn.Dropout`` so that state-dict indices stay upstream's."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = rate
+
+    def forward(self, x, generator=None):
+        return dropout(x, self.rate, generator)
+
+    def extra_repr(self) -> str:
+        return f"rate={self.rate}"
 
 
 class Linear(nn.Linear):
@@ -70,13 +100,16 @@ class ProjLayer(nn.Module):
                  dropout: float):
         super().__init__()
         self.LayerNorm = LayerNorm(in_dim)
-        layers = [nn.Dropout(dropout), Linear(in_dim, out_dim)]
+        layers = [Dropout(dropout), Linear(in_dim, out_dim)]
         if use_relu:
             layers.append(nn.ReLU())
         self.net = nn.Sequential(*layers)
 
-    def forward(self, x):
-        return self.net(self.LayerNorm(x))
+    def forward(self, x, generator=None):
+        x = self.net[0](self.LayerNorm(x), generator)
+        for layer in self.net[1:]:
+            x = layer(x)
+        return x
 
 
 class InputProj(nn.Sequential):
@@ -89,6 +122,11 @@ class InputProj(nn.Sequential):
                       use_relu=i != n_layers - 1, dropout=dropout)
             for i in range(n_layers)
         ])
+
+    def forward(self, x, generator=None):
+        for layer in self:
+            x = layer(x, generator)
+        return x
 
 
 class ConvHead(nn.Module):
@@ -142,3 +180,11 @@ def cosine_similarity(a, b, dim: int = -1, eps: float = 1e-8):
     an = torch.linalg.vector_norm(a, dim=dim, keepdim=True).clamp_min(eps)
     bn = torch.linalg.vector_norm(b, dim=dim, keepdim=True).clamp_min(eps)
     return torch.sum((a / an) * (b / bn), dim=dim)
+
+
+def sim_matrix(a, b, eps: float = 1e-8):
+    """Row-normalized similarity matrix (a (N, D), b (M, D) -> (N, M)),
+    each row norm clamped to at least eps."""
+    an = torch.linalg.vector_norm(a, dim=1, keepdim=True).clamp_min(eps)
+    bn = torch.linalg.vector_norm(b, dim=1, keepdim=True).clamp_min(eps)
+    return (a / an) @ (b / bn).T

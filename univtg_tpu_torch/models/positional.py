@@ -12,7 +12,7 @@ import math
 import torch
 from torch import nn
 
-from univtg_tpu_torch.models.layers import LayerNorm
+from univtg_tpu_torch.models.layers import Dropout, LayerNorm
 
 
 def sine_position_from_mask(mask, num_feats: int, temperature: float = 10000.0,
@@ -39,8 +39,9 @@ class TrainableTextPos(nn.Module):
         super().__init__()
         self.position_embeddings = nn.Embedding(max_positions, hidden_dim)
         self.LayerNorm = LayerNorm(hidden_dim)
-        self.dropout = nn.Dropout(dropout)
+        self.dropout = Dropout(dropout)
 
-    def forward(self, x):
+    def forward(self, x, generator=None):
         table = self.position_embeddings.weight.to(x.dtype)
-        return self.dropout(self.LayerNorm(x + table[None, : x.shape[1]]))
+        return self.dropout(self.LayerNorm(x + table[None, : x.shape[1]]),
+                            generator)

@@ -13,7 +13,10 @@ The forward is ``pre`` (input projections, token types, positions) ->
 ``encoder`` -> ``heads``. Module names follow the upstream state dict, so a
 released checkpoint's ``model`` entry loads with ``load_state_dict``.
 
-Eval mode only in this slice: ``train=True`` and ``model.train()`` raise.
+One switch, ``train=``, as in the JAX package (it defaults to
+``self.training``). In training, input dropout, attention dropout and
+droppath draw from the ``generator`` the caller passes (the train step
+seeds one per step); eval needs none.
 """
 from __future__ import annotations
 
@@ -34,12 +37,6 @@ from univtg_tpu_torch.models.positional import (
     TrainableTextPos,
     sine_position_from_mask,
 )
-
-_TRAIN_MSG = (
-    "the PyTorch port runs eval mode only; dropout, droppath and the "
-    "training step arrive with the training slice (ROADMAP.md, queue 1)"
-)
-
 
 class UniVTG(nn.Module):
     def __init__(self, cfg: ModelConfig, *, device="cuda", seed: int = 0):
@@ -64,8 +61,8 @@ class UniVTG(nn.Module):
                     cfg.max_q_l, D, cfg.input_dropout
                 )
             self.transformer = Transformer(Encoder(
-                D, cfg.num_layers, cfg.num_heads, cfg.ffn_dim, cfg.pre_norm,
-                cfg.attention_impl,
+                D, cfg.num_layers, cfg.num_heads, cfg.ffn_dim, cfg.dropout,
+                cfg.droppath, cfg.pre_norm, cfg.attention_impl,
             ))
             span_pred_dim = 2 if cfg.span_loss_type == "l1" else cfg.max_v_l * 2
             self.class_embed = ConvHead(D, 1, 3)
@@ -97,39 +94,35 @@ class UniVTG(nn.Module):
             elif isinstance(m, WeightedPool):
                 init.xavier_uniform_(m.weight, generator=generator)
 
-    def train(self, mode: bool = True):
-        if mode:
-            raise NotImplementedError(_TRAIN_MSG)
-        return super().train(False)
-
     def pre(self, src_txt, src_txt_mask, src_vid, src_vid_mask, src_cls=None,
-            src_cls_mask=None):
+            src_cls_mask=None, generator=None):
         """Project both modalities, add token types ([1] video, [0] text)
         and build the [vid; txt] encoder input, mask and positions.
 
         Returns (src, mask, pos, vid, txt, cls_tok)."""
         cfg = self.cfg
         dt = cfg.dtype
+        g = generator
         token_type = self.token_type_embeddings.weight.to(dt)
-        vid = self.input_vid_proj(src_vid.to(dt)) + token_type[1]
-        txt = self.input_txt_proj(src_txt.to(dt)) + token_type[0]
+        vid = self.input_vid_proj(src_vid.to(dt), g) + token_type[1]
+        txt = self.input_txt_proj(src_txt.to(dt), g) + token_type[0]
         cls_tok = None
         if src_cls is not None:
-            cls_tok = self.input_txt_proj(src_cls.to(dt)) + token_type[0]
+            cls_tok = self.input_txt_proj(src_cls.to(dt), g) + token_type[0]
 
         src = torch.cat([vid, txt], dim=1)
         mask = torch.cat([src_vid_mask, src_txt_mask], dim=1).to(dt)
         pos_vid = sine_position_from_mask(src_vid_mask, cfg.hidden_dim,
                                           dtype=dt)
         if cfg.use_txt_pos:
-            pos_txt = self.txt_position_embed(txt)
+            pos_txt = self.txt_position_embed(txt, g)
         else:
             pos_txt = torch.zeros_like(txt)
         pos = torch.cat([pos_vid, pos_txt], dim=1)
         return src, mask, pos, vid, txt, cls_tok
 
-    def encoder(self, src, mask, pos):
-        return self.transformer.encoder(src, mask, pos)
+    def encoder(self, src, mask, pos, generator=None):
+        return self.transformer.encoder(src, mask, pos, generator)
 
     def heads(self, memory, vid, txt, src_vid_mask, src_txt_mask, cls_tok=None,
               src_cls_mask=None):
@@ -168,13 +161,26 @@ class UniVTG(nn.Module):
         return out
 
     def forward(self, src_txt, src_txt_mask, src_vid, src_vid_mask,
-                src_cls=None, src_cls_mask=None, *, train: bool = False):
-        if train:
-            raise NotImplementedError(_TRAIN_MSG)
+                src_cls=None, src_cls_mask=None, *, train=None,
+                generator=None):
+        """``train`` (default ``self.training``) turns dropout and droppath
+        on; they draw from ``generator``, which training then requires
+        unless every rate is 0. Eval ignores the generator."""
+        if train is None:
+            train = self.training
+        cfg = self.cfg
+        if not train:
+            generator = None
+        elif generator is None and max(cfg.dropout, cfg.droppath,
+                                       cfg.input_dropout) > 0:
+            raise ValueError(
+                "train=True draws dropout masks: pass generator= (the train "
+                "step's torch.Generator), or set every dropout rate to 0"
+            )
         src, mask, pos, vid, txt, cls_tok = self.pre(
             src_txt, src_txt_mask, src_vid, src_vid_mask, src_cls,
-            src_cls_mask,
+            src_cls_mask, generator,
         )
-        memory = self.encoder(src, mask, pos)
+        memory = self.encoder(src, mask, pos, generator)
         return self.heads(memory, vid, txt, src_vid_mask, src_txt_mask,
                           cls_tok, src_cls_mask)

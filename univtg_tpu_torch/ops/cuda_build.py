@@ -3,16 +3,18 @@
 Each source ``univtg_tpu_torch/csrc/<name>.cu`` compiles with ``nvcc`` into a
 shared library with a plain C interface, loaded with ``ctypes``. The build
 runs at first use, into ``univtg_tpu_torch/_build/`` (git-ignored), and is
-cached there by a hash of the source and the flags, so an edited source
-rebuilds and an unchanged one loads in milliseconds. Nothing is built while
-a module is imported: the CPU tests import every module on hosts that have
-no ``nvcc``.
+cached there by a hash of the source, of every ``csrc/`` header it includes
+(``#include "x.cuh"``, followed transitively) and of the flags, so an edited
+source or header rebuilds and an unchanged one loads in milliseconds.
+Nothing is built while a module is imported: the CPU tests import every
+module on hosts that have no ``nvcc``.
 """
 from __future__ import annotations
 
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -25,6 +27,8 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",  # registers, shared memory and spills, into the log
 )
+
+_INCLUDE = re.compile(r'^\s*#\s*include\s*"([^"]+)"', re.MULTILINE)
 
 _lock = threading.Lock()
 _libraries: dict[str, ctypes.CDLL] = {}
@@ -53,13 +57,26 @@ def find_nvcc() -> str:
     )
 
 
+def source_files(name: str) -> list[Path]:
+    """``csrc/<name>.cu`` and every ``csrc/`` file it includes with quotes,
+    transitively, in a fixed order."""
+    files, todo = [], [CSRC_DIR / f"{name}.cu"]
+    while todo:
+        path = todo.pop(0)
+        if path in files:
+            continue
+        files.append(path)
+        for inc in _INCLUDE.findall(path.read_text()):
+            todo.append(path.parent / inc)
+    return files
+
+
 def library_path(name: str) -> Path:
     """Where the build of ``csrc/<name>.cu`` lands (it may not exist yet)."""
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}-{digest}.so"
+    h = hashlib.sha256("\0".join(NVCC_FLAGS).encode())
+    for path in source_files(name):
+        h.update(b"\0" + path.name.encode() + b"\0" + path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
 def build(name: str) -> Path:

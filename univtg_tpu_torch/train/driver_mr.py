@@ -1,0 +1,234 @@
+"""Moment-retrieval training driver on one device; counterpart of
+``univtg_tpu/train/driver_mr.py``.
+
+``train_mr(cfg)``: dataset -> Loader -> model, AdamW and the train step ->
+epoch loop. Per-epoch metric means stream to ``train_log.jsonl`` and the
+config to ``opt.json`` in ``results_dir``; checkpoints are torch files in
+the upstream container (train/checkpoint.py). ``TrainConfig`` has the JAX
+package's fields and JSON. What this slice does not run raises
+``NotImplementedError`` naming ROADMAP.md: in-training evaluation
+(``eval_data``), ``scan_steps > 1``, more than one device or process
+(``dp``/``tp``/``pp``/``ep``, ``num_shards``) and the fault injection of
+their elastic restarts, Moment-DETR, and the profiler and TensorBoard
+outputs. Checkpoints are written synchronously, whatever
+``async_checkpoint`` says.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import logging
+import os
+import time
+from typing import Optional, Sequence, Tuple
+
+import torch
+
+from univtg_tpu_torch.data.collate import collate_mr
+from univtg_tpu_torch.data.loader import Loader
+from univtg_tpu_torch.data.mr import MRDataConfig, MRDataset
+from univtg_tpu_torch.device import resolve_device
+from univtg_tpu_torch.models.config import ModelConfig
+from univtg_tpu_torch.models.losses import LossWeights
+from univtg_tpu_torch.models.univtg import UniVTG
+from univtg_tpu_torch.train import checkpoint as ckpt
+from univtg_tpu_torch.train.epoch_runner import run_train_epoch
+from univtg_tpu_torch.train.schedule import build_schedule
+from univtg_tpu_torch.train.steps import (
+    TrainState,
+    make_optimizer,
+    make_train_step,
+)
+
+logger = logging.getLogger(__name__)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """The JAX package's TrainConfig, field for field (its comments say what
+    each multi-device field does there)."""
+
+    model: ModelConfig = dataclasses.field(default_factory=ModelConfig)
+    model_id: str = "univtg"
+    saliency_margin: float = 0.2
+    train_data: Optional[MRDataConfig] = None
+    eval_data: Optional[MRDataConfig] = None
+    results_dir: str = "results/run"
+    # optimization (defaults = scripts/qvhl_pretrain.sh)
+    bsz: int = 32
+    eval_bsz: int = 32
+    n_epoch: int = 200
+    lr: float = 1e-4
+    lr_drop: int = 200
+    lr_gamma: float = 0.1
+    lr_warmup: float = 10
+    wd: float = 1e-4
+    grad_clip: float = 0.1
+    # losses
+    weights: LossWeights = dataclasses.field(
+        default_factory=lambda: LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    )
+    losses: Sequence[str] = ("spans", "labels", "saliency")
+    # eval
+    eval_epoch: int = 5
+    eval_init: bool = False
+    main_metric: str = "MR-full-mAP"
+    eval_mode: Optional[str] = "add"
+    nms_thd: float = -1.0
+    max_before_nms: int = 10
+    max_after_nms: int = 10
+    round_multiple: int = 1
+    max_es_cnt: int = 200
+    save_interval: int = 50
+    # runtime
+    seed: int = 2018
+    dp: Optional[int] = None
+    tp: int = 1
+    ep: int = 1
+    pp: int = 1
+    pipeline_schedule: str = "gpipe"
+    num_io_threads: int = 8
+    use_gates: bool = False  # per-sample loss gating (VLP multi-corpus)
+    shard_index: int = 0
+    num_shards: int = 1
+    scan_steps: int = 1
+    tensorboard_dir: str = ""
+    # host-to-device feature copy: "float32" or "bfloat16" (compute always
+    # runs in ModelConfig.compute_dtype)
+    transfer_dtype: str = "float32"
+    transfer_dtype_eval: str = "float32"
+    # batches cast and copied ahead in a background thread; 0 disables
+    prefetch_depth: int = 2
+    # video-length bucket ladder for training batches (None: pad to max_v_l)
+    length_buckets: Optional[Sequence[int]] = None
+    # fault injection for elastic multi-process restarts (-1: off)
+    inject_fault_epoch: int = -1
+    inject_fault_rank: int = 0
+    # read for the JSON only: the port writes checkpoints synchronously
+    async_checkpoint: bool = True
+    profile_dir: str = ""
+    profile_steps: int = 5
+    sharded_eval: bool = False
+
+
+def to_json(cfg) -> str:
+    return json.dumps(dataclasses.asdict(cfg), indent=1)
+
+
+def _refuse_unported(cfg: TrainConfig):
+    unported = {
+        "eval_data (in-training evaluation arrives with the infer-mr slice)":
+            cfg.eval_data is not None,
+        "scan_steps > 1": cfg.scan_steps > 1,
+        "dp > 1": (cfg.dp or 1) > 1,
+        "tp > 1": cfg.tp > 1,
+        "pp > 1": cfg.pp > 1,
+        "ep > 1": cfg.ep > 1,
+        "num_shards > 1": cfg.num_shards > 1,
+        "inject_fault_epoch": cfg.inject_fault_epoch >= 0,
+        "model_id='moment_detr'": cfg.model_id == "moment_detr",
+        "profile_dir": bool(cfg.profile_dir),
+        "tensorboard_dir": bool(cfg.tensorboard_dir),
+    }
+    named = [k for k, on in unported.items() if on]
+    if named:
+        raise NotImplementedError(
+            f"train_mr of univtg_tpu_torch does not run {', '.join(named)} "
+            f"yet (ROADMAP.md, queue 1)"
+        )
+    if cfg.model_id != "univtg":
+        raise ValueError(f"unknown model_id {cfg.model_id!r}")
+
+
+def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
+             train_dataset=None, resume_all: bool = False,
+             device="cuda") -> Tuple[dict, str]:
+    """Returns (best_metrics, best_ckpt_path). ``train_dataset`` overrides
+    the MRDataset built from cfg.train_data.
+
+    resume semantics follow the reference: ``resume`` alone loads weights
+    only; ``resume_all`` also restores the optimizer and continues after the
+    saved epoch; resume='auto' picks up results_dir/model_latest.ckpt with
+    resume_all semantics. ``device`` defaults to CUDA and raises without a
+    card; pass device='cpu' to train on the CPU."""
+    _refuse_unported(cfg)
+    dev = resolve_device(device)
+    os.makedirs(cfg.results_dir, exist_ok=True)
+    train_ds = train_dataset if train_dataset is not None else MRDataset(cfg.train_data)
+
+    train_max_q = cfg.train_data.max_q_l if cfg.train_data else cfg.model.max_q_l
+    train_max_v = cfg.train_data.max_v_l if cfg.train_data else cfg.model.max_v_l
+    v_buckets = tuple(cfg.length_buckets) if cfg.length_buckets else None
+    lengths = None
+    if v_buckets and hasattr(train_ds, "feature_lengths"):
+        lengths = train_ds.feature_lengths()
+    train_loader = Loader(
+        train_ds,
+        cfg.bsz,
+        lambda items, pad_batch_to: collate_mr(
+            items, train_max_q, train_max_v, pad_batch_to, v_buckets=v_buckets,
+        ),
+        shuffle=True,
+        seed=cfg.seed,
+        num_threads=cfg.num_io_threads,
+        lengths=lengths,
+    )
+    steps_per_epoch = len(train_loader)
+    model = UniVTG(cfg.model, device=dev, seed=cfg.seed)
+    schedule = build_schedule(cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma,
+                              max(steps_per_epoch, 1))
+    state = TrainState(model, make_optimizer(model.parameters(), schedule,
+                                             cfg.wd, cfg.grad_clip))
+
+    resume_epoch = None
+    if resume == "auto":  # elastic restart: pick up the latest checkpoint
+        latest = os.path.join(cfg.results_dir, "model_latest.ckpt")
+        resume = latest if os.path.exists(latest) else None
+        resume_all = True
+    if resume:
+        if resume_all:
+            state, resume_epoch = ckpt.restore_checkpoint(resume, state)
+        else:  # weights only
+            model.load_state_dict(
+                ckpt.restore_params(resume, model.state_dict()), strict=True)
+
+    train_step = make_train_step(cfg.weights, tuple(cfg.losses),
+                                 use_gates=cfg.use_gates)
+    seed = cfg.seed + 1  # the JAX driver's PRNGKey(seed + 1)
+    cfg_json = to_json(cfg)
+    with open(os.path.join(cfg.results_dir, "opt.json"), "w") as f:
+        f.write(cfg_json)
+
+    best_path = os.path.join(cfg.results_dir, "model_best.ckpt")
+    start_epoch = 0 if resume_epoch is None else resume_epoch + 1
+    with open(os.path.join(cfg.results_dir, "train_log.jsonl"), "a") as train_log:
+        for epoch in range(start_epoch, cfg.n_epoch):
+            train_loader.set_epoch(epoch)
+            t0 = time.time()
+            # metrics stay on the card until the epoch ends: no host sync
+            # per step; the epoch means are the reference's AverageMeter
+            step_metrics = []
+            state, n_steps = run_train_epoch(
+                train_loader, train_step, state, seed, dev,
+                transfer_dtype=cfg.transfer_dtype,
+                prefetch_depth=cfg.prefetch_depth,
+                record=step_metrics.append,
+            )
+            means = {}
+            if step_metrics:
+                stacked = {k: torch.stack([m[k] for m in step_metrics])
+                           for k in step_metrics[0]}
+                means = {k: float(v.float().mean()) for k, v in stacked.items()}
+            line = {"epoch": epoch, "time": time.time() - t0, "steps": n_steps,
+                    **means}
+            train_log.write(json.dumps(line) + "\n")
+            train_log.flush()
+            logger.info(f"epoch {epoch}: {line}")
+            if cfg.save_interval > 0 and epoch > 0 and epoch % cfg.save_interval == 0:
+                ckpt.save_checkpoint(
+                    os.path.join(cfg.results_dir, f"model_e{epoch:04d}.ckpt"),
+                    state, epoch, cfg_json)
+
+    # no evaluation picked a best checkpoint: the final state is the best
+    ckpt.save_checkpoint(best_path, state, cfg.n_epoch - 1, cfg_json)
+    return {}, best_path
