@@ -19,6 +19,11 @@ printing its seconds:
   3b. faults  -- each planted fault of flash_bwd.cu (a bf16 cast or the
                  dropout keep left out, FAULTS) must fail the bf16 limit
                  that phase 3 holds the real kernels to.
+  3c. int8    -- int8_matmul against its twin at K=2818, N=1024 (the first
+                 video projection): M=128, 4096 (one qvhighlights_bf16
+                 dispatch) and 16384 (one long_video_bf16 dispatch) in
+                 bf16, M=128 and 4096 in f32; kernel, twin and cuBLAS
+                 (F.linear on the dequantized weight) times and the bound.
   4. pipeline -- the flagship (hidden 1024, 4 layers, 8 heads) at full
                  width with seeded random weights, attention_impl="pallas":
                  bf16, one 2048-clip video x 8 queries, held against the
@@ -30,13 +35,38 @@ printing its seconds:
                  (torch.profiler): host ms, device-busy ms, idle share, the
                  flash kernel's share and the top kernels.
   7. train    -- `cli train-mr` trains the flagship at full width on a
-                 synthetic corpus (96 items, 2816-d video, 512-d text, 75
-                 clips: 3 steps of 32), bf16, attention_impl="pallas",
-                 dropouts at their defaults: 4 launches of each kernel per
-                 step. Then the f32 "pallas" step held against the f32
-                 "xla" step (same weights, same 3 batches, dropouts 0), one
-                 seeded step with attention dropout 0.1 through the
-                 kernels, and the written checkpoint served.
+                 synthetic corpus (96 train items, 2816-d video, 512-d
+                 text, 75 clips: 3 steps of 32 per epoch, 2 epochs; 64 val
+                 items), bf16, attention_impl="pallas", dropouts at their
+                 defaults, evaluating the val split after each epoch, so
+                 model_best.ckpt is chosen by MR-full-mAP: 4 launches of
+                 each kernel per step and 4 flash_fwd per eval batch. Then
+                 the f32 "pallas" step held against the f32 "xla" step
+                 (same weights, same 3 batches, dropouts 0), one seeded
+                 step with attention dropout 0.1 through the kernels, and
+                 the written checkpoint served.
+  7b. eval    -- `cli infer-mr` on model_best.ckpt, "pallas", bf16 (the
+                 eval main path: 4 flash_fwd launches per eval batch) and
+                 f32; submission and metrics finite; f32 "pallas" held
+                 against f32 "xla" (metrics equal, windows within
+                 PIPE_TOL).
+  7c. quantize -- `cli quantize` on model_best.ckpt (the int8 tier): the
+                 file's size against the float one; `cli serve` on the int8
+                 file answers /ground; `cli infer-mr` on the dequantized
+                 int8 weights, its metrics printed beside the f32 ones
+                 (random weights: printed, not held). No entry point
+                 launches int8_matmul, as in the JAX package; the smoke
+                 calls it once itself on the int8 file's input_vid_proj.0
+                 weight over the LayerNorm'ed video of the first eval batch
+                 (M = 32 x 75), held against its twin and against F.linear
+                 with the weight as served.
+  7d. evalsize -- evaluation at the size of QVHighlights' val split
+                 (N_VAL_FULL queries of 75 clips, synthetic), bf16 and f32,
+                 as train-mr pays it every eval_epoch: seconds of the
+                 driver's inference (_run_eval_shard) and scoring
+                 (_finish_eval) per evaluation and per batch, the loader's
+                 own seconds, and one inference under torch.profiler (the
+                 eval cells).
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16,
                  "pallas" vs "xla": CUDA-event ms per step.
   9. profile  -- where the time of one bf16 train step goes, per training
@@ -44,8 +74,10 @@ printing its seconds:
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving is phases 4-5, training phase 7's train-mr
-run. Every kernel of a path must have run there. The last lines are the
-card line of nvidia-smi, one JSON line of per-kernel numbers, and
+run (its evaluations included), eval phase 7b's bf16 infer-mr run, and
+quantize phase 7c's entry points; the smoke's own int8_matmul call is
+counted apart. Every kernel of a path must have run there. The last lines
+are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
 from __future__ import annotations
@@ -113,6 +145,22 @@ PIPE_TOL = {
     # or two bf16 steps of a span times 4096 s; the limit is four steps
     "bfloat16": {"saliency": 2e-2, "scores": 1e-2, "windows": 32.0},
 }
+# int8_matmul vs its twin, by max |kernel - twin| / max |twin| and, in bf16,
+# the share of elements that differ, as BWD_TOL reasons: both sum in f32
+# (in another order) and round once at the store, so in bf16 only a rare
+# f32 sum on the far side of a rounding boundary flips, one bf16 step
+INT8_TOL = {"float32": {"rel": 1e-5, "share": None},
+            "bfloat16": {"rel": 8e-3, "share": 1e-2}}
+INT8_K, INT8_N = 2818, 1024  # input_vid_proj.0: 2818 -> 1024
+INT8_SHAPES = {  # name -> (M, dtypes)
+    "serving_128": (128, ("bfloat16", "float32")),
+    "qvhighlights_dispatch": (32 * 128, ("bfloat16", "float32")),
+    "long_video_dispatch": (8 * 2048, ("bfloat16",)),
+}
+N_VAL = 64  # val items of the training corpus: 2 eval batches of 32
+# QVHighlights' val split (upstream data/highlight_val_release.jsonl): 1550
+# queries, 49 eval batches of 32; phase 7d evaluates one of that size
+N_VAL_FULL = 1550
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -131,7 +179,10 @@ KERNEL_NOTES = {  # name -> (source, the Pallas kernel it replaces)
                      "univtg_tpu/ops/pallas_attention.py:210"),
     "flash_bwd_dkv": ("univtg_tpu_torch/csrc/flash_bwd.cu",
                       "univtg_tpu/ops/pallas_attention.py:254"),
+    "int8_matmul": ("univtg_tpu_torch/csrc/int8_matmul.cu",
+                    "univtg_tpu/ops/pallas_int8.py:19"),
 }
+FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
 
 def log(msg: str) -> None:
@@ -143,6 +194,21 @@ def timed(name, fn, *args):
     out = fn(*args)
     log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
     return out
+
+
+def _launches() -> dict:
+    """Every kernel's launch count."""
+    from univtg_tpu_torch.ops import flash_attention as fa, int8_matmul as im
+
+    return {**fa.launches, **im.launches}
+
+
+def _reset_launches() -> None:
+    from univtg_tpu_torch.ops import flash_attention as fa, int8_matmul as im
+
+    for counts in (fa.launches, im.launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
@@ -198,19 +264,23 @@ def _build_fault(name, out_dir):
 def phase_build(fault_dir):
     """One nvcc per source and per planted fault, all started together.
     Returns {fault name: library path}."""
-    from univtg_tpu_torch.ops import cuda_build, flash_attention as fa
+    from univtg_tpu_torch.ops import cuda_build, flash_attention as fa, int8_matmul as im
 
     def build(name):
         t0 = time.perf_counter()
         cuda_build.build(name)
         return time.perf_counter() - t0
 
-    with concurrent.futures.ThreadPoolExecutor(len(fa.KERNEL_SOURCES) + len(FAULTS)) as pool:
+    sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(FAULTS)) as pool:
         faults = {n: pool.submit(_build_fault, n, fault_dir) for n in FAULTS}
-        seconds = dict(zip(fa.KERNEL_SOURCES, pool.map(build, fa.KERNEL_SOURCES)))
+        seconds = dict(zip(sources, pool.map(build, sources)))
         faults = {n: f.result() for n, f in faults.items()}
-    for name in fa.KERNEL_SOURCES:
-        fa._library(name)
+    for name in sources:
+        if name in im.KERNEL_SOURCES:
+            im._library()
+        else:
+            fa._library(name)
         log(f"[build] {name}: {seconds[name]:.2f} s")
         for line in cuda_build.build_log(name).splitlines():
             if "registers" in line or "spill" in line or "Compiling entry" in line:
@@ -506,7 +576,7 @@ def _profile_record(cell, card, n, unit, kernels, wall_us, flash_names, **extra)
     flash = {name: sum(t for k, t in kernels.items() if f"{name}_kernel" in k)
              for name in flash_names}
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    plural = {"dispatch": "dispatches", "step": "steps"}[unit]
+    plural = {"dispatch": "dispatches", "step": "steps", "batch": "batches"}[unit]
     rec = {
         "cell": cell, "device": card, plural: n, **extra,
         f"host_ms_per_{unit}": wall_us / 1e3 / n,
@@ -653,7 +723,7 @@ def phase_train_kernels(torch):
                 }
                 outputs = {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
                            "flash_bwd_dkv": ("dk", "dv")}
-                for name in KERNEL_NOTES:
+                for name in FLASH_KERNELS:
                     bound_ms, bound_by = _bound(*work[name], dname)
                     rec = {"kernel": name, "shape": shape_name, "B": B, "L": L, "H": H,
                            "dh": dh, "dtype": dname, "dropout": rate,
@@ -719,6 +789,63 @@ def phase_faults(torch, faults):
         raise AssertionError(f"planted faults within the bf16 limits: {missed}")
 
 
+def _int8_within(err, dname):
+    """One output's (max abs, rel, share) within INT8_TOL[dname]."""
+    tol = INT8_TOL[dname]
+    return err[1] <= tol["rel"] and (tol["share"] is None or err[2] <= tol["share"])
+
+
+def _int8_record(torch, shape_name, x, w_q, scale, w_lib, iters):
+    """int8_matmul on (x, w_q, scale) against its twin: errors, kernel, twin
+    and cuBLAS times (F.linear on w_lib, the dequantized weight in x's
+    dtype, as a Linear holds it) and the bound; raises past INT8_TOL."""
+    import torch.nn.functional as F
+
+    from univtg_tpu_torch.ops import int8_matmul as im
+
+    dname = str(x.dtype).removeprefix("torch.")
+    got = im.int8_matmul(x, w_q, scale)
+    want = im.int8_matmul_reference(x, w_q, scale)
+    torch.cuda.synchronize()
+    err = _errs(got, want)
+    finite = torch.isfinite(got).all().item() and want.abs().max().item() > 0
+    M, K = x.shape
+    N = w_q.shape[1]
+    es = x.element_size()
+    flops, nbytes = 2 * M * K * N, M * K * es + K * N + 4 * N + M * N * es
+    bound_ms, bound_by = _bound(flops, nbytes, dname)
+    rec = {"kernel": "int8_matmul", "shape": shape_name, "M": M, "K": K, "N": N,
+           "dtype": dname, "err": err[0], "rel_err": err[1], "differ": err[2],
+           "twin_max_abs": want.float().abs().max().item(), "tol": INT8_TOL[dname],
+           "ms": cuda_ms(lambda: im.int8_matmul(x, w_q, scale), iters),
+           "plain_ms": cuda_ms(lambda: im.int8_matmul_reference(x, w_q, scale), iters),
+           "library_ms": cuda_ms(lambda: F.linear(x, w_lib), iters),
+           "flops": flops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+    log(f"[kernels] {json.dumps(rec)}")
+    if not finite or not _int8_within(err, dname):
+        raise AssertionError(f"int8_matmul disagrees with its twin: {rec}")
+    return rec, got
+
+
+def phase_int8_kernels(torch):
+    """int8_matmul against its twin at INT8_SHAPES on a random weight,
+    quantized per output column as serve/quantize.py quantizes it."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    w = torch.randn(INT8_K, INT8_N, device="cuda", generator=g) * 0.02
+    scale = w.abs().amax(0, keepdim=True) / 127.0
+    w_q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
+    w_deq = (w_q.float() * scale).t().contiguous()  # (N, K), as a Linear holds it
+    records = []
+    for shape_name, (M, dnames) in INT8_SHAPES.items():
+        for dname in dnames:
+            dtype = getattr(torch, dname)
+            x = torch.randn(M, INT8_K, device="cuda", generator=g).to(dtype)
+            rec, _ = _int8_record(torch, shape_name, x, w_q, scale, w_deq.to(dtype),
+                                  10 if M > 8192 else 50)
+            records.append(rec)
+    return records
+
+
 def _train_batches(np, corpus, n, bsz=32):
     """The first n collated batches of the corpus, as the driver's Loader
     gives them in epoch 0."""
@@ -763,47 +890,88 @@ def _run_steps(torch, cfg, state_dict, cpu_batches, seed=0):
     return state, history
 
 
+def _eval_overrides(corpus):
+    """Overrides pointing the preset's eval split at the synthetic val split."""
+    return [f"eval_data.data_path={corpus['val_path']}",
+            f"eval_data.v_feat_dirs={corpus['v_feat_dirs']}",
+            f"eval_data.q_feat_dir={corpus['q_feat_dir']}", "eval_data.v_feat_dim=2816"]
+
+
+def _eval_cfg(corpus, *overrides):
+    """The qvhighlights_mr preset with its eval split on the corpus, as
+    `cli infer-mr` builds it."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.presets import PRESETS
+
+    return cli.apply_overrides(PRESETS["qvhighlights_mr"](),
+                               [*_eval_overrides(corpus), *overrides])
+
+
+def _jsonl(path):
+    with open(path) as f:
+        return [json.loads(line) for line in f]
+
+
 def phase_train(torch, np, fa, card, tmp):
     """The training main path: `cli train-mr` at full width, bf16, on the
-    flash kernels. Returns (corpus, seeded weights, kernel launches)."""
+    flash kernels, evaluating the val split after each epoch. Returns
+    (corpus, run dir, seeded weights, kernel launches)."""
     from univtg_tpu_torch import cli
     from univtg_tpu_torch.data.synthetic import create_synthetic_mr_corpus
-    from univtg_tpu_torch.interop import load_torch_checkpoint
+    from univtg_tpu_torch.interop import load_torch_checkpoint, read_checkpoint
     from univtg_tpu_torch.models import UniVTG
     from univtg_tpu_torch.presets import flagship_model
     from univtg_tpu_torch.serve import GroundingPipeline
 
     t0 = time.perf_counter()
-    corpus = create_synthetic_mr_corpus(os.path.join(tmp, "corpus"), n_train=96, n_val=1,
-                                        v_dim=2816, q_dim=512, max_clips=75, seed=0)
-    log(f"[train] synthetic corpus: 96 items, 2816-d video, 512-d text "
-        f"({time.perf_counter() - t0:.1f} s)")
+    corpus = create_synthetic_mr_corpus(os.path.join(tmp, "corpus"), n_train=96,
+                                        n_val=N_VAL, v_dim=2816, q_dim=512, max_clips=75,
+                                        seed=0)
+    log(f"[train] synthetic corpus: 96 train and {N_VAL} val items, 2816-d video, "
+        f"512-d text ({time.perf_counter() - t0:.1f} s)")
     run_dir = os.path.join(tmp, "run")
+    epochs, eval_batches = 2, -(-N_VAL // 32)
     argv = ["train-mr", "--preset", "qvhighlights_mr",
             f"train_data.data_path={corpus['train_path']}",
             f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
             f"train_data.q_feat_dir={corpus['q_feat_dir']}",
-            "train_data.v_feat_dim=2816", "eval_data=None", "n_epoch=1", "bsz=32",
+            "train_data.v_feat_dim=2816", *_eval_overrides(corpus), "eval_epoch=1",
+            f"n_epoch={epochs}", "bsz=32", "eval_bsz=32",
             "model.attention_impl=pallas", "model.compute_dtype=bfloat16",
             f"results_dir={run_dir}"]
-    for name in fa.launches:  # the training main path starts here
-        fa.launches[name] = 0
+    _reset_launches()  # the training main path starts here
     t0 = time.perf_counter()
     cli.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = dict(fa.launches)  # ... and ends here
-    with open(os.path.join(run_dir, "train_log.jsonl")) as f:
-        line = json.loads(f.readline())
-    steps = line["steps"]
-    log(f"[train] cli train-mr: {steps} steps, epoch {line['time']:.2f} s "
-        f"({card}), {wall:.2f} s with model build and checkpoint; "
-        f"loss {line['loss_overall']:.4f}, grad norm {line['grad_norm']:.4f}; "
-        f"launches {launches}")
-    if steps != 3 or not np.isfinite(line["loss_overall"]):
-        raise AssertionError(f"train-mr did not take 3 finite steps: {line}")
-    if launches != {name: 4 * steps for name in fa.launches}:
-        raise AssertionError(f"expected 4 launches of each kernel per step: {launches}")
+    launches = _launches()  # ... and ends here
+    lines = _jsonl(os.path.join(run_dir, "train_log.jsonl"))
+    evals = _jsonl(os.path.join(run_dir, "eval_log.jsonl"))
+    steps = sum(line["steps"] for line in lines)
+    line = lines[0]
+    log(f"[train] cli train-mr: {steps} steps in {len(lines)} epochs, epoch 0 "
+        f"{line['time']:.2f} s ({card}), {wall:.2f} s with model build, "
+        f"{len(evals)} evaluations and checkpoints; loss {line['loss_overall']:.4f}, "
+        f"grad norm {line['grad_norm']:.4f}; MR-full-mAP by epoch "
+        f"{[e['MR-full-mAP-key'] for e in evals]}; launches {launches}")
+    if steps != 3 * epochs or not all(np.isfinite(x["loss_overall"]) for x in lines):
+        raise AssertionError(f"train-mr did not take 3 finite steps per epoch: {lines}")
+    want = {name: 4 * steps for name in FLASH_KERNELS}
+    want["flash_fwd"] += 4 * eval_batches * epochs
+    if {k: launches[k] for k in FLASH_KERNELS} != want:
+        raise AssertionError(f"expected 4 launches of each kernel per step and 4 "
+                             f"flash_fwd per eval batch: {launches}, not {want}")
+    best_epoch = max(evals, key=lambda e: (e["MR-full-mAP-key"], -e["epoch"]))["epoch"]
+    blob = read_checkpoint(os.path.join(run_dir, "model_best.ckpt"))
+    latest = read_checkpoint(os.path.join(run_dir, "model_latest.ckpt"))
+    made = [n for n in ("latest_val_preds.jsonl", "metrics_e0000.json", "metrics_e0001.json")
+            if os.path.exists(os.path.join(run_dir, n))]
+    log(f"[train] model_best.ckpt from epoch {blob['epoch']} (best MR-full-mAP at "
+        f"{best_epoch}), model_latest.ckpt from epoch {latest['epoch']}; wrote {made}")
+    if ([e["epoch"] for e in evals] != list(range(epochs)) or blob["epoch"] != best_epoch
+            or latest["epoch"] != epochs - 1 or len(made) != 3):
+        raise AssertionError("in-training evaluation did not keep the best/latest pair")
+    del blob, latest
 
     # f32 on the flash kernels vs f32 on plain attention
     sd = UniVTG(flagship_model(), device="cpu", seed=0).state_dict()
@@ -850,7 +1018,283 @@ def phase_train(torch, np, fa, card, tmp):
     _check_result(np, res, 75)
     log(f"[train] served {best}: top-1 window {res['top1_window']}; largest weight "
         f"change from the initial weights {moved:.3g}")
-    return corpus, sd, launches
+    return corpus, run_dir, sd, launches
+
+
+def _infer_mr(torch, np, tmp, ckpt, corpus, name, impl, dtype):
+    """`cli infer-mr` on ckpt over the val split; returns (brief metrics,
+    submission rows, flash_fwd launches, wall seconds). The submission and
+    the printed metrics must be there and finite."""
+    import contextlib
+    import io
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.ops import flash_attention as fa
+
+    out = os.path.join(tmp, f"preds_{name}.jsonl")
+    before = fa.launches["flash_fwd"]
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["infer-mr", "--preset", "qvhighlights_mr", "--resume", ckpt,
+                  "--out", out, *_eval_overrides(corpus), f"model.attention_impl={impl}",
+                  f"model.compute_dtype={dtype}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    brief = json.loads(printed.getvalue())
+    rows = _jsonl(out)
+    launches = fa.launches["flash_fwd"] - before
+    log(f"[eval] cli infer-mr {name}: {len(rows)} rows, {wall:.2f} s with model build, "
+        f"flash_fwd launches {launches}; MR-full-mAP {brief['MR-full-mAP-key']}, "
+        f"R1@0.5 {brief['MR-full-R1@0.5-key']}, HL-VeryGood-mAP "
+        f"{brief['HL-min-VeryGood-mAP-key']}")
+    windows = np.asarray([w for r in rows for w in r["pred_relevant_windows"]])
+    saliency = np.asarray([v for r in rows for v in r["pred_saliency_scores"]])
+    if (len(rows) != N_VAL or windows.shape[1:] != (3,) or not np.isfinite(windows).all()
+            or not np.isfinite(saliency).all()
+            or not all(np.isfinite(v) for v in brief.values())):
+        raise AssertionError(f"infer-mr {name}: a bad submission or metrics: {brief}")
+    return brief, rows, launches, wall
+
+
+def phase_eval(torch, np, tmp, corpus, run_dir):
+    """The eval main path: `cli infer-mr` on model_best.ckpt, bf16 and f32,
+    on the flash kernels; f32 "pallas" held against f32 "xla". Returns
+    (the eval path's launches, f32 brief metrics)."""
+    best = os.path.join(run_dir, "model_best.ckpt")
+    batches = -(-N_VAL // 32)
+    _reset_launches()  # the eval main path starts here
+    _, _, launches, _ = _infer_mr(torch, np, tmp, best, corpus, "bf16", "pallas", "bfloat16")
+    path_launches = _launches()  # ... and ends here
+    if launches != 4 * batches:
+        raise AssertionError(f"infer-mr made {launches} flash_fwd launches for "
+                             f"{batches} eval batches, not 4 per batch")
+    f32, rows, launches, _ = _infer_mr(torch, np, tmp, best, corpus, "f32", "pallas", "float32")
+    xla, xla_rows, xla_launches, _ = _infer_mr(torch, np, tmp, best, corpus, "f32_xla", "xla",
+                                               "float32")
+    if launches != 4 * batches or xla_launches != 0:
+        raise AssertionError(f"f32 flash_fwd launches {launches}, xla {xla_launches}")
+    tol = PIPE_TOL["float32"]
+    worst = max(np.abs(np.asarray(g["pred_relevant_windows"])
+                       - np.asarray(w["pred_relevant_windows"])).max()
+                for g, w in zip(rows, xla_rows, strict=True))
+    log(f"[eval] f32 pallas vs xla: metrics equal {f32 == xla}; windows and scores "
+        f"differ by at most {worst:.3g}, near-ties included (limits {tol})")
+    if f32 != xla or not all(
+            _unambiguous_ranks_agree(np, {"topk_windows": g["pred_relevant_windows"]},
+                                     {"topk_windows": w["pred_relevant_windows"]},
+                                     tol["scores"], tol["windows"])
+            for g, w in zip(rows, xla_rows)):
+        raise AssertionError(f"f32 infer-mr on the flash kernels disagrees with xla: "
+                             f"{f32} vs {xla}")
+    return path_launches, f32
+
+
+def _serve_once(np, ckpt, tmp):
+    """`cli serve --resume ckpt` in a subprocess on the card: one video, one
+    /ground request, then SIGTERM; returns the answer."""
+    import io
+    import select
+    import signal
+
+    err_log = open(os.path.join(tmp, "serve.err"), "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "univtg_tpu_torch.cli", "serve", "--resume", ckpt,
+         "--port", "0"], stdout=subprocess.PIPE, stderr=err_log, text=True,
+        env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    try:
+        ready, _, _ = select.select([proc.stdout], [], [], 300)  # model build
+        line = proc.stdout.readline() if ready else ""
+        if not line.startswith("serving on http://127.0.0.1:"):
+            raise AssertionError(f"cli serve did not start: {line!r}")
+        base = f"http://127.0.0.1:{int(line.split(':')[2].split()[0])}"
+        rng = np.random.default_rng(6)
+        buf = io.BytesIO()
+        np.savez(buf, features=rng.standard_normal((75, 2816)).astype(np.float32))
+        req = urllib.request.Request(f"{base}/videos/v", data=buf.getvalue(), method="PUT")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            r.read()
+        body = json.dumps({"video": "v", "query_feats":
+                           rng.standard_normal((9, 512)).astype(np.float32).tolist()})
+        req = urllib.request.Request(f"{base}/ground", data=body.encode(), method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            answer = json.loads(r.read())
+        proc.send_signal(signal.SIGTERM)
+        if proc.wait(timeout=60) != 0:
+            raise AssertionError("cli serve did not drain and exit 0 on SIGTERM")
+        return answer
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait(timeout=30)
+        proc.stdout.close()
+        err_log.close()
+
+
+def _first_eval_batch(cfg):
+    """The first batch of the eval loader that train-mr and infer-mr use."""
+    from univtg_tpu_torch.data.mr import MRDataset
+    from univtg_tpu_torch.train.driver_mr import _eval_loader
+
+    batches = iter(_eval_loader(cfg, MRDataset(cfg.eval_data)))
+    try:
+        return next(batches)
+    finally:
+        batches.close()
+
+
+def phase_quantize(torch, np, tmp, corpus, run_dir, f32_brief):
+    """The int8 tier's entry points: `cli quantize`, the int8 file served by
+    `cli serve`, and `cli infer-mr` on its dequantized weights; none of them
+    launches int8_matmul, as in the JAX package. Then the smoke's own call
+    of int8_matmul on the file's first video projection over the first eval
+    batch, counted apart. Returns (the entry points' launches, the smoke
+    call's launches, the served-layer records)."""
+    import contextlib
+    import io
+
+    import torch.nn.functional as F
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.interop import read_checkpoint
+    from univtg_tpu_torch.ops import int8_matmul as im
+    from univtg_tpu_torch.serve.quantize import load_quantized, restore_serving_params
+
+    best = os.path.join(run_dir, "model_best.ckpt")
+    int8_path = os.path.join(tmp, "model_int8.ckpt")
+    _reset_launches()  # the int8 tier's entry points start here
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["quantize", "--preset", "qvhighlights_mr", "--resume", best,
+                  "--out", int8_path])
+    f32_path = os.path.join(tmp, "model_f32.ckpt")  # the float weights alone
+    torch.save({"model": read_checkpoint(best)["model"]}, f32_path)
+    sizes = {p: os.path.getsize(p) / 1e6 for p in (int8_path, f32_path, best)}
+    ratio = sizes[int8_path] / sizes[f32_path]
+    log(f"[quantize] {printed.getvalue().strip()}; float weights {sizes[f32_path]:.1f} MB "
+        f"(the training checkpoint with its optimizer state {sizes[best]:.1f} MB): "
+        f"{ratio:.3f} of the float weights")
+    if not ratio < 0.45:
+        raise AssertionError(f"the int8 file is {ratio:.3f} of the float one")
+
+    answer = _serve_once(np, int8_path, tmp)
+    _check_result(np, answer, 75)
+    log(f"[quantize] cli serve on the int8 file: /ground top-1 window "
+        f"{answer['top1_window']}")
+
+    deq_path = os.path.join(tmp, "model_int8_dequantized.ckpt")
+    torch.save({"model": load_quantized(int8_path)}, deq_path)
+    int8_brief, _, _, _ = _infer_mr(torch, np, tmp, deq_path, corpus, "int8_f32", "pallas",
+                                    "float32")
+    launches = _launches()  # ... and end here (cli serve ran in its own process)
+    keys = ("MR-full-mAP-key", "MR-full-R1@0.5-key", "MR-full-mIoU-key",
+            "HL-min-VeryGood-mAP-key", "HL-min-VeryGood-Hit1-key")
+    log(f"[quantize] metrics, f32 weights vs dequantized int8 weights (random "
+        f"weights, printed only): {json.dumps({k: [f32_brief[k], int8_brief[k]] for k in keys})}")
+    log(f"[quantize] launches of the int8 tier's entry points in this process: {launches}")
+    if launches["flash_fwd"] == 0:
+        raise AssertionError("infer-mr on the dequantized weights never launched flash_fwd")
+
+    # the smoke's own call: the int8 file's first video projection, laid out
+    # as the kernel takes it, over the first eval batch
+    name = "input_vid_proj.0.net.1.weight"
+    blob = read_checkpoint(int8_path)
+    w_q = blob["q"][name].cuda().t().contiguous()  # (N, K) -> (K, N)
+    scale = blob["scales"][name].cuda().reshape(-1)  # one per output row
+    served = restore_serving_params(int8_path, cli.flagship_config())  # as cli serve loads
+    ln = [served[f"input_vid_proj.0.LayerNorm.{p}"].cuda() for p in ("weight", "bias")]
+    batch = _first_eval_batch(_eval_cfg(corpus))
+    vid = torch.from_numpy(batch["model_inputs"]["src_vid"]).cuda()
+    x = F.layer_norm(vid, (vid.shape[-1],), *ln, 1e-5).reshape(-1, vid.shape[-1]).contiguous()
+    weight = served[name].cuda()
+    _reset_launches()
+    got = im.int8_matmul(x, w_q, scale)
+    call_launches = _launches()
+    as_served = F.linear(x, weight)
+    torch.cuda.synchronize()
+    err = _errs(got, as_served)
+    log(f"[quantize] the smoke's int8_matmul call on {name} over one eval batch "
+        f"(M={x.shape[0]}): against F.linear with the weight as served, max abs "
+        f"{err[0]:.3g}, rel {err[1]:.3g} (limit {INT8_TOL['float32']['rel']}); launches "
+        f"{call_launches}")
+    if call_launches["int8_matmul"] != 1:
+        raise AssertionError("the int8_matmul call did not launch the kernel once")
+    if not _int8_within(err, "float32") or not got.abs().max() > 0:
+        raise AssertionError("int8_matmul disagrees with the layer as served")
+    # the same layer against its twin and timed, off the call's count
+    records = [_int8_record(torch, "served_eval_batch", x.to(dtype), w_q, scale,
+                            weight.to(dtype), 50)[0]
+               for dtype in (torch.float32, torch.bfloat16)]
+    return launches, call_launches, records
+
+
+def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
+    """Evaluation of model_best.ckpt over a synthetic val split of
+    QVHighlights' size (N_VAL_FULL queries, up to 75 clips, 2816-d video,
+    512-d text), bf16 and f32 on the flash kernels, as train-mr pays it
+    every eval_epoch: after one warm pass, the seconds of the driver's
+    inference (_run_eval_shard: its eval loader, the eval step, host decode)
+    and of its scoring (_finish_eval: the predictions written, the
+    evaluator), per evaluation and per batch; the loader's own seconds per
+    batch (reading and collating); then one inference under torch.profiler
+    (the eval_qvhighlights cells' [profile] lines). Returns the timings."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.data.mr import MRDataset
+    from univtg_tpu_torch.data.synthetic import create_synthetic_mr_corpus
+    from univtg_tpu_torch.train import driver_mr
+    from univtg_tpu_torch.train.steps import make_eval_step
+
+    t0 = time.perf_counter()
+    corpus = create_synthetic_mr_corpus(os.path.join(tmp, "val_corpus"), n_train=0,
+                                        n_val=N_VAL_FULL, v_dim=2816, q_dim=512,
+                                        max_clips=75, seed=1)
+    log(f"[evalsize] synthetic val split: {N_VAL_FULL} queries, 2816-d video, 512-d "
+        f"text, written in {time.perf_counter() - t0:.1f} s")
+    best = os.path.join(run_dir, "model_best.ckpt")
+    results = os.path.join(tmp, "evalsize")
+    os.makedirs(results, exist_ok=True)
+    timings = {}
+    for dtype in ("bfloat16", "float32"):
+        cfg = _eval_cfg(corpus, "model.attention_impl=pallas",
+                        f"model.compute_dtype={dtype}", f"results_dir={results}")
+        model = cli.restored_model(cfg, best, "cuda")
+        eval_ds = MRDataset(cfg.eval_data)
+        step = make_eval_step(cfg.eval_mode)
+        n_batches = len(driver_mr._eval_loader(cfg, eval_ds))
+        driver_mr._run_eval_shard(cfg, model, eval_ds, step)  # warm
+        before = fa.launches["flash_fwd"]
+        infer_s, score_s = [], []
+        for _ in range(passes):
+            t0 = time.perf_counter()
+            sub = driver_mr._run_eval_shard(cfg, model, eval_ds, step)  # ends on the host
+            t1 = time.perf_counter()
+            brief = driver_mr._finish_eval(cfg, sub, eval_ds, 0)["brief"]
+            infer_s.append(t1 - t0)
+            score_s.append(time.perf_counter() - t1)
+        launches = fa.launches["flash_fwd"] - before
+        if (len(sub) != N_VAL_FULL or launches != 4 * n_batches * passes
+                or not all(np.isfinite(v) for v in brief.values())):
+            raise AssertionError(f"evaluation of {N_VAL_FULL} queries, {dtype}: "
+                                 f"{len(sub)} rows, {launches} flash_fwd launches, {brief}")
+        t0 = time.perf_counter()
+        for _ in driver_mr._eval_loader(cfg, eval_ds):  # reading and collating alone
+            pass
+        load_s = time.perf_counter() - t0
+        cell = f"eval_qvhighlights_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+        kernels, wall_us = _profile_window(
+            torch, lambda: driver_mr._run_eval_shard(cfg, model, eval_ds, step), 1)
+        _profile_record(cell, card, n_batches, "batch", kernels, wall_us, ["flash_fwd"],
+                        items=N_VAL_FULL, B=cfg.eval_bsz, L="75+32")
+        timings[cell] = {
+            "items": N_VAL_FULL, "batches": n_batches, "passes": passes,
+            "s_per_eval": [i + s for i, s in zip(infer_s, score_s)],
+            "infer_s": infer_s, "infer_ms_per_batch": [1e3 * t / n_batches for t in infer_s],
+            "score_s": score_s, "load_ms_per_batch": 1e3 * load_s / n_batches,
+            "flash_fwd_launches_per_pass": launches // passes}
+        del model
+        torch.cuda.empty_cache()
+    log(f"[evalsize] ({card}) {json.dumps(timings)}")
+    return timings
 
 
 def _long_batch(torch, np, B=8, Lv=2048, Lt=32, d_vid=2818, d_txt=512):
@@ -943,7 +1387,7 @@ def phase_train_profile(torch, np, fa, card, corpus, sd, long_state, long_batch)
         holder["state"], _ = run_train_epoch(batches, step, holder["state"], 0, "cuda",
                                              prefetch_depth=2)
 
-    names = list(KERNEL_NOTES)
+    names = list(FLASH_KERNELS)
     kernels, wall_us = _profile_window(torch, driver_epoch, 1)
     _profile_record("train_qvhighlights_bf16", card, len(batches), "step", kernels,
                     wall_us, names, B=32, L="75+32")
@@ -961,13 +1405,20 @@ def phase_train_profile(torch, np, fa, card, corpus, sd, long_state, long_batch)
                     B=8, L="2048+32")
 
 
-def _kernel_line(records_serving, records_train, by_path):
+def _kernel_line(records_serving, records_train, records_int8, by_path):
     """One entry per kernel for the final JSON line: times of the headline
-    record (bf16 at the long shape, dropout 0), the largest error seen.
-    ``launches`` sums the main paths, ``launches_by_path`` splits them."""
+    record (flash: bf16 at the long shape, dropout 0; int8_matmul: bf16 at
+    one qvhighlights dispatch, M=4096), the largest error seen.
+    ``launches`` sums the paths of by_path, ``launches_by_path`` splits them;
+    for int8_matmul that is the smoke's own call alone, which
+    ``launches_note`` says."""
     out = []
     for name, (source, replaces) in KERNEL_NOTES.items():
-        if name == "flash_fwd":
+        if name == "int8_matmul":
+            head = next(r for r in records_int8 if r["shape"] == "qvhighlights_dispatch"
+                        and r["dtype"] == "bfloat16")
+            errs = [r["err"] for r in records_int8]
+        elif name == "flash_fwd":
             head = next(r for r in records_serving if r["shape"] == "long_video_2048"
                         and r["dtype"] == "bfloat16")
             errs = [r["err_out"] for r in records_serving]
@@ -978,13 +1429,23 @@ def _kernel_line(records_serving, records_train, by_path):
             errs = []
         mine = [r for r in records_train if r["kernel"] == name]
         errs += [r["err"] for r in mine]
+        if name == "int8_matmul":
+            mine = records_int8
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                  "launches": sum(path[name] for path in by_path.values()),
                  "launches_by_path": {p: path[name] for p, path in by_path.items()},
                  "max_abs_err": max(errs), "ms": head["ms"], "plain_ms": head["plain_ms"],
                  "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                  "library_ms": head["library_ms"]}
-        if name != "flash_fwd":
+        if name == "int8_matmul":
+            entry.update(launches_note=(
+                "no entry point of the port launches int8_matmul, as in the JAX "
+                "package: the count is the smoke's own call on the int8 file's "
+                "input_vid_proj.0 weight over one eval batch"),
+                max_rel_err=max(r["rel_err"] for r in mine), by_shape=[
+                {k: r[k] for k in ("shape", "M", "dtype", "ms", "plain_ms", "library_ms",
+                                   "bound_ms", "bound_by")} for r in mine])
+        elif name != "flash_fwd":
             entry.update(
                 max_rel_err=max(v for r in mine for k, v in r.items()
                                 if k.startswith("rel_err_")),
@@ -1011,13 +1472,13 @@ def main() -> int:
         records = timed("kernels", phase_kernels, torch)
         train_records = timed("kernels", phase_train_kernels, torch)
         timed("faults", phase_faults, torch, faults)
+    int8_records = timed("int8", phase_int8_kernels, torch)
 
-    for name in fa.launches:  # the serving main path starts here
-        fa.launches[name] = 0
+    _reset_launches()  # the serving main path starts here
     pipe_f32, pipe_bf16, long_items, timings = timed(
         "pipeline", phase_pipeline, np, fa, smi)
     timed("server", phase_server, np, pipe_f32, fa)
-    serve_launches = dict(fa.launches)  # ... and ends here
+    serve_launches = _launches()  # ... and ends here
     if serve_launches["flash_fwd"] == 0:
         raise AssertionError("the serving path never launched flash_fwd")
     log(f"[main path] serving launches: {serve_launches}; dispatch ms {json.dumps(timings)}")
@@ -1026,8 +1487,16 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="univtg_chip_smoke_") as tmp:
-        corpus, sd, train_launches = timed("train", phase_train, torch, np, fa, smi, tmp)
+        corpus, run_dir, sd, train_launches = timed("train", phase_train, torch, np, fa,
+                                                    smi, tmp)
         log(f"[main path] training launches: {train_launches}")
+        eval_launches, f32_brief = timed("eval", phase_eval, torch, np, tmp, corpus, run_dir)
+        log(f"[main path] eval launches: {eval_launches}")
+        quantize_launches, call_launches, served_records = timed(
+            "quantize", phase_quantize, torch, np, tmp, corpus, run_dir, f32_brief)
+        log(f"[main path] int8 tier (quantize, serve, infer-mr) launches: "
+            f"{quantize_launches}; the smoke's int8_matmul call: {call_launches}")
+        timed("evalsize", phase_eval_size, torch, np, fa, smi, tmp, run_dir)
         long_state, long_batch = timed("long", phase_long_train, torch, np, fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
               long_state, long_batch)
@@ -1036,8 +1505,10 @@ def main() -> int:
     if bad:
         raise AssertionError(f"JAX modules were imported: {bad}")
 
-    kernels = _kernel_line(records, train_records,
-                           {"serving": serve_launches, "training": train_launches})
+    kernels = _kernel_line(records, train_records, int8_records + served_records,
+                           {"serving": serve_launches, "training": train_launches,
+                            "eval": eval_launches, "int8_tier": quantize_launches,
+                            "int8_smoke_call": call_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

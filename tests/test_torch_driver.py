@@ -3,7 +3,8 @@ train-mr --device cpu`` for 2 epochs on a tiny synthetic corpus; the
 train log, opt.json and the checkpoint they write; the checkpoint read back
 by ``restore_params``, ``restore_checkpoint`` (resume_all) and the serving
 pipeline; ``length_buckets`` padding each batch to its rung of the ladder;
-the options this slice does not run raising with ROADMAP named."""
+the options this slice does not run raising with ROADMAP named. In-training
+evaluation is tests/test_torch_infer.py's."""
 import dataclasses
 import json
 import os
@@ -94,7 +95,7 @@ def test_cli_train_mr_on_the_cpu(corpus, tmp_path, capsys):
         f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
         f"train_data.q_feat_dir={corpus['q_feat_dir']}",
         "train_data.v_feat_dim=20", "train_data.q_feat_dim=8",
-        "train_data.max_v_l=24", "n_epoch=2", "bsz=5",
+        "train_data.max_v_l=24", "eval_data=None", "n_epoch=2", "bsz=5",
         "num_io_threads=2", f"results_dir={out}",
         *[f"model.{k}={v}" for k, v in MODEL.items()],
     ])
@@ -138,7 +139,7 @@ def test_cli_defaults_to_cuda_for_train_mr():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("eval_data", MRDataConfig()), ("scan_steps", 2), ("dp", 2), ("tp", 2),
+    ("scan_steps", 2), ("dp", 2), ("tp", 2),
     ("pp", 2), ("ep", 2), ("num_shards", 2), ("model_id", "moment_detr"),
     ("profile_dir", "prof"), ("tensorboard_dir", "auto"), ("inject_fault_epoch", 0),
 ])

@@ -252,7 +252,7 @@ def test_port_imports_nothing_of_jax():
                           timeout=120)
     assert proc.returncode == 0, proc.stderr
     n_modules = int(proc.stdout.split()[0])
-    assert n_modules >= 15
+    assert n_modules >= 25
 
 
 def test_default_device_is_cuda_and_never_falls_back():

@@ -1,7 +1,10 @@
 """PyTorch/CUDA port of univtg_tpu for NVIDIA Hopper (H100).
 
 A package of its own beside the JAX reference ``univtg_tpu``: it imports
-torch and numpy and nothing of JAX or of the JAX package. This slice serves
-the flagship UniVTG grounding model in eval mode; its one hand-written
-kernel is the flash-attention forward (``csrc/flash_fwd.cu``).
+torch and numpy and nothing of JAX or of the JAX package. It serves the
+flagship UniVTG grounding model (``cli serve``), trains it (``cli
+train-mr``), evaluates it (``cli infer-mr``, ``cli eval``) and stores it in
+int8 (``cli quantize``). Its hand-written kernels are the flash-attention
+forward and backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and the
+int8 dequant-matmul (``csrc/int8_matmul.cu``).
 """

@@ -2,23 +2,34 @@
 
   python -m univtg_tpu_torch.cli train-mr --preset qvhighlights_mr \\
       [--resume ckpt] [--device cuda] [key=value ...]
+  python -m univtg_tpu_torch.cli infer-mr --preset qvhighlights_mr \\
+      --resume model_best.ckpt [--out preds.jsonl] [--device cuda] [key=value ...]
+  python -m univtg_tpu_torch.cli eval --submission preds.jsonl --gt val.jsonl
+  python -m univtg_tpu_torch.cli quantize --preset qvhighlights_mr \\
+      --resume model_best.ckpt --out model_int8.ckpt [key=value ...]
   python -m univtg_tpu_torch.cli serve --resume model_best.ckpt \\
       [--config model.json] [--device cuda] [--port 8008] ...
 
-``train-mr`` takes a preset (univtg_tpu_torch/presets.py) and dotted
-``key=value`` overrides of its TrainConfig, e.g. ``bsz=16
-model.attention_impl=pallas eval_data=None``; values parse as Python
-literals, else stay strings. ``serve --resume`` takes an upstream-format
-torch checkpoint ({'model': state_dict}), such as the ``model_best.ckpt``
-that train-mr writes; ``--config`` a ModelConfig JSON (the same JSON the
-JAX package writes), defaulting to the flagship with
-attention_impl="pallas", the hand-written CUDA flash kernels. Both run on
-CUDA unless ``--device cpu`` is given.
+``train-mr``, ``infer-mr`` and ``quantize`` take a preset
+(univtg_tpu_torch/presets.py) and dotted ``key=value`` overrides of its
+TrainConfig, e.g. ``bsz=16 model.attention_impl=pallas eval_data=None``;
+values parse as Python literals, else stay strings. ``infer-mr`` scores
+the preset's eval split and writes the submission jsonl; ``eval`` scores a
+submission file against ground truth; ``quantize`` writes an int8 serving
+checkpoint. ``serve --resume`` takes an upstream-format torch checkpoint
+({'model': state_dict}), such as the ``model_best.ckpt`` that train-mr
+writes, or an int8 checkpoint from ``quantize`` (told apart by its keys);
+``--config`` a ModelConfig JSON (the same JSON the JAX package writes),
+defaulting to the flagship with attention_impl="pallas", the hand-written
+CUDA flash kernels. The commands that run the model run on CUDA unless
+``--device cpu`` is given.
 """
 from __future__ import annotations
 
 import argparse
 import ast
+import json
+import os
 import signal
 
 from univtg_tpu_torch.models.config import ModelConfig
@@ -49,20 +60,86 @@ def apply_overrides(cfg, pairs):
     return cfg
 
 
+def _preset_cfg(args):
+    from univtg_tpu_torch.presets import PRESETS
+
+    return apply_overrides(PRESETS[args.preset](), args.overrides)
+
+
+def restored_model(cfg, path, device):
+    """UniVTG(cfg.model) on ``device`` holding a float checkpoint's weights
+    (train/checkpoint.restore_params checks every key and shape)."""
+    from univtg_tpu_torch.device import resolve_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.train import checkpoint as ckpt
+
+    dev = resolve_device(device)
+    model = UniVTG(cfg.model, device="meta")
+    params = ckpt.restore_params(path, model.state_dict())
+    model.load_state_dict({k: v.to(dev) for k, v in params.items()}, assign=True)
+    return model
+
+
 def cmd_train_mr(args):
     """Moment-retrieval training (train/driver_mr.py)."""
-    from univtg_tpu_torch.presets import PRESETS
     from univtg_tpu_torch.train.driver_mr import train_mr
 
-    cfg = apply_overrides(PRESETS[args.preset](), args.overrides)
-    _, best = train_mr(cfg, resume=args.resume, device=args.device)
+    metrics, best = train_mr(_preset_cfg(args), resume=args.resume,
+                             device=args.device)
+    print(json.dumps(metrics.get("brief", {}), indent=1))
     print(f"best checkpoint: {best}")
+
+
+def cmd_infer_mr(args):
+    """Eval-only run on the preset's eval split (the reference's
+    start_inference, upstream main/inference_mr.py:224-269), through the
+    inference of in-training evaluation: the same loader, and the eval-side
+    transfer precision (default f32), not the training-throughput
+    compression."""
+    from univtg_tpu_torch.data.features import save_jsonl
+    from univtg_tpu_torch.data.mr import MRDataset
+    from univtg_tpu_torch.train.driver_mr import _run_eval_shard
+    from univtg_tpu_torch.train.infer_mr import evaluate_submission
+    from univtg_tpu_torch.train.steps import make_eval_step
+
+    cfg = _preset_cfg(args)
+    model = restored_model(cfg, args.resume, args.device)
+    eval_ds = MRDataset(cfg.eval_data)
+    submission = _run_eval_shard(cfg, model, eval_ds, make_eval_step(cfg.eval_mode))
+    save_jsonl(submission, args.out or "inference_preds.jsonl")
+    metrics = evaluate_submission(submission, eval_ds.data)
+    print(json.dumps(metrics["brief"], indent=1))
+
+
+def cmd_eval(args):
+    """Offline submission scorer (upstream eval/eval.py:377-394)."""
+    from univtg_tpu_torch.data.features import load_jsonl
+    from univtg_tpu_torch.evals import eval_submission
+
+    metrics = eval_submission(load_jsonl(args.submission), load_jsonl(args.gt))
+    print(json.dumps(metrics, indent=2))
+    if args.out:
+        with open(args.out, "w") as f:
+            json.dump(metrics, f, indent=2)
+
+
+def cmd_quantize(args):
+    """Convert a trained checkpoint into an int8 serving checkpoint."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.serve.quantize import save_quantized
+    from univtg_tpu_torch.train import checkpoint as ckpt
+
+    cfg = _preset_cfg(args)
+    template = UniVTG(cfg.model, device="meta").state_dict()
+    save_quantized(args.out, ckpt.restore_params(args.resume, template))
+    print(f"wrote int8 checkpoint: {args.out} "
+          f"({os.path.getsize(args.out) / 1e6:.1f} MB)")
 
 
 def cmd_serve(args):
     """HTTP grounding service with dynamic micro-batching."""
-    from univtg_tpu_torch.interop import load_torch_checkpoint
     from univtg_tpu_torch.serve import GroundingPipeline, GroundingServer
+    from univtg_tpu_torch.serve.quantize import restore_serving_params
 
     if args.config:
         with open(args.config) as f:
@@ -71,7 +148,7 @@ def cmd_serve(args):
         cfg = flagship_config()
     # saliency + foreground ranking, as every JAX preset serves
     pipe = GroundingPipeline(
-        cfg, load_torch_checkpoint(args.resume, cfg), eval_mode="add",
+        cfg, restore_serving_params(args.resume, cfg), eval_mode="add",
         param_dtype=args.param_dtype, device=args.device,
     )
     # POST /reload takes a client-chosen filesystem path, so on a NON-local
@@ -88,7 +165,7 @@ def cmd_serve(args):
         max_batch=args.max_batch, max_wait_ms=args.max_wait_ms,
         request_timeout_s=args.request_timeout_s,
         param_loader=(
-            (lambda p: load_torch_checkpoint(p, cfg)) if reload_ok else None
+            (lambda p: restore_serving_params(p, cfg)) if reload_ok else None
         ),
         checkpoint_path=args.resume,
         reload_token=args.reload_token,
@@ -124,22 +201,41 @@ def cmd_serve(args):
 def build_parser():
     p = argparse.ArgumentParser(prog="univtg_tpu_torch")
     sub = p.add_subparsers(dest="cmd", required=True)
+    device_help = "torch device; 'cpu' must be asked for explicitly"
     sp = sub.add_parser("train-mr")
     sp.set_defaults(fn=cmd_train_mr)
     sp.add_argument("--preset", required=True)
     sp.add_argument("--resume", default=None)
-    sp.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' must be asked for explicitly")
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("infer-mr")
+    sp.set_defaults(fn=cmd_infer_mr)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--resume", required=True)
+    sp.add_argument("--out", default=None,
+                    help="submission jsonl (default inference_preds.jsonl)")
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("eval")
+    sp.set_defaults(fn=cmd_eval)
+    sp.add_argument("--submission", required=True)
+    sp.add_argument("--gt", required=True)
+    sp.add_argument("--out", default=None)
+    sp = sub.add_parser("quantize")
+    sp.set_defaults(fn=cmd_quantize)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--resume", required=True)
+    sp.add_argument("--out", required=True)
     sp.add_argument("overrides", nargs="*")
     sp = sub.add_parser("serve")
     sp.set_defaults(fn=cmd_serve)
     sp.add_argument("--resume", required=True,
-                    help="upstream-format torch checkpoint ({'model': ...})")
+                    help="upstream-format torch checkpoint ({'model': ...}) "
+                         "or an int8 checkpoint from `quantize`")
     sp.add_argument("--config", default=None,
                     help="ModelConfig JSON (default: the flagship, "
                          "attention_impl='pallas')")
-    sp.add_argument("--device", default="cuda",
-                    help="torch device; 'cpu' must be asked for explicitly")
+    sp.add_argument("--device", default="cuda", help=device_help)
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8008)
     sp.add_argument("--max-batch", type=int, default=32)

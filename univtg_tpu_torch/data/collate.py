@@ -1,10 +1,10 @@
 """Batch assembly into static shapes; a copy of
 ``univtg_tpu/data/collate.py``'s ``collate_mr``, without the pad target
-(``pad_v_to``) that the multi-process bucket plan hands it.
+(``pad_v_to``) that the multi-process bucket plan hands it, and of its
+``quantize_for_transfer``, the int8 host-to-device transfer.
 
 Batches are padded to (max_q_l, max_v_l), or to a bucket of a length ladder
-for long-video pretraining, so the device sees a few fixed shapes. The int8
-transfer quantizer is not ported yet (ROADMAP.md, queue 1).
+for long-video pretraining, so the device sees a few fixed shapes.
 """
 from __future__ import annotations
 
@@ -100,3 +100,24 @@ def collate_mr(
 
     meta = [it["meta"] for it in items[:n_real]]
     return {"model_inputs": model_inputs, "targets": targets, "meta": meta}
+
+
+def quantize_for_transfer(model_inputs, keys=("src_txt", "src_vid")):
+    """Symmetric per-token int8 quantization of the input features for the
+    host-to-device copy (TrainConfig.transfer_dtype='int8').
+
+    Features are L2-normalized per clip, so a per-token max-abs scale keeps
+    the quantization error small while cutting the copy's bytes 4x against
+    float32 (2x against bfloat16). The step dequantizes on the device
+    (train/steps.py:dequantize_inputs); compute stays in
+    ModelConfig.compute_dtype.
+    """
+    mi = dict(model_inputs)
+    for key in keys:
+        v = np.asarray(mi.pop(key), np.float32)  # (B, L, D)
+        amax = np.abs(v).max(axis=-1)  # (B, L)
+        scale = np.where(amax > 0, amax, 1.0).astype(np.float32) / 127.0
+        q = np.clip(np.rint(v / scale[..., None]), -127, 127).astype(np.int8)
+        mi[key + "_q"] = q
+        mi[key + "_scale"] = scale
+    return mi

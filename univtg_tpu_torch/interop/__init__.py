@@ -1,4 +1,5 @@
 from univtg_tpu_torch.interop.jax_params import (  # noqa: F401
     load_torch_checkpoint,
+    read_checkpoint,
     state_dict_from_jax_params,
 )

@@ -78,19 +78,29 @@ def state_dict_from_jax_params(params, cfg) -> dict:
     return sd
 
 
+def read_checkpoint(path):
+    """``torch.load`` of a checkpoint file onto the CPU with
+    ``weights_only=True`` (upstream containers also carry an
+    ``argparse.Namespace`` of options, which is allowed)."""
+    with torch.serialization.safe_globals([argparse.Namespace]):
+        return torch.load(path, map_location="cpu", weights_only=True)
+
+
 def load_torch_checkpoint(path, cfg) -> dict:
     """Read an upstream-format checkpoint ({'model': state_dict, ...}, or a
     bare state_dict) into the port's key set for ``cfg``.
 
     DDP ``module.`` prefixes are stripped and keys the port does not hold
-    are dropped; a missing key raises KeyError. The file loads with
-    ``weights_only=True`` (upstream containers also carry an
-    ``argparse.Namespace`` of options, which is allowed).
+    are dropped; a missing key raises KeyError.
     """
+    return select_state_dict(read_checkpoint(path), cfg, path)
+
+
+def select_state_dict(blob, cfg, path="checkpoint") -> dict:
+    """The state_dict of UniVTG(cfg) out of a loaded checkpoint blob, as
+    ``load_torch_checkpoint`` describes."""
     from univtg_tpu_torch.models.univtg import UniVTG
 
-    with torch.serialization.safe_globals([argparse.Namespace]):
-        blob = torch.load(path, map_location="cpu", weights_only=True)
     state_dict = blob["model"] if isinstance(blob, dict) and "model" in blob else blob
     sd = {k.removeprefix("module."): v for k, v in state_dict.items()}
     want = UniVTG(cfg, device="meta").state_dict().keys()

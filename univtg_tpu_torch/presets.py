@@ -1,12 +1,9 @@
-"""Experiment presets of the port: the moment-retrieval preset of
-``univtg_tpu/presets.py`` that trains the flagship on QVHighlights, with
-the same hyperparameters (the reference's launch script: slowfast 2304 +
-CLIP 512 (+2 TEF) video, CLIP 512 text).
-
-In-training evaluation arrives with the ``infer-mr`` slice, so the preset
-has no eval split yet (``eval_data=None``); the JAX package's other
-presets (Charades, NLQ, TACoS, ActivityNet, DiDeMo) come with it
-(ROADMAP.md).
+"""Experiment presets of the port: the moment-retrieval presets of
+``univtg_tpu/presets.py`` (QVHighlights, Charades-STA, Ego4D-NLQ, TACoS,
+ActivityNet, DiDeMo), each with its train and eval split and the same
+hyperparameters (the reference's launch scripts: slowfast 2304 + CLIP 512
+(+2 TEF) video, CLIP 512 text). The highlight-detection, QFVS and
+pretraining presets come with their drivers (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -45,18 +42,23 @@ def qvhighlights_mr(data_root="data/qvhighlights",
     """QVHighlights MR+HL fine-tuning (scripts/qvhl_pretrain.sh: bsz 32,
     lr 1e-4, 200 epochs, b10/g1/f10/s0.1, eval_mode add, nms 0.7). ``kw``:
     dotted overrides of the TrainConfig."""
+    data = dict(
+        dset_name="qvhighlights",
+        v_feat_dirs=(f"{data_root}/vid_slowfast", f"{data_root}/vid_clip"),
+        q_feat_dir=f"{data_root}/txt_clip",
+        v_feat_dim=SLOWFAST_DIM + CLIP_DIM,
+        q_feat_dim=CLIP_DIM,
+        clip_len=2.0,
+        max_q_l=32,
+        max_v_l=75,
+    )
     cfg = TrainConfig(
         model=flagship_model(),
         train_data=MRDataConfig(
-            dset_name="qvhighlights",
-            data_path=f"{data_root}/metadata/qvhighlights_train.jsonl",
-            v_feat_dirs=(f"{data_root}/vid_slowfast", f"{data_root}/vid_clip"),
-            q_feat_dir=f"{data_root}/txt_clip",
-            v_feat_dim=SLOWFAST_DIM + CLIP_DIM,
-            q_feat_dim=CLIP_DIM,
-            clip_len=2.0,
-            max_q_l=32,
-            max_v_l=75,
+            data_path=f"{data_root}/metadata/qvhighlights_train.jsonl", **data
+        ),
+        eval_data=MRDataConfig(
+            data_path=f"{data_root}/metadata/qvhighlights_val.jsonl", **data
         ),
         results_dir=results_dir,
         bsz=32,
@@ -74,6 +76,76 @@ def qvhighlights_mr(data_root="data/qvhighlights",
     return cfg
 
 
+def _downstream_mr(dset_name, data_root, results_dir, clip_len, main_metric,
+                   train_name="train.jsonl", val_name="val.jsonl", **kw):
+    """Shared downstream MR template (Charades-STA / Ego4D-NLQ / TACoS /
+    ActivityNet / DiDeMo)."""
+    data = dict(
+        dset_name=dset_name,
+        v_feat_dirs=(f"{data_root}/vid_slowfast", f"{data_root}/vid_clip"),
+        q_feat_dir=f"{data_root}/txt_clip",
+        v_feat_dim=SLOWFAST_DIM + CLIP_DIM,
+        q_feat_dim=CLIP_DIM,
+        clip_len=clip_len,
+        max_q_l=32,
+        max_v_l=75,
+    )
+    cfg = TrainConfig(
+        model=flagship_model(),
+        train_data=MRDataConfig(data_path=f"{data_root}/metadata/{train_name}", **data),
+        eval_data=MRDataConfig(data_path=f"{data_root}/metadata/{val_name}", **data),
+        results_dir=results_dir,
+        bsz=32,
+        n_epoch=100,
+        lr=1e-4,
+        lr_drop=100,
+        lr_warmup=10,
+        weights=LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1),
+        eval_mode="add",
+        main_metric=main_metric,
+    )
+    for k, v in kw.items():
+        cfg = _replace(cfg, k, v)
+    return cfg
+
+
+def charades_mr(data_root="data/charades", results_dir="results/mr-charades", **kw):
+    return _downstream_mr(
+        "charades", data_root, results_dir, clip_len=1.0,
+        main_metric="MR-full-R1@0.5",
+        train_name="charades_train.jsonl", val_name="charades_test.jsonl", **kw,
+    )
+
+
+def nlq_mr(data_root="data/ego4d", results_dir="results/mr-nlq", **kw):
+    return _downstream_mr(
+        "ego4d", data_root, results_dir, clip_len=2.0,
+        main_metric="MR-full-R1@0.3",
+        train_name="nlq_train.jsonl", val_name="nlq_val.jsonl", **kw,
+    )
+
+
+def tacos_mr(data_root="data/tacos", results_dir="results/mr-tacos", **kw):
+    return _downstream_mr(
+        "tacos", data_root, results_dir, clip_len=2.0,
+        main_metric="MR-full-R1@0.3", **kw,
+    )
+
+
+def anet_mr(data_root="data/anet", results_dir="results/mr-anet", **kw):
+    return _downstream_mr(
+        "activitynet", data_root, results_dir, clip_len=2.0,
+        main_metric="MR-full-R1@0.5", **kw,
+    )
+
+
+def didemo_mr(data_root="data/didemo", results_dir="results/mr-didemo", **kw):
+    return _downstream_mr(
+        "didemo", data_root, results_dir, clip_len=2.0,
+        main_metric="MR-full-R1@0.5", **kw,
+    )
+
+
 def _replace(cfg, key, value):
     """dataclasses.replace along a dotted path (``model.hidden_dim``)."""
     if "." in key:
@@ -85,4 +157,11 @@ def _replace(cfg, key, value):
     return dataclasses.replace(cfg, **{key: value})
 
 
-PRESETS = {"qvhighlights_mr": qvhighlights_mr}
+PRESETS = {
+    "qvhighlights_mr": qvhighlights_mr,
+    "charades_mr": charades_mr,
+    "nlq_mr": nlq_mr,
+    "tacos_mr": tacos_mr,
+    "anet_mr": anet_mr,
+    "didemo_mr": didemo_mr,
+}

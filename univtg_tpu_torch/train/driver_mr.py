@@ -1,17 +1,21 @@
 """Moment-retrieval training driver on one device; counterpart of
 ``univtg_tpu/train/driver_mr.py``.
 
-``train_mr(cfg)``: dataset -> Loader -> model, AdamW and the train step ->
-epoch loop. Per-epoch metric means stream to ``train_log.jsonl`` and the
-config to ``opt.json`` in ``results_dir``; checkpoints are torch files in
-the upstream container (train/checkpoint.py). ``TrainConfig`` has the JAX
-package's fields and JSON. What this slice does not run raises
-``NotImplementedError`` naming ROADMAP.md: in-training evaluation
-(``eval_data``), ``scan_steps > 1``, more than one device or process
-(``dp``/``tp``/``pp``/``ep``, ``num_shards``) and the fault injection of
-their elastic restarts, Moment-DETR, and the profiler and TensorBoard
-outputs. Checkpoints are written synchronously, whatever
-``async_checkpoint`` says.
+``train_mr(cfg)``: datasets -> Loader -> model, AdamW, the train and eval
+steps -> epoch loop with periodic evaluation on ``eval_data`` (every
+``eval_epoch`` epochs, and at epoch -1 with ``eval_init``), main-metric
+early stopping and the best/latest/periodic checkpoint triple. Per-epoch
+metric means stream to ``train_log.jsonl``, each evaluation's brief metrics
+to ``eval_log.jsonl``, its predictions to ``latest_val_preds.jsonl`` and its
+full metrics to ``metrics_eNNNN.json``, the config to ``opt.json``, all in
+``results_dir``; checkpoints are torch files in the upstream container
+(train/checkpoint.py). ``TrainConfig`` has the JAX package's fields and
+JSON. What this slice does not run raises ``NotImplementedError`` naming
+ROADMAP.md: ``scan_steps > 1``, more than one device or process
+(``dp``/``tp``/``pp``/``ep``, ``num_shards``, and with them
+``sharded_eval``) and the fault injection of their elastic restarts,
+Moment-DETR, and the profiler and TensorBoard outputs. Checkpoints are
+written synchronously, whatever ``async_checkpoint`` says.
 """
 from __future__ import annotations
 
@@ -22,9 +26,11 @@ import os
 import time
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from univtg_tpu_torch.data.collate import collate_mr
+from univtg_tpu_torch.data.features import save_jsonl
 from univtg_tpu_torch.data.loader import Loader
 from univtg_tpu_torch.data.mr import MRDataConfig, MRDataset
 from univtg_tpu_torch.device import resolve_device
@@ -33,9 +39,15 @@ from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.models.univtg import UniVTG
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.epoch_runner import run_train_epoch
+from univtg_tpu_torch.train.infer_mr import (
+    apply_nms,
+    evaluate_submission,
+    run_inference,
+)
 from univtg_tpu_torch.train.schedule import build_schedule
 from univtg_tpu_torch.train.steps import (
     TrainState,
+    make_eval_step,
     make_optimizer,
     make_train_step,
 )
@@ -93,8 +105,10 @@ class TrainConfig:
     num_shards: int = 1
     scan_steps: int = 1
     tensorboard_dir: str = ""
-    # host-to-device feature copy: "float32" or "bfloat16" (compute always
-    # runs in ModelConfig.compute_dtype)
+    # host-to-device feature copy: "float32", "bfloat16" or "int8" (compute
+    # always runs in ModelConfig.compute_dtype); evaluation batches take
+    # transfer_dtype_eval, so a training throughput choice never moves the
+    # reported metrics
     transfer_dtype: str = "float32"
     transfer_dtype_eval: str = "float32"
     # batches cast and copied ahead in a background thread; 0 disables
@@ -117,8 +131,6 @@ def to_json(cfg) -> str:
 
 def _refuse_unported(cfg: TrainConfig):
     unported = {
-        "eval_data (in-training evaluation arrives with the infer-mr slice)":
-            cfg.eval_data is not None,
         "scan_steps > 1": cfg.scan_steps > 1,
         "dp > 1": (cfg.dp or 1) > 1,
         "tp > 1": cfg.tp > 1,
@@ -155,6 +167,7 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     dev = resolve_device(device)
     os.makedirs(cfg.results_dir, exist_ok=True)
     train_ds = train_dataset if train_dataset is not None else MRDataset(cfg.train_data)
+    eval_ds = MRDataset(cfg.eval_data) if cfg.eval_data else None
 
     train_max_q = cfg.train_data.max_q_l if cfg.train_data else cfg.model.max_q_l
     train_max_v = cfg.train_data.max_v_l if cfg.train_data else cfg.model.max_v_l
@@ -194,41 +207,122 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
 
     train_step = make_train_step(cfg.weights, tuple(cfg.losses),
                                  use_gates=cfg.use_gates)
+    eval_step = make_eval_step(cfg.eval_mode)
     seed = cfg.seed + 1  # the JAX driver's PRNGKey(seed + 1)
     cfg_json = to_json(cfg)
     with open(os.path.join(cfg.results_dir, "opt.json"), "w") as f:
         f.write(cfg_json)
 
+    best_score, best_metrics, es_cnt = -np.inf, None, 0
     best_path = os.path.join(cfg.results_dir, "model_best.ckpt")
-    start_epoch = 0 if resume_epoch is None else resume_epoch + 1
-    with open(os.path.join(cfg.results_dir, "train_log.jsonl"), "a") as train_log:
+    latest_path = os.path.join(cfg.results_dir, "model_latest.ckpt")
+    start_epoch = -1 if cfg.eval_init else 0
+    if resume_epoch is not None:
+        start_epoch = resume_epoch + 1
+    with open(os.path.join(cfg.results_dir, "train_log.jsonl"), "a") as train_log, \
+            open(os.path.join(cfg.results_dir, "eval_log.jsonl"), "a") as eval_log:
         for epoch in range(start_epoch, cfg.n_epoch):
-            train_loader.set_epoch(epoch)
-            t0 = time.time()
-            # metrics stay on the card until the epoch ends: no host sync
-            # per step; the epoch means are the reference's AverageMeter
-            step_metrics = []
-            state, n_steps = run_train_epoch(
-                train_loader, train_step, state, seed, dev,
-                transfer_dtype=cfg.transfer_dtype,
-                prefetch_depth=cfg.prefetch_depth,
-                record=step_metrics.append,
-            )
-            means = {}
-            if step_metrics:
-                stacked = {k: torch.stack([m[k] for m in step_metrics])
-                           for k in step_metrics[0]}
-                means = {k: float(v.float().mean()) for k, v in stacked.items()}
-            line = {"epoch": epoch, "time": time.time() - t0, "steps": n_steps,
-                    **means}
-            train_log.write(json.dumps(line) + "\n")
-            train_log.flush()
-            logger.info(f"epoch {epoch}: {line}")
+            if epoch > -1:
+                _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed,
+                                 dev, train_log)
+            if eval_ds is not None and (epoch + 1) % cfg.eval_epoch == 0:
+                metrics = _eval_once(cfg, model, eval_ds, eval_step, epoch)
+                eval_log.write(json.dumps({"epoch": epoch, **metrics["brief"]}) + "\n")
+                eval_log.flush()
+                score = metrics["brief"].get(f"{cfg.main_metric}-key")
+                if score is None:
+                    score = metrics["brief"].get(cfg.main_metric)
+                ckpt.save_checkpoint(latest_path, state, epoch, cfg_json)
+                if score is not None and score > best_score:
+                    best_score, best_metrics, es_cnt = score, metrics, 0
+                    ckpt.save_checkpoint(best_path, state, epoch, cfg_json)
+                else:
+                    es_cnt += 1
+                    if 0 <= cfg.max_es_cnt <= es_cnt:
+                        logger.info("early stop")
+                        break
             if cfg.save_interval > 0 and epoch > 0 and epoch % cfg.save_interval == 0:
                 ckpt.save_checkpoint(
                     os.path.join(cfg.results_dir, f"model_e{epoch:04d}.ckpt"),
                     state, epoch, cfg_json)
 
-    # no evaluation picked a best checkpoint: the final state is the best
-    ckpt.save_checkpoint(best_path, state, cfg.n_epoch - 1, cfg_json)
-    return {}, best_path
+    if best_metrics is None:
+        # no evaluation picked a best checkpoint: the final state is the best
+        ckpt.save_checkpoint(best_path, state, cfg.n_epoch - 1, cfg_json)
+        best_metrics = {}
+    return best_metrics, best_path
+
+
+def _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed, dev,
+                     train_log):
+    """One training epoch (the state is updated in place) and its line of
+    train_log.jsonl."""
+    train_loader.set_epoch(epoch)
+    t0 = time.time()
+    # metrics stay on the card until the epoch ends: no host sync per step;
+    # the epoch means are the reference's AverageMeter
+    step_metrics = []
+    _, n_steps = run_train_epoch(
+        train_loader, train_step, state, seed, dev,
+        transfer_dtype=cfg.transfer_dtype,
+        prefetch_depth=cfg.prefetch_depth,
+        record=step_metrics.append,
+    )
+    means = {}
+    if step_metrics:
+        stacked = {k: torch.stack([m[k] for m in step_metrics])
+                   for k in step_metrics[0]}
+        means = {k: float(v.float().mean()) for k, v in stacked.items()}
+    line = {"epoch": epoch, "time": time.time() - t0, "steps": n_steps, **means}
+    train_log.write(json.dumps(line) + "\n")
+    train_log.flush()
+    logger.info(f"epoch {epoch}: {line}")
+
+
+def _eval_loader(cfg, eval_ds):
+    """The eval split in order, collated to the eval data's caps."""
+    return Loader(
+        eval_ds,
+        cfg.eval_bsz,
+        lambda items, pad_batch_to: collate_mr(
+            items, cfg.eval_data.max_q_l, cfg.eval_data.max_v_l, pad_batch_to
+        ),
+        shuffle=False,
+        num_threads=cfg.num_io_threads,
+    )
+
+
+def _run_eval_shard(cfg, model, eval_ds, eval_step):
+    """Inference over the whole eval set on the model's device (the JAX
+    driver's single-shard case; its stride shards need num_shards > 1)."""
+    return run_inference(
+        model,
+        _eval_loader(cfg, eval_ds),
+        eval_mode=cfg.eval_mode,
+        clip_length=cfg.eval_data.clip_len,
+        round_multiple=cfg.round_multiple,
+        eval_step=eval_step,
+        transfer_dtype=cfg.transfer_dtype_eval,
+    )
+
+
+def _finish_eval(cfg, submission, eval_ds, epoch):
+    """Persist the predictions, score them, re-score after NMS when
+    nms_thd > 0, and write the metrics json."""
+    save_jsonl(submission, os.path.join(cfg.results_dir, "latest_val_preds.jsonl"))
+    metrics = evaluate_submission(submission, eval_ds.data)
+    if cfg.nms_thd > 0:
+        nms_sub = apply_nms(
+            submission, cfg.nms_thd, cfg.max_before_nms, cfg.max_after_nms
+        )
+        metrics["nms_brief"] = evaluate_submission(nms_sub, eval_ds.data)["brief"]
+    with open(
+        os.path.join(cfg.results_dir, f"metrics_e{max(epoch, 0):04d}.json"), "w"
+    ) as f:
+        json.dump(metrics, f, indent=1)
+    return metrics
+
+
+def _eval_once(cfg, model, eval_ds, eval_step, epoch):
+    submission = _run_eval_shard(cfg, model, eval_ds, eval_step)
+    return _finish_eval(cfg, submission, eval_ds, epoch)

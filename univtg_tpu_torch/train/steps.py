@@ -1,12 +1,13 @@
-"""The train step and the device-side decode; counterpart of
+"""The train and eval steps and the device-side decode; counterpart of
 ``univtg_tpu/train/steps.py`` (``make_optimizer``, ``TrainState``,
-``step_dropout_rngs``, ``forward``, ``make_train_step``,
-``decode_dense_outputs``).
+``step_dropout_rngs``, ``dequantize_inputs``, ``forward``,
+``make_train_step``, ``make_eval_step``, ``decode_dense_outputs``).
 
-PyTorch runs eagerly, so the step is a plain function over a mutable
+PyTorch runs eagerly, so the train step is a plain function over a mutable
 ``TrainState``: forward in train mode, ``compute_losses``, backward, the
 global-norm clip and AdamW, with every metric left on the device (no host
-sync per step).
+sync per step). The eval step is the forward in eval mode and the dense
+decode, under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -95,7 +96,21 @@ def step_generator(seed: int, step: int, device) -> torch.Generator:
     return torch.Generator(device=device).manual_seed(s)
 
 
+def dequantize_inputs(model_inputs):
+    """Float features back from the (int8 ``*_q``, per-token ``*_scale``)
+    pairs of data/collate.quantize_for_transfer (transfer_dtype='int8'), on
+    the device; float batches pass through."""
+    mi = dict(model_inputs)
+    for key in ("src_txt", "src_vid"):
+        q = mi.pop(key + "_q", None)
+        if q is not None:
+            scale = mi.pop(key + "_scale")
+            mi[key] = q.to(scale.dtype) * scale[..., None]
+    return mi
+
+
 def forward(model, model_inputs, *, train=False, generator=None):
+    model_inputs = dequantize_inputs(model_inputs)
     args = [
         model_inputs["src_txt"],
         model_inputs["src_txt_mask"],
@@ -136,6 +151,21 @@ def make_train_step(weights: LossWeights,
         metrics = {k: v.detach() for k, v in loss_dict.items()}
         metrics["grad_norm"] = grad_norm
         return state, metrics
+
+    return step
+
+
+def make_eval_step(eval_mode: Optional[str] = "add"):
+    """Returns (model, model_inputs, targets) -> the decoded tensors of
+    decode_dense_outputs, on the device; the host only sorts and rounds per
+    query (train/infer_mr.py:decode_batch)."""
+
+    @torch.inference_mode()
+    def step(model, model_inputs, targets):
+        model.eval()
+        outputs = forward(model, model_inputs, train=False)
+        return decode_dense_outputs(outputs, model_inputs["src_vid_mask"],
+                                    targets["timestamp"], eval_mode)
 
     return step
 
