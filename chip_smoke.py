@@ -24,6 +24,16 @@ printing its seconds:
                  dispatch) and 16384 (one long_video_bf16 dispatch) in
                  bf16, M=128 and 4096 in f32; kernel, twin and cuBLAS
                  (F.linear on the dequantized weight) times and the bound.
+  3d. ring    -- ring_attention (the ring_block and ring_finish kernels of
+                 csrc/ring_attention.cu and their transport) against its
+                 twin on one card at (2 x 160, P = 1, 2, 4), (8 x 2080,
+                 P = 1, 4, 8) and (2 x 8224, P = 4), f32 and bf16, with one
+                 fully masked batch row; P = 1 also against flash_fwd; the
+                 P = 8 ring repeated 20 times bit for bit (a race check of
+                 the credit and recv edges); the whole ring's time, the
+                 twin's, SDPA's, flash_fwd's, the bound and the share of copy
+                 time that overlaps a block kernel; with two cards visible,
+                 the ring at P = 2 across cards 0 and 1.
   4. pipeline -- the flagship (hidden 1024, 4 layers, 8 heads) at full
                  width with seeded random weights, attention_impl="pallas":
                  bf16, one 2048-clip video x 8 queries, held against the
@@ -34,6 +44,13 @@ printing its seconds:
   6. profile  -- where the time of one bf16 dispatch goes, per serving cell
                  (torch.profiler): host ms, device-busy ms, idle share, the
                  flash kernel's share and the top kernels.
+  6b. ring serving -- GroundingPipeline with attention_impl="ring_pallas"
+                 inside use_ring(RingGroup(4)): one 2048-clip video x 8
+                 queries in bf16 and two 75-clip videos in f32, 4 x (16 + 4)
+                 ring launches per dispatch and no "xla" dispatch, held
+                 against the "xla" pipelines at phase 4's limits; then two
+                 bf16 dispatches under torch.profiler (the
+                 ring_long_video_bf16 [profile] line).
   7. train    -- `cli train-mr` trains the flagship at full width on a
                  synthetic corpus (96 train items, 2816-d video, 512-d
                  text, 75 clips: 3 steps of 32 per epoch, 2 epochs; 64 val
@@ -71,12 +88,17 @@ printing its seconds:
                  "pallas" vs "xla": CUDA-event ms per step.
   9. profile  -- where the time of one bf16 train step goes, per training
                  cell (torch.profiler).
+  9b. ring train -- make_train_step on 8 x (2048 + 32) with "ring_pallas"
+                 inside use_ring(RingGroup(4)): 3 f32 steps held against
+                 "xla" at phase 7's limits, then bf16 ms per step and peak
+                 memory beside phase 8's.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving is phases 4-5, training phase 7's train-mr
-run (its evaluations included), eval phase 7b's bf16 infer-mr run, and
-quantize phase 7c's entry points; the smoke's own int8_matmul call is
-counted apart. Every kernel of a path must have run there. The last lines
+run (its evaluations included), eval phase 7b's bf16 infer-mr run,
+quantize phase 7c's entry points, ring serving phase 6b's ring dispatches
+and ring training phase 9b's ring_pallas steps; the smoke's own int8_matmul
+call is counted apart. Every kernel of a path must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
@@ -172,6 +194,20 @@ TRAIN_SHAPES = {  # (B, L, H, dh): L = clips + text tokens, no bucket
     "train_qvhighlights": (32, 75 + 32, 8, 128),
     "train_long_video": (8, 2048 + 32, 8, 128),
 }
+# the ring kernels vs their twin: absolute limits as the flash forward's; in
+# bf16 also the share of elements that differ, as BWD_TOL reasons (both sum
+# in f32, the kernel over 64-key tiles, the twin over whole blocks, and
+# round once at the store)
+RING_TOL = {"float32": {"abs": 1e-4, "share": None},
+            "bfloat16": {"abs": 1.6e-2, "share": 1e-2}}
+RING_SHAPES = {  # name -> (B, L, H, dh, ring sizes): L = video + text bucket
+    "serving_160": (2, 128 + 32, 8, 128, (1, 2, 4)),
+    "long_video_2080": (8, 2048 + 32, 8, 128, (1, 4, 8)),
+    # the JAX package's long-context shape: 2 x (8192 clips + 32 tokens)
+    "long_context_8224": (2, 8192 + 32, 8, 128, (4,)),
+}
+RING_P = 4  # ranks of the ring on the serving and training paths
+RING_REPEATS = 20  # the P = 8 ring, run again: bit for bit its first output
 KERNEL_NOTES = {  # name -> (source, the Pallas kernel it replaces)
     "flash_fwd": ("univtg_tpu_torch/csrc/flash_fwd.cu",
                   "univtg_tpu/ops/pallas_attention.py:98"),
@@ -181,6 +217,8 @@ KERNEL_NOTES = {  # name -> (source, the Pallas kernel it replaces)
                       "univtg_tpu/ops/pallas_attention.py:254"),
     "int8_matmul": ("univtg_tpu_torch/csrc/int8_matmul.cu",
                     "univtg_tpu/ops/pallas_int8.py:19"),
+    "ring_attention": ("univtg_tpu_torch/csrc/ring_attention.cu",
+                       "univtg_tpu/ops/ring_attention_pallas.py:56"),
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 
@@ -199,14 +237,17 @@ def timed(name, fn, *args):
 def _launches() -> dict:
     """Every kernel's launch count."""
     from univtg_tpu_torch.ops import flash_attention as fa, int8_matmul as im
+    from univtg_tpu_torch.ops import ring_attention_pallas as rap
 
-    return {**fa.launches, **im.launches}
+    return {**fa.launches, **im.launches, **rap.launches}
 
 
 def _reset_launches() -> None:
-    from univtg_tpu_torch.ops import flash_attention as fa, int8_matmul as im
+    """Every kernel's launch count, and the attention dispatch counts, to 0."""
+    from univtg_tpu_torch.ops import attention as attn, flash_attention as fa
+    from univtg_tpu_torch.ops import int8_matmul as im, ring_attention_pallas as rap
 
-    for counts in (fa.launches, im.launches):
+    for counts in (fa.launches, im.launches, rap.launches, attn.dispatches):
         for name in counts:
             counts[name] = 0
 
@@ -265,13 +306,14 @@ def phase_build(fault_dir):
     """One nvcc per source and per planted fault, all started together.
     Returns {fault name: library path}."""
     from univtg_tpu_torch.ops import cuda_build, flash_attention as fa, int8_matmul as im
+    from univtg_tpu_torch.ops import ring_attention_pallas as rap
 
     def build(name):
         t0 = time.perf_counter()
         cuda_build.build(name)
         return time.perf_counter() - t0
 
-    sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES
+    sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES + rap.KERNEL_SOURCES
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(FAULTS)) as pool:
         faults = {n: pool.submit(_build_fault, n, fault_dir) for n in FAULTS}
         seconds = dict(zip(sources, pool.map(build, sources)))
@@ -279,6 +321,8 @@ def phase_build(fault_dir):
     for name in sources:
         if name in im.KERNEL_SOURCES:
             im._library()
+        elif name in rap.KERNEL_SOURCES:
+            rap._library()
         else:
             fa._library(name)
         log(f"[build] {name}: {seconds[name]:.2f} s")
@@ -571,7 +615,8 @@ def _profile_window(torch, fn, n):
     return kernels, wall_us
 
 
-def _profile_record(cell, card, n, unit, kernels, wall_us, flash_names, **extra):
+def _profile_record(cell, card, n, unit, kernels, wall_us, flash_names, label="flash",
+                    **extra):
     busy_us = sum(kernels.values())
     flash = {name: sum(t for k, t in kernels.items() if f"{name}_kernel" in k)
              for name in flash_names}
@@ -582,8 +627,8 @@ def _profile_record(cell, card, n, unit, kernels, wall_us, flash_names, **extra)
         f"host_ms_per_{unit}": wall_us / 1e3 / n,
         f"device_busy_ms_per_{unit}": busy_us / 1e3 / n,
         "idle_share": 1.0 - busy_us / wall_us if busy_us else None,
-        "flash_share_of_busy": sum(flash.values()) / busy_us if busy_us else None,
-        "flash_ms_per_" + unit: {k: t / 1e3 / n for k, t in flash.items()},
+        f"{label}_share_of_busy": sum(flash.values()) / busy_us if busy_us else None,
+        f"{label}_ms_per_{unit}": {k: t / 1e3 / n for k, t in flash.items()},
         f"top_kernels_ms_per_{unit}": [[k[:90], t / 1e3 / n] for k, t in top],
     }
     if not busy_us:
@@ -843,6 +888,146 @@ def phase_int8_kernels(torch):
             rec, _ = _int8_record(torch, shape_name, x, w_q, scale, w_deq.to(dtype),
                                   10 if M > 8192 else 50)
             records.append(rec)
+    return records
+
+
+def _overlap_share(torch, fn):
+    """From one torch.profiler window over fn(): the share of the ring's
+    device-to-device copy time that overlaps a ring_block kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    copies, blocks = [], []
+    for evt in prof.events():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        span = (evt.time_range.start, evt.time_range.end)
+        if "ring_block_kernel" in evt.name:
+            blocks.append(span)
+        elif "memcpy" in evt.name.lower():
+            copies.append(span)
+    if not copies or not blocks:
+        return None, 0.0
+    blocks.sort()
+    merged = [list(blocks[0])]
+    for a, b in blocks[1:]:  # the union of the block kernels' intervals
+        if a <= merged[-1][1]:
+            merged[-1][1] = max(merged[-1][1], b)
+        else:
+            merged.append([a, b])
+    total = sum(b - a for a, b in copies)
+    under = sum(max(0, min(b, y) - max(a, x)) for a, b in copies for x, y in merged)
+    return (under / total if total else None), total / 1e3
+
+
+def _ring_within(err, dname):
+    tol = RING_TOL[dname]
+    return err[0] <= tol["abs"] and (tol["share"] is None or err[2] <= tol["share"])
+
+
+def _ring_check(torch, B, L, H, dh, dtype, P, devices=None, seed=0):
+    """The ring kernels against their twin on inputs with one fully masked
+    batch row; returns (inputs, ring, kernel output, (abs, rel, share))."""
+    from univtg_tpu_torch.ops import ring_attention_pallas as rap
+    from univtg_tpu_torch.parallel import RingGroup
+
+    q, k, v, mask = _attention_inputs(torch, B, L, H, dh, dtype, seed=seed)
+    mask[-1] = 0  # a fully masked row: the mean of V over the L real keys
+    ring = RingGroup(P, devices)
+    before = dict(rap.launches)
+    got = rap.ring_attention_pallas(q, k, v, mask, num_heads=H, ring=ring)
+    made = {n: rap.launches[n] - before[n] for n in before}
+    want = rap.ring_attention_pallas_reference(q, k, v, mask, num_heads=H, ring=ring)
+    torch.cuda.synchronize()
+    if made != {"ring_block": P * P, "ring_finish": P}:
+        raise AssertionError(f"ring of {P}: launches {made}, not {P * P} + {P}")
+    row_err = (got[-1].float() - v[-1].float().mean(0)).abs().max().item()
+    if not torch.isfinite(got).all().item() or row_err > RING_TOL[str(dtype)[6:]]["abs"]:
+        raise AssertionError(f"ring of {P}: the masked row is not the mean of V ({row_err})")
+    return (q, k, v, mask), ring, got, _errs(got, want)
+
+
+def phase_ring_kernels(torch):
+    """ring_attention (ring_block + ring_finish and the transport) against its
+    twin at RING_SHAPES, f32 and bf16, each ring size of the shape on one
+    card; P = 1 also against flash_fwd; the P = 8 ring repeated RING_REPEATS
+    times, bit for bit; times of the whole ring (CUDA events), the twin,
+    SDPA over the whole sequence, flash_fwd, the bound, and the share of copy
+    time that overlaps a block kernel; then the ring across two cards where
+    the process sees two."""
+    import torch.nn.functional as F
+
+    from univtg_tpu_torch.ops import flash_attention as fa
+    from univtg_tpu_torch.ops import ring_attention_pallas as rap
+
+    records = []
+    for shape_name, (B, L, H, dh, sizes) in RING_SHAPES.items():
+        for dname in ("float32", "bfloat16"):
+            dtype = getattr(torch, dname)
+            for P in sizes:
+                (q, k, v, mask), ring, got, err = _ring_check(
+                    torch, B, L, H, dh, dtype, P, seed=300 + len(records))
+                ok = _ring_within(err, dname)
+                extra = {}
+                if P == 1:
+                    flash = fa.flash_attention(q, k, v, mask, num_heads=H)
+                    extra["err_vs_flash_fwd"] = _errs(got, flash)[0]
+                    ok = ok and extra["err_vs_flash_fwd"] <= TOL[dname]["out"]
+                if P == 8:
+                    same = [torch.equal(got, rap.ring_attention_pallas(
+                        q, k, v, mask, num_heads=H, ring=ring)) for _ in range(RING_REPEATS)]
+                    extra["repeats_bit_equal"] = f"{sum(same)}/{RING_REPEATS}"
+                    ok = ok and all(same)
+
+                iters = 5 if L > 4000 else (10 if L > 1000 else 50)
+                ms = cuda_ms(lambda: rap.ring_attention_pallas(q, k, v, mask, num_heads=H,
+                                                               ring=ring), iters)
+                plain_ms = cuda_ms(lambda: rap.ring_attention_pallas_reference(
+                    q, k, v, mask, num_heads=H, ring=ring), iters)
+                q4, k4, v4 = (x.view(B, L, H, dh).transpose(1, 2) for x in (q, k, v))
+                bool_mask = mask.bool()[:, None, None, :]
+                library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    q4, k4, v4, attn_mask=bool_mask), iters)
+                flash_ms = cuda_ms(lambda: fa.flash_attention(q, k, v, mask, num_heads=H),
+                                   iters)
+                overlap, copy_ms = (None, 0.0) if P == 1 else _overlap_share(
+                    torch, lambda: rap.ring_attention_pallas(q, k, v, mask, num_heads=H,
+                                                             ring=ring))
+                es, D, BH = q.element_size(), H * dh, B * H
+                flops = 4 * BH * L * L * dh
+                block = 2 * B * (L // P) * D * es + 4 * B * (L // P)  # k, v and mask
+                nbytes = 4 * B * L * D * es + 4 * B * L + (P - 1) * P * 2 * block
+                bound_ms, bound_by = _bound(flops, nbytes, dname)
+                rec = {"kernel": "ring_attention", "shape": shape_name, "B": B, "L": L,
+                       "H": H, "dh": dh, "P": P, "dtype": dname, "err": err[0],
+                       "rel_err": err[1], "differ": err[2], "tol": RING_TOL[dname], **extra,
+                       "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                       "flash_fwd_ms": flash_ms, "flops": flops, "bytes": nbytes,
+                       "bound_ms": bound_ms, "bound_by": bound_by,
+                       "copy_overlap_share": overlap, "copy_ms": copy_ms}
+                records.append(rec)
+                log(f"[ring] {json.dumps(rec)}")
+                if not ok:
+                    raise AssertionError(f"ring_attention disagrees with its twin: {rec}")
+                del q, k, v, mask, got, q4, k4, v4
+                torch.cuda.empty_cache()
+
+    if torch.cuda.device_count() >= 2:
+        B, L, H, dh, _ = RING_SHAPES["long_video_2080"]
+        for dname in ("float32", "bfloat16"):
+            _, _, _, err = _ring_check(torch, B, L, H, dh, getattr(torch, dname), 2,
+                                       devices=["cuda:0", "cuda:1"], seed=400)
+            log(f"[ring] two cards, P=2, {B}x{L} {dname}: max abs {err[0]:.3g}, share "
+                f"that differs {err[2]:.3g} (limits {RING_TOL[dname]})")
+            if not _ring_within(err, dname):
+                raise AssertionError(f"the ring across two cards disagrees: {err}")
+    else:
+        log(f"[ring] the two-card leg did not run: this process sees "
+            f"{torch.cuda.device_count()} card")
     return records
 
 
@@ -1332,7 +1517,7 @@ def phase_long_train(torch, np, fa, sd, card):
 
     mi, tg = _long_batch(torch, np)
     step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
-    kept = None
+    kept, stats = None, {}
     for impl in ("pallas", "xla"):
         cfg = flagship_model(attention_impl=impl, compute_dtype="bfloat16", max_v_l=2048)
         model = UniVTG(cfg, device="meta")
@@ -1349,9 +1534,10 @@ def phase_long_train(torch, np, fa, sd, card):
         ms = cuda_ms(one, iters=3, warmup=2)
         made = {n: fa.launches[n] - before[n] for n in before}
         loss = float(holder["m"]["loss_overall"])
+        stats[impl] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
         log(f"[long] bf16 B=8 L=2048+32 {impl}: {ms:.2f} ms per train step ({card}), "
             f"loss {loss:.4f}, launches over 5 steps {made}, peak memory "
-            f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
+            f"{stats[impl]['peak_gib']:.1f} GiB")
         if not np.isfinite(loss):
             raise AssertionError(f"long-video {impl} step is not finite")
         if impl == "pallas" and made != {n: 20 for n in before}:
@@ -1360,7 +1546,7 @@ def phase_long_train(torch, np, fa, sd, card):
             kept = holder["state"]
         del model, state, holder
         torch.cuda.empty_cache()
-    return kept, (mi, tg)
+    return kept, (mi, tg), stats
 
 
 def phase_train_profile(torch, np, fa, card, corpus, sd, long_state, long_batch):
@@ -1405,15 +1591,205 @@ def phase_train_profile(torch, np, fa, card, corpus, sd, long_state, long_batch)
                     B=8, L="2048+32")
 
 
-def _kernel_line(records_serving, records_train, records_int8, by_path):
+def phase_ring_serving(torch, np, card):
+    """The ring serving path: GroundingPipeline with attention_impl="ring_pallas"
+    inside use_ring(RingGroup(RING_P)), bf16 on one 2048-clip video x 8
+    queries (long_video_bf16) and f32 on two 75-clip videos; each dispatch
+    makes exactly 4 layers x (P^2 + P) ring launches and no "xla" dispatch.
+    Held against the same pipelines with "xla" at PIPE_TOL, after two
+    profiled bf16 dispatches (off the path's count). Returns the path's
+    launches."""
+    from univtg_tpu_torch.cli import flagship_config
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.ops import attention as attn
+    from univtg_tpu_torch.parallel import RingGroup, use_ring
+    from univtg_tpu_torch.serve import GroundingPipeline
+
+    sd = UniVTG(flagship_config(), device="cpu", seed=0).state_dict()  # phase 4's
+
+    def pipe(impl, dtype):
+        return GroundingPipeline(flagship_config(compute_dtype=dtype, attention_impl=impl),
+                                 sd, eval_mode="add", device="cuda")
+
+    def prepare(p, items):
+        """Each video prepared once, as a server holds it: the queries on one
+        video share it, which is the pipeline's single-video fast path."""
+        once = {}
+        for v, _ in items:
+            if id(v) not in once:
+                once[id(v)] = p.prepare_video(v)
+        return [(once[id(v)], q) for v, q in items]
+
+    rng = np.random.default_rng(9)
+    d_vid, d_txt = 2816, 512
+    long_vid = rng.standard_normal((2048, d_vid)).astype(np.float32)
+    vids = [rng.standard_normal((75, d_vid)).astype(np.float32) for _ in range(2)]
+    queries = [rng.standard_normal((int(rng.integers(4, 33)), d_txt)).astype(np.float32)
+               for _ in range(10)]
+    cells = {  # name -> (dtype, [(video, query)], clips)
+        "bf16 B=8 L=2048+32": ("bfloat16", [(long_vid, q) for q in queries[:8]], 2048),
+        "f32 B=2 L=128+32": ("float32", list(zip(vids, queries[8:])), 75),
+    }
+    layers, per = 4, RING_P * RING_P + RING_P
+    ring = RingGroup(RING_P)
+    ring_pipes = {name: pipe("ring_pallas", dt) for name, (dt, _, _) in cells.items()}
+    results, prepared = {}, {}
+    _reset_launches()  # the ring serving path starts here
+    with use_ring(ring):
+        for name, (dtype, items, _) in cells.items():
+            p = ring_pipes[name]
+            prepared[name] = prepare(p, items)
+            for i in range(3):  # the first dispatch also warms the allocator
+                before, d_before = _launches(), dict(attn.dispatches)
+                t = time.perf_counter()
+                results[name] = p.ground_prepared_many(prepared[name], top_k=10)
+                ms = (time.perf_counter() - t) * 1e3
+                got = {n: _launches()[n] - before[n] for n in ("ring_block", "ring_finish")}
+                ran = {n: attn.dispatches[n] - d_before[n] for n in attn.dispatches}
+                log(f"[ring serving] {name} ring_pallas P={RING_P} dispatch {i}: {ms:.2f} ms "
+                    f"host clock ({card}), launches {got}, dispatches {ran}")
+                if got != {"ring_block": layers * RING_P * RING_P,
+                           "ring_finish": layers * RING_P} or ran["ring_pallas"] != layers \
+                        or sum(ran.values()) != layers:
+                    raise AssertionError(f"{name}: {got} ring launches and dispatches {ran}, "
+                                         f"expected {layers} x ({per}) and no fallback")
+    launches = _launches()  # ... and ends here
+    # where the time of a ring dispatch goes, as phase 6 reads the flash one
+    name = "bf16 B=8 L=2048+32"
+    with use_ring(ring):
+        kernels, wall_us = _profile_window(
+            torch, lambda: ring_pipes[name].ground_prepared_many(prepared[name]), 2)
+    _profile_record("ring_long_video_bf16", card, 2, "dispatch", kernels, wall_us,
+                    ["ring_block", "ring_finish"], label="ring", B=8, P=RING_P)
+    del ring_pipes
+    for name, (dtype, items, clips) in cells.items():
+        p = pipe("xla", dtype)
+        want = p.ground_prepared_many(prepare(p, items), top_k=10)
+        tol = PIPE_TOL[dtype]
+        for got, ref in zip(results[name], want, strict=True):
+            _check_result(np, got, clips)
+            sal = float(np.abs(np.asarray(got["saliency"]) - ref["saliency"]).max())
+            g, w = np.asarray(got["topk_windows"]), np.asarray(ref["topk_windows"])
+            log(f"[ring serving] {name} ring_pallas vs xla: saliency {sal:.3g}, ranked "
+                f"scores {np.abs(g[:, 2] - w[:, 2]).max():.3g}, window ends "
+                f"{np.abs(g[:, :2] - w[:, :2]).max():.3g} s, ties included (limits {tol})")
+            if sal > tol["saliency"] or not _unambiguous_ranks_agree(
+                    np, got, ref, tol["scores"], tol["windows"]):
+                raise AssertionError(f"{name}: the ring pipeline disagrees with xla")
+        del p
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_ring_train(torch, np, sd, card, long_stats):
+    """The ring training path: make_train_step on the long batch (8 x 2048
+    clips + 32 tokens) with attention_impl="ring_pallas" inside
+    use_ring(RingGroup(RING_P)), dropouts at the flagship's settings
+    (attention 0): 3 f32 steps (4 x (P^2 + P) ring launches per forward, no
+    "xla" dispatch) held against 3 f32 "xla" steps at TRAIN_TOL; then bf16 ms
+    per step and peak memory beside phase 8's "pallas" and "xla". Returns the
+    path's launches."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.ops import attention as attn
+    from univtg_tpu_torch.parallel import RingGroup, use_ring
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    mi, tg = _long_batch(torch, np)
+    step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    ring = RingGroup(RING_P)
+
+    def state(impl, dtype):
+        model = UniVTG(flagship_model(attention_impl=impl, compute_dtype=dtype,
+                                      max_v_l=2048), device="meta")
+        model.load_state_dict({k: v.cuda() for k, v in sd.items()}, assign=True)
+        return TrainState(model, make_optimizer(
+            model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 100), 1e-4, 0.1))
+
+    def run(impl, n):
+        st, history = state(impl, "float32"), []
+        for _ in range(n):
+            st, m = step(st, mi, tg, 0)
+            history.append({k: float(v) for k, v in m.items()})
+        return history
+
+    _reset_launches()  # the ring training path starts here
+    with use_ring(ring):
+        got = run("ring_pallas", 3)
+    torch.cuda.synchronize()
+    launches = _launches()  # ... and ends here
+    ran = dict(attn.dispatches)
+    want_launches = {"ring_block": 3 * 4 * RING_P * RING_P, "ring_finish": 3 * 4 * RING_P}
+    log(f"[ring train] 3 f32 steps, ring_pallas P={RING_P}: launches {launches}, "
+        f"dispatches {ran}")
+    if {n: launches[n] for n in want_launches} != want_launches or ran["xla"] \
+            or ran["ring_pallas"] != 12 or any(launches[n] for n in FLASH_KERNELS):
+        raise AssertionError(f"ring training: launches {launches} and dispatches {ran}, "
+                             f"expected {want_launches}, 12 ring_pallas and no fallback")
+    want = run("xla", 3)
+    for i, (g, w) in enumerate(zip(got, want, strict=True)):
+        rel = {k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in w}
+        log(f"[ring train] f32 step {i}: ring_pallas loss {g['loss_overall']:.6f} grad norm "
+            f"{g['grad_norm']:.6f}; xla {w['loss_overall']:.6f} {w['grad_norm']:.6f}; rel err "
+            f"loss {rel['loss_overall']:.2e} grad norm {rel['grad_norm']:.2e} "
+            f"(limits {TRAIN_TOL})")
+        if not np.isfinite(g["loss_overall"]) or rel["loss_overall"] > TRAIN_TOL["loss"] \
+                or rel["grad_norm"] > TRAIN_TOL["grad_norm"]:
+            raise AssertionError(f"f32 ring_pallas train step {i} disagrees with xla: {rel}")
+
+    holder = {"state": state("ring_pallas", "bfloat16")}
+
+    def one():
+        holder["state"], holder["m"] = step(holder["state"], mi, tg, 0)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    with use_ring(ring):
+        ms = cuda_ms(one, iters=3, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    loss = float(holder["m"]["loss_overall"])
+    stats = {**long_stats, "ring_pallas": {"ms": ms, "peak_gib": peak}}
+    log(f"[ring train] bf16 B=8 L=2048+32 train step ({card}): "
+        + ", ".join(f"{k} {v['ms']:.2f} ms, peak {v['peak_gib']:.1f} GiB"
+                    for k, v in stats.items())
+        + f"; ring_pallas loss {loss:.4f}. One card holds every rank, so the ring's "
+        f"memory is still O(L^2) in total: the saving exists only across cards")
+    if not np.isfinite(loss):
+        raise AssertionError("the bf16 ring train step is not finite")
+    return launches
+
+
+def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path):
     """One entry per kernel for the final JSON line: times of the headline
     record (flash: bf16 at the long shape, dropout 0; int8_matmul: bf16 at
-    one qvhighlights dispatch, M=4096), the largest error seen.
+    one qvhighlights dispatch, M=4096; ring_attention: bf16 at the long
+    shape, P = RING_P), the largest error seen.
     ``launches`` sums the paths of by_path, ``launches_by_path`` splits them;
     for int8_matmul that is the smoke's own call alone, which
-    ``launches_note`` says."""
+    ``launches_note`` says; ring_attention counts its two kernels,
+    ring_block and ring_finish, split in ``launches_by_kernel``."""
     out = []
     for name, (source, replaces) in KERNEL_NOTES.items():
+        if name == "ring_attention":
+            head = next(r for r in records_ring if r["shape"] == "long_video_2080"
+                        and r["dtype"] == "bfloat16" and r["P"] == RING_P)
+            kinds = ("ring_block", "ring_finish")
+            out.append({
+                "name": name, "route": "cuda", "source": source, "replaces": replaces,
+                "launches": sum(path[k] for path in by_path.values() for k in kinds),
+                "launches_by_path": {p: sum(path[k] for k in kinds)
+                                     for p, path in by_path.items()},
+                "launches_by_kernel": {k: sum(path[k] for path in by_path.values())
+                                       for k in kinds},
+                "max_abs_err": max(r["err"] for r in records_ring),
+                "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
+                "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                "by_shape": [{k: r[k] for k in (
+                    "shape", "P", "dtype", "ms", "plain_ms", "library_ms", "flash_fwd_ms",
+                    "bound_ms", "bound_by", "copy_overlap_share")} for r in records_ring]})
+            continue
         if name == "int8_matmul":
             head = next(r for r in records_int8 if r["shape"] == "qvhighlights_dispatch"
                         and r["dtype"] == "bfloat16")
@@ -1473,6 +1849,7 @@ def main() -> int:
         train_records = timed("kernels", phase_train_kernels, torch)
         timed("faults", phase_faults, torch, faults)
     int8_records = timed("int8", phase_int8_kernels, torch)
+    ring_records = timed("ring", phase_ring_kernels, torch)
 
     _reset_launches()  # the serving main path starts here
     pipe_f32, pipe_bf16, long_items, timings = timed(
@@ -1485,6 +1862,8 @@ def main() -> int:
     timed("profile", phase_profile, torch, np, pipe_bf16, long_items, fa, smi)
     del pipe_f32, pipe_bf16, long_items
     torch.cuda.empty_cache()
+    ring_serve_launches = timed("ring serving", phase_ring_serving, torch, np, smi)
+    log(f"[main path] ring serving launches: {ring_serve_launches}")
 
     with tempfile.TemporaryDirectory(prefix="univtg_chip_smoke_") as tmp:
         corpus, run_dir, sd, train_launches = timed("train", phase_train, torch, np, fa,
@@ -1497,18 +1876,27 @@ def main() -> int:
         log(f"[main path] int8 tier (quantize, serve, infer-mr) launches: "
             f"{quantize_launches}; the smoke's int8_matmul call: {call_launches}")
         timed("evalsize", phase_eval_size, torch, np, fa, smi, tmp, run_dir)
-        long_state, long_batch = timed("long", phase_long_train, torch, np, fa, sd, smi)
+        long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
+                                                   fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
               long_state, long_batch)
+    del long_state, long_batch
+    torch.cuda.empty_cache()
+    ring_train_launches = timed("ring train", phase_ring_train, torch, np, sd, smi,
+                                long_stats)
+    log(f"[main path] ring training launches: {ring_train_launches}")
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "univtg_tpu")]
     if bad:
         raise AssertionError(f"JAX modules were imported: {bad}")
 
     kernels = _kernel_line(records, train_records, int8_records + served_records,
+                           ring_records,
                            {"serving": serve_launches, "training": train_launches,
                             "eval": eval_launches, "int8_tier": quantize_launches,
-                            "int8_smoke_call": call_launches})
+                            "int8_smoke_call": call_launches,
+                            "ring_serving": ring_serve_launches,
+                            "ring_training": ring_train_launches})
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -212,7 +212,7 @@ def test_config_json_is_shared_with_the_jax_package():
 
 @pytest.mark.parametrize("field,value", [
     ("scan_layers", True), ("remat", True), ("pipeline_stages", 2),
-    ("moe_experts", 4), ("seq_shard", True), ("attention_impl", "ring"),
+    ("moe_experts", 4), ("seq_shard", True), ("attention_impl", "splash"),
 ])
 def test_unported_config_values_raise(field, value):
     cfg = ModelConfig(**SMALL, **{field: value})
@@ -220,6 +220,22 @@ def test_unported_config_values_raise(field, value):
         check_supported(cfg)
     with pytest.raises(NotImplementedError):
         UniVTG(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["ring", "ring_pallas"])
+def test_ring_attention_impls_are_supported(impl):
+    """The ring impls are ported (tests/test_torch_ring.py): they pass
+    check_supported and build, and run "xla" when no ring is active."""
+    cfg = ModelConfig(**SMALL, attention_impl=impl)
+    check_supported(cfg)
+    model = UniVTG(cfg, device="cpu")
+    args = [torch.from_numpy(a) for a in _inputs(4)]
+    with torch.inference_mode():
+        got = model(*args)["saliency_scores"]
+        for layer in model.transformer.encoder.layers:
+            layer.self_attn.impl = "xla"
+        want = model(*args)["saliency_scores"]
+    assert torch.equal(got, want)
 
 
 def test_train_mode_raises():

@@ -5,6 +5,7 @@ torch and numpy and nothing of JAX or of the JAX package. It serves the
 flagship UniVTG grounding model (``cli serve``), trains it (``cli
 train-mr``), evaluates it (``cli infer-mr``, ``cli eval``) and stores it in
 int8 (``cli quantize``). Its hand-written kernels are the flash-attention
-forward and backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``) and the
-int8 dequant-matmul (``csrc/int8_matmul.cu``).
+forward and backward (``csrc/flash_fwd.cu``, ``csrc/flash_bwd.cu``), the
+int8 dequant-matmul (``csrc/int8_matmul.cu``) and context-parallel ring
+attention (``csrc/ring_attention.cu``, run inside ``parallel.use_ring``).
 """

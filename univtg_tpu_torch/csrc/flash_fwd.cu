@@ -50,6 +50,8 @@ namespace {
 
 using flash::Dropout;
 using flash::from_f32;
+using flash::group_max;
+using flash::group_sum;
 using flash::Layout;
 using flash::NEG_INF;
 using flash::to_f32;
@@ -62,21 +64,6 @@ constexpr int SCOLS = BLOCK_N / 16;  // score columns per thread
 constexpr int MAX_DH = 128;
 constexpr int OCOLS = MAX_DH / 16;   // output columns per thread, at most
 constexpr int LDP = BLOCK_N + 1;     // P tile row stride
-
-__device__ __forceinline__ float group_max(float x) {
-  // the 16 threads of a row group are lanes [0,16) or [16,32) of one warp
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
 
 template <typename T>
 __global__ void __launch_bounds__(THREADS)

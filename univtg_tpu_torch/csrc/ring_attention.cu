@@ -1,0 +1,367 @@
+// Ring attention for Hopper (sm_90a), f32 and bf16 inputs: the per-rank,
+// per-step block update, the finish, and the K/V/mask hop to the right
+// neighbour.
+//
+// Replaces univtg_tpu/ops/ring_attention_pallas.py:_ring_kernel (launched
+// from ring_attention_pallas). The TPU kernel is one program per device that
+// loops over the ring's steps, moves each K/V/mask block to its right
+// neighbour by async remote copy into a double-buffered VMEM ring guarded by
+// a credit semaphore, and keeps the online-softmax state in registers. Here
+// the loop over steps, the slots and the handshake live on the host
+// (ops/ring_attention_pallas.py): each rank has a compute stream and a copy
+// stream, and CUDA events stand for the semaphores. This file holds what
+// runs on the card:
+//
+//   ring_block   one launch per (rank, step): fold the resident K/V block
+//                into the rank's state, kept in global memory between
+//                launches (m, l: (BH, Lq) f32; acc: (BH, Lq, dh) f32)
+//       s     = (q * scale) . k^T + (1 - mask) * (-1e30)  scale BEFORE the dot
+//       m_new = max(m, rowmax s);  p = exp(s - m_new);  alpha = exp(m - m_new)
+//       l     = l * alpha + rowsum p;  acc = acc * alpha + p . v   p stays f32
+//   ring_finish  one launch per rank: out = acc / max(l, 1e-30) in q's dtype
+//   ring_send    one hop: cudaMemcpyAsync (peer to peer across cards) of the
+//                K, V and mask slots on the sender's copy stream
+//
+// The block update tiles the keys by 64 and runs the online softmax across
+// the tiles, which equals the TPU kernel's one max per block in exact
+// arithmetic; only the rounding differs. Keys past Lk in the last tile are
+// left out, not masked: a row whose keys are all masked gets the mean of V
+// over the real keys, as plain masked attention gives, whatever the tiling.
+// There is no dropout: the model takes the plain ring for attention dropout,
+// as the JAX package does.
+//
+// Bound on the card: a ring of P ranks does 4 * BH * L^2 * dh FLOP (all of
+// it in the block launches) and moves q, k, v and out once plus P (P - 1)
+// K/V/mask block hops, each read and written. In f32, and in bf16 at P = 1,
+// the FLOP bound the time; in bf16 at P >= 4 the hops' bytes do (8 x 2080:
+// 0.16 ms against 0.14 ms of tensor-core FLOP). The kernel runs far from
+// both: it computes on CUDA cores (PERF.md).
+//
+// Design (simple and right first), the flash forward's (flash_fwd.cu): one
+// block of 256 threads per (batch*head, 64-row query tile); K and V staged
+// in shared memory as f32, 64 keys at a time; each thread owns 4 query rows
+// and computes a 4x4 patch of the score tile and a 4 x (dh/16) patch of the
+// accumulator with scalar FMAs. What it leaves on the table: tensor cores,
+// double-buffered loads of the next tile, the state round trip through
+// global memory at every step (a kernel that loops over the steps itself
+// would keep it in registers, but would have to wait on the copies inside
+// the kernel: P blocks that spin on each other's flags deadlock when they are
+// not all resident, so every wait stays in the stream and event graph), and
+// the partial last tile when Lq or Lk is not a multiple of 64.
+//
+// Built by univtg_tpu_torch/ops/cuda_build.py:
+//   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
+//        -Xcompiler -fPIC
+// and called through ctypes by univtg_tpu_torch/ops/ring_attention_pallas.py.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+
+#include "flash_common.cuh"
+
+namespace {
+
+using flash::from_f32;
+using flash::group_max;
+using flash::group_sum;
+using flash::Layout;
+using flash::NEG_INF;
+using flash::to_f32;
+
+constexpr int BLOCK_M = 64;   // query rows per block
+constexpr int BLOCK_N = 64;   // keys per staged tile
+constexpr int THREADS = 256;  // 16 row groups x 16 threads
+constexpr int ROWS = 4;       // query rows per thread (16 groups x 4 = 64)
+constexpr int SCOLS = BLOCK_N / 16;  // score columns per thread
+constexpr int MAX_DH = 128;
+constexpr int OCOLS = MAX_DH / 16;   // accumulator columns per thread, at most
+constexpr int LDP = BLOCK_N + 1;     // P tile row stride
+constexpr int FINISH_THREADS = 256;
+
+template <typename T>
+__global__ void __launch_bounds__(THREADS)
+ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                  const T* __restrict__ v, const float* __restrict__ mask,
+                  float* __restrict__ m_state, float* __restrict__ l_state,
+                  float* __restrict__ acc_state, int H, int Lq, int Lk, int dh,
+                  Layout ql, Layout kl, long long mask_sb, float scale,
+                  int first) {
+  extern __shared__ float smem[];
+  const int ld = dh + 1;  // odd stride: column reads across rows hit distinct banks
+  float* Qs = smem;                        // BLOCK_M x ld, q * scale
+  float* Ks = Qs + BLOCK_M * ld;           // BLOCK_N x ld
+  float* Vs = Ks + BLOCK_N * ld;           // BLOCK_N x ld
+  float* Ps = Vs + BLOCK_N * ld;           // BLOCK_M x LDP
+  float* Ms = Ps + BLOCK_M * LDP;          // BLOCK_N key-mask values
+
+  const int tid = threadIdx.x;
+  const int tx = tid & 15;  // column slot within the row group
+  const int ty = tid >> 4;  // row group: rows ty*ROWS .. ty*ROWS+3
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * BLOCK_M;
+
+  const T* qp = q + b * ql.sb + h * ql.sh;
+  const T* kp = k + b * kl.sb + h * kl.sh;
+  const T* vp = v + b * kl.sb + h * kl.sh;
+  const float* mp = mask + b * mask_sb;
+  const long long state_row = (long long)bh * Lq;
+
+  for (int e = tid; e < BLOCK_M * dh; e += THREADS) {
+    const int r = e / dh, c = e - r * dh;
+    const int row = q0 + r;
+    Qs[r * ld + c] = row < Lq ? to_f32(qp[row * ql.sl + c]) * scale : 0.f;
+  }
+
+  float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int row = q0 + ty * ROWS + i;
+    const bool load = !first && row < Lq;
+    const long long sr = state_row + row;
+    m[i] = load ? m_state[sr] : -INFINITY;
+    l[i] = load ? l_state[sr] : 0.f;
+#pragma unroll
+    for (int c = 0; c < OCOLS; ++c) {
+      const int col = tx + 16 * c;
+      acc[i][c] = load && col < dh ? acc_state[sr * dh + col] : 0.f;
+    }
+  }
+
+  for (int k0 = 0; k0 < Lk; k0 += BLOCK_N) {
+    __syncthreads();  // the previous tile's reads of Ks, Vs and Ps are done
+    for (int e = tid; e < BLOCK_N * dh; e += THREADS) {
+      const int r = e / dh, c = e - r * dh;
+      const int key = k0 + r;
+      const bool in = key < Lk;
+      Ks[r * ld + c] = in ? to_f32(kp[key * kl.sl + c]) : 0.f;
+      Vs[r * ld + c] = in ? to_f32(vp[key * kl.sl + c]) : 0.f;
+    }
+    if (tid < BLOCK_N) Ms[tid] = k0 + tid < Lk ? mp[k0 + tid] : 0.f;
+    __syncthreads();
+
+    float s[ROWS][SCOLS];
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+      for (int j = 0; j < SCOLS; ++j) s[i][j] = 0.f;
+    for (int d = 0; d < dh; ++d) {
+      float qv[ROWS], kv[SCOLS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) qv[i] = Qs[(ty * ROWS + i) * ld + d];
+#pragma unroll
+      for (int j = 0; j < SCOLS; ++j) kv[j] = Ks[(tx + 16 * j) * ld + d];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i)
+#pragma unroll
+        for (int j = 0; j < SCOLS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+
+    bool valid[SCOLS];
+    float bias[SCOLS];
+#pragma unroll
+    for (int j = 0; j < SCOLS; ++j) {
+      valid[j] = k0 + tx + 16 * j < Lk;
+      bias[j] = (1.f - Ms[tx + 16 * j]) * NEG_INF;
+    }
+
+#pragma unroll
+    for (int i = 0; i < ROWS; ++i) {
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < SCOLS; ++j) {
+        s[i][j] = valid[j] ? s[i][j] + bias[j] : -INFINITY;
+        mx = fmaxf(mx, s[i][j]);
+      }
+      // every tile holds at least one real key, so m_new is finite
+      const float m_new = fmaxf(m[i], group_max(mx));
+      const float alpha = expf(m[i] - m_new);  // 0 on the first tile of step 0
+      float rs = 0.f;
+#pragma unroll
+      for (int j = 0; j < SCOLS; ++j) {
+        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
+        rs += p;
+        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = p;  // f32, not rounded to T
+      }
+      l[i] = l[i] * alpha + group_sum(rs);
+      m[i] = m_new;
+#pragma unroll
+      for (int c = 0; c < OCOLS; ++c) acc[i][c] *= alpha;
+    }
+    __syncthreads();
+
+    const int n_keys = min(BLOCK_N, Lk - k0);
+    for (int n = 0; n < n_keys; ++n) {
+      float pv[ROWS];
+#pragma unroll
+      for (int i = 0; i < ROWS; ++i) pv[i] = Ps[(ty * ROWS + i) * LDP + n];
+#pragma unroll
+      for (int c = 0; c < OCOLS; ++c) {
+        const int col = tx + 16 * c;
+        if (col < dh) {
+          const float vv = Vs[n * ld + col];
+#pragma unroll
+          for (int i = 0; i < ROWS; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
+        }
+      }
+    }
+  }
+
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int row = q0 + ty * ROWS + i;
+    if (row >= Lq) continue;
+    const long long sr = state_row + row;
+    if (tx == 0) {
+      m_state[sr] = m[i];
+      l_state[sr] = l[i];
+    }
+#pragma unroll
+    for (int c = 0; c < OCOLS; ++c) {
+      const int col = tx + 16 * c;
+      if (col < dh) acc_state[sr * dh + col] = acc[i][c];
+    }
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(FINISH_THREADS)
+ring_finish_kernel(const float* __restrict__ l_state,
+                   const float* __restrict__ acc_state, T* __restrict__ out,
+                   int H, int Lq, int dh, Layout ol, long long total) {
+  for (long long e = blockIdx.x * (long long)FINISH_THREADS + threadIdx.x;
+       e < total; e += (long long)gridDim.x * FINISH_THREADS) {
+    const long long sr = e / dh;  // bh * Lq + row
+    const int c = (int)(e - sr * dh);
+    const int bh = (int)(sr / Lq);
+    const int row = (int)(sr - (long long)bh * Lq);
+    const int b = bh / H;
+    const int h = bh - b * H;
+    out[b * ol.sb + h * ol.sh + row * ol.sl + c] =
+        from_f32<T>(acc_state[e] / fmaxf(l_state[sr], 1e-30f));
+  }
+}
+
+template <typename T>
+cudaError_t launch_block(const void* q, const void* k, const void* v,
+                         const float* mask, float* m, float* l, float* acc,
+                         int BH, int H, int Lq, int Lk, int dh, Layout ql,
+                         Layout kl, long long mask_sb, float scale, int first,
+                         cudaStream_t stream) {
+  const int ld = dh + 1;
+  const size_t smem =
+      sizeof(float) * ((size_t)(BLOCK_M + 2 * BLOCK_N) * ld +
+                       (size_t)BLOCK_M * LDP + BLOCK_N);
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        ring_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, BH);
+  ring_block_kernel<T><<<grid, THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k),
+      static_cast<const T*>(v), mask, m, l, acc, H, Lq, Lk, dh, ql, kl,
+      mask_sb, scale, first);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t launch_finish(const float* l, const float* acc, void* out, int BH,
+                          int H, int Lq, int dh, Layout ol,
+                          cudaStream_t stream) {
+  const long long total = (long long)BH * Lq * dh;
+  const long long blocks = (total + FINISH_THREADS - 1) / FINISH_THREADS;
+  const int grid = (int)(blocks < 65536 ? blocks : 65536);
+  ring_finish_kernel<T><<<grid, FINISH_THREADS, 0, stream>>>(
+      l, acc, static_cast<T*>(out), H, Lq, dh, ol, total);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+// One ring step of one rank. q is the rank's (B, Lq, D) queries and k, v
+// the resident (B, Lk, D) block, each with (batch, head, row) element
+// strides and a dense head dim; mask is the block's (B, Lk) f32 key mask
+// (1 = valid) with batch stride mask_sb. m, l (BH, Lq) and acc (BH, Lq, dh)
+// are the rank's f32 state, dense: read unless `first`, always written.
+// scale multiplies q before the dot. dtype: 0 = float32, 1 = bfloat16.
+// Returns a cudaError_t; 0 on success. Launches on `stream`, allocates
+// nothing and does not synchronise.
+int univtg_ring_block(const void* q, const void* k, const void* v,
+                      const void* mask, void* m, void* l, void* acc, int dtype,
+                      int BH, int H, int Lq, int Lk, int dh, long long q_sb,
+                      long long q_sh, long long q_sl, long long k_sb,
+                      long long k_sh, long long k_sl, long long mask_sb,
+                      float scale, int first, void* stream) {
+  if (dh <= 0 || dh > MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
+      BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535)
+    return (int)cudaErrorInvalidValue;
+  const Layout ql{q_sb, q_sh, q_sl};
+  const Layout kl{k_sb, k_sh, k_sl};
+  const float* mk = static_cast<const float*>(mask);
+  float* ms = static_cast<float*>(m);
+  float* ls = static_cast<float*>(l);
+  float* as = static_cast<float*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_block<float>(q, k, v, mk, ms, ls, as, BH, H, Lq, Lk, dh,
+                                    ql, kl, mask_sb, scale, first, s);
+  if (dtype == 1)
+    return (int)launch_block<__nv_bfloat16>(q, k, v, mk, ms, ls, as, BH, H,
+                                            Lq, Lk, dh, ql, kl, mask_sb, scale,
+                                            first, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The finish of one rank: out (B, Lq, D) with (batch, head, row) element
+// strides gets acc / max(l, 1e-30) in `dtype`.
+int univtg_ring_finish(const void* l, const void* acc, void* out, int dtype,
+                       int BH, int H, int Lq, int dh, long long o_sb,
+                       long long o_sh, long long o_sl, void* stream) {
+  if (dh <= 0 || Lq <= 0 || BH <= 0 || H <= 0 || BH % H != 0)
+    return (int)cudaErrorInvalidValue;
+  const Layout ol{o_sb, o_sh, o_sl};
+  const float* ls = static_cast<const float*>(l);
+  const float* as = static_cast<const float*>(acc);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return (int)launch_finish<float>(ls, as, out, BH, H, Lq, dh, ol, s);
+  if (dtype == 1)
+    return (int)launch_finish<__nv_bfloat16>(ls, as, out, BH, H, Lq, dh, ol,
+                                             s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// One hop of the ring: the sender's K, V (kv_bytes each) and mask
+// (mask_bytes) slots into the receiver's, on `stream` (the sender's copy
+// stream, on the sender's card). Cards differ: peer to peer.
+int univtg_ring_send(const void* k_src, const void* v_src, const void* m_src,
+                     void* k_dst, void* v_dst, void* m_dst, long long kv_bytes,
+                     long long mask_bytes, int src_device, int dst_device,
+                     void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const void* src[3] = {k_src, v_src, m_src};
+  void* dst[3] = {k_dst, v_dst, m_dst};
+  const long long bytes[3] = {kv_bytes, kv_bytes, mask_bytes};
+  for (int i = 0; i < 3; ++i) {
+    const cudaError_t err =
+        src_device == dst_device
+            ? cudaMemcpyAsync(dst[i], src[i], (size_t)bytes[i],
+                              cudaMemcpyDeviceToDevice, s)
+            : cudaMemcpyPeerAsync(dst[i], dst_device, src[i], src_device,
+                                  (size_t)bytes[i], s);
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
+}
+
+const char* univtg_cuda_error_string(int err) {
+  return cudaGetErrorString(static_cast<cudaError_t>(err));
+}
+
+}  // extern "C"

@@ -12,7 +12,7 @@ import json
 
 import torch
 
-ATTENTION_IMPLS = ("xla", "pallas")
+ATTENTION_IMPLS = ("xla", "pallas", "ring", "ring_pallas")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,9 +39,16 @@ class ModelConfig:
     # numerics: params keep their own dtype; activations run in compute_dtype
     compute_dtype: str = "float32"
     # attention implementation:
-    #   "xla"    plain-torch attention (the counterpart of sdpa_xla)
-    #   "pallas" the hand-written CUDA flash kernel on a CUDA tensor
-    #            (ops/flash_attention.py), its plain twin on a CPU tensor
+    #   "xla"         plain-torch attention (the counterpart of sdpa_xla)
+    #   "pallas"      the hand-written CUDA flash kernels on a CUDA tensor
+    #                 (ops/flash_attention.py), their plain twins on a CPU one
+    #   "ring"        context-parallel attention over the ring made active by
+    #                 parallel.use_ring: the plain ring (ops/ring_attention.py)
+    #   "ring_pallas" the same on the hand-written CUDA ring kernels
+    #                 (ops/ring_attention_pallas.py; their twin on a CPU
+    #                 tensor), the backward through the plain ring
+    #   Both ring impls run "xla" when no ring is active or the sequence does
+    #   not tile over it; "ring_pallas" runs "ring" under attention dropout.
     attention_impl: str = "xla"
     # features of the JAX package that later slices port; they parse here
     seq_shard: bool = False
@@ -93,5 +100,5 @@ def check_supported(cfg: ModelConfig) -> None:
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r}: the PyTorch port runs "
-            f"{ATTENTION_IMPLS} (ring attention: ROADMAP.md, queue 2)"
+            f"{ATTENTION_IMPLS} (ROADMAP.md)"
         )

@@ -1,18 +1,31 @@
 """Multi-head attention; counterpart of ``univtg_tpu/ops/attention.py``.
 
-Two interchangeable implementations behind one functional interface:
+Interchangeable implementations behind one functional interface:
 
-  * "xla":    plain-torch attention, the counterpart of ``sdpa_xla``
-              (the scale multiplies q before the dot);
-  * "pallas": the hand-written CUDA flash-attention kernels, forward and
-              backward (``ops/flash_attention.py``), on a CUDA tensor, their
-              plain twins on a CPU tensor (the scale multiplies q.k after
-              the dot).
+  * "xla":         plain-torch attention, the counterpart of ``sdpa_xla``
+                   (the scale multiplies q before the dot);
+  * "pallas":      the hand-written CUDA flash-attention kernels, forward
+                   and backward (``ops/flash_attention.py``), on a CUDA
+                   tensor, their plain twins on a CPU tensor (the scale
+                   multiplies q.k after the dot);
+  * "ring":        context-parallel attention over the active ring
+                   (``parallel.use_ring``), the plain differentiable ring of
+                   ``ops/ring_attention.py``;
+  * "ring_pallas": the same over the hand-written CUDA ring kernels
+                   (``ops/ring_attention_pallas.py``), whose backward
+                   recomputes through the plain ring.
+
+The ring impls follow the JAX package's rules (its ``attention.py``
+:109-165): with no active ring, or a sequence that does not tile over it,
+they run "xla"; "ring_pallas" with attention dropout runs "ring" (the
+kernel has no dropout). JAX's ``MAX_BH`` cap, a Mosaic unroll limit, does
+not come across. ``dispatches`` counts the impl each call ran, so a silent
+fallback shows.
 
 Attention dropout (training) draws from the step's explicit
 ``torch.Generator``: "xla" draws a keep mask over the probabilities,
-"pallas" draws one int32 seed per call and the kernels hash their mask from
-it, as the JAX package's flash path does.
+"pallas" and "ring" draw one int32 seed per call and hash their mask from
+it, as the JAX package's flash and ring paths do.
 
 Semantics follow the reference encoder's use of torch MHA: positional
 embeddings go to Q and K only, and the mask marks VALID keys (1 = valid),
@@ -24,10 +37,15 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from univtg_tpu_torch.models.layers import dropout
 from univtg_tpu_torch.ops.flash_attention import flash_attention
+from univtg_tpu_torch.ops.ring_attention import ring_attention
+from univtg_tpu_torch.ops.ring_attention_pallas import ring_attention_pallas
+from univtg_tpu_torch.parallel.ring import active_ring
 
 NEG_INF = -1e30
+
+# calls per impl that ran, after the ring fallbacks
+dispatches = {"xla": 0, "pallas": 0, "ring": 0, "ring_pallas": 0}
 
 
 def attention_scores_bias(key_padding_mask):
@@ -44,6 +62,10 @@ def sdpa(q, k, v, bias, num_heads: int, dropout_rate: float = 0.0,
     and dropped after the cast when a generator is given.
     Returns (B, Lq, D) in q's dtype.
     """
+    # imported here: the models package imports this module, so a module-level
+    # import would make `import univtg_tpu_torch.ops.attention` circular
+    from univtg_tpu_torch.models.layers import dropout
+
     B, Lq, D = q.shape
     Lk = k.shape[1]
     H = num_heads
@@ -58,6 +80,21 @@ def sdpa(q, k, v, bias, num_heads: int, dropout_rate: float = 0.0,
     probs = dropout(probs, dropout_rate, generator)
     out = torch.matmul(probs.float(), vh.float())
     return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
+
+
+def resolve_impl(impl: str, seq_len: int, dropout_rate: float):
+    """(the impl that runs, the active ring or None) for a configured impl,
+    by the JAX package's fallback rules."""
+    if impl not in dispatches:
+        raise ValueError(f"unknown attention impl {impl!r}")
+    if impl not in ("ring", "ring_pallas"):
+        return impl, None
+    ring = active_ring()
+    if ring is None or seq_len % ring.size:
+        return "xla", None
+    if impl == "ring_pallas" and dropout_rate > 0.0:
+        return "ring", ring
+    return impl, ring
 
 
 def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
@@ -77,18 +114,25 @@ def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
     v = F.linear(v_in, in_proj_weight[2 * D:], in_proj_bias[2 * D:])
     if generator is None:
         dropout_rate = 0.0
+    impl, ring = resolve_impl(impl, q.shape[1], dropout_rate)
+    dispatches[impl] += 1
+    seed = None
+    if dropout_rate > 0.0 and impl in ("pallas", "ring"):
+        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=q.device, dtype=torch.int32)
     if impl == "pallas":
-        seed = None
-        if dropout_rate > 0.0:
-            seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                                 device=q.device, dtype=torch.int32)
         out = flash_attention(q, k, v, key_padding_mask, num_heads=num_heads,
                               dropout_rate=dropout_rate, dropout_seed=seed)
-    elif impl == "xla":
+    elif impl == "ring_pallas":
+        out = ring_attention_pallas(q, k, v, key_padding_mask,
+                                    num_heads=num_heads, ring=ring)
+    elif impl == "ring":
+        out = ring_attention(q, k, v, key_padding_mask, num_heads=num_heads,
+                             ring=ring, dropout_rate=dropout_rate,
+                             dropout_seed=seed)
+    else:
         bias = None
         if key_padding_mask is not None:
             bias = attention_scores_bias(key_padding_mask)
         out = sdpa(q, k, v, bias, num_heads, dropout_rate, generator)
-    else:
-        raise ValueError(f"unknown attention impl {impl!r}")
     return F.linear(out, out_weight, out_bias)
