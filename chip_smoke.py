@@ -11,14 +11,18 @@ printing its seconds:
   2. build    -- nvcc builds every kernel source from csrc/, and the
                  planted-fault copies of flash_bwd.cu (phase 3b), one
                  process per source, all started together; ptxas lines
-                 printed.
+                 printed. cuobjdump -sass of the flash_bwd library: HGMMA
+                 (and HMMA) instructions per kernel beside its registers
+                 and spill bytes; fails if a bf16 backward kernel has no
+                 HGMMA.
   3. kernels  -- each kernel against its plain twin: flash_fwd at the
                  serving shapes; flash_fwd, flash_bwd_dq and flash_bwd_dkv
                  at the two training shapes, f32 and bf16, dropout 0 and
                  0.1; kernel, twin and library times and the bound.
-  3b. faults  -- each planted fault of flash_bwd.cu (a bf16 cast or the
-                 dropout keep left out, FAULTS) must fail the bf16 limit
-                 that phase 3 holds the real kernels to.
+  3b. faults  -- each planted fault of flash_bwd.cu's bf16 kernels (a
+                 cast to bf16 truncated instead of rounded, or the dropout
+                 keep left out, FAULTS) must fail the bf16 limit that phase
+                 3 holds the real kernels to.
   3c. int8    -- int8_matmul against its twin at K=2818, N=1024 (the first
                  video projection): M=128, 4096 (one qvhighlights_bf16
                  dispatch) and 16384 (one long_video_bf16 dispatch) in
@@ -107,6 +111,7 @@ from __future__ import annotations
 import concurrent.futures
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -129,30 +134,38 @@ TOL = {
 # the backward kernels vs their twins: each of dq, dk and dv on its own, at
 # each shape, by max |kernel - twin| / max |twin| ("rel") and, in bf16, by
 # the share of elements that differ at all ("share"). Readings on an H100
-# (700 W): f32 rel <= 2.3e-7 (summation order). bf16 with dropout 0.1: rel
-# <= 1.9e-3, share <= 1.8e-4 (the kernel fuses dp * keep - delta into one
-# FMA, so a rare ds rounds the other way); dropout 0: 0 and 0. A one-step
-# flip of the largest value reads up to 2**-7 = 7.8e-3 rel, so rel alone
-# cannot tell a rare flip from a missing cast; the share can. The planted
-# faults (FAULTS, phase 3b) read: a missing cast rel 2.9e-3-7.1e-3 with
-# share 0.25-0.42, keep left out of dV rel 0.43-0.58 with share 0.60-0.67.
+# (700 W): f32 rel <= 2.3e-7 (summation order). bf16: the wgmma kernels sum
+# s and dp in another order than the twin's f32 matmul, so a rare p or ds
+# rounds the other way: rel <= 3.1e-3, share <= 3.0e-3 at dropout 0 and
+# 0.1. A one-step flip of the largest value reads up to 2**-7 = 7.8e-3 rel,
+# so rel alone cannot tell a rare flip from a missing cast; the share can.
+# The planted faults (FAULTS, phase 3b) read: a truncated cast rel
+# 4.1e-3-8.6e-3 with share 0.39-0.67, keep left out of dV rel 0.34-0.62
+# with share 0.60-0.67.
 BWD_TOL = {"float32": {"rel": 2e-6, "share": None},
            "bfloat16": {"rel": 8e-3, "share": 1e-2}}
-# planted faults of csrc/flash_bwd.cu: name -> (the output it corrupts, the
-# line as written, the line with the fault). Each is built from a copy in a
-# temporary directory; phase 3b requires that the bf16 limits catch each.
+# planted faults of csrc/flash_bwd.cu's bf16 (wgmma) kernels: name -> (the
+# output it corrupts, the line as written, the line with the fault). A cast
+# fault truncates the f32 pair to bf16 (the top 16 bits, round toward zero)
+# where the kernel rounds to nearest even: a bf16 wgmma operand cannot stay
+# f32. Each is built from a copy in a temporary directory; phase 3b requires
+# that the bf16 limits catch each. tests/test_torch_flash_bwd.py checks on
+# every run that each line is in flash_bwd.cu exactly once.
+_TRUNC = "(__float_as_uint({0}[2 * i]) >> 16) | (__float_as_uint({0}[2 * i + 1]) & 0xFFFF0000u)"
 FAULTS = {
-    "dq_ds_not_cast": (
-        "dq", "dSs[(ty * ROWS + i) * LDP + tx + 16 * j] = to_f32(from_f32<T>(ds));",
-        "dSs[(ty * ROWS + i) * LDP + tx + 16 * j] = ds;"),
-    "dk_ds_not_cast": (
-        "dk", "dSs[(ty * ROWS + i) * LDP + slot] = to_f32(from_f32<T>(ds));",
-        "dSs[(ty * ROWS + i) * LDP + slot] = ds;"),
-    "dv_p_not_cast": (
-        "dv", "Ps[(ty * ROWS + i) * LDP + slot] = to_f32(from_f32<T>(p_drop));",
-        "Ps[(ty * ROWS + i) * LDP + slot] = p_drop;"),
-    "dv_keep_dropped": ("dv", "p_drop = p * keep;", "p_drop = p;"),
+    "dq_ds_truncated": (
+        "dq", "dsf[i] = pack_bf16(s[2 * i], s[2 * i + 1]);",
+        f"dsf[i] = {_TRUNC.format('s')};"),
+    "dk_ds_truncated": (
+        "dk", "dstf[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);",
+        f"dstf[i] = {_TRUNC.format('dp')};"),
+    "dv_p_truncated": (
+        "dv", "ptf[i] = pack_bf16(s[2 * i], s[2 * i + 1]);",
+        f"ptf[i] = {_TRUNC.format('s')};"),
+    "dv_keep_dropped": ("dv", "p_keep = p * keep;", "p_keep = p;"),
 }
+# the bf16 backward kernels, by their names in the SASS and the profiler
+BF16_BWD_KERNELS = ("flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
 # the f32 train step on the flash kernels vs on plain attention (same
 # weights, same batches, dropouts 0): per-step loss and grad norm
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
@@ -302,9 +315,76 @@ def _build_fault(name, out_dir):
     return so
 
 
+def _cuobjdump():
+    """cuobjdump, from the toolkit that holds nvcc."""
+    from pathlib import Path
+
+    from univtg_tpu_torch.ops import cuda_build
+
+    tool = Path(cuda_build.find_nvcc()).parent / "cuobjdump"
+    if not tool.exists():
+        raise AssertionError(f"no cuobjdump beside nvcc: {tool}")
+    return str(tool)
+
+
+def _ptxas_stats(text):
+    """{function: [registers, spill store bytes, spill load bytes]} from the
+    -Xptxas -v lines of a build log."""
+    stats, fn = {}, None
+    for line in text.splitlines():
+        m = re.search(r"(?:Compiling entry function '|Function properties for )([\w$.]+)", line)
+        if m:
+            fn = m.group(1)
+            stats.setdefault(fn, [None, None, None])
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+        if m and fn:
+            stats[fn][1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and fn:
+            stats[fn][0] = int(m.group(1))
+    return stats
+
+
+def _sass_counts(name="flash_bwd"):
+    """HGMMA and HMMA instructions per kernel of the built library (cuobjdump
+    -sass), printed beside ptxas's registers and spill bytes. Fails unless
+    every instantiation of each bf16 backward kernel issues HGMMA. Returns
+    {kernel: [{function, HGMMA, HMMA, registers, spill_stores, spill_loads}]}."""
+    from univtg_tpu_torch.ops import cuda_build
+
+    so = cuda_build.library_path(name)
+    sass = subprocess.run([_cuobjdump(), "-sass", str(so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    counts, fn = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            counts[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn:
+            for op in counts[fn]:
+                counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
+    stats = _ptxas_stats(cuda_build.build_log(name))
+    found = {k: [] for k in BF16_BWD_KERNELS}
+    for fn, c in counts.items():
+        reg, st, ld = stats.get(fn, (None, None, None))
+        log(f"[build] sass {name} {fn[:90]}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
+            f"{reg} registers, spill stores {st} B, spill loads {ld} B")
+        for k in BF16_BWD_KERNELS:
+            if k in fn:
+                found[k].append({"function": fn, **c, "registers": reg,
+                                 "spill_stores": st, "spill_loads": ld})
+    for k, fns in found.items():
+        if not fns or not all(f["HGMMA"] for f in fns):
+            raise AssertionError(f"{k}: no HGMMA in the SASS of {so.name}: {fns}")
+    return found
+
+
 def phase_build(fault_dir):
     """One nvcc per source and per planted fault, all started together.
-    Returns {fault name: library path}."""
+    Returns ({fault name: library path}, the bf16 backward kernels' SASS
+    counts)."""
     from univtg_tpu_torch.ops import cuda_build, flash_attention as fa, int8_matmul as im
     from univtg_tpu_torch.ops import ring_attention_pallas as rap
 
@@ -327,10 +407,11 @@ def phase_build(fault_dir):
             fa._library(name)
         log(f"[build] {name}: {seconds[name]:.2f} s")
         for line in cuda_build.build_log(name).splitlines():
-            if "registers" in line or "spill" in line or "Compiling entry" in line:
+            if any(w in line for w in ("registers", "spill", "Compiling entry", "arning",
+                                       "(C75")):
                 log(f"[build]   {line.strip()}")
     log(f"[build] planted faults of flash_bwd.cu: {', '.join(faults)}")
-    return faults
+    return faults, _sass_counts()
 
 
 def _attention_inputs(torch, B, L, H, dh, dtype, seed):
@@ -778,7 +859,9 @@ def phase_train_kernels(torch):
                            "ms": ms[name], "plain_ms": plain[name],
                            "library_ms": lib_fwd if name == "flash_fwd" else None,
                            "flops": work[name][0], "bytes": work[name][1],
-                           "bound_ms": bound_ms, "bound_by": bound_by}
+                           "bound_ms": bound_ms, "bound_by": bound_by,
+                           "tflops": work[name][0] / ms[name] / 1e9,
+                           "bound_share": bound_ms / ms[name]}
                     if name == "flash_fwd":
                         ok = err["out"][0] <= TOL[dname]["out"]
                         rec["tol"] = TOL[dname]["out"]
@@ -1761,11 +1844,13 @@ def phase_ring_train(torch, np, sd, card, long_stats):
     return launches
 
 
-def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path):
+def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
+                 sass):
     """One entry per kernel for the final JSON line: times of the headline
     record (flash: bf16 at the long shape, dropout 0; int8_matmul: bf16 at
     one qvhighlights dispatch, M=4096; ring_attention: bf16 at the long
-    shape, P = RING_P), the largest error seen.
+    shape, P = RING_P), the largest error seen; the backward kernels also
+    carry their HGMMA counts and spill bytes (``sass``, phase 2).
     ``launches`` sums the paths of by_path, ``launches_by_path`` splits them;
     for int8_matmul that is the smoke's own call alone, which
     ``launches_note`` says; ring_attention counts its two kernels,
@@ -1825,7 +1910,9 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
             entry.update(
                 max_rel_err=max(v for r in mine for k, v in r.items()
                                 if k.startswith("rel_err_")),
-                pair_ms=head["pair_ms"], pair_library_ms=head["pair_library_ms"])
+                pair_ms=head["pair_ms"], pair_library_ms=head["pair_library_ms"],
+                tflops=head["tflops"], bound_share=head["bound_share"],
+                sass_bf16=sass[f"{name}_kernel_sm90"])
         out.append(entry)
     return out
 
@@ -1844,7 +1931,7 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = timed("device", phase_device, torch)
     with tempfile.TemporaryDirectory(prefix="univtg_chip_faults_") as fault_dir:
-        faults = timed("build", phase_build, fault_dir)
+        faults, sass = timed("build", phase_build, fault_dir)
         records = timed("kernels", phase_kernels, torch)
         train_records = timed("kernels", phase_train_kernels, torch)
         timed("faults", phase_faults, torch, faults)
@@ -1896,7 +1983,7 @@ def main() -> int:
                             "eval": eval_launches, "int8_tier": quantize_launches,
                             "int8_smoke_call": call_launches,
                             "ring_serving": ring_serve_launches,
-                            "ring_training": ring_train_launches})
+                            "ring_training": ring_train_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

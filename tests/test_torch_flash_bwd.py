@@ -10,7 +10,9 @@ float32 rounding. The CUDA kernels themselves are held against the twins on
 the card (``cuda`` marker). The JAX side is imported per test, so the card's
 tests also run on a host that has torch and no JAX."""
 import contextlib
+import importlib.util
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -207,6 +209,31 @@ def test_library_path_follows_every_included_header(tmp_path, monkeypatch):
         assert "flash_common.cuh" in [p.name for p in cuda_build.source_files(name)]
 
 
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", ["dq_ds_truncated", "dk_ds_truncated",
+                                  "dv_p_truncated", "dv_keep_dropped"])
+def test_planted_faults_quote_flash_bwd_once(name):
+    """chip_smoke.py plants each fault by replacing one line of
+    csrc/flash_bwd.cu: the line must be there exactly once, or the smoke's
+    fault phase tests nothing (or the wrong kernel)."""
+    faults = _chip_smoke().FAULTS
+    assert set(faults) == {"dq_ds_truncated", "dk_ds_truncated",
+                           "dv_p_truncated", "dv_keep_dropped"}
+    output, line, fault = faults[name]
+    assert output in ("dq", "dk", "dv") and line != fault
+    text = (cuda_build.CSRC_DIR / "flash_bwd.cu").read_text()
+    assert text.count(line) == 1, line
+    # the bf16 kernels' lines, not the f32 kernels'
+    assert text.index(line) > text.index("namespace sm90 {")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -228,7 +255,9 @@ GRAD_TOL = {torch.float32: (2e-6, 1.0), torch.bfloat16: (8e-3, 1e-2)}
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("BH,Lq,Lk,dh", [(8, 33, 70, 128), (6, 130, 7, 64),
-                                         (8, 64, 64, 8), (2, 520, 600, 32)])
+                                         (8, 64, 64, 8), (2, 520, 600, 32),
+                                         (2, 2080, 2080, 128), (4, 107, 107, 128),
+                                         (3, 90, 77, 24)])
 def test_cuda_kernels_match_twins(cuda_device, dtype, rate, BH, Lq, Lk, dh):
     q, k, v, mask, do = (t.to(cuda_device)
                          for t in _split_inputs(5, BH, Lq, Lk, dh, dtype))
@@ -251,6 +280,28 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, rate, BH, Lq, Lk, dh):
         rel = ((a.float() - b.float()).abs().max() / b.float().abs().max()).item()
         share = (a != b).float().mean().item()
         assert rel <= rel_tol and share <= share_tol, (name, rel, share)
+
+
+@pytest.mark.cuda
+def test_cuda_backward_takes_unaligned_views(cuda_device):
+    """Operands that start off a 16-byte boundary (a view one element into
+    its storage) are copied before the bf16 kernels' 16-byte loads."""
+    BH, L, dh = 2, 50, 32
+    q, k, v, mask, do = (t.to(cuda_device)
+                         for t in _split_inputs(7, BH, L, L, dh, torch.bfloat16))
+    kw = dict(sm_scale=dh**-0.5)
+    out, lse = fa.flash_attention_impl(q, k, v, mask, **kw)
+    want = fa.flash_attention_backward_impl(q, k, v, mask, out, lse, do, **kw)
+    shifted = []
+    for t in (q, k, v, do):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    got = fa.flash_attention_backward_impl(*shifted[:3], mask, out, lse, shifted[3], **kw)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.cuda

@@ -19,36 +19,65 @@
 // The casts to the input dtype T sit where the reference's dots cast their
 // operands (:244-247, :286-289, :296-299); dQ and dK carry sm_scale at the
 // end (:251, :303). Keys past Lk and query rows past Lq are absent: p = 0
-// there, so they add nothing to any sum (the dK/dV kernel never reads dO or
-// lse past Lq). The dropout mask is the reference's hash (flash_common.cuh).
+// there, so they add nothing to any sum. The dropout mask is the reference's
+// hash (flash_common.cuh), taken at each element's global (query, key).
+// One kernel per output, as in the reference, so nothing is carried across
+// blocks, no atomics are needed and the same input gives the same bits.
 //
-// Design (simple and right first), one kernel per output so that nothing is
-// carried across blocks and no atomics are needed:
-//   dQ:   one block of 256 threads per (batch*head, 64-query tile), looping
-//         over 64-key tiles of K and V; each thread owns 4 query rows, a 4x4
-//         patch of s/dp and a 4 x (dh/16) patch of dQ.
-//   dK/dV: one block per (batch*head, 64-key tile), looping over 64-query
-//         tiles of Q, dO, lse and delta; each thread owns 4 keys, a 4x4 patch
-//         of s/dp and 4 x (dh/16) patches of dK and dV.
-// Operands are staged in shared memory as f32 with an odd row stride (dQ:
-// Q, dO, K, V and the ds tile, ~149 KB at dh 128; dK/dV: K, V, Q, dO and the
-// p and ds tiles, ~166 KB), past the 48 KB default, hence the opt-in.
-// Q, K, V, dO and the outputs are read and written in the projections'
-// (B, L, D) layout through (batch, head, row) strides: no head-split copies.
+// The dtype picks the design; this is a dispatch, not a fallback:
 //
-// Bound on the card: compute at both training shapes. dQ does 3 products
-// (s, dp, ds.k): 6 * BH * Lq * Lk * dh FLOP; dK/dV does 4 (s, dp, p^T.dO,
-// ds^T.q): 8 * BH * Lq * Lk * dh FLOP. At B=8 L=2080 H=8 dh=128 that is
-// 2.13e11 and 2.84e11 FLOP, 0.215 and 0.287 ms at the bf16 tensor-core peak
-// (989 TFLOP/s), 3.17 and 4.23 ms at the f32 CUDA-core peak (67 TFLOP/s).
-// At B=32 L=107 the same formulas give 0.0074 / 0.0099 ms in bf16, below the
-// time to move q, k, v, dO and the outputs (7.0 MB each in bf16): there the
-// byte bound and, in practice, the launch itself set the floor.
-// What the simple design leaves on the table: no tensor cores (wgmma or
-// mma.sync), so bf16 runs at the f32 FMA rate; no TMA or cp.async double
-// buffering; f32 staging of bf16 operands (one block per SM); every block of
-// the dK/dV kernel re-reads all of Q and dO; the dropout hash is recomputed
-// per element in both kernels. Those belong to the PR that makes it fast.
+// bf16 -- tensor cores (flash_bwd_dq_kernel_sm90, flash_bwd_dkv_kernel_sm90,
+// templated on the head dim padded to DH = 64 or 128, the padding zero-filled
+// in shared memory). Every product is a wgmma m64n64k16 (bf16 in, f32
+// accumulate), issued by one warpgroup: a block is one warpgroup of 128
+// threads and 64 resident rows, and two blocks share an SM, so one block's
+// exp and casts overlap the other's products.
+//   dQ:    one block per (batch*head, 64 queries). Q and dO are resident;
+//          K, V and the key mask stream in tiles of 64 keys. S = Q.K^T and
+//          dP = dO.V^T read both operands from shared memory (K-major);
+//          cast(ds) stays in registers, where the accumulator's layout is
+//          already wgmma's register-A layout, and dQ += dS.K reads K as the
+//          MN-major B operand.
+//   dK/dV: one block per (batch*head, 64 keys). K and V are resident; Q,
+//          dO, lse and delta stream in tiles of 64 queries. The products are
+//          taken transposed, S^T = K.Q^T and dP^T = V.dO^T, so cast(p * keep)^T
+//          and cast(ds)^T land in registers with keys as rows and feed
+//          dV += P^T.dO and dK += dS^T.Q as register-A operands, dO and Q as
+//          MN-major B operands. p and ds never go through shared memory.
+//   Tiles are stored in 64-column atoms with the 128-byte swizzle that the
+//   wgmma descriptors name; the streamed tiles sit in a ring of two stages
+//   filled by cp.async (16 bytes a thread, zero-filled past L and dh). The
+//   copies of tile t + 1 run under tile t's arithmetic (the loop is spelled
+//   out above the dQ kernel). cp.async and not TMA: the zero fill of a padded head dim and of
+//   ragged rows comes with the copy, and no tensor map has to be encoded on
+//   the host per call.
+//   Registers bound the design: at DH 128 a thread of the dK/dV kernel holds
+//   dK and dV (128 f32) plus S^T and dP^T (64 f32) and the bf16 fragments
+//   of the products in flight; 64-row tiles keep that under 255 and two
+//   blocks' worth of registers within an SM (chip_smoke.py phase 2 prints
+//   ptxas's registers and spills beside the HGMMA count).
+//   Bound on the card: compute at the long training shape. dQ does 3 products
+//   (s, dp, ds.k): 6 * BH * Lq * Lk * dh FLOP; dK/dV does 4 (s, dp, p^T.dO,
+//   ds^T.q): 8 * BH * Lq * Lk * dh FLOP; at B=8 L=2080 H=8 dh=128, 2.13e11 and
+//   2.84e11 FLOP, 0.215 and 0.287 ms at the bf16 peak (989 TFLOP/s). At
+//   B=32 L=107 the byte bound and, in practice, the launch set the floor.
+//   Dropout: a 64-aligned tile lies inside one block of the dropout grid,
+//   so each thread takes the hash input once per row (or key) and tile
+//   (flash::dropout_hash_input) and per element only adds its offset and
+//   runs the finalizer (flash::dropout_keep).
+//   What it leaves: within a block every product is waited for before the
+//   next step (only the other block on the SM fills the gaps); no producer
+//   warp or TMA multicast; every dK/dV
+//   block re-reads all of Q and dO; the exp, in f32 as the reference takes
+//   it, and the dropout finalizer (~8 integer operations) run per element
+//   in both kernels.
+//
+// f32 -- CUDA cores (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): TF32 tensor
+// cores would miss the f32 limit (rel 2e-6), and f32 is the correctness path
+// (chip_smoke.py holds f32 "pallas" train steps against "xla"). One block of
+// 256 threads per (batch*head, 64-row tile), operands staged in shared memory
+// as f32 with an odd row stride; bound by the f32 FMA rate (67 TFLOP/s):
+// 3.17 and 4.23 ms at the long training shape.
 //
 // Built by univtg_tpu_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -58,16 +87,20 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "flash_common.cuh"
 
 namespace {
 
 using flash::Dropout;
-using flash::from_f32;
 using flash::Layout;
 using flash::NEG_INF;
-using flash::to_f32;
+
+typedef __nv_bfloat16 bf16;
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
 
 constexpr int TILE = 64;      // query rows and keys per tile
 constexpr int THREADS = 256;  // 16 row groups x 16 threads
@@ -77,26 +110,24 @@ constexpr int MAX_DH = 128;
 constexpr int OCOLS = MAX_DH / 16;   // output columns per thread, at most
 constexpr int LDP = TILE + 1;        // p / ds tile row stride
 
-// Stage rows [r0, r0 + TILE) of one head of x as f32; rows past L are zero.
-template <typename T>
-__device__ __forceinline__ void stage(float* dst, const T* __restrict__ src,
+// Stage rows [r0, r0 + TILE) of one head; rows past L are zero.
+__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
                                       long long sl, int r0, int L, int dh,
                                       int ld) {
   for (int e = threadIdx.x; e < TILE * dh; e += THREADS) {
     const int r = e / dh, c = e - r * dh;
     const int row = r0 + r;
-    dst[r * ld + c] = row < L ? to_f32(src[row * sl + c]) : 0.f;
+    dst[r * ld + c] = row < L ? src[row * sl + c] : 0.f;
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                    const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ mask,
                     const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int H,
-                    int Lq, int Lk, int dh, Layout ql, Layout kl,
+                    const float* __restrict__ delta, float* __restrict__ dq,
+                    int H, int Lq, int Lk, int dh, Layout ql, Layout kl,
                     float sm_scale, Dropout drop) {
   extern __shared__ float smem[];
   const int ld = dh + 1;  // odd stride: column reads across rows hit distinct banks
@@ -115,8 +146,8 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh - b * H;
   const int q0 = blockIdx.x * TILE;
 
-  const T* kp = k + b * kl.sb + h * kl.sh;
-  const T* vp = v + b * kl.sb + h * kl.sh;
+  const float* kp = k + b * kl.sb + h * kl.sh;
+  const float* vp = v + b * kl.sb + h * kl.sh;
   const float* mp = mask + (long long)b * Lk;
   const unsigned int seed_bh =
       drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
@@ -180,7 +211,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
           if (drop.seed) dpv *= flash::dropout_multiplier(drop, seed_bh, row, key);
           ds = p * (dpv - delta_r[i]);
         }
-        dSs[(ty * ROWS + i) * LDP + tx + 16 * j] = to_f32(from_f32<T>(ds));
+        dSs[(ty * ROWS + i) * LDP + tx + 16 * j] = ds;
       }
     }
     __syncthreads();
@@ -202,7 +233,7 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dqp = dq + b * ql.sb + h * ql.sh;
+  float* dqp = dq + b * ql.sb + h * ql.sh;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int row = q0 + ty * ROWS + i;
@@ -210,19 +241,18 @@ flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < OCOLS; ++c) {
       const int col = tx + 16 * c;
-      if (col < dh) dqp[row * ql.sl + col] = from_f32<T>(acc[i][c] * sm_scale);
+      if (col < dh) dqp[row * ql.sl + col] = acc[i][c] * sm_scale;
     }
   }
 }
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                     const T* __restrict__ v, const T* __restrict__ dout,
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ mask,
                      const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk,
-                     T* __restrict__ dv, int H, int Lq, int Lk, int dh,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int H, int Lq, int Lk, int dh,
                      Layout ql, Layout kl, float sm_scale, Dropout drop) {
   extern __shared__ float smem[];
   const int ld = dh + 1;
@@ -230,8 +260,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* Vs = Ks + TILE * ld;     // TILE x ld
   float* Qs = Vs + TILE * ld;     // TILE x ld
   float* dOs = Qs + TILE * ld;    // TILE x ld
-  float* Ps = dOs + TILE * ld;    // TILE x LDP, key-major: cast(p * keep)^T
-  float* dSs = Ps + TILE * LDP;   // TILE x LDP, key-major: cast(ds)^T
+  float* Ps = dOs + TILE * ld;    // TILE x LDP, key-major: (p * keep)^T
+  float* dSs = Ps + TILE * LDP;   // TILE x LDP, key-major: ds^T
   float* Ls = dSs + TILE * LDP;   // TILE lse values of the query tile
   float* Ds = Ls + TILE;          // TILE delta values of the query tile
 
@@ -243,8 +273,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh - b * H;
   const int k0 = blockIdx.x * TILE;
 
-  const T* qp = q + b * ql.sb + h * ql.sh;
-  const T* op = dout + b * ql.sb + h * ql.sh;
+  const float* qp = q + b * ql.sb + h * ql.sh;
+  const float* op = dout + b * ql.sb + h * ql.sh;
   const float* mp = mask + (long long)b * Lk;
   const unsigned int seed_bh =
       drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
@@ -316,8 +346,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
           }
           ds = p * (dpv - Ds[slot]);
         }
-        Ps[(ty * ROWS + i) * LDP + slot] = to_f32(from_f32<T>(p_drop));
-        dSs[(ty * ROWS + i) * LDP + slot] = to_f32(from_f32<T>(ds));
+        Ps[(ty * ROWS + i) * LDP + slot] = p_drop;
+        dSs[(ty * ROWS + i) * LDP + slot] = ds;
       }
     }
     __syncthreads();
@@ -346,8 +376,8 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     }
   }
 
-  T* dkp = dk + b * kl.sb + h * kl.sh;
-  T* dvp = dv + b * kl.sb + h * kl.sh;
+  float* dkp = dk + b * kl.sb + h * kl.sh;
+  float* dvp = dv + b * kl.sb + h * kl.sh;
 #pragma unroll
   for (int i = 0; i < ROWS; ++i) {
     const int key = k0 + ty * ROWS + i;
@@ -356,12 +386,480 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int c = 0; c < OCOLS; ++c) {
       const int col = tx + 16 * c;
       if (col < dh) {
-        dkp[key * kl.sl + col] = from_f32<T>(dk_acc[i][c] * sm_scale);
-        dvp[key * kl.sl + col] = from_f32<T>(dv_acc[i][c]);
+        dkp[key * kl.sl + col] = dk_acc[i][c] * sm_scale;
+        dvp[key * kl.sl + col] = dv_acc[i][c];
       }
     }
   }
 }
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma)
+
+namespace sm90 {
+
+constexpr int WG_THREADS = 128;  // one warpgroup per block, two blocks per SM
+constexpr int TILE_ROWS = 64;    // rows of every tile: the block's resident
+                                 // queries (dQ) or keys (dK/dV), and each
+                                 // streamed tile of keys (dQ) or queries (dK/dV)
+constexpr int TILE_ATOM = TILE_ROWS * 128;  // bytes of one 64-column atom
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// Byte offset of the 16-byte chunk c (head-dim columns 8c .. 8c + 7) of row r
+// in a tile kept as 64-column atoms [64][64] (atom c / 8), each row of an
+// atom 128 bytes with the 128-byte swizzle: chunk c % 8 of row r sits at
+// position (c % 8) ^ (r % 8). Tiles start 1024-byte aligned.
+__device__ __forceinline__ uint32_t swz(int r, int c) {
+  return (c >> 3) * TILE_ATOM + r * 128 + (((c & 7) ^ (r & 7)) << 4);
+}
+
+// Rows [r0, r0 + 64) of one head into a swizzled tile by cp.async; rows >= L
+// and head-dim columns >= dh are zero-filled (no global read).
+template <int DH>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          long long sl, int r0, int L,
+                                          int dh) {
+  constexpr int CH = DH / 8;
+  static_assert(TILE_ROWS * CH % WG_THREADS == 0, "whole rounds of copies");
+#pragma unroll
+  for (int it = 0; it < TILE_ROWS * CH / WG_THREADS; ++it) {
+    const int e = threadIdx.x + it * WG_THREADS;
+    const int r = e / CH, c = e % CH;
+    const bool ok = r0 + r < L && c * 8 < dh;
+    const bf16* g = ok ? src + (long long)(r0 + r) * sl + c * 8 : src;
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                     dst + swz(r, c)),
+                 "l"(g), "r"(ok ? 16 : 0)
+                 : "memory");
+  }
+}
+
+__device__ __forceinline__ void cp_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+// Wait for all but this thread's newest cp.async group, then make the copies
+// visible to wgmma (the async proxy); a __syncthreads must follow before
+// another warp reads them.
+__device__ __forceinline__ void cp_wait_prev() {
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle; offsets in bytes.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) |
+         ((uint64_t)(sbo >> 4) << 32) | (1ull << 62);
+}
+
+// K-major operand: the tile's 64 rows, head-dim columns [16 ks, 16 ks + 16)
+// as the product's depth. 8-row groups are 1024 B apart.
+__device__ __forceinline__ uint64_t desc_k(uint32_t tile, int ks) {
+  return desc(tile + (ks >> 2) * TILE_ATOM + (ks & 3) * 32, 16, 1024);
+}
+
+// MN-major operand: rows [16 ks, 16 ks + 16) of the tile as the product's
+// depth, head-dim columns [64 n, 64 n + 64) as its N (one atom, so the
+// atom-to-atom offset is never used). 8-row groups are 1024 B apart.
+__device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks, int n) {
+  return desc(tile + n * TILE_ATOM + ks * 2048, 1024, 1024);
+}
+
+#define UNIVTG_D32(d)                                                        \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
+      "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
+      "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),       \
+      "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]),       \
+      "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),       \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),       \
+      "+f"(d[31])
+#define UNIVTG_R32                                                           \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "  \
+  "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "   \
+  "%30, %31}"
+
+// d (64 x 64, f32) += A . B^T, A and B K-major in shared memory.
+__device__ __forceinline__ void mma_ss(float (&d)[32], uint64_t a,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " UNIVTG_R32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : UNIVTG_D32(d)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+// d (64 x 64, f32) += A . B, A from registers (a0..a3, the m64k16 bf16
+// fragment), B MN-major in shared memory.
+__device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
+                                       uint32_t a1, uint32_t a2, uint32_t a3,
+                                       uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " UNIVTG_R32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : UNIVTG_D32(d)
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+}
+
+__device__ __forceinline__ void wg_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void wg_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait for every committed product of this warpgroup; d is read only after
+// (the empty asm keeps the compiler from moving its reads above the wait).
+template <int N>
+__device__ __forceinline__ void wg_wait(float (&d)[N][32]) {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[n][i])::"memory");
+}
+
+template <int N>
+__device__ __forceinline__ void zero(float (&d)[N][32]) {
+#pragma unroll
+  for (int n = 0; n < N; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; ++i) d[n][i] = 0.f;
+}
+
+// Two f32 to one bf16 pair, round to nearest even (the twin's .to(bfloat16));
+// lo is the lower column.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Accumulator element i (0..31) of an m64n64 product sits, for this thread,
+// at row frag_row(i) of the tile and column frag_col(i). Pairs (2 j, 2 j + 1)
+// packed in order are wgmma's register-A fragment of the same rows, depth
+// columns [16 (j / 4), 16 (j / 4) + 16).
+__device__ __forceinline__ int frag_row(int i) {
+  return 16 * (threadIdx.x >> 5) + ((threadIdx.x & 31) >> 2) +
+         8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int frag_col(int i) {
+  return 8 * (i >> 2) + 2 * (threadIdx.x & 3) + (i & 1);
+}
+
+// The additive key mask of key j: (1 - mask) * -1e30, 0 past Lk.
+__device__ __forceinline__ float key_bias(const float* mp, int j, int Lk) {
+  return j < Lk ? (1.f - mp[j]) * NEG_INF : 0.f;
+}
+
+template <int DH>
+__host__ __device__ constexpr size_t tile_bytes() {
+  return TILE_ROWS * DH * 2;
+}
+template <int DH>
+constexpr size_t dq_smem() {  // Q, dO; K, V x 2 stages; key bias x 2
+  return 6 * tile_bytes<DH>() + 2 * TILE_ROWS * 4 + 1024;
+}
+template <int DH>
+constexpr size_t dkv_smem() {  // K, V; Q, dO x 2 stages; lse, delta x 2
+  return 6 * tile_bytes<DH>() + 4 * TILE_ROWS * 4 + 1024;
+}
+
+// Both kernels run one loop per streamed tile t, on stage t % 2:
+//   start the copies of tile t + 1 into the other stage (a group that may
+//   be empty, so that one group is committed per tile);
+//   wait for tile t's copies; barrier;
+//   the first two products (S, dP), waited for;
+//   p, ds and their bf16 casts in registers;
+//   the last products (dQ, or dV and dK), waited for; barrier: every warp
+//   is done with stage t % 2.
+// Keeping the last products in flight under the next tile's first ones
+// would need their bf16 fragments live across the loop: at DH 128 ptxas
+// then spills and serializes the products (C7515), which measured slower.
+
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+flash_bwd_dq_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                         const bf16* __restrict__ v,
+                         const bf16* __restrict__ dout,
+                         const float* __restrict__ mask,
+                         const float* __restrict__ lse,
+                         const float* __restrict__ delta, bf16* __restrict__ dq,
+                         int H, int Lq, int Lk, int dh, Layout ql, Layout kl,
+                         float sm_scale, Dropout drop) {
+  constexpr int NT = DH / 64;  // 64-column slices of dQ
+  constexpr uint32_t TB = tile_bytes<DH>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t Qs = (raw + 1023) & ~1023u;
+  const uint32_t dOs = Qs + TB, Ks = Qs + 2 * TB, Vs = Ks + 2 * TB;
+  float* const Bs = reinterpret_cast<float*>(smem_raw + (Vs + 2 * TB - raw));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * TILE_ROWS;
+  const bf16* kp = k + b * kl.sb + h * kl.sh;
+  const bf16* vp = v + b * kl.sb + h * kl.sh;
+  const float* mp = mask + (long long)b * Lk;
+  const unsigned int seed_bh =
+      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+
+  load_tile<DH>(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
+  load_tile<DH>(dOs, dout + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
+  load_tile<DH>(Ks, kp, kl.sl, 0, Lk, dh);
+  load_tile<DH>(Vs, vp, kl.sl, 0, Lk, dh);
+  if (tid < TILE_ROWS) Bs[tid] = key_bias(mp, tid, Lk);
+  cp_commit();
+
+  float lse_r[2], delta_r[2];  // this thread's two query rows
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = q0 + frag_row(2 * j);
+    lse_r[j] = row < Lq ? lse[(long long)bh * Lq + row] : 0.f;
+    delta_r[j] = row < Lq ? delta[(long long)bh * Lq + row] : 0.f;
+  }
+  float acc[NT][32];
+  zero(acc);
+
+  const int n_tiles = (Lk + TILE_ROWS - 1) / TILE_ROWS;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int k0 = t * TILE_ROWS;
+    if (t + 1 < n_tiles) {  // the next tile into the other stage
+      const int k1 = k0 + TILE_ROWS;
+      load_tile<DH>(Ks + (st ^ 1) * TB, kp, kl.sl, k1, Lk, dh);
+      load_tile<DH>(Vs + (st ^ 1) * TB, vp, kl.sl, k1, Lk, dh);
+      if (tid < TILE_ROWS)
+        Bs[(st ^ 1) * TILE_ROWS + tid] = key_bias(mp, k1 + tid, Lk);
+    }
+    cp_commit();
+    cp_wait_prev();
+    __syncthreads();  // tile t is in shared memory for every warp
+
+    const uint32_t Kt = Ks + st * TB, Vt = Vs + st * TB;
+    const float* bt = Bs + st * TILE_ROWS;
+    float sd[2][32];  // s, then ds; dp
+    zero(sd);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      mma_ss(sd[0], desc_k(Qs, ks), desc_k(Kt, ks));
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      mma_ss(sd[1], desc_k(dOs, ks), desc_k(Vt, ks));
+    wg_commit();
+    wg_wait(sd);
+
+    unsigned int hx[2] = {0u, 0u};  // dropout hash input at (row, k0)
+    if (drop.seed)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        hx[j] = flash::dropout_hash_input(drop, seed_bh, q0 + frag_row(2 * j),
+                                          k0);
+    float(&s)[32] = sd[0];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      const int row = q0 + frag_row(i);
+      const int col = frag_col(i);
+      float ds = 0.f;
+      if (row < Lq && k0 + col < Lk) {
+        const float p = expf(s[i] * sm_scale + bt[col] - lse_r[j]);
+        float dpv = sd[1][i];
+        if (drop.seed) dpv *= flash::dropout_keep(drop, hx[j] + col);
+        ds = p * (dpv - delta_r[j]);
+      }
+      s[i] = ds;
+    }
+    uint32_t dsf[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dsf[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+
+    wg_fence();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int ks = 0; ks < TILE_ROWS / 16; ++ks)
+        mma_rs(acc[n], dsf[4 * ks], dsf[4 * ks + 1], dsf[4 * ks + 2],
+               dsf[4 * ks + 3], desc_mn(Kt, ks, n));
+    wg_commit();
+    wg_wait(acc);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  bf16* dqp = dq + b * ql.sb + h * ql.sh;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = q0 + frag_row(i);
+      const int col = 64 * n + frag_col(i);
+      if (row < Lq && col < dh)
+        *reinterpret_cast<__nv_bfloat162*>(dqp + row * ql.sl + col) =
+            __floats2bfloat162_rn(acc[n][i] * sm_scale,
+                                  acc[n][i + 1] * sm_scale);
+    }
+}
+
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+flash_bwd_dkv_kernel_sm90(const bf16* __restrict__ q,
+                          const bf16* __restrict__ k,
+                          const bf16* __restrict__ v,
+                          const bf16* __restrict__ dout,
+                          const float* __restrict__ mask,
+                          const float* __restrict__ lse,
+                          const float* __restrict__ delta,
+                          bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                          int Lq, int Lk, int dh, Layout ql, Layout kl,
+                          float sm_scale, Dropout drop) {
+  constexpr int NT = DH / 64;
+  constexpr uint32_t TB = tile_bytes<DH>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t Ks = (raw + 1023) & ~1023u;
+  const uint32_t Vs = Ks + TB, Qs = Ks + 2 * TB, dOs = Qs + 2 * TB;
+  float* const Ls = reinterpret_cast<float*>(smem_raw + (dOs + 2 * TB - raw));
+  float* const Ds = Ls + 2 * TILE_ROWS;
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int k0 = blockIdx.x * TILE_ROWS;
+  const bf16* qp = q + b * ql.sb + h * ql.sh;
+  const bf16* op = dout + b * ql.sb + h * ql.sh;
+  const float* mp = mask + (long long)b * Lk;
+  const float* lp = lse + (long long)bh * Lq;
+  const float* dlp = delta + (long long)bh * Lq;
+  const unsigned int seed_bh =
+      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+
+  load_tile<DH>(Ks, k + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
+  load_tile<DH>(Vs, v + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
+  load_tile<DH>(Qs, qp, ql.sl, 0, Lq, dh);
+  load_tile<DH>(dOs, op, ql.sl, 0, Lq, dh);
+  if (tid < TILE_ROWS) {
+    Ls[tid] = tid < Lq ? lp[tid] : 0.f;
+    Ds[tid] = tid < Lq ? dlp[tid] : 0.f;
+  }
+  cp_commit();
+
+  float bias[2];  // this thread's two keys
+#pragma unroll
+  for (int j = 0; j < 2; ++j) bias[j] = key_bias(mp, k0 + frag_row(2 * j), Lk);
+  float dkv[2 * NT][32];  // dK slices, then dV slices
+  zero(dkv);
+
+  const int n_tiles = (Lq + TILE_ROWS - 1) / TILE_ROWS;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int q0 = t * TILE_ROWS;
+    if (t + 1 < n_tiles) {
+      const int q1 = q0 + TILE_ROWS;
+      load_tile<DH>(Qs + (st ^ 1) * TB, qp, ql.sl, q1, Lq, dh);
+      load_tile<DH>(dOs + (st ^ 1) * TB, op, ql.sl, q1, Lq, dh);
+      if (tid < TILE_ROWS) {
+        const int row = q1 + tid;
+        Ls[(st ^ 1) * TILE_ROWS + tid] = row < Lq ? lp[row] : 0.f;
+        Ds[(st ^ 1) * TILE_ROWS + tid] = row < Lq ? dlp[row] : 0.f;
+      }
+    }
+    cp_commit();
+    cp_wait_prev();
+    __syncthreads();
+
+    const uint32_t Qt = Qs + st * TB, dOt = dOs + st * TB;
+    const float* lt = Ls + st * TILE_ROWS;
+    const float* dt = Ds + st * TILE_ROWS;
+    float sd[2][32];  // s^T, then cast(p * keep)^T; dp^T, then ds^T
+    zero(sd);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      mma_ss(sd[0], desc_k(Ks, ks), desc_k(Qt, ks));
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      mma_ss(sd[1], desc_k(Vs, ks), desc_k(dOt, ks));
+    wg_commit();
+    wg_wait(sd);
+
+    unsigned int hx[2] = {0u, 0u};  // dropout hash input at (q0, key)
+    if (drop.seed)
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        hx[j] = flash::dropout_hash_input(drop, seed_bh, q0,
+                                          k0 + frag_row(2 * j));
+    float(&s)[32] = sd[0];
+    float(&dp)[32] = sd[1];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int j = (i >> 1) & 1;
+      const int key = k0 + frag_row(i);
+      const int col = frag_col(i);
+      const int row = q0 + col;
+      float p_keep = 0.f, ds = 0.f;
+      if (row < Lq && key < Lk) {
+        const float p = expf(s[i] * sm_scale + bias[j] - lt[col]);
+        float dpv = dp[i];
+        p_keep = p;
+        if (drop.seed) {
+          const float keep = flash::dropout_keep(drop, hx[j] + 65599u * col);
+          p_keep = p * keep;
+          dpv *= keep;
+        }
+        ds = p * (dpv - dt[col]);
+      }
+      s[i] = p_keep;
+      dp[i] = ds;
+    }
+    uint32_t ptf[16], dstf[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) ptf[i] = pack_bf16(s[2 * i], s[2 * i + 1]);
+#pragma unroll
+    for (int i = 0; i < 16; ++i) dstf[i] = pack_bf16(dp[2 * i], dp[2 * i + 1]);
+
+    wg_fence();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int ks = 0; ks < TILE_ROWS / 16; ++ks) {
+        mma_rs(dkv[NT + n], ptf[4 * ks], ptf[4 * ks + 1], ptf[4 * ks + 2],
+               ptf[4 * ks + 3], desc_mn(dOt, ks, n));
+        mma_rs(dkv[n], dstf[4 * ks], dstf[4 * ks + 1], dstf[4 * ks + 2],
+               dstf[4 * ks + 3], desc_mn(Qt, ks, n));
+      }
+    wg_commit();
+    wg_wait(dkv);
+    __syncthreads();
+  }
+
+  bf16* dkp = dk + b * kl.sb + h * kl.sh;
+  bf16* dvp = dv + b * kl.sb + h * kl.sh;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int key = k0 + frag_row(i);
+      const int col = 64 * n + frag_col(i);
+      if (key < Lk && col < dh) {
+        *reinterpret_cast<__nv_bfloat162*>(dkp + key * kl.sl + col) =
+            __floats2bfloat162_rn(dkv[n][i] * sm_scale,
+                                  dkv[n][i + 1] * sm_scale);
+        *reinterpret_cast<__nv_bfloat162*>(dvp + key * kl.sl + col) =
+            __floats2bfloat162_rn(dkv[NT + n][i], dkv[NT + n][i + 1]);
+      }
+    }
+}
+
+}  // namespace sm90
 
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
@@ -370,42 +868,74 @@ cudaError_t allow_smem(Kernel kernel, size_t smem) {
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
 }
 
-template <typename T>
-cudaError_t launch_dq(const void* q, const void* k, const void* v,
-                      const void* dout, const float* mask, const float* lse,
-                      const float* delta, void* dq, int BH, int H, int Lq,
-                      int Lk, int dh, Layout ql, Layout kl, float sm_scale,
-                      Dropout drop, cudaStream_t stream) {
-  const int ld = dh + 1;
+struct Args {
+  const void *q, *k, *v, *dout;
+  const float *mask, *lse, *delta;
+  int BH, H, Lq, Lk, dh;
+  Layout ql, kl;
+  float sm_scale;
+  Dropout drop;
+  cudaStream_t stream;
+};
+
+cudaError_t launch_dq_f32(const Args& a, void* dq) {
+  const int ld = a.dh + 1;
   const size_t smem =
       sizeof(float) * ((size_t)4 * TILE * ld + (size_t)TILE * LDP + TILE);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel<T>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lq + TILE - 1) / TILE, BH);
-  flash_bwd_dq_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), mask, lse, delta,
-      static_cast<T*>(dq), H, Lq, Lk, dh, ql, kl, sm_scale, drop);
+  const dim3 grid((a.Lq + TILE - 1) / TILE, a.BH);
+  flash_bwd_dq_kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.mask, a.lse, a.delta, static_cast<float*>(dq), a.H, a.Lq, a.Lk, a.dh,
+      a.ql, a.kl, a.sm_scale, a.drop);
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_dkv(const void* q, const void* k, const void* v,
-                       const void* dout, const float* mask, const float* lse,
-                       const float* delta, void* dk, void* dv, int BH, int H,
-                       int Lq, int Lk, int dh, Layout ql, Layout kl,
-                       float sm_scale, Dropout drop, cudaStream_t stream) {
-  const int ld = dh + 1;
+cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
+  const int ld = a.dh + 1;
   const size_t smem = sizeof(float) * ((size_t)4 * TILE * ld +
                                        (size_t)2 * TILE * LDP + 2 * TILE);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<T>, smem);
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((Lk + TILE - 1) / TILE, BH);
-  flash_bwd_dkv_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const T*>(dout), mask, lse, delta,
-      static_cast<T*>(dk), static_cast<T*>(dv), H, Lq, Lk, dh, ql, kl,
-      sm_scale, drop);
+  const dim3 grid((a.Lk + TILE - 1) / TILE, a.BH);
+  flash_bwd_dkv_kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
+      a.mask, a.lse, a.delta, static_cast<float*>(dk),
+      static_cast<float*>(dv), a.H, a.Lq, a.Lk, a.dh, a.ql, a.kl, a.sm_scale,
+      a.drop);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dq_bf16(const Args& a, void* dq) {
+  constexpr size_t smem = sm90::dq_smem<DH>();
+  cudaError_t err = allow_smem(sm90::flash_bwd_dq_kernel_sm90<DH>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS, a.BH);
+  sm90::flash_bwd_dq_kernel_sm90<DH><<<grid, sm90::WG_THREADS, smem,
+                                       a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.mask,
+      a.lse, a.delta, static_cast<bf16*>(dq), a.H, a.Lq, a.Lk, a.dh, a.ql,
+      a.kl, a.sm_scale, a.drop);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_dkv_bf16(const Args& a, void* dk, void* dv) {
+  constexpr size_t smem = sm90::dkv_smem<DH>();
+  cudaError_t err = allow_smem(sm90::flash_bwd_dkv_kernel_sm90<DH>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lk + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS, a.BH);
+  sm90::flash_bwd_dkv_kernel_sm90<DH><<<grid, sm90::WG_THREADS, smem,
+                                        a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), static_cast<const bf16*>(a.dout), a.mask,
+      a.lse, a.delta, static_cast<bf16*>(dk), static_cast<bf16*>(dv), a.H,
+      a.Lq, a.Lk, a.dh, a.ql, a.kl, a.sm_scale, a.drop);
   return cudaGetLastError();
 }
 
@@ -416,16 +946,33 @@ bool bad_shape(int BH, int H, int Lq, int Lk, int dh, const void* seed,
          (seed && (drop_bq <= 0 || drop_bk <= 0));
 }
 
+// The bf16 kernels copy 16 bytes at a time: every operand 16-byte aligned,
+// every stride a multiple of 8 elements.
+bool misaligned(const void* const* ptrs, int n, Layout ql, Layout kl) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return true;
+  return (ql.sb | ql.sh | ql.sl | kl.sb | kl.sh | kl.sl) % 8 != 0;
+}
+
+// The bf16 kernels take each 64-row tile's dropout hash input from one
+// block of the dropout grid, so its blocks must be multiples of 64 (the
+// reference's, dropout_grid, are multiples of 128).
+bool bad_bf16_grid(const Dropout& d) {
+  return d.seed && (d.bq % 64 != 0 || d.bk % 64 != 0);
+}
+
 }  // namespace
 
 extern "C" {
 
 // q, dout and dq share one layout, k, v, dk and dv another (element strides
 // of batch, head and row; the head dim is dense). mask is (BH / H, Lk) f32,
-// lse and delta are (BH, Lq) f32, all dense. dtype: 0 = float32,
-// 1 = bfloat16. seed: null for no dropout, else one int32 on the device;
-// thresh, drop_scale and the dropout grid (drop_bq, drop_bk) as
-// flash_common.cuh says, the same values the forward was given.
+// lse and delta are (BH, Lq) f32, all dense. dtype: 0 = float32 (CUDA-core
+// kernels), 1 = bfloat16 (wgmma kernels; q, k, v, dout and the outputs
+// 16-byte aligned, the dropout grid in multiples of 64). seed: null for no
+// dropout, else one int32 on the device; thresh, drop_scale and the dropout
+// grid (drop_bq, drop_bk) as flash_common.cuh says, the same values the
+// forward was given.
 // Each returns a cudaError_t; 0 on success. Launches on `stream`, allocates
 // nothing and does not synchronise.
 int univtg_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -438,21 +985,21 @@ int univtg_flash_bwd_dq(const void* q, const void* k, const void* v,
                         int drop_bk, void* stream) {
   if (bad_shape(BH, H, Lq, Lk, dh, seed, drop_bq, drop_bk))
     return (int)cudaErrorInvalidValue;
-  const Layout ql{q_sb, q_sh, q_sl};
-  const Layout kl{k_sb, k_sh, k_sl};
-  const Dropout drop{static_cast<const int*>(seed), thresh, drop_scale,
-                     drop_bq, drop_bk};
-  const float* m = static_cast<const float*>(mask);
-  const float* ls = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_dq<float>(q, k, v, dout, m, ls, dl, dq, BH, H, Lq, Lk,
-                                 dh, ql, kl, sm_scale, drop, s);
-  if (dtype == 1)
-    return (int)launch_dq<__nv_bfloat16>(q, k, v, dout, m, ls, dl, dq, BH, H,
-                                         Lq, Lk, dh, ql, kl, sm_scale, drop,
-                                         s);
+  const Args a{q, k, v, dout, static_cast<const float*>(mask),
+               static_cast<const float*>(lse), static_cast<const float*>(delta),
+               BH, H, Lq, Lk, dh, Layout{q_sb, q_sh, q_sl},
+               Layout{k_sb, k_sh, k_sl}, sm_scale,
+               Dropout{static_cast<const int*>(seed), thresh, drop_scale,
+                       drop_bq, drop_bk},
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_dq_f32(a, dq);
+  if (dtype == 1) {
+    const void* ptrs[] = {q, k, v, dout, dq};
+    if (misaligned(ptrs, 5, a.ql, a.kl)) return (int)cudaErrorMisalignedAddress;
+    if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
+    return (int)(dh <= 64 ? launch_dq_bf16<64>(a, dq)
+                          : launch_dq_bf16<128>(a, dq));
+  }
   return (int)cudaErrorInvalidValue;
 }
 
@@ -467,21 +1014,21 @@ int univtg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          void* stream) {
   if (bad_shape(BH, H, Lq, Lk, dh, seed, drop_bq, drop_bk))
     return (int)cudaErrorInvalidValue;
-  const Layout ql{q_sb, q_sh, q_sl};
-  const Layout kl{k_sb, k_sh, k_sl};
-  const Dropout drop{static_cast<const int*>(seed), thresh, drop_scale,
-                     drop_bq, drop_bk};
-  const float* m = static_cast<const float*>(mask);
-  const float* ls = static_cast<const float*>(lse);
-  const float* dl = static_cast<const float*>(delta);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_dkv<float>(q, k, v, dout, m, ls, dl, dk, dv, BH, H, Lq,
-                                  Lk, dh, ql, kl, sm_scale, drop, s);
-  if (dtype == 1)
-    return (int)launch_dkv<__nv_bfloat16>(q, k, v, dout, m, ls, dl, dk, dv, BH,
-                                          H, Lq, Lk, dh, ql, kl, sm_scale,
-                                          drop, s);
+  const Args a{q, k, v, dout, static_cast<const float*>(mask),
+               static_cast<const float*>(lse), static_cast<const float*>(delta),
+               BH, H, Lq, Lk, dh, Layout{q_sb, q_sh, q_sl},
+               Layout{k_sb, k_sh, k_sl}, sm_scale,
+               Dropout{static_cast<const int*>(seed), thresh, drop_scale,
+                       drop_bq, drop_bk},
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_dkv_f32(a, dk, dv);
+  if (dtype == 1) {
+    const void* ptrs[] = {q, k, v, dout, dk, dv};
+    if (misaligned(ptrs, 6, a.ql, a.kl)) return (int)cudaErrorMisalignedAddress;
+    if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
+    return (int)(dh <= 64 ? launch_dkv_bf16<64>(a, dk, dv)
+                          : launch_dkv_bf16<128>(a, dk, dv));
+  }
   return (int)cudaErrorInvalidValue;
 }
 

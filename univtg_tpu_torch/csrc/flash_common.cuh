@@ -73,22 +73,36 @@ __device__ __forceinline__ unsigned int dropout_seed_bh(const Dropout& d,
          (static_cast<unsigned int>(bh) * 0x9E3779B1u);
 }
 
-// 0 or 1/(1-rate) for query row i and key j of this (bh).
-__device__ __forceinline__ float dropout_multiplier(const Dropout& d,
-                                                    unsigned int seed_bh,
-                                                    int i, int j) {
+// The hash's input for query row i and key j of this (bh), before the
+// finalizer. Inside one (bq, bk) block of the grid it is linear:
+// x(i, j + c) = x(i, j) + c and x(i + r, j) = x(i, j) + 65599 r, so a kernel
+// whose tile lies in one block computes it once per row and tile.
+__device__ __forceinline__ unsigned int dropout_hash_input(
+    const Dropout& d, unsigned int seed_bh, int i, int j) {
   const unsigned int qb = static_cast<unsigned int>(i / d.bq);
   const unsigned int kb = static_cast<unsigned int>(j / d.bk);
   const unsigned int row = static_cast<unsigned int>(i) - qb * d.bq;
   const unsigned int col = static_cast<unsigned int>(j) - kb * d.bk;
   const unsigned int s = seed_bh ^ (qb * 0x85EBCA6Bu) ^ (kb * 0xC2B2AE35u);
-  unsigned int x = row * 65599u + col + s * 2654435761u;
+  return row * 65599u + col + s * 2654435761u;
+}
+
+// 0 or 1/(1-rate) from a hash input.
+__device__ __forceinline__ float dropout_keep(const Dropout& d,
+                                              unsigned int x) {
   x ^= x >> 16;
   x *= 0x7FEB352Du;
   x ^= x >> 15;
   x *= 0x846CA68Bu;
   x ^= x >> 16;
   return x >= d.thresh ? d.scale : 0.f;
+}
+
+// 0 or 1/(1-rate) for query row i and key j of this (bh).
+__device__ __forceinline__ float dropout_multiplier(const Dropout& d,
+                                                    unsigned int seed_bh,
+                                                    int i, int j) {
+  return dropout_keep(d, dropout_hash_input(d, seed_bh, i, j));
 }
 
 }  // namespace flash

@@ -3,9 +3,10 @@
 Counterpart of ``univtg_tpu/ops/pallas_attention.py``: the forward
 (``csrc/flash_fwd.cu``, for ``_fwd_kernel``) and the dQ and dK/dV backward
 kernels (``csrc/flash_bwd.cu``, for ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``), all three with in-kernel attention dropout. Each
-source note says what the kernel computes, what bounds it and what its
-simple design leaves on the table.
+``_bwd_dkv_kernel``: wgmma tensor-core kernels for bf16, CUDA-core kernels
+for f32), all with in-kernel attention dropout. Each source note says what
+the kernel computes, what bounds it and what its design leaves on the
+table.
 
 Dispatch: a CUDA tensor always launches the kernels; a CPU tensor takes the
 plain twins (``flash_attention_reference``,
@@ -276,6 +277,12 @@ def _launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed):
             Lq * D, dh, D, Lk * D, dh, D, float(sm_scale), *drop]
 
 
+def _aligned(t):
+    """t itself if its data starts on 16 bytes, else a fresh copy: the bf16
+    backward kernels copy 16 bytes at a time."""
+    return t if t.data_ptr() % 16 == 0 else t.clone()
+
+
 def _raise_on(lib, err, kernel):
     if err != 0:
         raise RuntimeError(
@@ -330,6 +337,7 @@ def _backward(q, k, v, mask, out, lse, dout, heads, sm_scale, dropout_rate,
         )
         return tuple(_merge(g, B, heads, dh) for g in grads)
 
+    q, k, v, dout = (_aligned(t) for t in (q, k, v, dout))
     mask = mask.to(torch.float32).contiguous()
     # delta = rowsum(dout * out) per (b, head, row): one plain reduction,
     # as the reference computes it outside its kernels
