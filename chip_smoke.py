@@ -9,20 +9,27 @@ printing its seconds:
 
   1. device   -- the card's name and power limit; TF32 off for comparisons.
   2. build    -- nvcc builds every kernel source from csrc/, and the
-                 planted-fault copies of flash_bwd.cu (phase 3b), one
-                 process per source, all started together; ptxas lines
-                 printed. cuobjdump -sass of the flash_bwd library: HGMMA
-                 (and HMMA) instructions per kernel beside its registers
-                 and spill bytes; fails if a bf16 backward kernel has no
-                 HGMMA.
+                 planted-fault copies of flash_bwd.cu, flash_fwd.cu and
+                 ring_attention.cu (phase 3b), one process per source, all
+                 started together; ptxas lines printed. cuobjdump -sass of
+                 the flash_bwd, flash_fwd and ring_attention libraries:
+                 HGMMA (and HMMA) instructions per kernel beside its
+                 registers and spill bytes; fails unless every bf16
+                 (wgmma) kernel, SASS_KERNELS, issues HGMMA.
   3. kernels  -- each kernel against its plain twin: flash_fwd at the
                  serving shapes; flash_fwd, flash_bwd_dq and flash_bwd_dkv
                  at the two training shapes, f32 and bf16, dropout 0 and
-                 0.1; kernel, twin and library times and the bound.
-  3b. faults  -- each planted fault of flash_bwd.cu's bf16 kernels (a
-                 cast to bf16 truncated instead of rounded, or the dropout
-                 keep left out, FAULTS) must fail the bf16 limit that phase
-                 3 holds the real kernels to.
+                 0.1; kernel, twin and library times, the bound, TFLOP/s
+                 and the share of the bound.
+  3b. faults  -- each planted fault must fail the bf16 limit that phases 3
+                 and 3d hold the real kernels to, at each shape it runs:
+                 FAULTS, of flash_bwd.cu's bf16 kernels (a cast to bf16
+                 truncated instead of rounded, or the dropout keep left
+                 out), at the training shapes with dropout 0.1;
+                 FORWARD_FAULTS, of the bf16 forward (dropout keep left
+                 out, acc not rescaled) at the training shapes with
+                 dropout 0.1, and of the bf16 ring block (P . V on p_hi
+                 alone) at 2 x 160 and 8 x 2080, P = 4.
   3c. int8    -- int8_matmul against its twin at K=2818, N=1024 (the first
                  video projection): M=128, 4096 (one qvhighlights_bf16
                  dispatch) and 16384 (one long_video_bf16 dispatch) in
@@ -35,8 +42,9 @@ printing its seconds:
                  fully masked batch row; P = 1 also against flash_fwd; the
                  P = 8 ring repeated 20 times bit for bit (a race check of
                  the credit and recv edges); the whole ring's time, the
-                 twin's, SDPA's, flash_fwd's, the bound and the share of copy
-                 time that overlaps a block kernel; with two cards visible,
+                 twin's, SDPA's, flash_fwd's, the bound, TFLOP/s, the share
+                 of the bound and the share of copy time that overlaps a
+                 block kernel; with two cards visible,
                  the ring at P = 2 across cards 0 and 1.
   4. pipeline -- the flagship (hidden 1024, 4 layers, 8 heads) at full
                  width with seeded random weights, attention_impl="pallas":
@@ -69,8 +77,10 @@ printing its seconds:
   7b. eval    -- `cli infer-mr` on model_best.ckpt, "pallas", bf16 (the
                  eval main path: 4 flash_fwd launches per eval batch) and
                  f32; submission and metrics finite; f32 "pallas" held
-                 against f32 "xla" (metrics equal, windows within
-                 PIPE_TOL).
+                 against f32 "xla" (metrics equal; windows within PIPE_TOL
+                 as decoded, in a second pair of runs with
+                 round_multiple=0, before they are rounded to the 2 s clip
+                 grid).
   7c. quantize -- `cli quantize` on model_best.ckpt (the int8 tier): the
                  file's size against the float one; `cli serve` on the int8
                  file answers /ground; `cli infer-mr` on the dequantized
@@ -164,8 +174,37 @@ FAULTS = {
         f"ptf[i] = {_TRUNC.format('s')};"),
     "dv_keep_dropped": ("dv", "p_keep = p * keep;", "p_keep = p;"),
 }
+# planted faults of the bf16 (wgmma) forward and ring block kernels: name ->
+# (source in csrc/, the output it corrupts, the line as written, the line
+# with the fault). fwd_keep_dropped leaves the dropout keep out of p;
+# fwd_alpha_dropped leaves acc unrescaled when a row's max moves on;
+# ring_p_lo_dropped takes P . V on p_hi = bf16(p) alone, which rounds p where
+# the JAX ring keeps it f32 (only the share of elements that differ,
+# RING_TOL, can see that). Built and required to fail as FAULTS are;
+# tests/test_torch_flash.py checks on every run that each line is in its
+# source exactly once.
+FORWARD_FAULTS = {
+    "fwd_keep_dropped": (
+        "flash_fwd", "out",
+        "p[i] *= flash::dropout_keep(drop, hx[(i >> 1) & 1] + frag_col(i));",
+        "p[i] *= 1.f;"),
+    "fwd_alpha_dropped": (
+        "flash_fwd", "out",
+        "for (int i = 0; i < 32; ++i) acc[n][i] *= alpha[(i >> 1) & 1];",
+        "for (int i = 0; i < 32; ++i) acc[n][i] *= 1.f;"),
+    "ring_p_lo_dropped": (
+        "ring_attention", "out",
+        "plo[i] = pack_bf16(p[2 * i] - bf16_lo(phi[i]), p[2 * i + 1] - bf16_hi(phi[i]));",
+        "plo[i] = 0u;"),
+}
+# the ring shapes (RING_SHAPES names) and ring size of ring_p_lo_dropped
+RING_FAULT_SHAPES, RING_FAULT_P = ("serving_160", "long_video_2080"), 4
 # the bf16 backward kernels, by their names in the SASS and the profiler
 BF16_BWD_KERNELS = ("flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
+# every bf16 (wgmma) kernel, by library: each instantiation must issue HGMMA
+SASS_KERNELS = {"flash_bwd": BF16_BWD_KERNELS,
+                "flash_fwd": ("flash_fwd_kernel_sm90",),
+                "ring_attention": ("ring_block_kernel_sm90",)}
 # the f32 train step on the flash kernels vs on plain attention (same
 # weights, same batches, dropouts 0): per-step loss and grad norm
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
@@ -210,7 +249,10 @@ TRAIN_SHAPES = {  # (B, L, H, dh): L = clips + text tokens, no bucket
 # the ring kernels vs their twin: absolute limits as the flash forward's; in
 # bf16 also the share of elements that differ, as BWD_TOL reasons (both sum
 # in f32, the kernel over 64-key tiles, the twin over whole blocks, and
-# round once at the store)
+# round once at the store). Readings of the bf16 wgmma kernel on an H100
+# (700 W): max abs <= 2.0e-3, share <= 4.7e-3; ring_p_lo_dropped (p rounded
+# to bf16 before P . V, FORWARD_FAULTS) reads the same max abs but a share of
+# 0.19-0.35: only the share tells the two apart
 RING_TOL = {"float32": {"abs": 1e-4, "share": None},
             "bfloat16": {"abs": 1.6e-2, "share": 1e-2}}
 RING_SHAPES = {  # name -> (B, L, H, dh, ring sizes): L = video + text bucket
@@ -296,17 +338,23 @@ def phase_device(torch):
     return smi
 
 
+def _fault(name):
+    """(source, output, line as written, line with the fault) of a planted
+    fault of FAULTS (flash_bwd.cu) or FORWARD_FAULTS."""
+    return ("flash_bwd", *FAULTS[name]) if name in FAULTS else FORWARD_FAULTS[name]
+
+
 def _build_fault(name, out_dir):
-    """nvcc of csrc/flash_bwd.cu with FAULTS[name] planted, in out_dir."""
+    """nvcc of csrc/<source>.cu with the planted fault `name`, in out_dir."""
     from pathlib import Path
 
     from univtg_tpu_torch.ops import cuda_build
 
-    _, line, fault = FAULTS[name]
-    text = (cuda_build.CSRC_DIR / "flash_bwd.cu").read_text()
+    source, _, line, fault = _fault(name)
+    text = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
     if text.count(line) != 1:
-        raise AssertionError(f"fault {name}: the line to edit is not in flash_bwd.cu once")
-    src = Path(out_dir) / f"flash_bwd_{name}.cu"
+        raise AssertionError(f"fault {name}: the line to edit is not in {source}.cu once")
+    src = Path(out_dir) / f"{source}_{name}.cu"
     src.write_text(text.replace(line, fault))
     so = src.with_suffix(".so")
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
@@ -346,11 +394,12 @@ def _ptxas_stats(text):
     return stats
 
 
-def _sass_counts(name="flash_bwd"):
+def _sass_counts(name):
     """HGMMA and HMMA instructions per kernel of the built library (cuobjdump
     -sass), printed beside ptxas's registers and spill bytes. Fails unless
-    every instantiation of each bf16 backward kernel issues HGMMA. Returns
-    {kernel: [{function, HGMMA, HMMA, registers, spill_stores, spill_loads}]}."""
+    every instantiation of each of its bf16 kernels (SASS_KERNELS[name])
+    issues HGMMA. Returns {kernel: [{function, HGMMA, HMMA, registers,
+    spill_stores, spill_loads}]}."""
     from univtg_tpu_torch.ops import cuda_build
 
     so = cuda_build.library_path(name)
@@ -366,12 +415,12 @@ def _sass_counts(name="flash_bwd"):
             for op in counts[fn]:
                 counts[fn][op] += bool(re.search(rf"\b{op}\b", line))
     stats = _ptxas_stats(cuda_build.build_log(name))
-    found = {k: [] for k in BF16_BWD_KERNELS}
+    found = {k: [] for k in SASS_KERNELS[name]}
     for fn, c in counts.items():
         reg, st, ld = stats.get(fn, (None, None, None))
         log(f"[build] sass {name} {fn[:90]}: HGMMA {c['HGMMA']}, HMMA {c['HMMA']}, "
             f"{reg} registers, spill stores {st} B, spill loads {ld} B")
-        for k in BF16_BWD_KERNELS:
+        for k in SASS_KERNELS[name]:
             if k in fn:
                 found[k].append({"function": fn, **c, "registers": reg,
                                  "spill_stores": st, "spill_loads": ld})
@@ -383,8 +432,7 @@ def _sass_counts(name="flash_bwd"):
 
 def phase_build(fault_dir):
     """One nvcc per source and per planted fault, all started together.
-    Returns ({fault name: library path}, the bf16 backward kernels' SASS
-    counts)."""
+    Returns ({fault name: library path}, the bf16 kernels' SASS counts)."""
     from univtg_tpu_torch.ops import cuda_build, flash_attention as fa, int8_matmul as im
     from univtg_tpu_torch.ops import ring_attention_pallas as rap
 
@@ -394,8 +442,9 @@ def phase_build(fault_dir):
         return time.perf_counter() - t0
 
     sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES + rap.KERNEL_SOURCES
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(FAULTS)) as pool:
-        faults = {n: pool.submit(_build_fault, n, fault_dir) for n in FAULTS}
+    names = [*FAULTS, *FORWARD_FAULTS]
+    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(names)) as pool:
+        faults = {n: pool.submit(_build_fault, n, fault_dir) for n in names}
         seconds = dict(zip(sources, pool.map(build, sources)))
         faults = {n: f.result() for n, f in faults.items()}
     for name in sources:
@@ -410,8 +459,11 @@ def phase_build(fault_dir):
             if any(w in line for w in ("registers", "spill", "Compiling entry", "arning",
                                        "(C75")):
                 log(f"[build]   {line.strip()}")
-    log(f"[build] planted faults of flash_bwd.cu: {', '.join(faults)}")
-    return faults, _sass_counts()
+    log(f"[build] planted faults: {', '.join(f'{n} ({_fault(n)[0]}.cu)' for n in faults)}")
+    sass = {}
+    for name in SASS_KERNELS:
+        sass.update(_sass_counts(name))
+    return faults, sass
 
 
 def _attention_inputs(torch, B, L, H, dh, dtype, seed):
@@ -480,6 +532,8 @@ def phase_kernels(torch):
                 "flops": flops, "bytes": nbytes,
                 "bound_ms": max(t_ops, t_bytes) * 1e3,
                 "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+                "tflops": flops / ms / 1e9,
+                "bound_share": max(t_ops, t_bytes) * 1e3 / ms,
             }
             records.append(rec)
             log(f"[kernels] flash_fwd {json.dumps(rec)}")
@@ -882,36 +936,72 @@ def phase_train_kernels(torch):
 
 
 def phase_faults(torch, faults):
-    """Each planted fault of flash_bwd.cu, swapped in for the built library,
-    at the two training shapes in bf16 with dropout 0.1: the output it
-    corrupts must fail the bf16 limits of phase 3 at each shape."""
+    """Each planted fault, swapped in for its built library, must fail the
+    bf16 limit its kernel is held to at each shape it runs: FAULTS (the
+    backward kernels, BWD_TOL) and the forward's FORWARD_FAULTS (TOL) at the
+    two training shapes with dropout 0.1, the ring's (RING_TOL) at
+    RING_FAULT_SHAPES with P = RING_FAULT_P."""
     import ctypes
 
     from univtg_tpu_torch.ops import cuda_build, flash_attention as fa
+    from univtg_tpu_torch.ops import ring_attention_pallas as rap
+    from univtg_tpu_torch.parallel import RingGroup
 
-    real = cuda_build._libraries["flash_bwd"]
+    def run_with(name, fn):
+        source = _fault(name)[0]
+        real = cuda_build._libraries[source]
+        cuda_build._libraries[source] = ctypes.CDLL(str(faults[name]))
+        try:
+            out = fn()
+            torch.cuda.synchronize()
+            return out
+        finally:
+            cuda_build._libraries[source] = real
+
     caught = {}
-    try:
-        for shape_name, (B, L, H, dh) in TRAIN_SHAPES.items():
-            args, _, seed, kw = _train_kernel_inputs(
-                torch, fa, B, L, H, dh, torch.bfloat16, 0.1, 900)
-            want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_reference(
-                *args, seed=seed, **kw)))
-            for name, so in faults.items():
-                cuda_build._libraries["flash_bwd"] = ctypes.CDLL(str(so))
-                got = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_impl(
-                    *args, dropout_seed=seed, **kw)))
-                cuda_build._libraries["flash_bwd"] = real
-                output = FAULTS[name][0]
-                err = _errs(got[output], want[output])
-                caught[(name, shape_name)] = not _bwd_within(err, "bfloat16")
-                log(f"[faults] {name} at {shape_name} bf16 dropout 0.1: {output} "
-                    f"max abs err {err[0]:.3g}, rel {err[1]:.3g}, share that differs "
-                    f"{err[2]:.3g} (limits {BWD_TOL['bfloat16']})")
-            del args, want, got
-            torch.cuda.empty_cache()
-    finally:
-        cuda_build._libraries["flash_bwd"] = real
+    for shape_name, (B, L, H, dh) in TRAIN_SHAPES.items():
+        args, _, seed, kw = _train_kernel_inputs(
+            torch, fa, B, L, H, dh, torch.bfloat16, 0.1, 900)
+        want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_reference(
+            *args, seed=seed, **kw)))
+        want_out, want_lse = fa.flash_attention_reference(*args[:4], seed=seed, **kw)
+        for name in FAULTS:
+            got = dict(zip(("dq", "dk", "dv"), run_with(
+                name, lambda: fa.flash_attention_backward_impl(
+                    *args, dropout_seed=seed, **kw))))
+            output = FAULTS[name][0]
+            err = _errs(got[output], want[output])
+            caught[(name, shape_name)] = not _bwd_within(err, "bfloat16")
+            log(f"[faults] {name} at {shape_name} bf16 dropout 0.1: {output} "
+                f"max abs err {err[0]:.3g}, rel {err[1]:.3g}, share that differs "
+                f"{err[2]:.3g} (limits {BWD_TOL['bfloat16']})")
+        for name in (n for n in FORWARD_FAULTS if _fault(n)[0] == "flash_fwd"):
+            out, lse = run_with(name, lambda: fa.flash_attention_impl(
+                *args[:4], dropout_seed=seed, **kw))
+            err, err_lse = _errs(out, want_out), (lse - want_lse).abs().max().item()
+            tol = TOL["bfloat16"]
+            caught[(name, shape_name)] = err[0] > tol["out"] or err_lse > tol["lse"]
+            log(f"[faults] {name} at {shape_name} bf16 dropout 0.1: out max abs err "
+                f"{err[0]:.3g}, share that differs {err[2]:.3g}, lse max abs err "
+                f"{err_lse:.3g} (limits {tol})")
+        del args, want, want_out, want_lse
+        torch.cuda.empty_cache()
+    for shape_name in RING_FAULT_SHAPES:
+        B, L, H, dh, _ = RING_SHAPES[shape_name]
+        q, k, v, mask = _attention_inputs(torch, B, L, H, dh, torch.bfloat16, seed=950)
+        mask[-1] = 0
+        ring = RingGroup(RING_FAULT_P)
+        want = rap.ring_attention_pallas_reference(q, k, v, mask, num_heads=H, ring=ring)
+        for name in (n for n in FORWARD_FAULTS if _fault(n)[0] == "ring_attention"):
+            got = run_with(name, lambda: rap.ring_attention_pallas(
+                q, k, v, mask, num_heads=H, ring=ring))
+            err = _errs(got, want)
+            caught[(name, shape_name)] = not _ring_within(err, "bfloat16")
+            log(f"[faults] {name} at {shape_name} P={RING_FAULT_P} bf16: out max abs err "
+                f"{err[0]:.3g}, share that differs {err[2]:.3g} "
+                f"(limits {RING_TOL['bfloat16']})")
+        del q, k, v, mask, want, got
+        torch.cuda.empty_cache()
     missed = [k for k, hit in caught.items() if not hit]
     if missed:
         raise AssertionError(f"planted faults within the bf16 limits: {missed}")
@@ -1091,6 +1181,7 @@ def phase_ring_kernels(torch):
                        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
                        "flash_fwd_ms": flash_ms, "flops": flops, "bytes": nbytes,
                        "bound_ms": bound_ms, "bound_by": bound_by,
+                       "tflops": flops / ms / 1e9, "bound_share": bound_ms / ms,
                        "copy_overlap_share": overlap, "copy_ms": copy_ms}
                 records.append(rec)
                 log(f"[ring] {json.dumps(rec)}")
@@ -1289,10 +1380,11 @@ def phase_train(torch, np, fa, card, tmp):
     return corpus, run_dir, sd, launches
 
 
-def _infer_mr(torch, np, tmp, ckpt, corpus, name, impl, dtype):
-    """`cli infer-mr` on ckpt over the val split; returns (brief metrics,
-    submission rows, flash_fwd launches, wall seconds). The submission and
-    the printed metrics must be there and finite."""
+def _infer_mr(torch, np, tmp, ckpt, corpus, name, impl, dtype, *overrides):
+    """`cli infer-mr` on ckpt over the val split (with any further
+    key=value overrides); returns (brief metrics, submission rows, flash_fwd
+    launches, wall seconds). The submission and the printed metrics must be
+    there and finite."""
     import contextlib
     import io
 
@@ -1306,7 +1398,7 @@ def _infer_mr(torch, np, tmp, ckpt, corpus, name, impl, dtype):
     with contextlib.redirect_stdout(printed):
         cli.main(["infer-mr", "--preset", "qvhighlights_mr", "--resume", ckpt,
                   "--out", out, *_eval_overrides(corpus), f"model.attention_impl={impl}",
-                  f"model.compute_dtype={dtype}"])
+                  f"model.compute_dtype={dtype}", *overrides])
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     brief = json.loads(printed.getvalue())
@@ -1327,8 +1419,12 @@ def _infer_mr(torch, np, tmp, ckpt, corpus, name, impl, dtype):
 
 def phase_eval(torch, np, tmp, corpus, run_dir):
     """The eval main path: `cli infer-mr` on model_best.ckpt, bf16 and f32,
-    on the flash kernels; f32 "pallas" held against f32 "xla". Returns
-    (the eval path's launches, f32 brief metrics)."""
+    on the flash kernels; f32 "pallas" held against f32 "xla": the metrics
+    equal, and the windows within PIPE_TOL as the decode gives them, before
+    the post-processor rounds each end to a multiple of the clip length (2
+    s), where an f32 difference at a rounding boundary moves an end by a
+    whole clip (a start of 2.9999 s against 3.0 s rounds to 2 against 4 s).
+    Returns (the eval path's launches, f32 brief metrics)."""
     best = os.path.join(run_dir, "model_best.ckpt")
     batches = -(-N_VAL // 32)
     _reset_launches()  # the eval main path starts here
@@ -1342,17 +1438,26 @@ def phase_eval(torch, np, tmp, corpus, run_dir):
                                                "float32")
     if launches != 4 * batches or xla_launches != 0:
         raise AssertionError(f"f32 flash_fwd launches {launches}, xla {xla_launches}")
+    raw = {impl: _infer_mr(torch, np, tmp, best, corpus, f"f32_{impl}_unrounded", impl,
+                           "float32", "round_multiple=0")
+           for impl in ("pallas", "xla")}
     tol = PIPE_TOL["float32"]
-    worst = max(np.abs(np.asarray(g["pred_relevant_windows"])
-                       - np.asarray(w["pred_relevant_windows"])).max()
-                for g, w in zip(rows, xla_rows, strict=True))
-    log(f"[eval] f32 pallas vs xla: metrics equal {f32 == xla}; windows and scores "
-        f"differ by at most {worst:.3g}, near-ties included (limits {tol})")
+
+    def worst(a, b):
+        return max(np.abs(np.asarray(g["pred_relevant_windows"])
+                          - np.asarray(w["pred_relevant_windows"])).max()
+                   for g, w in zip(a, b, strict=True))
+
+    raw_rows, raw_xla_rows = raw["pallas"][1], raw["xla"][1]
+    log(f"[eval] f32 pallas vs xla: metrics equal {f32 == xla}, unrounded "
+        f"{raw['pallas'][0] == raw['xla'][0]}; windows and scores differ by at most "
+        f"{worst(raw_rows, raw_xla_rows):.3g} before rounding, "
+        f"{worst(rows, xla_rows):.3g} after, near-ties included (limits {tol})")
     if f32 != xla or not all(
             _unambiguous_ranks_agree(np, {"topk_windows": g["pred_relevant_windows"]},
                                      {"topk_windows": w["pred_relevant_windows"]},
                                      tol["scores"], tol["windows"])
-            for g, w in zip(rows, xla_rows)):
+            for g, w in zip(raw_rows, raw_xla_rows)):
         raise AssertionError(f"f32 infer-mr on the flash kernels disagrees with xla: "
                              f"{f32} vs {xla}")
     return path_launches, f32
@@ -1849,8 +1954,10 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
     """One entry per kernel for the final JSON line: times of the headline
     record (flash: bf16 at the long shape, dropout 0; int8_matmul: bf16 at
     one qvhighlights dispatch, M=4096; ring_attention: bf16 at the long
-    shape, P = RING_P), the largest error seen; the backward kernels also
-    carry their HGMMA counts and spill bytes (``sass``, phase 2).
+    shape, P = RING_P), the largest error seen; the kernels with a bf16
+    wgmma design (flash_fwd, the backward pair, ring_attention's block
+    kernel) also carry their TFLOP/s, share of the bound, HGMMA counts and
+    spill bytes (``sass``, phase 2).
     ``launches`` sums the paths of by_path, ``launches_by_path`` splits them;
     for int8_matmul that is the smoke's own call alone, which
     ``launches_note`` says; ring_attention counts its two kernels,
@@ -1871,9 +1978,12 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
                 "max_abs_err": max(r["err"] for r in records_ring),
                 "ms": head["ms"], "plain_ms": head["plain_ms"], "bound_ms": head["bound_ms"],
                 "bound_by": head["bound_by"], "library_ms": head["library_ms"],
+                "tflops": head["tflops"], "bound_share": head["bound_share"],
+                "sass_bf16": sass["ring_block_kernel_sm90"],
                 "by_shape": [{k: r[k] for k in (
                     "shape", "P", "dtype", "ms", "plain_ms", "library_ms", "flash_fwd_ms",
-                    "bound_ms", "bound_by", "copy_overlap_share")} for r in records_ring]})
+                    "bound_ms", "bound_by", "tflops", "bound_share", "copy_overlap_share")}
+                    for r in records_ring]})
             continue
         if name == "int8_matmul":
             head = next(r for r in records_int8 if r["shape"] == "qvhighlights_dispatch"
@@ -1906,7 +2016,10 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
                 max_rel_err=max(r["rel_err"] for r in mine), by_shape=[
                 {k: r[k] for k in ("shape", "M", "dtype", "ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")} for r in mine])
-        elif name != "flash_fwd":
+        elif name == "flash_fwd":
+            entry.update(tflops=head["tflops"], bound_share=head["bound_share"],
+                         sass_bf16=sass["flash_fwd_kernel_sm90"])
+        else:
             entry.update(
                 max_rel_err=max(v for r in mine for k, v in r.items()
                                 if k.startswith("rel_err_")),

@@ -7,12 +7,15 @@ itself is held against the twin on the card (``cuda`` marker). The JAX
 side is imported per test, so the card's tests also run on a host that has
 torch and no JAX."""
 import contextlib
+import importlib.util
 import os
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
+from univtg_tpu_torch.ops import cuda_build
 from univtg_tpu_torch.ops import flash_attention as fa
 
 torch.set_num_threads(1)
@@ -185,22 +188,69 @@ def test_dropout_and_bad_inputs_raise():
         fa.flash_attention(q, k, v, mask[:, :3], num_heads=2)
 
 
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", ["fwd_keep_dropped", "fwd_alpha_dropped",
+                                  "ring_p_lo_dropped"])
+def test_planted_faults_quote_their_source_once(name):
+    """chip_smoke.py plants each fault of the bf16 forward and ring kernels
+    by replacing one line of its source: the line must be there exactly
+    once, inside the wgmma kernels, or the smoke's fault phase tests
+    nothing (or the wrong kernel)."""
+    faults = _chip_smoke().FORWARD_FAULTS
+    assert set(faults) == {"fwd_keep_dropped", "fwd_alpha_dropped",
+                           "ring_p_lo_dropped"}
+    source, output, line, fault = faults[name]
+    assert source in ("flash_fwd", "ring_attention") and output == "out"
+    assert line != fault
+    text = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+    assert text.count(line) == 1, line
+    assert text.index(line) > text.index("namespace sm90 {")
+
+
+def _shifted(t):
+    """A contiguous copy of t that starts one element into its storage, so
+    off a 16-byte boundary."""
+    buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)
+    view = buf[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16
+    return view
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol_out,atol_lse",
                          [(torch.float32, 1e-4, 1e-4),
                           (torch.bfloat16, 8e-3, 1e-4)])
+@pytest.mark.parametrize("rate", [0.0, 0.1])
 @pytest.mark.parametrize("B,Lq,Lk,H,dh", [(2, 33, 70, 4, 128),
                                           (3, 130, 7, 2, 64),
-                                          (1, 64, 64, 8, 8)])
+                                          (1, 64, 64, 8, 8),
+                                          (2, 100, 150, 2, 64),
+                                          (3, 75, 130, 3, 24)])
 def test_cuda_kernel_matches_twin(cuda_device, dtype, atol_out, atol_lse,
-                                  B, Lq, Lk, H, dh):
+                                  rate, B, Lq, Lk, H, dh):
+    """The kernel against its twin: ragged lengths (Lq != Lk, not multiples
+    of 64), head dims 128, 64 and padded ones (8, 24), the last batch row
+    ragged and, with B > 1, the first fully masked, dropout 0 and 0.1; the
+    same operands as views off a 16-byte boundary give the same bits."""
     torch.backends.cuda.matmul.allow_tf32 = False
     D = H * dh
     q, k, v, mask = _inputs(7, max(B, 2), Lq, Lk, D)
     q, k, v, mask = [torch.from_numpy(x[:B]).to(cuda_device) for x in (q, k, v, mask)]
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
+    if B > 1:
+        mask[0] = 0  # a fully masked row: the mean of V over the Lk real keys
+    seed = torch.tensor([77], dtype=torch.int32, device=cuda_device)
+    kw = dict(dropout_rate=rate, dropout_seed=seed)
     before = fa.launches["flash_fwd"]
-    out = fa.flash_attention(q, k, v, mask, num_heads=H)
+    out = fa.flash_attention(q, k, v, mask, num_heads=H, **kw)
     assert fa.launches["flash_fwd"] == before + 1
 
     def split(x):
@@ -208,12 +258,16 @@ def test_cuda_kernel_matches_twin(cuda_device, dtype, atol_out, atol_lse,
 
     maskh = mask.repeat_interleave(H, 0)
     out_h, lse = fa.flash_attention_impl(split(q), split(k), split(v), maskh,
-                                         sm_scale=dh**-0.5)
+                                         sm_scale=dh**-0.5, **kw)
     want, want_lse = fa.flash_attention_reference(
-        split(q), split(k), split(v), maskh, sm_scale=dh**-0.5
+        split(q), split(k), split(v), maskh, sm_scale=dh**-0.5,
+        dropout_rate=rate, seed=seed
     )
     torch.cuda.synchronize()
     assert (out_h.float() - want.float()).abs().max().item() <= atol_out
     assert (lse - want_lse).abs().max().item() <= atol_lse
     merged = out.reshape(B, Lq, H, dh).transpose(1, 2).reshape(B * H, Lq, dh)
     assert torch.equal(merged, out_h)
+    again = fa.flash_attention(*(_shifted(x) for x in (q, k, v)), mask,
+                               num_heads=H, **kw)
+    assert torch.equal(again, out)

@@ -385,8 +385,13 @@ def cuda_device():
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype,atol", [(torch.float32, 1e-4), (torch.bfloat16, 1.6e-2)])
 @pytest.mark.parametrize("Bc,Lc,P,Hc,dh", [(2, 160, 4, 8, 128), (3, 72, 8, 2, 64),
-                                           (1, 130, 1, 4, 8), (2, 66, 2, 1, 32)])
+                                           (1, 130, 1, 4, 8), (2, 66, 2, 1, 32),
+                                           (2, 300, 4, 2, 24), (2, 254, 2, 2, 64)])
 def test_cuda_kernel_matches_twin(cuda_device, dtype, atol, Bc, Lc, P, Hc, dh):
+    """The kernels against their twin: per-rank lengths that are not
+    multiples of 64 (40, 9, 130, 33, 75, 127), head dims 128, 64 and padded
+    ones (8, 24, 32), one fully masked batch row; the same ring again gives
+    the same bits, and so do operands that start off a 16-byte boundary."""
     q, k, v, mask = (torch.from_numpy(x).to(cuda_device)
                      for x in _qkvm(12, B=Bc, L=Lc, D=Hc * dh))
     q, k, v = q.to(dtype), k.to(dtype), v.to(dtype)
@@ -401,3 +406,12 @@ def test_cuda_kernel_matches_twin(cuda_device, dtype, atol, Bc, Lc, P, Hc, dh):
     assert (got.float() - want.float()).abs().max().item() <= atol
     again = rap.ring_attention_pallas(q, k, v, mask, num_heads=Hc, ring=ring)
     assert torch.equal(got, again)
+    shifted = []
+    for t in (q, k, v):
+        buf = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda_device)
+        view = buf[1:].view(t.shape)
+        view.copy_(t)
+        assert view.is_contiguous() and view.data_ptr() % 16
+        shifted.append(view)
+    assert torch.equal(got, rap.ring_attention_pallas(*shifted, mask, num_heads=Hc,
+                                                      ring=ring))

@@ -1,4 +1,5 @@
-// Helpers shared by the flash-attention kernels (flash_fwd.cu, flash_bwd.cu).
+// Helpers shared by the attention kernels (flash_fwd.cu, flash_bwd.cu,
+// ring_attention.cu).
 //
 // The attention-dropout keep mask is the JAX package's, bit for bit:
 // univtg_tpu/ops/pallas_attention.py:_dropout_keep hashes
@@ -34,7 +35,8 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
 }
 
 // Row max and row sum over the 16 threads of a row group, which are lanes
-// [0,16) or [16,32) of one warp (the forward kernels' 16 x 16 thread layout).
+// [0,16) or [16,32) of one warp (the f32 forward and ring kernels' 16 x 16
+// thread layout).
 __device__ __forceinline__ float group_max(float x) {
   // the 16 threads of a row group are lanes [0,16) or [16,32) of one warp
 #pragma unroll

@@ -22,18 +22,38 @@
 //
 // Bound on the card: compute. The work is 4 * BH * Lq * Lk * dh FLOP (two
 // products) against (BH * (Lq + 2 * Lk) * dh) elements moved, far above the
-// H100's ~295 FLOP/byte ridge at the serving shapes (L = 160 ... 2080).
+// H100's ~295 FLOP/byte ridge at the serving shapes (L = 160 ... 2080): at
+// B=8 L=2080 H=8 dh=128, 1.42e11 FLOP, 0.143 ms at the bf16 peak.
 //
-// Design (simple and right first): one block of 256 threads per
-// (batch*head, 64-row query tile); a loop over 64-key tiles of K and V staged
-// in shared memory as f32; each thread owns 4 query rows and computes a 4x4
-// patch of the score tile and a 4 x (dh/16) patch of the output with scalar
-// FMAs; the row max and sum reduce across the 16 threads of a row group by
-// warp shuffles. What it leaves on the table: no tensor cores (wgmma or
-// mma.sync), no TMA or cp.async double buffering of the next K/V tile, f32
-// staging of bf16 inputs (twice the shared memory, one block per SM), and
-// scalar shared-memory loads that bound the inner loops. Those belong to the
-// PR that makes it fast.
+// The dtype picks the design; this is a dispatch, not a fallback:
+//
+// bf16 -- tensor cores (flash_fwd_kernel_sm90<DH>, DH = 64 or 128, the head
+// dim zero-filled up to DH; the building blocks are flash_sm90.cuh's, the
+// loop is the dQ kernel's of flash_bwd.cu with an online softmax in place
+// of the recompute from lse). One block is one warpgroup of 128 threads and
+// 64 resident query rows, two blocks per SM. Q stays in shared memory; K,
+// V and the key bias stream in tiles of 64 keys, in two cp.async stages
+// (tile t + 1 lands under tile t's arithmetic). Per tile:
+//   S = Q.K^T                     wgmma, both operands K-major in smem
+//   online softmax in registers   a row's 64 columns sit on the 4 threads of
+//                                 a quad: max and sum over shuffles 1 and 2
+//   p * keep, cast to bf16 (RNE)  the dropout hash input taken once per row
+//                                 and tile (flash::dropout_hash_input)
+//   acc = acc * alpha + P.V       wgmma, P from registers (the accumulator's
+//                                 layout is the register-A layout), V as the
+//                                 MN-major B operand
+// Each product is waited for before the next step; only the other block on
+// the SM fills the gaps. The exp, in f32 as the reference takes it, and the
+// dropout finalizer run per element.
+//
+// f32 -- CUDA cores (flash_fwd_kernel): TF32 tensor cores have not been
+// measured against the f32 limit (1e-4), and f32 is the correctness path.
+// One block of 256 threads per (batch*head, 64-row query tile); a loop over
+// 64-key tiles of K and V staged in shared memory; each thread owns 4 query
+// rows and computes a 4x4 patch of the score tile and a 4 x (dh/16) patch of
+// the output with scalar FMAs; the row max and sum reduce across the 16
+// threads of a row group by warp shuffles. Bound by the f32 FMA rate
+// (67 TFLOP/s): 2.12 ms at the long shape.
 //
 // Built by univtg_tpu_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -43,18 +63,21 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
 using flash::Dropout;
-using flash::from_f32;
 using flash::group_max;
 using flash::group_sum;
 using flash::Layout;
 using flash::NEG_INF;
-using flash::to_f32;
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
 
 constexpr int BLOCK_M = 64;   // query rows per block
 constexpr int BLOCK_N = 64;   // keys per streamed tile
@@ -65,12 +88,11 @@ constexpr int MAX_DH = 128;
 constexpr int OCOLS = MAX_DH / 16;   // output columns per thread, at most
 constexpr int LDP = BLOCK_N + 1;     // P tile row stride
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                 const T* __restrict__ v, const float* __restrict__ mask,
-                 T* __restrict__ out, float* __restrict__ lse, int H, int Lq,
-                 int Lk, int dh, Layout ql, Layout kl, float sm_scale,
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, const float* __restrict__ mask,
+                 float* __restrict__ out, float* __restrict__ lse, int H,
+                 int Lq, int Lk, int dh, Layout ql, Layout kl, float sm_scale,
                  Dropout drop) {
   extern __shared__ float smem[];
   const int ld = dh + 1;  // odd stride: column reads across rows hit distinct banks
@@ -88,17 +110,17 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh - b * H;
   const int q0 = blockIdx.x * BLOCK_M;
 
-  const T* qp = q + b * ql.sb + h * ql.sh;
-  const T* kp = k + b * kl.sb + h * kl.sh;
-  const T* vp = v + b * kl.sb + h * kl.sh;
-  T* op = out + b * ql.sb + h * ql.sh;
+  const float* qp = q + b * ql.sb + h * ql.sh;
+  const float* kp = k + b * kl.sb + h * kl.sh;
+  const float* vp = v + b * kl.sb + h * kl.sh;
+  float* op = out + b * ql.sb + h * ql.sh;
   const float* mp = mask + (long long)b * Lk;
   const unsigned int seed_bh = drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
 
   for (int e = tid; e < BLOCK_M * dh; e += THREADS) {
     const int r = e / dh, c = e - r * dh;
     const int row = q0 + r;
-    Qs[r * ld + c] = row < Lq ? to_f32(qp[row * ql.sl + c]) : 0.f;
+    Qs[r * ld + c] = row < Lq ? qp[row * ql.sl + c] : 0.f;
   }
 
   float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
@@ -116,8 +138,8 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / dh, c = e - r * dh;
       const int key = k0 + r;
       const bool in = key < Lk;
-      Ks[r * ld + c] = in ? to_f32(kp[key * kl.sl + c]) : 0.f;
-      Vs[r * ld + c] = in ? to_f32(vp[key * kl.sl + c]) : 0.f;
+      Ks[r * ld + c] = in ? kp[key * kl.sl + c] : 0.f;
+      Vs[r * ld + c] = in ? vp[key * kl.sl + c] : 0.f;
     }
     if (tid < BLOCK_N) Ms[tid] = k0 + tid < Lk ? mp[k0 + tid] : 0.f;
     __syncthreads();
@@ -162,13 +184,13 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
       for (int j = 0; j < SCOLS; ++j) {
         const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;  // the denominator takes p before dropout and the cast
+        rs += p;  // the denominator takes p before dropout
         float p_acc = p;
         if (drop.seed && valid[j])
           p_acc = p * flash::dropout_multiplier(drop, seed_bh,
                                                 q0 + ty * ROWS + i,
                                                 k0 + tx + 16 * j);
-        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = to_f32(from_f32<T>(p_acc));
+        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = p_acc;
       }
       l[i] = l[i] * alpha + group_sum(rs);
       m[i] = m_new;
@@ -202,32 +224,189 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int c = 0; c < OCOLS; ++c) {
       const int col = tx + 16 * c;
-      if (col < dh) op[row * ql.sl + col] = from_f32<T>(acc[i][c] / l_safe);
+      if (col < dh) op[row * ql.sl + col] = acc[i][c] / l_safe;
     }
     if (tx == 0) lse[(long long)bh * Lq + row] = m[i] + logf(l_safe);
   }
 }
 
-template <typename T>
-cudaError_t launch(const void* q, const void* k, const void* v,
-                   const float* mask, void* out, float* lse, int BH, int H,
-                   int Lq, int Lk, int dh, Layout ql, Layout kl,
-                   float sm_scale, Dropout drop, cudaStream_t stream) {
-  const int ld = dh + 1;
+}  // namespace
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores (wgmma)
+
+namespace sm90 {
+
+template <int DH>
+constexpr size_t fwd_smem() {  // Q; K, V x 2 stages; key bias x 2
+  return 5 * tile_bytes<DH>() + 2 * TILE_ROWS * 4 + 1024;
+}
+
+// One loop per streamed key tile t, on stage t % 2: start the copies of
+// tile t + 1 into the other stage (a group that may be empty, so that one
+// group is committed per tile); wait for tile t's; barrier; S, waited for;
+// the online softmax, dropout and the cast in registers; P.V, waited for;
+// barrier: every warp is done with stage t % 2.
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+flash_fwd_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                      const bf16* __restrict__ v,
+                      const float* __restrict__ mask, bf16* __restrict__ out,
+                      float* __restrict__ lse, int H, int Lq, int Lk, int dh,
+                      Layout ql, Layout kl, float sm_scale, Dropout drop) {
+  constexpr int NT = DH / 64;  // 64-column slices of the output
+  constexpr uint32_t TB = tile_bytes<DH>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t Qs = (raw + 1023) & ~1023u;
+  const uint32_t Ks = Qs + TB, Vs = Ks + 2 * TB;
+  float* const Bs = reinterpret_cast<float*>(smem_raw + (Vs + 2 * TB - raw));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * TILE_ROWS;
+  const bf16* kp = k + b * kl.sb + h * kl.sh;
+  const bf16* vp = v + b * kl.sb + h * kl.sh;
+  const float* mp = mask + (long long)b * Lk;
+  const unsigned int seed_bh =
+      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+
+  load_tile<DH>(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
+  load_tile<DH>(Ks, kp, kl.sl, 0, Lk, dh);
+  load_tile<DH>(Vs, vp, kl.sl, 0, Lk, dh);
+  if (tid < TILE_ROWS) Bs[tid] = key_bias(mp, tid, Lk);
+  cp_commit();
+
+  float m_r[2] = {-INFINITY, -INFINITY}, l_r[2] = {0.f, 0.f};
+  float acc[NT][32];
+  zero(acc);
+
+  const int n_tiles = (Lk + TILE_ROWS - 1) / TILE_ROWS;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int k0 = t * TILE_ROWS;
+    if (t + 1 < n_tiles) {  // the next tile into the other stage
+      const int k1 = k0 + TILE_ROWS;
+      load_tile<DH>(Ks + (st ^ 1) * TB, kp, kl.sl, k1, Lk, dh);
+      load_tile<DH>(Vs + (st ^ 1) * TB, vp, kl.sl, k1, Lk, dh);
+      if (tid < TILE_ROWS)
+        Bs[(st ^ 1) * TILE_ROWS + tid] = key_bias(mp, k1 + tid, Lk);
+    }
+    cp_commit();
+    cp_wait_prev();
+    __syncthreads();  // tile t is in shared memory for every warp
+
+    const uint32_t Kt = Ks + st * TB, Vt = Vs + st * TB;
+    float s[1][32];
+    zero(s);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      mma_ss(s[0], desc_k(Qs, ks), desc_k(Kt, ks));
+    wg_commit();
+    wg_wait(s);
+
+    float alpha[2];
+    float(&p)[32] = s[0];
+    online_softmax(p, Bs + st * TILE_ROWS, k0, Lk, sm_scale, m_r, l_r, alpha);
+    if (drop.seed) {  // the hash input at (row, k0), then per column
+      unsigned int hx[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j)
+        hx[j] = flash::dropout_hash_input(drop, seed_bh, q0 + frag_row(2 * j),
+                                          k0);
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        p[i] *= flash::dropout_keep(drop, hx[(i >> 1) & 1] + frag_col(i));
+    }
+    uint32_t pf[16];
+#pragma unroll
+    for (int i = 0; i < 16; ++i) pf[i] = pack_bf16(p[2 * i], p[2 * i + 1]);
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[n][i] *= alpha[(i >> 1) & 1];
+
+    wg_fence();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int ks = 0; ks < TILE_ROWS / 16; ++ks)
+        mma_rs(acc[n], pf[4 * ks], pf[4 * ks + 1], pf[4 * ks + 2],
+               pf[4 * ks + 3], desc_mn(Vt, ks, n));
+    wg_commit();
+    wg_wait(acc);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  float l_safe[2];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) l_safe[j] = fmaxf(l_r[j], 1e-30f);
+  bf16* op = out + b * ql.sb + h * ql.sh;
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = q0 + frag_row(i);
+      const int col = 64 * n + frag_col(i);
+      const float ls = l_safe[(i >> 1) & 1];
+      if (row < Lq && col < dh)
+        *reinterpret_cast<__nv_bfloat162*>(op + row * ql.sl + col) =
+            __floats2bfloat162_rn(acc[n][i] / ls, acc[n][i + 1] / ls);
+    }
+  if ((tid & 3) == 0)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = q0 + frag_row(2 * j);
+      if (row < Lq) lse[(long long)bh * Lq + row] = m_r[j] + logf(l_safe[j]);
+    }
+}
+
+}  // namespace sm90
+
+namespace {
+
+struct Args {
+  const void *q, *k, *v;
+  const float* mask;
+  void* out;
+  float* lse;
+  int BH, H, Lq, Lk, dh;
+  Layout ql, kl;
+  float sm_scale;
+  Dropout drop;
+  cudaStream_t stream;
+};
+
+cudaError_t launch_f32(const Args& a) {
+  const int ld = a.dh + 1;
   const size_t smem =
       sizeof(float) * ((size_t)(BLOCK_M + 2 * BLOCK_N) * ld +
                        (size_t)BLOCK_M * LDP + BLOCK_N);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        flash_fwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, BH);
-  flash_fwd_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, static_cast<T*>(out), lse, H, Lq, Lk,
-      dh, ql, kl, sm_scale, drop);
+  const cudaError_t err = sm90::allow_smem(flash_fwd_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + BLOCK_M - 1) / BLOCK_M, a.BH);
+  flash_fwd_kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, static_cast<float*>(a.out),
+      a.lse, a.H, a.Lq, a.Lk, a.dh, a.ql, a.kl, a.sm_scale, a.drop);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_bf16(const Args& a) {
+  using sm90::bf16;
+  constexpr size_t smem = sm90::fwd_smem<DH>();
+  const cudaError_t err =
+      sm90::allow_smem(sm90::flash_fwd_kernel_sm90<DH>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS, a.BH);
+  sm90::flash_fwd_kernel_sm90<DH><<<grid, sm90::WG_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.mask, static_cast<bf16*>(a.out), a.lse,
+      a.H, a.Lq, a.Lk, a.dh, a.ql, a.kl, a.sm_scale, a.drop);
   return cudaGetLastError();
 }
 
@@ -236,7 +415,9 @@ cudaError_t launch(const void* q, const void* k, const void* v,
 extern "C" {
 
 // q and out share one layout, k and v another; mask is (BH / H, Lk) f32 and
-// lse is (BH, Lq) f32, both dense. dtype: 0 = float32, 1 = bfloat16.
+// lse is (BH, Lq) f32, both dense. dtype: 0 = float32 (CUDA-core kernel),
+// 1 = bfloat16 (wgmma kernel; q, k, v and out 16-byte aligned, every stride
+// a multiple of 8 elements, the dropout grid in multiples of 64).
 // seed: null for no dropout, else one int32 on the device (read by the
 // kernel, so the wrapper never waits for it); thresh, drop_scale and the
 // dropout grid (drop_bq, drop_bk) as flash_common.cuh says.
@@ -253,23 +434,21 @@ int univtg_flash_fwd(const void* q, const void* k, const void* v,
       BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535 ||
       (seed && (drop_bq <= 0 || drop_bk <= 0)))
     return (int)cudaErrorInvalidValue;
-  const Layout ql{q_sb, q_sh, q_sl};
-  const Layout kl{k_sb, k_sh, k_sl};
-  const Dropout drop{static_cast<const int*>(seed), thresh, drop_scale,
-                     drop_bq, drop_bk};
-  const float* m = static_cast<const float*>(mask);
-  float* ls = static_cast<float*>(lse);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (dtype == 0)
-    err = launch<float>(q, k, v, m, out, ls, BH, H, Lq, Lk, dh, ql, kl,
-                        sm_scale, drop, s);
-  else if (dtype == 1)
-    err = launch<__nv_bfloat16>(q, k, v, m, out, ls, BH, H, Lq, Lk, dh, ql,
-                                kl, sm_scale, drop, s);
-  else
-    err = cudaErrorInvalidValue;
-  return (int)err;
+  const Args a{q, k, v, static_cast<const float*>(mask), out,
+               static_cast<float*>(lse), BH, H, Lq, Lk, dh,
+               Layout{q_sb, q_sh, q_sl}, Layout{k_sb, k_sh, k_sl}, sm_scale,
+               Dropout{static_cast<const int*>(seed), thresh, drop_scale,
+                       drop_bq, drop_bk},
+               static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_f32(a);
+  if (dtype == 1) {
+    const void* ptrs[] = {q, k, v, out};
+    if (sm90::misaligned(ptrs, 4, a.ql, a.kl))
+      return (int)cudaErrorMisalignedAddress;
+    if (sm90::bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
+    return (int)(dh <= 64 ? launch_bf16<64>(a) : launch_bf16<128>(a));
+  }
+  return (int)cudaErrorInvalidValue;
 }
 
 const char* univtg_cuda_error_string(int err) {

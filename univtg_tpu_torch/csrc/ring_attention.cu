@@ -15,7 +15,8 @@
 //   ring_block   one launch per (rank, step): fold the resident K/V block
 //                into the rank's state, kept in global memory between
 //                launches (m, l: (BH, Lq) f32; acc: (BH, Lq, dh) f32)
-//       s     = (q * scale) . k^T + (1 - mask) * (-1e30)  scale BEFORE the dot
+//       s     = scale * q . k^T + (1 - mask) * (-1e30)    (f32: q * scale
+//               before the dot, as the twin; bf16: the f32 product scaled)
 //       m_new = max(m, rowmax s);  p = exp(s - m_new);  alpha = exp(m - m_new)
 //       l     = l * alpha + rowsum p;  acc = acc * alpha + p . v   p stays f32
 //   ring_finish  one launch per rank: out = acc / max(l, 1e-30) in q's dtype
@@ -34,20 +35,36 @@
 // it in the block launches) and moves q, k, v and out once plus P (P - 1)
 // K/V/mask block hops, each read and written. In f32, and in bf16 at P = 1,
 // the FLOP bound the time; in bf16 at P >= 4 the hops' bytes do (8 x 2080:
-// 0.16 ms against 0.14 ms of tensor-core FLOP). The kernel runs far from
-// both: it computes on CUDA cores (PERF.md).
+// 0.16 ms against 0.14 ms of tensor-core FLOP).
 //
-// Design (simple and right first), the flash forward's (flash_fwd.cu): one
+// The dtype picks the block kernel's design; this is a dispatch, not a
+// fallback:
+//
+// bf16 -- tensor cores (ring_block_kernel_sm90<DH>, DH = 64 or 128, the head
+// dim zero-filled up to DH): the loop of flash_fwd.cu's bf16 kernel, on
+// flash_sm90.cuh's building blocks. One warpgroup of 128 threads and 64
+// resident query rows per block, two blocks per SM; the block's K/V streams
+// in 64-key tiles through two cp.async stages; S = q . k^T on wgmma (bf16
+// operands, f32 sums), then * scale (after the dot: q * scale in bf16 would
+// round, since dh^-0.5 is no power of two; the twin scales the f32 q, so the
+// two differ by f32 rounding only). The state (m, l, acc) is read into the
+// accumulator fragment unless `first` and written back at the end. p stays
+// f32, as in the JAX ring: P . V is two register-A products into one
+// accumulator, p_hi = bf16(p) and p_lo = bf16(p - p_hi), both exact bf16
+// inputs against bf16 V; what p_hi + p_lo leaves of p is about 2^-17 of it.
+//
+// f32 -- CUDA cores (ring_block_kernel), the flash forward's f32 design: one
 // block of 256 threads per (batch*head, 64-row query tile); K and V staged
-// in shared memory as f32, 64 keys at a time; each thread owns 4 query rows
-// and computes a 4x4 patch of the score tile and a 4 x (dh/16) patch of the
-// accumulator with scalar FMAs. What it leaves on the table: tensor cores,
-// double-buffered loads of the next tile, the state round trip through
-// global memory at every step (a kernel that loops over the steps itself
-// would keep it in registers, but would have to wait on the copies inside
-// the kernel: P blocks that spin on each other's flags deadlock when they are
-// not all resident, so every wait stays in the stream and event graph), and
-// the partial last tile when Lq or Lk is not a multiple of 64.
+// in shared memory 64 keys at a time; each thread owns 4 query rows and
+// computes a 4x4 patch of the score tile and a 4 x (dh/16) patch of the
+// accumulator with scalar FMAs.
+//
+// Both leave the state's round trip through global memory at every step (a
+// kernel that loops over the steps itself would keep it in registers, but
+// would have to wait on the copies inside the kernel: P blocks that spin on
+// each other's flags deadlock when they are not all resident, so every wait
+// stays in the stream and event graph), and the partial last tile when Lq
+// or Lk is not a multiple of 64.
 //
 // Built by univtg_tpu_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -57,8 +74,10 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_sm90.cuh"
 
 namespace {
 
@@ -67,7 +86,6 @@ using flash::group_max;
 using flash::group_sum;
 using flash::Layout;
 using flash::NEG_INF;
-using flash::to_f32;
 
 constexpr int BLOCK_M = 64;   // query rows per block
 constexpr int BLOCK_N = 64;   // keys per staged tile
@@ -79,10 +97,9 @@ constexpr int OCOLS = MAX_DH / 16;   // accumulator columns per thread, at most
 constexpr int LDP = BLOCK_N + 1;     // P tile row stride
 constexpr int FINISH_THREADS = 256;
 
-template <typename T>
 __global__ void __launch_bounds__(THREADS)
-ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                  const T* __restrict__ v, const float* __restrict__ mask,
+ring_block_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ mask,
                   float* __restrict__ m_state, float* __restrict__ l_state,
                   float* __restrict__ acc_state, int H, int Lq, int Lk, int dh,
                   Layout ql, Layout kl, long long mask_sb, float scale,
@@ -103,16 +120,16 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int h = bh - b * H;
   const int q0 = blockIdx.x * BLOCK_M;
 
-  const T* qp = q + b * ql.sb + h * ql.sh;
-  const T* kp = k + b * kl.sb + h * kl.sh;
-  const T* vp = v + b * kl.sb + h * kl.sh;
+  const float* qp = q + b * ql.sb + h * ql.sh;
+  const float* kp = k + b * kl.sb + h * kl.sh;
+  const float* vp = v + b * kl.sb + h * kl.sh;
   const float* mp = mask + b * mask_sb;
   const long long state_row = (long long)bh * Lq;
 
   for (int e = tid; e < BLOCK_M * dh; e += THREADS) {
     const int r = e / dh, c = e - r * dh;
     const int row = q0 + r;
-    Qs[r * ld + c] = row < Lq ? to_f32(qp[row * ql.sl + c]) * scale : 0.f;
+    Qs[r * ld + c] = row < Lq ? qp[row * ql.sl + c] * scale : 0.f;
   }
 
   float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
@@ -136,8 +153,8 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / dh, c = e - r * dh;
       const int key = k0 + r;
       const bool in = key < Lk;
-      Ks[r * ld + c] = in ? to_f32(kp[key * kl.sl + c]) : 0.f;
-      Vs[r * ld + c] = in ? to_f32(vp[key * kl.sl + c]) : 0.f;
+      Ks[r * ld + c] = in ? kp[key * kl.sl + c] : 0.f;
+      Vs[r * ld + c] = in ? vp[key * kl.sl + c] : 0.f;
     }
     if (tid < BLOCK_N) Ms[tid] = k0 + tid < Lk ? mp[k0 + tid] : 0.f;
     __syncthreads();
@@ -183,7 +200,7 @@ ring_block_kernel(const T* __restrict__ q, const T* __restrict__ k,
       for (int j = 0; j < SCOLS; ++j) {
         const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
         rs += p;
-        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = p;  // f32, not rounded to T
+        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = p;
       }
       l[i] = l[i] * alpha + group_sum(rs);
       m[i] = m_new;
@@ -244,27 +261,193 @@ ring_finish_kernel(const float* __restrict__ l_state,
   }
 }
 
-template <typename T>
-cudaError_t launch_block(const void* q, const void* k, const void* v,
-                         const float* mask, float* m, float* l, float* acc,
-                         int BH, int H, int Lq, int Lk, int dh, Layout ql,
-                         Layout kl, long long mask_sb, float scale, int first,
-                         cudaStream_t stream) {
-  const int ld = dh + 1;
+}  // namespace
+
+namespace sm90 {
+
+template <int DH>
+constexpr size_t ring_smem() {  // Q; K, V x 2 stages; key bias x 2
+  return 5 * tile_bytes<DH>() + 2 * TILE_ROWS * 4 + 1024;
+}
+
+// flash_fwd_kernel_sm90's loop, one launch per (rank, step): the state comes
+// from and goes back to global memory, there is no dropout, and p stays f32
+// through P . V (p_hi and p_lo, two register-A products).
+template <int DH>
+__global__ void __launch_bounds__(WG_THREADS, 2)
+ring_block_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                       const bf16* __restrict__ v,
+                       const float* __restrict__ mask,
+                       float* __restrict__ m_state,
+                       float* __restrict__ l_state,
+                       float* __restrict__ acc_state, int H, int Lq, int Lk,
+                       int dh, Layout ql, Layout kl, long long mask_sb,
+                       float scale, int first) {
+  constexpr int NT = DH / 64;  // 64-column slices of the accumulator
+  constexpr uint32_t TB = tile_bytes<DH>();
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t Qs = (raw + 1023) & ~1023u;
+  const uint32_t Ks = Qs + TB, Vs = Ks + 2 * TB;
+  float* const Bs = reinterpret_cast<float*>(smem_raw + (Vs + 2 * TB - raw));
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh - b * H;
+  const int q0 = blockIdx.x * TILE_ROWS;
+  const bf16* kp = k + b * kl.sb + h * kl.sh;
+  const bf16* vp = v + b * kl.sb + h * kl.sh;
+  const float* mp = mask + b * mask_sb;
+  const long long state_row = (long long)bh * Lq + q0;
+
+  load_tile<DH>(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
+  load_tile<DH>(Ks, kp, kl.sl, 0, Lk, dh);
+  load_tile<DH>(Vs, vp, kl.sl, 0, Lk, dh);
+  if (tid < TILE_ROWS) Bs[tid] = key_bias(mp, tid, Lk);
+  cp_commit();
+
+  float m_r[2], l_r[2], acc[NT][32];
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const int row = frag_row(2 * j);
+    const bool load = !first && q0 + row < Lq;
+    m_r[j] = load ? m_state[state_row + row] : -INFINITY;
+    l_r[j] = load ? l_state[state_row + row] : 0.f;
+  }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = frag_row(i);
+      const int col = 64 * n + frag_col(i);
+      float2 a = make_float2(0.f, 0.f);
+      if (!first && q0 + row < Lq && col < dh)
+        a = *reinterpret_cast<const float2*>(acc_state +
+                                             (state_row + row) * dh + col);
+      acc[n][i] = a.x;
+      acc[n][i + 1] = a.y;
+    }
+
+  const int n_tiles = (Lk + TILE_ROWS - 1) / TILE_ROWS;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int k0 = t * TILE_ROWS;
+    if (t + 1 < n_tiles) {  // the next tile into the other stage
+      const int k1 = k0 + TILE_ROWS;
+      load_tile<DH>(Ks + (st ^ 1) * TB, kp, kl.sl, k1, Lk, dh);
+      load_tile<DH>(Vs + (st ^ 1) * TB, vp, kl.sl, k1, Lk, dh);
+      if (tid < TILE_ROWS)
+        Bs[(st ^ 1) * TILE_ROWS + tid] = key_bias(mp, k1 + tid, Lk);
+    }
+    cp_commit();
+    cp_wait_prev();
+    __syncthreads();  // tile t is in shared memory for every warp
+
+    const uint32_t Kt = Ks + st * TB, Vt = Vs + st * TB;
+    float s[1][32];
+    zero(s);
+    wg_fence();
+#pragma unroll
+    for (int ks = 0; ks < DH / 16; ++ks)
+      mma_ss(s[0], desc_k(Qs, ks), desc_k(Kt, ks));
+    wg_commit();
+    wg_wait(s);
+
+    float alpha[2];
+    float(&p)[32] = s[0];
+    online_softmax(p, Bs + st * TILE_ROWS, k0, Lk, scale, m_r, l_r, alpha);
+    uint32_t phi[16], plo[16];  // p = p_hi + p_lo + O(2^-17 p)
+#pragma unroll
+    for (int i = 0; i < 16; ++i) {
+      phi[i] = pack_bf16(p[2 * i], p[2 * i + 1]);
+      plo[i] = pack_bf16(p[2 * i] - bf16_lo(phi[i]), p[2 * i + 1] - bf16_hi(phi[i]));
+    }
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int i = 0; i < 32; ++i) acc[n][i] *= alpha[(i >> 1) & 1];
+
+    wg_fence();
+#pragma unroll
+    for (int n = 0; n < NT; ++n)
+#pragma unroll
+      for (int ks = 0; ks < TILE_ROWS / 16; ++ks) {
+        const uint64_t vd = desc_mn(Vt, ks, n);
+        mma_rs(acc[n], phi[4 * ks], phi[4 * ks + 1], phi[4 * ks + 2],
+               phi[4 * ks + 3], vd);
+        mma_rs(acc[n], plo[4 * ks], plo[4 * ks + 1], plo[4 * ks + 2],
+               plo[4 * ks + 3], vd);
+      }
+    wg_commit();
+    wg_wait(acc);
+    __syncthreads();  // every warp is done with this stage
+  }
+
+  if ((tid & 3) == 0)
+#pragma unroll
+    for (int j = 0; j < 2; ++j) {
+      const int row = frag_row(2 * j);
+      if (q0 + row < Lq) {
+        m_state[state_row + row] = m_r[j];
+        l_state[state_row + row] = l_r[j];
+      }
+    }
+#pragma unroll
+  for (int n = 0; n < NT; ++n)
+#pragma unroll
+    for (int i = 0; i < 32; i += 2) {
+      const int row = frag_row(i);
+      const int col = 64 * n + frag_col(i);
+      if (q0 + row < Lq && col < dh)
+        *reinterpret_cast<float2*>(acc_state + (state_row + row) * dh + col) =
+            make_float2(acc[n][i], acc[n][i + 1]);
+    }
+}
+
+}  // namespace sm90
+
+namespace {
+
+struct BlockArgs {
+  const void *q, *k, *v;
+  const float* mask;
+  float *m, *l, *acc;
+  int BH, H, Lq, Lk, dh;
+  Layout ql, kl;
+  long long mask_sb;
+  float scale;
+  int first;
+  cudaStream_t stream;
+};
+
+cudaError_t launch_block_f32(const BlockArgs& a) {
+  const int ld = a.dh + 1;
   const size_t smem =
       sizeof(float) * ((size_t)(BLOCK_M + 2 * BLOCK_N) * ld +
                        (size_t)BLOCK_M * LDP + BLOCK_N);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        ring_block_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return err;
-  }
-  const dim3 grid((Lq + BLOCK_M - 1) / BLOCK_M, BH);
-  ring_block_kernel<T><<<grid, THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), mask, m, l, acc, H, Lq, Lk, dh, ql, kl,
-      mask_sb, scale, first);
+  const cudaError_t err = sm90::allow_smem(ring_block_kernel, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + BLOCK_M - 1) / BLOCK_M, a.BH);
+  ring_block_kernel<<<grid, THREADS, smem, a.stream>>>(
+      static_cast<const float*>(a.q), static_cast<const float*>(a.k),
+      static_cast<const float*>(a.v), a.mask, a.m, a.l, a.acc, a.H, a.Lq, a.Lk,
+      a.dh, a.ql, a.kl, a.mask_sb, a.scale, a.first);
+  return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_block_bf16(const BlockArgs& a) {
+  using sm90::bf16;
+  constexpr size_t smem = sm90::ring_smem<DH>();
+  const cudaError_t err =
+      sm90::allow_smem(sm90::ring_block_kernel_sm90<DH>, smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((a.Lq + sm90::TILE_ROWS - 1) / sm90::TILE_ROWS, a.BH);
+  sm90::ring_block_kernel_sm90<DH><<<grid, sm90::WG_THREADS, smem, a.stream>>>(
+      static_cast<const bf16*>(a.q), static_cast<const bf16*>(a.k),
+      static_cast<const bf16*>(a.v), a.mask, a.m, a.l, a.acc, a.H, a.Lq, a.Lk,
+      a.dh, a.ql, a.kl, a.mask_sb, a.scale, a.first);
   return cudaGetLastError();
 }
 
@@ -289,7 +472,10 @@ extern "C" {
 // strides and a dense head dim; mask is the block's (B, Lk) f32 key mask
 // (1 = valid) with batch stride mask_sb. m, l (BH, Lq) and acc (BH, Lq, dh)
 // are the rank's f32 state, dense: read unless `first`, always written.
-// scale multiplies q before the dot. dtype: 0 = float32, 1 = bfloat16.
+// scale multiplies q . k^T (the f32 kernel scales q before the dot, the
+// bf16 kernel the f32 product after it). dtype: 0 = float32 (CUDA-core
+// kernel), 1 = bfloat16 (wgmma kernel; q, k and v 16-byte aligned, every
+// stride a multiple of 8 elements).
 // Returns a cudaError_t; 0 on success. Launches on `stream`, allocates
 // nothing and does not synchronise.
 int univtg_ring_block(const void* q, const void* k, const void* v,
@@ -301,20 +487,19 @@ int univtg_ring_block(const void* q, const void* k, const void* v,
   if (dh <= 0 || dh > MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
       BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535)
     return (int)cudaErrorInvalidValue;
-  const Layout ql{q_sb, q_sh, q_sl};
-  const Layout kl{k_sb, k_sh, k_sl};
-  const float* mk = static_cast<const float*>(mask);
-  float* ms = static_cast<float*>(m);
-  float* ls = static_cast<float*>(l);
-  float* as = static_cast<float*>(acc);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return (int)launch_block<float>(q, k, v, mk, ms, ls, as, BH, H, Lq, Lk, dh,
-                                    ql, kl, mask_sb, scale, first, s);
-  if (dtype == 1)
-    return (int)launch_block<__nv_bfloat16>(q, k, v, mk, ms, ls, as, BH, H,
-                                            Lq, Lk, dh, ql, kl, mask_sb, scale,
-                                            first, s);
+  const BlockArgs a{q, k, v, static_cast<const float*>(mask),
+                    static_cast<float*>(m), static_cast<float*>(l),
+                    static_cast<float*>(acc), BH, H, Lq, Lk, dh,
+                    Layout{q_sb, q_sh, q_sl}, Layout{k_sb, k_sh, k_sl},
+                    mask_sb, scale, first, static_cast<cudaStream_t>(stream)};
+  if (dtype == 0) return (int)launch_block_f32(a);
+  if (dtype == 1) {
+    const void* ptrs[] = {q, k, v};
+    if (sm90::misaligned(ptrs, 3, a.ql, a.kl))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)(dh <= 64 ? launch_block_bf16<64>(a)
+                          : launch_block_bf16<128>(a));
+  }
   return (int)cudaErrorInvalidValue;
 }
 

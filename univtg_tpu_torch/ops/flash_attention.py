@@ -3,8 +3,8 @@
 Counterpart of ``univtg_tpu/ops/pallas_attention.py``: the forward
 (``csrc/flash_fwd.cu``, for ``_fwd_kernel``) and the dQ and dK/dV backward
 kernels (``csrc/flash_bwd.cu``, for ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``: wgmma tensor-core kernels for bf16, CUDA-core kernels
-for f32), all with in-kernel attention dropout. Each source note says what
+``_bwd_dkv_kernel``), each a wgmma tensor-core kernel for bf16 and a
+CUDA-core kernel for f32, all with in-kernel attention dropout. Each source note says what
 the kernel computes, what bounds it and what its design leaves on the
 table.
 
@@ -279,7 +279,7 @@ def _launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed):
 
 def _aligned(t):
     """t itself if its data starts on 16 bytes, else a fresh copy: the bf16
-    backward kernels copy 16 bytes at a time."""
+    kernels copy 16 bytes at a time."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
@@ -304,6 +304,7 @@ def _forward(q, k, v, mask, heads, sm_scale, dropout_rate, seed):
         )
         return _merge(out, B, heads, dh), lse
 
+    q, k, v = (_aligned(t) for t in (q, k, v))
     mask = mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     lse = torch.empty((B * heads, Lq), dtype=torch.float32, device=q.device)

@@ -30,6 +30,10 @@ copy and no event. Ranks on distinct cards of this process copy peer to
 peer; ranks that share a card (the default ring) each get their own
 streams, slots and state.
 
+The block kernel is a wgmma tensor-core kernel for bf16 (p kept in f32
+through P . V as a bf16 pair, p_hi + p_lo) and a CUDA-core kernel for f32
+(``csrc/ring_attention.cu`` says why).
+
 Dispatch: a CUDA tensor always launches the kernels; a CPU tensor takes the
 plain twin ``ring_attention_pallas_reference`` (the same per-rank, per-step
 order and f32 math, slots as plain tensor copies run in sequence). There
@@ -46,6 +50,7 @@ import ctypes
 
 import torch
 
+from univtg_tpu_torch.ops.flash_attention import _aligned
 from univtg_tpu_torch.ops.ring_attention import (
     _ring_block,
     _split,
@@ -229,6 +234,7 @@ def _ring_cuda(q, k, v, mask, H, ring):
     q's card."""
     lib = _library()
     P, devs = ring.size, ring.devices
+    q, k, v = (_aligned(t) for t in (q, k, v))  # the bf16 kernel's 16-byte copies
     mask = mask.to(torch.float32).contiguous()
     out = torch.empty_like(q)
     ranks = [_Rank(r, dev, q, k, v, mask, out, P, H) for r, dev in enumerate(devs)]
