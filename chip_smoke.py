@@ -12,7 +12,8 @@ printing its seconds:
                  planted-fault copies of flash_bwd.cu, flash_fwd.cu and
                  ring_attention.cu (phase 3b), one process per source, all
                  started together; ptxas lines printed. cuobjdump -sass of
-                 the flash_bwd, flash_fwd and ring_attention libraries:
+                 the flash_bwd, flash_fwd, ring_attention and int8_matmul
+                 libraries:
                  HGMMA (and HMMA) instructions per kernel beside its
                  registers and spill bytes; fails unless every bf16
                  (wgmma) kernel, SASS_KERNELS, issues HGMMA.
@@ -33,8 +34,12 @@ printing its seconds:
   3c. int8    -- int8_matmul against its twin at K=2818, N=1024 (the first
                  video projection): M=128, 4096 (one qvhighlights_bf16
                  dispatch) and 16384 (one long_video_bf16 dispatch) in
-                 bf16, M=128 and 4096 in f32; kernel, twin and cuBLAS
-                 (F.linear on the dequantized weight) times and the bound.
+                 bf16, M=128 and 4096 in f32; two calls on one input give
+                 the same bits; kernel, twin and cuBLAS (F.linear on the
+                 dequantized weight) times, eager and replayed from a CUDA
+                 graph, and the bound; at M=128 also the kernel and cuBLAS
+                 with the weight cold in L2 (each call on the next of
+                 INT8_COLD_COPIES copies).
   3d. ring    -- ring_attention (the ring_block and ring_finish kernels of
                  csrc/ring_attention.cu and their transport) against its
                  twin on one card at (2 x 160, P = 1, 2, 4), (8 x 2080,
@@ -204,7 +209,8 @@ BF16_BWD_KERNELS = ("flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
 # every bf16 (wgmma) kernel, by library: each instantiation must issue HGMMA
 SASS_KERNELS = {"flash_bwd": BF16_BWD_KERNELS,
                 "flash_fwd": ("flash_fwd_kernel_sm90",),
-                "ring_attention": ("ring_block_kernel_sm90",)}
+                "ring_attention": ("ring_block_kernel_sm90",),
+                "int8_matmul": ("int8_matmul_kernel_sm90",)}
 # the f32 train step on the flash kernels vs on plain attention (same
 # weights, same batches, dropouts 0): per-step loss and grad norm
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
@@ -226,6 +232,9 @@ PIPE_TOL = {
 INT8_TOL = {"float32": {"rel": 1e-5, "share": None},
             "bfloat16": {"rel": 8e-3, "share": 1e-2}}
 INT8_K, INT8_N = 2818, 1024  # input_vid_proj.0: 2818 -> 1024
+# copies of the weight that the cold-L2 timing at M=128 goes through, one a
+# call: 32 x 2.9 MB of int8 (x 5.8 MB of bf16 for cuBLAS) > the 50 MB L2
+INT8_COLD_M, INT8_COLD_COPIES = 128, 32
 INT8_SHAPES = {  # name -> (M, dtypes)
     "serving_128": (128, ("bfloat16", "float32")),
     "qvhighlights_dispatch": (32 * 128, ("bfloat16", "float32")),
@@ -321,6 +330,40 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / iters
+
+
+def graph_ms(torch, fn, calls=20, reps=10):
+    """ms per call of fn, replayed from one CUDA graph of `calls` calls:
+    the device's time without the host's cost per call. fn runs once
+    outside the graph first."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        for _ in range(calls):
+            fn()
+    g.replay()
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / (reps * calls)
+
+
+def cold_ms(torch, fn, copies):
+    """(eager ms, graph ms) per call of fn(copy), each call on the next of
+    `copies` in turn, so that no copy is in L2 when it is read."""
+    import itertools
+
+    ring = itertools.cycle(copies)
+    eager = cuda_ms(lambda: fn(next(ring)), 2 * len(copies))
+    return eager, graph_ms(torch, lambda: fn(next(ring)), calls=len(copies))
 
 
 def phase_device(torch):
@@ -1014,34 +1057,52 @@ def _int8_within(err, dname):
 
 
 def _int8_record(torch, shape_name, x, w_q, scale, w_lib, iters):
-    """int8_matmul on (x, w_q, scale) against its twin: errors, kernel, twin
-    and cuBLAS times (F.linear on w_lib, the dequantized weight in x's
-    dtype, as a Linear holds it) and the bound; raises past INT8_TOL."""
+    """int8_matmul on (x, w_q, scale) against its twin, and a second call on
+    the same input bit for bit: errors, kernel, twin and cuBLAS times
+    (F.linear on w_lib, the dequantized weight in x's dtype, as a Linear
+    holds it), eager and from a CUDA graph, at INT8_COLD_M also with the
+    weight cold in L2, and the bound; raises past INT8_TOL or on a repeat
+    that differs."""
     import torch.nn.functional as F
 
     from univtg_tpu_torch.ops import int8_matmul as im
 
     dname = str(x.dtype).removeprefix("torch.")
     got = im.int8_matmul(x, w_q, scale)
+    again = im.int8_matmul(x, w_q, scale)
     want = im.int8_matmul_reference(x, w_q, scale)
     torch.cuda.synchronize()
     err = _errs(got, want)
+    repeat = torch.equal(got, again)
     finite = torch.isfinite(got).all().item() and want.abs().max().item() > 0
     M, K = x.shape
     N = w_q.shape[1]
     es = x.element_size()
     flops, nbytes = 2 * M * K * N, M * K * es + K * N + 4 * N + M * N * es
     bound_ms, bound_by = _bound(flops, nbytes, dname)
+    kernel = lambda: im.int8_matmul(x, w_q, scale)  # noqa: E731
+    library = lambda: F.linear(x, w_lib)  # noqa: E731
     rec = {"kernel": "int8_matmul", "shape": shape_name, "M": M, "K": K, "N": N,
            "dtype": dname, "err": err[0], "rel_err": err[1], "differ": err[2],
            "twin_max_abs": want.float().abs().max().item(), "tol": INT8_TOL[dname],
-           "ms": cuda_ms(lambda: im.int8_matmul(x, w_q, scale), iters),
+           "bit_equal_repeat": repeat,
+           "ms": cuda_ms(kernel, iters), "graph_ms": graph_ms(torch, kernel),
            "plain_ms": cuda_ms(lambda: im.int8_matmul_reference(x, w_q, scale), iters),
-           "library_ms": cuda_ms(lambda: F.linear(x, w_lib), iters),
+           "library_ms": cuda_ms(library, iters), "library_graph_ms": graph_ms(torch, library),
            "flops": flops, "bytes": nbytes, "bound_ms": bound_ms, "bound_by": bound_by}
+    if M == INT8_COLD_M:
+        copies = [w_q.clone() for _ in range(INT8_COLD_COPIES)]
+        rec["cold_ms"], rec["cold_graph_ms"] = cold_ms(
+            torch, lambda w: im.int8_matmul(x, w, scale), copies)
+        copies = [w_lib.clone() for _ in range(INT8_COLD_COPIES)]
+        rec["library_cold_ms"], rec["library_cold_graph_ms"] = cold_ms(
+            torch, lambda w: F.linear(x, w), copies)
+        del copies
     log(f"[kernels] {json.dumps(rec)}")
     if not finite or not _int8_within(err, dname):
         raise AssertionError(f"int8_matmul disagrees with its twin: {rec}")
+    if not repeat:
+        raise AssertionError(f"int8_matmul gave other bits on the same input: {rec}")
     return rec, got
 
 

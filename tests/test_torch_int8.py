@@ -37,7 +37,7 @@ def _operands(seed, M, K, N):
     return x, w_q, scale
 
 
-def _pallas_int8(x, w_q, scale):
+def _pallas_int8(x, w_q, scale, block_m=16, block_n=32):
     """The JAX kernel in interpret mode, its block sizes shrunk so the small
     shapes span several blocks."""
     import jax.numpy as jnp
@@ -49,7 +49,7 @@ def _pallas_int8(x, w_q, scale):
     try:
         pl.pallas_call = functools.partial(orig, interpret=True)
         return np.asarray(pi.int8_matmul.__wrapped__(
-            x, jnp.asarray(w_q), jnp.asarray(scale), block_m=16, block_n=32
+            x, jnp.asarray(w_q), jnp.asarray(scale), block_m=block_m, block_n=block_n
         ).astype(jnp.float32))
     finally:
         pl.pallas_call = orig
@@ -94,6 +94,80 @@ def test_twin_matches_pallas_int8_bf16(M, K, N):
     assert got.dtype == torch.bfloat16 and got.shape == (M, N)
     rel, share = _rel_share(got.float().numpy(), want)
     assert rel <= BF16_REL and share <= BF16_SHARE, (rel, share)
+
+
+def _split_ranges(plan, K):
+    """The [start, end) range of K that each split of ``plan`` sums, as the
+    bf16 kernel takes them (split s from 64 * k_tiles * s)."""
+    step = plan.k_tiles * 64
+    return [(s * step, min(K, (s + 1) * step)) for s in range(plan.splits)]
+
+
+def _kernel_order(x, w_q, scale):
+    """The bf16 kernel's arithmetic on the CPU: each split of the plan sums
+    x . w_q (exact products) in f32, the splits are added in their order,
+    the scale multiplies the sum, and one bf16 rounding follows."""
+    M, K = x.shape
+    total = None
+    for a, b in _split_ranges(im._plan(M, w_q.shape[1], K), K):
+        part = x[:, a:b].float() @ w_q[a:b].float()
+        total = part if total is None else total + part
+    return (total * scale.reshape(1, -1)).to(torch.bfloat16)
+
+
+@pytest.mark.parametrize("M,K,N", [(48, 72, 96), (37, 130, 300),
+                                   (128, FLAGSHIP_K, FLAGSHIP_N)])
+def test_kernel_order_matches_pallas_int8_bf16(M, K, N):
+    """Scale after the f32 sum, then one rounding, as the bf16 kernel does,
+    stays within the bf16 limits of the Pallas kernel."""
+    x, w_q, scale = _operands(5, M, K, N)
+    import jax.numpy as jnp
+
+    xb = torch.from_numpy(x).to(torch.bfloat16)
+    blocks = dict(block_m=64, block_n=256) if M > 64 else {}
+    want = _pallas_int8(jnp.asarray(xb.float().numpy()).astype(jnp.bfloat16), w_q,
+                        scale, **blocks)
+    got = _kernel_order(xb, torch.from_numpy(w_q), torch.from_numpy(scale))
+    rel, share = _rel_share(got.float().numpy(), want)
+    assert rel <= BF16_REL and share <= BF16_SHARE, (rel, share)
+
+
+@pytest.mark.parametrize("M", [1, 128])
+def test_plan_fills_the_card_at_serving_batches(M):
+    """The kernel runs one block per SM: at a serving batch K is split so
+    that the blocks cover at least 90 % of the 132 SMs in one wave (a
+    second, nearly empty wave would double the time)."""
+    plan = im._plan(M, FLAGSHIP_N, FLAGSHIP_K)
+    blocks = -(-M // 128) * -(-FLAGSHIP_N // plan.block_n) * plan.splits
+    assert plan.splits > 1 and 0.9 * 132 <= blocks <= 132, (plan, blocks)
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 129, 300), (128, FLAGSHIP_K, FLAGSHIP_N),
+                                   (256, 256, 64), (1024, FLAGSHIP_K, FLAGSHIP_N),
+                                   (2400, FLAGSHIP_K, FLAGSHIP_N), (37, 64, 8),
+                                   (5, 4097, 2048)])
+def test_plan_splits_cover_k_exactly_once(M, K, N):
+    plan = im._plan(M, N, K)
+    ranges = _split_ranges(plan, K)
+    assert plan.block_n in (64, 128, 256) and len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a, b), (c, _) in zip(ranges, ranges[1:] + [(K, K)]):
+        assert a < b and b == c, ranges  # non-empty, and the next starts here
+        assert (b - a) % 64 == 0 or b == K, ranges  # whole stages but the last
+
+
+@pytest.mark.parametrize("M", [4096, 16384])
+def test_plan_needs_no_split_at_dispatch_batches(M):
+    """From a qvhighlights_bf16 dispatch (M = 4096) up, 128 x 256 tiles
+    fill the card whole: no split, no workspace."""
+    plan = im._plan(M, FLAGSHIP_N, FLAGSHIP_K)
+    assert plan == im.Plan(256, 1, -(-FLAGSHIP_K // 64))
+
+
+def test_plan_splits_an_eval_batch_into_whole_waves():
+    """M = 2400 gives 76 tiles of 128 x 256 for 132 SMs: three splits make
+    two waves of 15 stages, where one split is a wave of 45."""
+    assert im._plan(2400, FLAGSHIP_N, FLAGSHIP_K) == im.Plan(256, 3, 15)
 
 
 def test_kernel_layout_of_a_torch_linear_weight():
@@ -150,3 +224,79 @@ def test_cuda_kernel_matches_twin(cuda_device, M, K, N, dtype):
         assert rel <= F32_REL, rel
     else:
         assert rel <= BF16_REL and share <= BF16_SHARE, (rel, share)
+
+
+def _cuda_check(x, w_q, scale):
+    """One kernel launch against the twin within the limits of x's dtype;
+    returns the kernel's output."""
+    before = im.launches["int8_matmul"]
+    got = im.int8_matmul(x, w_q, scale)
+    want = im.int8_matmul_reference(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert im.launches["int8_matmul"] == before + 1
+    assert got.dtype == x.dtype and got.shape == want.shape and torch.isfinite(got).all()
+    rel, share = _rel_share(got.float().cpu().numpy(), want.float().cpu().numpy())
+    assert rel <= BF16_REL and share <= BF16_SHARE, (rel, share)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (37, 129, 300),                  # odd K: x one element a copy
+    (64, 1024, 256),                 # K % 8 == 0: x 16 bytes a copy
+    (130, 258, 300),                 # N % 16 != 0: w_q 4 bytes a copy
+    (70, 96, 301),                   # odd N: w_q one byte a copy
+    (1, FLAGSHIP_K, FLAGSHIP_N),     # M = 1, split K
+    (300, 130, 520),                 # two 128-row tiles and a ragged third
+], ids=["odd_k", "k_mult_8", "n_300", "odd_n", "m_1", "ragged_m"])
+def test_cuda_bf16_kernel_at_ragged_shapes(cuda_device, M, K, N):
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x, w_q, scale = _operands(6, M, K, N)
+    _cuda_check(torch.from_numpy(x).to(cuda_device, torch.bfloat16),
+                torch.from_numpy(w_q).to(cuda_device),
+                torch.from_numpy(scale).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])
+def test_cuda_bf16_kernel_reads_x_off_a_16_byte_boundary(cuda_device, offset):
+    """x's data starts 2 (one element a load) or 4 bytes (16-byte loads
+    shifted by a word) past a 16-byte boundary: no copy, the kernel reads
+    it in place."""
+    M, K, N = 96, FLAGSHIP_K, 256
+    x, w_q, scale = _operands(7, M, K, N)
+    flat = torch.zeros(M * K + offset, dtype=torch.bfloat16, device=cuda_device)
+    flat[offset:] = torch.from_numpy(x).reshape(-1).to(cuda_device, torch.bfloat16)
+    xv = flat[offset:].view(M, K)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 == 2 * offset
+    _cuda_check(xv, torch.from_numpy(w_q).to(cuda_device),
+                torch.from_numpy(scale).to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_bf16_kernel_takes_all_256_int8_values(cuda_device):
+    """One-hot rows of x pick single weights: every int8 value, dequantized
+    and scaled, gives the twin's bits."""
+    K, N = 256, 96
+    k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+    w_q = torch.from_numpy(((k + 7 * n) % 256 - 128).astype(np.int8)).to(cuda_device)
+    scale = torch.from_numpy(np.random.default_rng(8).uniform(1e-3, 2.0, N)
+                             .astype(np.float32)).to(cuda_device)
+    x = torch.eye(K, dtype=torch.bfloat16, device=cuda_device)
+    got = im.int8_matmul(x, w_q, scale)
+    want = im.int8_matmul_reference(x, w_q, scale)
+    assert sorted(set(w_q[:, 0].tolist())) == list(range(-128, 128))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [128, 2400])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_kernel_repeats_its_bits(cuda_device, M, dtype):
+    """No atomics: two calls on the same input give the same bits, split K
+    (M = 128) or not."""
+    x, w_q, scale = _operands(9, M, FLAGSHIP_K, FLAGSHIP_N)
+    x = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    w_q, scale = torch.from_numpy(w_q).to(cuda_device), torch.from_numpy(scale).to(cuda_device)
+    first = im.int8_matmul(x, w_q, scale)
+    assert torch.equal(first, im.int8_matmul(x, w_q, scale))

@@ -1,11 +1,13 @@
 // Hopper (sm_90a) tensor-core building blocks shared by the bf16 attention
 // kernels: flash_fwd.cu (flash_fwd_kernel_sm90), flash_bwd.cu
 // (flash_bwd_dq_kernel_sm90, flash_bwd_dkv_kernel_sm90) and
-// ring_attention.cu (ring_block_kernel_sm90).
+// ring_attention.cu (ring_block_kernel_sm90); int8_matmul.cu
+// (int8_matmul_kernel_sm90) takes the swizzled tiles, the descriptors and
+// the m64n{64,128,256}k16 products with an MN-major B.
 //
-// Every product is a wgmma m64n64k16 (bf16 in, f32 accumulate) issued by one
-// warpgroup: a block is one warpgroup of 128 threads that owns 64 resident
-// rows, and two blocks share an SM. Tiles are 64 rows of the head dim padded
+// Every attention product is a wgmma m64n64k16 (bf16 in, f32 accumulate)
+// issued by one warpgroup: a block is one warpgroup of 128 threads that owns
+// 64 resident rows, and two blocks share an SM. Tiles are 64 rows of the head dim padded
 // to DH = 64 or 128 (zero-filled), stored as 64-column atoms with the
 // 128-byte swizzle that the wgmma descriptors name, and filled by cp.async
 // (16 bytes a thread, zero-filled past L and dh, so no tensor map has to be
@@ -98,6 +100,13 @@ __device__ __forceinline__ uint64_t desc_mn(uint32_t tile, int ks, int n) {
   return desc(tile + n * TILE_ATOM + ks * 2048, 1024, 1024);
 }
 
+// MN-major operand over consecutive 64-column atoms of a tile: rows
+// [16 ks, 16 ks + 16) as the product's depth, columns [0, 64 * atoms) as its
+// N, atom to atom TILE_ATOM bytes apart.
+__device__ __forceinline__ uint64_t desc_mn_atoms(uint32_t tile, int ks) {
+  return desc(tile + ks * 2048, TILE_ATOM, 1024);
+}
+
 #define UNIVTG_D32(d)                                                        \
   "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),    \
       "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]),           \
@@ -135,12 +144,64 @@ __device__ __forceinline__ void mma_rs(float (&d)[32], uint32_t a0,
       : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
 }
 
+// d (64 x 64 NA, f32; d[a] holds columns [64 a, 64 a + 64)) += A . B, A
+// K-major and B MN-major, both in shared memory (desc_k, desc_mn_atoms).
+template <int NA>
+__device__ __forceinline__ void mma_ss_mn(float (&d)[NA][32], uint64_t a,
+                                          uint64_t b) {
+  static_assert(NA == 1 || NA == 2 || NA == 4,
+                "m64n64k16, m64n128k16 or m64n256k16");
+  if constexpr (NA == 1) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " UNIVTG_R32
+        ", %32, %33, p, 1, 1, 0, 1;\n}\n"
+        : UNIVTG_D32(d[0])
+        : "l"(a), "l"(b), "r"(1));
+  } else if constexpr (NA == 2) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63}"
+        ", %64, %65, p, 1, 1, 0, 1;\n}\n"
+        : UNIVTG_D32(d[0]), UNIVTG_D32(d[1])
+        : "l"(a), "l"(b), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, "
+        "%15, %16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, "
+        "%28, %29, %30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, "
+        "%41, %42, %43, %44, %45, %46, %47, %48, %49, %50, %51, %52, %53, "
+        "%54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, %66, "
+        "%67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, "
+        "%93, %94, %95, %96, %97, %98, %99, %100, %101, %102, %103, %104, "
+        "%105, %106, %107, %108, %109, %110, %111, %112, %113, %114, %115, "
+        "%116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, "
+        "%127}"
+        ", %128, %129, p, 1, 1, 0, 1;\n}\n"
+        : UNIVTG_D32(d[0]), UNIVTG_D32(d[1]), UNIVTG_D32(d[2]), UNIVTG_D32(d[3])
+        : "l"(a), "l"(b), "r"(1));
+  }
+}
+
 __device__ __forceinline__ void wg_fence() {
   asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
 __device__ __forceinline__ void wg_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+
+// Wait for all but this warpgroup's newest committed product group.
+__device__ __forceinline__ void wg_wait_prev() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
 }
 
 // Wait for every committed product of this warpgroup; d is read only after

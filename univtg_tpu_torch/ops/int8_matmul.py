@@ -7,9 +7,13 @@ Counterpart of ``univtg_tpu/ops/pallas_int8.py:int8_matmul``:
 
 x (M, K) in float32 or bfloat16, w_q (K, N) int8, scale (1, N) or (N,)
 float32, one per output column. The weight stays int8 in device memory and
-is dequantized inside the kernel (``csrc/int8_matmul.cu``), chunk by chunk.
-The Pallas wrapper's block sizes and zero padding are TPU tiling and do not
-come across: the kernel masks its own ragged edges.
+is dequantized inside the kernel (``csrc/int8_matmul.cu``), chunk by chunk:
+bf16 on tensor cores (the int8 values exact in bf16, the scale applied to
+the f32 sum), f32 on CUDA cores. The Pallas wrapper's block sizes and zero
+padding are TPU tiling and do not come across: the kernel masks its own
+ragged edges, and the wrapper copies and pads nothing. ``_plan`` picks the
+bf16 kernel's tile width and splits K where the output tiles alone would
+leave SMs idle (serving batches).
 
 A Linear weight held in torch layout (N, K) goes in as ``w_q.t()``, made
 contiguous once where the weight is loaded, not on every call, with its
@@ -22,12 +26,23 @@ other. ``launches`` counts the kernel's launches.
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
 KERNEL_SOURCES = ("int8_matmul",)  # csrc/<name>.cu
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
-_MAX_ROW_TILES = 65535 * 64  # CUDA grid.y limit times the kernel's 64 rows
+# the f32 kernel's row tiles sit on grid.y: its limit times its 64 rows (the
+# bf16 kernel's tiles sit on grid.x and leave no limit below int range)
+_MAX_ROW_TILES = 65535 * 64
+_BLOCK_M, _BLOCK_K = 128, 64  # the bf16 kernel's rows per block, stage depth
+# the bf16 kernel's time for one 64-deep stage of a block, by its width
+# (relative), and a block's fixed cost in stages: H100 readings of
+# scripts/bench_int8_matmul.py at K = 2818, N = 1024 (PERF.md section 6)
+_STAGE_COST = {256: 1.9, 128: 1.4, 64: 1.0}
+_BLOCK_STAGES = 3
+_SMS = 132  # an H100's SMs, for the plan on a host without the card
 
 # kernel launches; the wrapper adds one where it launches
 launches = {"int8_matmul": 0}
@@ -40,12 +55,46 @@ def int8_matmul_reference(x, w_q, scale):
     return torch.matmul(x.to(torch.float32), w).to(x.dtype)
 
 
+class Plan(NamedTuple):
+    """The bf16 kernel's tiling: ``block_n`` columns per block (64, 128 or
+    256), K in ``splits`` runs of ``k_tiles`` 64-deep stages."""
+
+    block_n: int
+    splits: int
+    k_tiles: int
+
+
+def _cdiv(a, b):
+    return -(-a // b)
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(M, N, K, sms=_SMS):
+    """The bf16 tiling for x (M, K) @ w_q (K, N) on a card of ``sms`` SMs.
+    The kernel runs one block per SM, so blocks past a multiple of ``sms``
+    start a wave of their own: each width and split is costed as waves x
+    (stages per split + a block's fixed cost) x the width's stage cost,
+    every split holding at least one stage, and the cheapest wins (on a
+    tie the widest tile, then the fewest splits)."""
+    k_tiles = _cdiv(K, _BLOCK_K)
+    m_tiles = _cdiv(M, _BLOCK_M)
+    best = None
+    for block_n, stage in _STAGE_COST.items():
+        tiles = m_tiles * _cdiv(N, block_n)
+        for per in range(k_tiles, 0, -1):
+            splits = _cdiv(k_tiles, per)
+            cost = _cdiv(tiles * splits, sms) * (per + _BLOCK_STAGES) * stage
+            if best is None or cost < best[0]:
+                best = (cost, Plan(block_n, splits, per))
+    return best[1]
+
+
 def _library():
     from univtg_tpu_torch.ops.cuda_build import load_library
 
     lib = load_library("int8_matmul")
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.univtg_int8_matmul.argtypes = [p] * 4 + [i] * 4 + [p]
+    lib.univtg_int8_matmul.argtypes = [p] * 4 + [i] * 7 + [p] * 2
     lib.univtg_int8_matmul.restype = i
     lib.univtg_cuda_error_string.argtypes = [i]
     lib.univtg_cuda_error_string.restype = ctypes.c_char_p
@@ -81,7 +130,7 @@ def _check(x, w_q, scale):
     for name, t in (("x", x), ("w_q", w_q), ("scale", scale)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if x.device.type == "cuda" and M > _MAX_ROW_TILES:
+    if x.device.type == "cuda" and x.dtype == torch.float32 and M > _MAX_ROW_TILES:
         raise ValueError(f"M must be at most {_MAX_ROW_TILES}, got {M}")
     return M, K, N
 
@@ -94,12 +143,20 @@ def int8_matmul(x, w_q, scale):
     if x.device.type == "cpu":
         return int8_matmul_reference(x, w_q, scale)
     out = torch.empty((M, N), dtype=x.dtype, device=x.device)
+    plan, partial = Plan(0, 1, 0), None
+    if x.dtype == torch.bfloat16:
+        sms = torch.cuda.get_device_properties(x.device).multi_processor_count
+        plan = _plan(M, N, K, sms)
+        if plan.splits > 1:
+            partial = torch.empty((plan.splits, M, N), dtype=torch.float32,
+                                  device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
         err = lib.univtg_int8_matmul(
             x.data_ptr(), w_q.data_ptr(), scale.data_ptr(), out.data_ptr(),
-            _DTYPE_CODES[x.dtype], M, N, K, stream,
+            _DTYPE_CODES[x.dtype], M, N, K, *plan,
+            None if partial is None else partial.data_ptr(), stream,
         )
     if err != 0:
         raise RuntimeError(
