@@ -22,11 +22,13 @@ printing its seconds:
                  at the two training shapes, f32 and bf16, dropout 0 and
                  0.1; kernel, twin and library times, the bound, TFLOP/s
                  and the share of the bound.
-  3b. faults  -- each planted fault must fail the bf16 limit that phases 3
+  3b. faults  -- each planted fault must fail the limit that phases 3
                  and 3d hold the real kernels to, at each shape it runs:
                  FAULTS, of flash_bwd.cu's bf16 kernels (a cast to bf16
                  truncated instead of rounded, or the dropout keep left
-                 out), at the training shapes with dropout 0.1;
+                 out), and F32_FAULTS, of its f32 kernels (the keep left
+                 out of dV, dQ's last key tile skipped), at the training
+                 shapes with dropout 0.1;
                  FORWARD_FAULTS, of the bf16 forward (dropout keep left
                  out, acc not rescaled) at the training shapes with
                  dropout 0.1, and of the bf16 ring block (P . V on p_hi
@@ -103,8 +105,9 @@ printing its seconds:
                  (_finish_eval) per evaluation and per batch, the loader's
                  own seconds, and one inference under torch.profiler (the
                  eval cells).
-  8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16,
-                 "pallas" vs "xla": CUDA-event ms per step.
+  8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
+                 f32, "pallas" vs "xla": CUDA-event ms per step, peak
+                 memory, 20 launches of each flash kernel over 5 steps.
   9. profile  -- where the time of one bf16 train step goes, per training
                  cell (torch.profiler).
   9b. ring train -- make_train_step on 8 x (2048 + 32) with "ring_pallas"
@@ -178,6 +181,21 @@ FAULTS = {
         "dv", "ptf[i] = pack_bf16(s[2 * i], s[2 * i + 1]);",
         f"ptf[i] = {_TRUNC.format('s')};"),
     "dv_keep_dropped": ("dv", "p_keep = p * keep;", "p_keep = p;"),
+}
+# planted faults of csrc/flash_bwd.cu's f32 (CUDA-core) kernels, as FAULTS:
+# name -> (the output it corrupts, the line as written, the line with the
+# fault). dv_keep_dropped_f32 leaves the dropout keep out of p * keep;
+# dq_last_tile_skipped leaves the last key tile out of the dQ product (a
+# ragged tile at both training shapes: keys 2048-2079 of 2080, all 107 of
+# 107). Phase 3b requires that the f32 limit, BWD_TOL["float32"], catches
+# each; tests/test_torch_flash_bwd.py checks on every run that each line is
+# in flash_bwd.cu exactly once, in the f32 kernels.
+F32_FAULTS = {
+    "dv_keep_dropped_f32": ("dv", "pk[e] = p * keep;", "pk[e] = p;"),
+    "dq_last_tile_skipped": (
+        "dq", "    accumulate<DH, 4, DQ_UNROLL_A>(acc, Ps, ry, Ks + st * TF, cx);",
+        "    if (t + 1 < n_tiles)\n"
+        "      accumulate<DH, 4, DQ_UNROLL_A>(acc, Ps, ry, Ks + st * TF, cx);"),
 }
 # planted faults of the bf16 (wgmma) forward and ring block kernels: name ->
 # (source in csrc/, the output it corrupts, the line as written, the line
@@ -383,8 +401,10 @@ def phase_device(torch):
 
 def _fault(name):
     """(source, output, line as written, line with the fault) of a planted
-    fault of FAULTS (flash_bwd.cu) or FORWARD_FAULTS."""
-    return ("flash_bwd", *FAULTS[name]) if name in FAULTS else FORWARD_FAULTS[name]
+    fault of FAULTS or F32_FAULTS (flash_bwd.cu) or FORWARD_FAULTS."""
+    if name in FAULTS or name in F32_FAULTS:
+        return ("flash_bwd", *{**FAULTS, **F32_FAULTS}[name])
+    return FORWARD_FAULTS[name]
 
 
 def _build_fault(name, out_dir):
@@ -485,7 +505,7 @@ def phase_build(fault_dir):
         return time.perf_counter() - t0
 
     sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES + rap.KERNEL_SOURCES
-    names = [*FAULTS, *FORWARD_FAULTS]
+    names = [*FAULTS, *F32_FAULTS, *FORWARD_FAULTS]
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(names)) as pool:
         faults = {n: pool.submit(_build_fault, n, fault_dir) for n in names}
         seconds = dict(zip(sources, pool.map(build, sources)))
@@ -980,9 +1000,10 @@ def phase_train_kernels(torch):
 
 def phase_faults(torch, faults):
     """Each planted fault, swapped in for its built library, must fail the
-    bf16 limit its kernel is held to at each shape it runs: FAULTS (the
-    backward kernels, BWD_TOL) and the forward's FORWARD_FAULTS (TOL) at the
-    two training shapes with dropout 0.1, the ring's (RING_TOL) at
+    limit its kernel is held to at each shape it runs: FAULTS (the bf16
+    backward kernels, BWD_TOL), F32_FAULTS (the f32 backward kernels,
+    BWD_TOL["float32"]) and the forward's FORWARD_FAULTS (TOL) at the two
+    training shapes with dropout 0.1, the ring's (RING_TOL) at
     RING_FAULT_SHAPES with P = RING_FAULT_P."""
     import ctypes
 
@@ -1028,6 +1049,20 @@ def phase_faults(torch, faults):
                 f"{err[0]:.3g}, share that differs {err[2]:.3g}, lse max abs err "
                 f"{err_lse:.3g} (limits {tol})")
         del args, want, want_out, want_lse
+        args, _, seed, kw = _train_kernel_inputs(
+            torch, fa, B, L, H, dh, torch.float32, 0.1, 901)
+        want = dict(zip(("dq", "dk", "dv"), fa.flash_attention_backward_reference(
+            *args, seed=seed, **kw)))
+        for name, (output, _, _) in F32_FAULTS.items():
+            got = dict(zip(("dq", "dk", "dv"), run_with(
+                name, lambda: fa.flash_attention_backward_impl(
+                    *args, dropout_seed=seed, **kw))))
+            err = _errs(got[output], want[output])
+            caught[(name, shape_name)] = not _bwd_within(err, "float32")
+            log(f"[faults] {name} at {shape_name} f32 dropout 0.1: {output} "
+                f"max abs err {err[0]:.3g}, rel {err[1]:.3g} (limit "
+                f"{BWD_TOL['float32']})")
+        del args, want, got
         torch.cuda.empty_cache()
     for shape_name in RING_FAULT_SHAPES:
         B, L, H, dh, _ = RING_SHAPES[shape_name]
@@ -1047,7 +1082,7 @@ def phase_faults(torch, faults):
         torch.cuda.empty_cache()
     missed = [k for k, hit in caught.items() if not hit]
     if missed:
-        raise AssertionError(f"planted faults within the bf16 limits: {missed}")
+        raise AssertionError(f"planted faults within their limits: {missed}")
 
 
 def _int8_within(err, dname):
@@ -1755,47 +1790,64 @@ def _long_batch(torch, np, B=8, Lv=2048, Lt=32, d_vid=2818, d_txt=512):
     return to(mi), to(tg)
 
 
-def phase_long_train(torch, np, fa, sd, card):
-    """make_train_step at B=8, 2048 clips + 32 tokens, bf16, dropouts at
-    their defaults: CUDA-event ms per step, "pallas" vs "xla"."""
+def _long_step(torch, fa, sd, batch, impl, dname):
+    """5 make_train_steps (2 warm, 3 timed) on the long batch with the
+    flagship at max_v_l 2048, dropouts at their defaults: (the last state,
+    {ms per step by CUDA events, peak GiB, last loss, flash launches})."""
     from univtg_tpu_torch.models import UniVTG
     from univtg_tpu_torch.models.losses import LossWeights
     from univtg_tpu_torch.presets import flagship_model
     from univtg_tpu_torch.train.schedule import build_schedule
     from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
 
-    mi, tg = _long_batch(torch, np)
+    mi, tg = batch
     step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    cfg = flagship_model(attention_impl=impl, compute_dtype=dname, max_v_l=2048)
+    model = UniVTG(cfg, device="meta")
+    model.load_state_dict({k: v.cuda() for k, v in sd.items()}, assign=True)
+    holder = {"state": TrainState(model, make_optimizer(
+        model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 100), 1e-4, 0.1))}
+
+    def one():
+        holder["state"], holder["m"] = step(holder["state"], mi, tg, 0)
+
+    before = dict(fa.launches)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(one, iters=3, warmup=2)
+    return holder["state"], {
+        "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+        "loss": float(holder["m"]["loss_overall"]),
+        "launches": {n: fa.launches[n] - before[n] for n in before}}
+
+
+def phase_long_train(torch, np, fa, sd, card):
+    """make_train_step at B=8, 2048 clips + 32 tokens, dropouts at their
+    defaults, bf16 and then f32: CUDA-event ms per step, peak memory and
+    flash launches (20 of each kernel over 5 "pallas" steps), "pallas" vs
+    "xla". Returns the bf16 "pallas" state, the batch and the bf16 stats by
+    impl (phase 9b prints its ring beside them)."""
+    batch = _long_batch(torch, np)
     kept, stats = None, {}
-    for impl in ("pallas", "xla"):
-        cfg = flagship_model(attention_impl=impl, compute_dtype="bfloat16", max_v_l=2048)
-        model = UniVTG(cfg, device="meta")
-        model.load_state_dict({k: v.cuda() for k, v in sd.items()}, assign=True)
-        state = TrainState(model, make_optimizer(
-            model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 100), 1e-4, 0.1))
-        holder = {"state": state}
-
-        def one():
-            holder["state"], holder["m"] = step(holder["state"], mi, tg, 0)
-
-        before = dict(fa.launches)
-        torch.cuda.reset_peak_memory_stats()
-        ms = cuda_ms(one, iters=3, warmup=2)
-        made = {n: fa.launches[n] - before[n] for n in before}
-        loss = float(holder["m"]["loss_overall"])
-        stats[impl] = {"ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-        log(f"[long] bf16 B=8 L=2048+32 {impl}: {ms:.2f} ms per train step ({card}), "
-            f"loss {loss:.4f}, launches over 5 steps {made}, peak memory "
-            f"{stats[impl]['peak_gib']:.1f} GiB")
-        if not np.isfinite(loss):
-            raise AssertionError(f"long-video {impl} step is not finite")
-        if impl == "pallas" and made != {n: 20 for n in before}:
-            raise AssertionError(f"long-video pallas step launches: {made}")
-        if impl == "pallas":
-            kept = holder["state"]
-        del model, state, holder
-        torch.cuda.empty_cache()
-    return kept, (mi, tg), stats
+    for dname in ("bfloat16", "float32"):
+        stats[dname] = {}
+        for impl in ("pallas", "xla"):
+            state, rec = _long_step(torch, fa, sd, batch, impl, dname)
+            stats[dname][impl] = rec
+            log(f"[long] {dname} B=8 L=2048+32 {impl}: {rec['ms']:.2f} ms per train step "
+                f"({card}), loss {rec['loss']:.4f}, launches over 5 steps "
+                f"{rec['launches']}, peak memory {rec['peak_gib']:.1f} GiB")
+            if not np.isfinite(rec["loss"]):
+                raise AssertionError(f"long-video {dname} {impl} step is not finite")
+            if impl == "pallas" and rec["launches"] != {n: 20 for n in rec["launches"]}:
+                raise AssertionError(f"long-video {dname} pallas step launches: "
+                                     f"{rec['launches']}")
+            if impl == "pallas" and dname == "bfloat16":
+                kept = state
+            del state
+            torch.cuda.empty_cache()
+    log(f"[long] ({card}) {json.dumps(stats)}")
+    return kept, batch, stats["bfloat16"]
 
 
 def phase_train_profile(torch, np, fa, card, corpus, sd, long_state, long_batch):
@@ -2018,7 +2070,8 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
     shape, P = RING_P), the largest error seen; the kernels with a bf16
     wgmma design (flash_fwd, the backward pair, ring_attention's block
     kernel) also carry their TFLOP/s, share of the bound, HGMMA counts and
-    spill bytes (``sass``, phase 2).
+    spill bytes (``sass``, phase 2); the backward pair also its f32
+    kernel's numbers at the long shape, dropout 0 (``f32``).
     ``launches`` sums the paths of by_path, ``launches_by_path`` splits them;
     for int8_matmul that is the smoke's own call alone, which
     ``launches_note`` says; ring_attention counts its two kernels,
@@ -2081,12 +2134,16 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
             entry.update(tflops=head["tflops"], bound_share=head["bound_share"],
                          sass_bf16=sass["flash_fwd_kernel_sm90"])
         else:
+            f32 = next(r for r in mine if r["shape"] == "train_long_video"
+                       and r["dtype"] == "float32" and r["dropout"] == 0.0)
             entry.update(
                 max_rel_err=max(v for r in mine for k, v in r.items()
                                 if k.startswith("rel_err_")),
                 pair_ms=head["pair_ms"], pair_library_ms=head["pair_library_ms"],
                 tflops=head["tflops"], bound_share=head["bound_share"],
-                sass_bf16=sass[f"{name}_kernel_sm90"])
+                sass_bf16=sass[f"{name}_kernel_sm90"],
+                f32={k: f32[k] for k in ("ms", "plain_ms", "bound_ms", "bound_by", "tflops",
+                                         "bound_share", "pair_ms", "pair_library_ms")})
         out.append(entry)
     return out
 

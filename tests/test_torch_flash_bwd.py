@@ -234,6 +234,19 @@ def test_planted_faults_quote_flash_bwd_once(name):
     assert text.index(line) > text.index("namespace sm90 {")
 
 
+@pytest.mark.parametrize("name", ["dv_keep_dropped_f32", "dq_last_tile_skipped"])
+def test_planted_f32_faults_quote_flash_bwd_once(name):
+    """As above for the f32 (CUDA-core) kernels' faults: each line is in
+    csrc/flash_bwd.cu exactly once, in the f32 kernels."""
+    faults = _chip_smoke().F32_FAULTS
+    assert set(faults) == {"dv_keep_dropped_f32", "dq_last_tile_skipped"}
+    output, line, fault = faults[name]
+    assert output in ("dq", "dk", "dv") and line != fault
+    text = (cuda_build.CSRC_DIR / "flash_bwd.cu").read_text()
+    assert text.count(line) == 1, line
+    assert text.index(line) < text.index("namespace sm90 {")
+
+
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
@@ -283,12 +296,13 @@ def test_cuda_kernels_match_twins(cuda_device, dtype, rate, BH, Lq, Lk, dh):
 
 
 @pytest.mark.cuda
-def test_cuda_backward_takes_unaligned_views(cuda_device):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_takes_unaligned_views(cuda_device, dtype):
     """Operands that start off a 16-byte boundary (a view one element into
-    its storage) are copied before the bf16 kernels' 16-byte loads."""
+    its storage) are copied before the kernels' 16-byte loads."""
     BH, L, dh = 2, 50, 32
     q, k, v, mask, do = (t.to(cuda_device)
-                         for t in _split_inputs(7, BH, L, L, dh, torch.bfloat16))
+                         for t in _split_inputs(7, BH, L, L, dh, dtype))
     kw = dict(sm_scale=dh**-0.5)
     out, lse = fa.flash_attention_impl(q, k, v, mask, **kw)
     want = fa.flash_attention_backward_impl(q, k, v, mask, out, lse, do, **kw)
@@ -302,6 +316,38 @@ def test_cuda_backward_takes_unaligned_views(cuda_device):
     got = fa.flash_attention_backward_impl(*shifted[:3], mask, out, lse, shifted[3], **kw)
     for a, b in zip(got, want):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_backward_entries_refuse_misaligned_pointers(cuda_device, dtype):
+    """The C entries themselves, called past the wrapper's copy, refuse an
+    operand off 16 bytes with cudaErrorMisalignedAddress instead of
+    faulting on their 16-byte copies."""
+    BH, L, dh = 2, 64, 32
+    q, k, v, mask, do = (t.to(cuda_device)
+                         for t in _split_inputs(8, BH, L, L, dh, dtype))
+    kw = dict(sm_scale=dh**-0.5)
+    out, lse = fa.flash_attention_impl(q, k, v, mask, **kw)
+    delta = (do.float() * out.float()).sum(-1).contiguous()
+    lib = fa._library("flash_bwd")
+    args = fa._launch_args(q, k, 1, dh, dh**-0.5, 0.0, None)
+    buf = torch.empty(q.numel() + 1, dtype=dtype, device=cuda_device)
+    shifted = buf[1:].view(q.shape)  # one element off 16 bytes
+    shifted.copy_(q)
+    assert shifted.data_ptr() % 16
+    dq, dk, dv = (torch.empty(BH, L, dh, dtype=dtype, device=cuda_device)
+                  for _ in range(3))
+    common = [shifted.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(),
+              mask.data_ptr(), lse.data_ptr(), delta.data_ptr()]
+    stream = torch.cuda.current_stream().cuda_stream
+    misaligned = 716  # cudaErrorMisalignedAddress
+    assert lib.univtg_flash_bwd_dq(*common, dq.data_ptr(), *args, stream) == misaligned
+    assert lib.univtg_flash_bwd_dkv(*common, dk.data_ptr(), dv.data_ptr(), *args,
+                                    stream) == misaligned
+    common[0] = q.data_ptr()
+    assert lib.univtg_flash_bwd_dq(*common, dq.data_ptr(), *args, stream) == 0
+    torch.cuda.synchronize()
 
 
 @pytest.mark.cuda

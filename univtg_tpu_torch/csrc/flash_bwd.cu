@@ -75,12 +75,38 @@
 //   it, and the dropout finalizer (~8 integer operations) run per element
 //   in both kernels.
 //
-// f32 -- CUDA cores (flash_bwd_dq_kernel, flash_bwd_dkv_kernel): TF32 tensor
-// cores would miss the f32 limit (rel 2e-6), and f32 is the correctness path
-// (chip_smoke.py holds f32 "pallas" train steps against "xla"). One block of
-// 256 threads per (batch*head, 64-row tile), operands staged in shared memory
-// as f32 with an odd row stride; bound by the f32 FMA rate (67 TFLOP/s):
-// 3.17 and 4.23 ms at the long training shape.
+// f32 -- CUDA cores (flash_bwd_dq_kernel, flash_bwd_dkv_kernel, templated on
+// the head dim padded to DH = 64 or 128, zero-filled): TF32 tensor cores
+// would miss the f32 limit (rel 2e-6), and f32 is the correctness path
+// (chip_smoke.py holds f32 "pallas" train steps against "xla"). Plain f32
+// FFMA, expf as the reference. The SGEMM recipe: one block of 256 threads
+// per (batch*head, 64 rows), one block per SM (the f32 tiles take 224.5 and
+// 225 KB of shared memory at DH 128); each thread computes an outer-product
+// tile
+// in registers from float4 reads along the product's depth, so a warp's 32
+// threads read a few distinct 16-byte chunks per 128 FFMA (every tile
+// row-major with an XOR swizzle of its 16-byte chunks, conflict-free).
+//   Score products: threads [0, 128) compute S (4 rows x 8 keys each),
+//          threads [128, 256) dP, 12 float4 reads per 128 FFMA; both go to
+//          shared memory, where all 256 threads turn them into ds (and
+//          p * keep).
+//   dQ:    dQ += dS.K on all 256 threads, 4 rows x 8 columns each.
+//   dK/dV: dV += (P*keep)^T.dO on threads [0, 128) and dK += dS^T.Q on
+//          [128, 256), 8 keys x 8 columns each: 16 float4 reads per 256
+//          FFMA.
+//   The streamed tiles (K, V and the key bias in dQ; Q, dO, lse and delta
+//   in dK/dV) sit in two stages filled by cp.async (16 bytes a thread,
+//   zero-filled past L and dh): tile t + 1's copies run under tile t's
+//   arithmetic (the loop is spelled out at the head of the f32 kernels).
+//   Bound on the card: the f32 FMA rate (67 TFLOP/s), 3.17 and 4.23 ms at
+//   the long training shape. What it leaves: one block per SM, so the
+//   barriers (three per tile) stall all 8 warps; S, dP and dQ tiles of
+//   4 x 8 (2.7 FFMA per word a thread reads): 8 x 8 needs 128-key tiles,
+//   which fit in one stage only and ran slower at 254 registers, and a dQ
+//   split over two halves of the keys sums in another order than the twin
+//   (~2e-6 apart at 2080 keys, the f32 limit); exp and the dropout
+//   finalizer per element, between two barriers, with no product under
+//   them.
 //
 // Built by univtg_tpu_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -105,27 +131,165 @@ typedef __nv_bfloat16 bf16;
 
 // ---------------------------------------------------------------------------
 // f32: CUDA cores
+//
+// Both kernels run one loop per streamed tile t, on stage t % 2:
+//   wait for tile t's copies; barrier (tile t is in shared memory, every
+//   thread is done with tile t - 1, so the other stage is free);
+//   start the copies of tile t + 1 into the other stage;
+//   the score products: threads [0, 128) take S, threads [128, 256) dP, each
+//   an outer-product tile of 4 x 8 from float4 reads along the head dim;
+//   S's half writes p's exponent (-inf outside [0, Lq) x [0, Lk)) to shared
+//   memory, dP's half dp; barrier;
+//   the element-wise step on all 256 threads, one row and 16 columns each:
+//   the dropout keep, p = exp, ds (and, in dK/dV, p * keep) over the same
+//   elements; barrier;
+//   the last products from shared memory: dQ += dS.K on all 256 threads
+//   (4 x 8 a thread), or dV += (P*keep)^T.dO on threads [0, 128) and
+//   dK += dS^T.Q on [128, 256) (8 x 8 a thread).
+// Every tile is row-major, a row's 16-byte chunk c stored at chunk
+// c ^ (row % 8): the threads of a warp that read one chunk of 8 rows with
+// distinct row % 8, or 4 chunks of one row, hit distinct banks, with no
+// padding (dK/dV's tiles fill 230,400 of the 232,448 bytes a block may use).
 
 constexpr int TILE = 64;      // query rows and keys per tile
-constexpr int THREADS = 256;  // 16 row groups x 16 threads
-constexpr int ROWS = 4;       // rows per thread (16 groups x 4 = 64)
-constexpr int SCOLS = TILE / 16;     // score columns per thread
+constexpr int THREADS = 256;  // two halves of 128: S and dP
 constexpr int MAX_DH = 128;
-constexpr int OCOLS = MAX_DH / 16;   // output columns per thread, at most
-constexpr int LDP = TILE + 1;        // p / ds tile row stride
+// How deep the products' chunk loops unroll (chunks of 4 of the depth: 32
+// in the score products at DH 128, 16 in the last ones), chosen on the card
+// with scripts/bench_flash_bwd_tiles.py (PERF.md §6): dQ's score loop in
+// full and its last 8 deep, dK/dV's score loop 8 deep and its last in full
+// (both in full: 2.2x slower).
+constexpr int DQ_UNROLL_S = 32, DQ_UNROLL_A = 8;
+constexpr int DKV_UNROLL_S = 8, DKV_UNROLL_A = 16;
 
-// Stage rows [r0, r0 + TILE) of one head; rows past L are zero.
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      long long sl, int r0, int L, int dh,
-                                      int ld) {
-  for (int e = threadIdx.x; e < TILE * dh; e += THREADS) {
-    const int r = e / dh, c = e - r * dh;
-    const int row = r0 + r;
-    dst[r * ld + c] = row < L ? src[row * sl + c] : 0.f;
+// Float offset of chunk c (floats 4c .. 4c + 3) of row r in a swizzled tile
+// W floats wide, and of element col.
+template <int W>
+__device__ __forceinline__ int chunk_at(int r, int c) {
+  return r * W + ((c ^ (r & 7)) << 2);
+}
+template <int W>
+__device__ __forceinline__ int elem_at(int r, int col) {
+  return chunk_at<W>(r, col >> 2) + (col & 3);
+}
+
+__device__ __forceinline__ void ld4(float (&v)[4], const float* p) {
+  const float4 t = *reinterpret_cast<const float4*>(p);
+  v[0] = t.x;
+  v[1] = t.y;
+  v[2] = t.z;
+  v[3] = t.w;
+}
+
+__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool ok) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
+               "l"(src), "r"(ok ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_wait_all() {
+  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+}
+
+// Rows [r0, r0 + TILE) of one head into a swizzled tile DH floats wide, by
+// cp.async 16 bytes at a time; rows >= L and head-dim columns >= dh are
+// zero-filled (no global read).
+template <int DH>
+__device__ __forceinline__ void copy_rows(float* dst,
+                                          const float* __restrict__ src,
+                                          long long sl, int r0, int L, int dh) {
+  constexpr int CH = DH / 4;        // chunks per row
+  constexpr int RS = THREADS / CH;  // rows per round, a multiple of 8: a
+                                    // thread's rows share their swizzle
+  static_assert(TILE % RS == 0 && RS % 8 == 0, "whole rounds of copies");
+  const int c = threadIdx.x % CH, r = threadIdx.x / CH;
+  const bool col_ok = 4 * c < dh;
+  float* d = dst + chunk_at<DH>(r, c);
+  const float* s = src + (long long)(r0 + r) * sl + 4 * c;
+#pragma unroll
+  for (int it = 0; it < TILE / RS; ++it) {
+    const bool ok = col_ok && r0 + r + it * RS < L;
+    cp_async16(d + it * RS * DH, ok ? s + it * RS * sl : src, ok);
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// s[i][j] += A row (ra + 16 i) . B row (rb + 8 j) over the head dim, both
+// tiles DH wide: a float4 of each row per 4 columns, 128 FFMA per 12 reads.
+template <int DH, int U>
+__device__ __forceinline__ void scores(float (&s)[4][8], const float* A,
+                                       int ra, const float* B, int rb) {
+  const float* a0 = A + ra * DH;
+  const float* b0 = B + rb * DH;
+#pragma unroll(U)
+  for (int c = 0; c < DH / 4; ++c) {
+    // rows ra + 16 i share ra's swizzle, rows rb + 8 j rb's
+    const int oa = (c ^ (ra & 7)) << 2, ob = (c ^ (rb & 7)) << 2;
+    float a[4][4], b[8][4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i) ld4(a[i], a0 + 16 * i * DH + oa);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ld4(b[j], b0 + 8 * j * DH + ob);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i][e], b[j][e], s[i][j]);
+  }
+}
+
+// acc[i][4 h + e] += sum over n < TILE of P[ra + (TILE / NI) i][n] *
+// B[n][4 (cx + 16 h) + e]: P a TILE x TILE tile, B a tile DH wide, a float4
+// of each of the thread's NI rows of P per 4 rows of B.
+template <int DH, int NI, int U>
+__device__ __forceinline__ void accumulate(float (&acc)[NI][DH / 16],
+                                           const float* P, int ra,
+                                           const float* B, int cx) {
+  constexpr int RS = TILE / NI, NH = DH / 64;
+  const float* p0 = P + ra * TILE;
+#pragma unroll(U)
+  for (int c = 0; c < TILE / 4; ++c) {
+    const int oa = (c ^ (ra & 7)) << 2;
+    float a[NI][4];
+#pragma unroll
+    for (int i = 0; i < NI; ++i) ld4(a[i], p0 + RS * i * TILE + oa);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int n = 4 * c + u;
+      float b[NH][4];
+#pragma unroll
+      for (int h = 0; h < NH; ++h)
+        ld4(b[h], B + chunk_at<DH>(n, cx + 16 * h));
+#pragma unroll
+      for (int i = 0; i < NI; ++i)
+#pragma unroll
+        for (int h = 0; h < NH; ++h)
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            acc[i][4 * h + e] = fmaf(a[i][u], b[h][e], acc[i][4 * h + e]);
+    }
+  }
+}
+
+template <int DH>
+constexpr size_t dq_smem_f32() {  // Q, dO; K, V x 2; p, ds; dp; key bias x 2
+  return sizeof(float) * (6 * TILE * DH + 2 * TILE * TILE + 2 * TILE);
+}
+template <int DH>
+constexpr size_t dkv_smem_f32() {  // K, V; Q, dO x 2; p*keep; ds; lse, delta
+  return sizeof(float) * (6 * TILE * DH + 2 * TILE * TILE + 4 * TILE);
+}
+
+// One block per (batch*head, 64 queries). Q and dO are resident; K, V and
+// the key bias stream in tiles of 64 keys.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ v, const float* __restrict__ dout,
                     const float* __restrict__ mask,
@@ -133,124 +297,150 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
                     const float* __restrict__ delta, float* __restrict__ dq,
                     int H, int Lq, int Lk, int dh, Layout ql, Layout kl,
                     float sm_scale, Dropout drop) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;  // odd stride: column reads across rows hit distinct banks
-  float* Qs = smem;               // TILE x ld
-  float* dOs = Qs + TILE * ld;    // TILE x ld
-  float* Ks = dOs + TILE * ld;    // TILE x ld
-  float* Vs = Ks + TILE * ld;     // TILE x ld
-  float* dSs = Vs + TILE * ld;    // TILE x LDP, query-major
-  float* Ms = dSs + TILE * LDP;   // TILE key-mask values
+  constexpr int TF = TILE * DH;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  float* const Qs = smem;
+  float* const dOs = smem + TF;
+  float* const Ks = smem + 2 * TF;  // stage st at Ks + st * TF
+  float* const Vs = smem + 4 * TF;
+  float* const Ps = smem + 6 * TF;     // TILE x TILE, query-major: the
+                                       // exponent of p, then ds
+  float* const Gs = Ps + TILE * TILE;  // TILE x TILE, query-major: dp
+  float* const Bs = Gs + TILE * TILE;  // 2 x TILE key bias
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // key slot: keys tx + 16 j
-  const int ty = tid >> 4;  // row group: query rows ty*ROWS .. ty*ROWS+3
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int q0 = blockIdx.x * TILE;
-
   const float* kp = k + b * kl.sb + h * kl.sh;
   const float* vp = v + b * kl.sb + h * kl.sh;
   const float* mp = mask + (long long)b * Lk;
   const unsigned int seed_bh =
       drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
 
-  stage(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh, ld);
-  stage(dOs, dout + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh, ld);
-  float lse_r[ROWS], delta_r[ROWS], acc[ROWS][OCOLS];
+  copy_rows<DH>(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
+  copy_rows<DH>(dOs, dout + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
+  copy_rows<DH>(Ks, kp, kl.sl, 0, Lk, dh);
+  copy_rows<DH>(Vs, vp, kl.sl, 0, Lk, dh);
+  sm90::cp_commit();
+  if (tid < TILE) Bs[tid] = sm90::key_bias(mp, tid, Lk);
+
+  // S (threads [0, 128)) or dP ([128, 256)): query rows rq + 16 i, keys
+  // rk + 8 j of the tile; a warp holds 32 rows x 32 keys
+  const bool is_dp = tid >= THREADS / 2;
+  const int rq = (warp & 1) * 8 + (lane & 7);
+  const int rk = ((warp >> 1) & 1) * 4 + (lane >> 3);
+  float rowv[4];  // lse of rows rq + 16 i (S's half)
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + ty * ROWS + i;
-    lse_r[i] = row < Lq ? lse[(long long)bh * Lq + row] : 0.f;
-    delta_r[i] = row < Lq ? delta[(long long)bh * Lq + row] : 0.f;
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) acc[i][c] = 0.f;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + rq + 16 * i;
+    rowv[i] = row < Lq && !is_dp ? lse[(long long)bh * Lq + row] : 0.f;
   }
+  // the element-wise step: row er of the tile on every thread
+  const int er = tid & (TILE - 1);
+  const float delta_r =
+      q0 + er < Lq ? delta[(long long)bh * Lq + q0 + er] : 0.f;
+  // dQ: rows ry + 16 i, columns 4 (cx + 16 h) + e
+  const int ry = rq, cx = (warp >> 1) * 4 + (lane >> 3);
+  float acc[4][DH / 16];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) acc[i][c] = 0.f;
 
-  for (int k0 = 0; k0 < Lk; k0 += TILE) {
-    __syncthreads();  // the previous tile's reads of Ks, Vs and dSs are done
-    stage(Ks, kp, kl.sl, k0, Lk, dh, ld);
-    stage(Vs, vp, kl.sl, k0, Lk, dh, ld);
-    if (tid < TILE) Ms[tid] = k0 + tid < Lk ? mp[k0 + tid] : 0.f;
+  const int n_tiles = (Lk + TILE - 1) / TILE;  // key tiles
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int k0 = t * TILE;
+    cp_wait_all();
+    __syncthreads();  // tile t is in; every thread is done with tile t - 1
+    float next_bias = 0.f;
+    if (t + 1 < n_tiles) {
+      copy_rows<DH>(Ks + (st ^ 1) * TF, kp, kl.sl, k0 + TILE, Lk, dh);
+      copy_rows<DH>(Vs + (st ^ 1) * TF, vp, kl.sl, k0 + TILE, Lk, dh);
+      sm90::cp_commit();
+      if (tid < TILE) next_bias = sm90::key_bias(mp, k0 + TILE + tid, Lk);
+    }
+
+    float s[4][8];  // s, or dp
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    scores<DH, DQ_UNROLL_S>(s, is_dp ? dOs : Qs, rq,
+                            (is_dp ? Vs : Ks) + st * TF, rk);
+
+    if (!is_dp) {  // the exponent of p, -inf outside [0, Lq) x [0, Lk)
+      const float* bt = Bs + st * TILE;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int row = q0 + rq + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int key = rk + 8 * j;
+          Ps[elem_at<TILE>(rq + 16 * i, key)] =
+              row < Lq && k0 + key < Lk
+                  ? s[i][j] * sm_scale + bt[key] - rowv[i]
+                  : -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          Gs[elem_at<TILE>(rq + 16 * i, rk + 8 * j)] = s[i][j];
+    }
     __syncthreads();
-
-    float s[ROWS][SCOLS], dp[ROWS][SCOLS];
+    {  // row er of the tile, keys 4 c .. 4 c + 3 for c = (tid >> 6) + 4 u
+      const unsigned int hx =  // dropout hash input at (row, k0)
+          drop.seed ? flash::dropout_hash_input(drop, seed_bh, q0 + er, k0)
+                    : 0u;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+      for (int u = 0; u < 4; ++u) {
+        const int c = (tid >> 6) + 4 * u;
+        const int off = chunk_at<TILE>(er, c);
+        float z[4], dp[4], ds[4];
+        ld4(z, Ps + off);
+        ld4(dp, Gs + off);
 #pragma unroll
-      for (int j = 0; j < SCOLS; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float qv[ROWS], ov[ROWS], kv[SCOLS], vv[SCOLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        qv[i] = Qs[(ty * ROWS + i) * ld + d];
-        ov[i] = dOs[(ty * ROWS + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        kv[j] = Ks[(tx + 16 * j) * ld + d];
-        vv[j] = Vs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < SCOLS; ++j) {
-          s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-          dp[i][j] = fmaf(ov[i], vv[j], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          if (drop.seed) dp[e] *= flash::dropout_keep(drop, hx + 4 * c + e);
+          ds[e] = expf(z[e]) * (dp[e] - delta_r);  // ds = p * (dp - delta)
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int row = q0 + ty * ROWS + i;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        const int key = k0 + tx + 16 * j;
-        float ds = 0.f;
-        if (row < Lq && key < Lk) {
-          const float sv = s[i][j] * sm_scale + (1.f - Ms[tx + 16 * j]) * NEG_INF;
-          const float p = expf(sv - lse_r[i]);
-          float dpv = dp[i][j];
-          if (drop.seed) dpv *= flash::dropout_multiplier(drop, seed_bh, row, key);
-          ds = p * (dpv - delta_r[i]);
-        }
-        dSs[(ty * ROWS + i) * LDP + tx + 16 * j] = ds;
+        st4(Ps + off, ds);
       }
     }
-    __syncthreads();
+    __syncthreads();  // ds is complete
 
-    const int n_keys = min(TILE, Lk - k0);
-    for (int n = 0; n < n_keys; ++n) {
-      float dsv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) dsv[i] = dSs[(ty * ROWS + i) * LDP + n];
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c) {
-        const int col = tx + 16 * c;
-        if (col < dh) {
-          const float kv = Ks[n * ld + col];
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) acc[i][c] = fmaf(dsv[i], kv, acc[i][c]);
-        }
-      }
-    }
+    accumulate<DH, 4, DQ_UNROLL_A>(acc, Ps, ry, Ks + st * TF, cx);
+    if (tid < TILE && t + 1 < n_tiles) Bs[(st ^ 1) * TILE + tid] = next_bias;
   }
 
   float* dqp = dq + b * ql.sb + h * ql.sh;
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + ty * ROWS + i;
+  for (int i = 0; i < 4; ++i) {
+    const int row = q0 + ry + 16 * i;
     if (row >= Lq) continue;
 #pragma unroll
-    for (int c = 0; c < OCOLS; ++c) {
-      const int col = tx + 16 * c;
-      if (col < dh) dqp[row * ql.sl + col] = acc[i][c] * sm_scale;
+    for (int hh = 0; hh < DH / 64; ++hh) {
+      const int col = 4 * (cx + 16 * hh);
+      if (col < dh)
+        *reinterpret_cast<float4*>(dqp + row * ql.sl + col) = make_float4(
+            acc[i][4 * hh] * sm_scale, acc[i][4 * hh + 1] * sm_scale,
+            acc[i][4 * hh + 2] * sm_scale, acc[i][4 * hh + 3] * sm_scale);
     }
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+// One block per (batch*head, 64 keys). K and V are resident; Q, dO, lse and
+// delta stream in tiles of 64 queries. The score products are taken
+// transposed (S^T = K.Q^T, dP^T = V.dO^T), so p * keep and ds land key-major,
+// as the A operands of dV and dK.
+template <int DH>
+__global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ v, const float* __restrict__ dout,
                      const float* __restrict__ mask,
@@ -258,141 +448,157 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
                      const float* __restrict__ delta, float* __restrict__ dk,
                      float* __restrict__ dv, int H, int Lq, int Lk, int dh,
                      Layout ql, Layout kl, float sm_scale, Dropout drop) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;
-  float* Ks = smem;               // TILE x ld
-  float* Vs = Ks + TILE * ld;     // TILE x ld
-  float* Qs = Vs + TILE * ld;     // TILE x ld
-  float* dOs = Qs + TILE * ld;    // TILE x ld
-  float* Ps = dOs + TILE * ld;    // TILE x LDP, key-major: (p * keep)^T
-  float* dSs = Ps + TILE * LDP;   // TILE x LDP, key-major: ds^T
-  float* Ls = dSs + TILE * LDP;   // TILE lse values of the query tile
-  float* Ds = Ls + TILE;          // TILE delta values of the query tile
+  constexpr int TF = TILE * DH;
+  extern __shared__ float4 smem4[];
+  float* const smem = reinterpret_cast<float*>(smem4);
+  float* const Ks = smem;
+  float* const Vs = smem + TF;
+  float* const Qs = smem + 2 * TF;  // stage st at Qs + st * TF
+  float* const dOs = smem + 4 * TF;
+  float* const Pt = smem + 6 * TF;     // TILE x TILE, key-major: dp, then
+                                       // p * keep
+  float* const Dt = Pt + TILE * TILE;  // key-major: the exponent of p, then
+                                       // ds
+  float* const Ls = Dt + TILE * TILE;  // 2 x TILE lse
+  float* const Ds = Ls + 2 * TILE;     // 2 x TILE delta
 
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // query slot: query rows tx + 16 j
-  const int ty = tid >> 4;  // key group: keys ty*ROWS .. ty*ROWS+3
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int bh = blockIdx.y;
   const int b = bh / H;
   const int h = bh - b * H;
   const int k0 = blockIdx.x * TILE;
-
   const float* qp = q + b * ql.sb + h * ql.sh;
   const float* op = dout + b * ql.sb + h * ql.sh;
   const float* mp = mask + (long long)b * Lk;
+  const float* lp = lse + (long long)bh * Lq;
+  const float* dlp = delta + (long long)bh * Lq;
   const unsigned int seed_bh =
       drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
 
-  stage(Ks, k + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh, ld);
-  stage(Vs, v + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh, ld);
-  float bias[ROWS], dk_acc[ROWS][OCOLS], dv_acc[ROWS][OCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int key = k0 + ty * ROWS + i;
-    bias[i] = key < Lk ? (1.f - mp[key]) * NEG_INF : 0.f;
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) dk_acc[i][c] = dv_acc[i][c] = 0.f;
+  copy_rows<DH>(Ks, k + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
+  copy_rows<DH>(Vs, v + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
+  copy_rows<DH>(Qs, qp, ql.sl, 0, Lq, dh);
+  copy_rows<DH>(dOs, op, ql.sl, 0, Lq, dh);
+  sm90::cp_commit();
+  if (tid < TILE) {
+    Ls[tid] = tid < Lq ? lp[tid] : 0.f;
+    Ds[tid] = tid < Lq ? dlp[tid] : 0.f;
   }
 
-  for (int q0 = 0; q0 < Lq; q0 += TILE) {
-    __syncthreads();  // the previous tile's reads of Qs, dOs, Ps, dSs are done
-    stage(Qs, qp, ql.sl, q0, Lq, dh, ld);
-    stage(dOs, op, ql.sl, q0, Lq, dh, ld);
-    if (tid < TILE) {
-      const int row = q0 + tid;
-      Ls[tid] = row < Lq ? lse[(long long)bh * Lq + row] : 0.f;
-      Ds[tid] = row < Lq ? delta[(long long)bh * Lq + row] : 0.f;
+  // S^T (threads [0, 128)) or dP^T ([128, 256)): keys rk + 16 i, query rows
+  // rq + 8 j of the tile
+  const bool is_dp = tid >= THREADS / 2;
+  const int rk = (warp & 1) * 8 + (lane & 7);
+  const int rq = ((warp >> 1) & 1) * 4 + (lane >> 3);
+  float bias[4];  // of keys rk + 16 i
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+    bias[i] = sm90::key_bias(mp, k0 + rk + 16 * i, Lk);
+  // dV (threads [0, 128)) or dK: keys kx + 8 i, columns 4 (cx + 16 h) + e
+  const int kx = lane & 7, cx = (warp & 3) * 4 + (lane >> 3);
+  const int er = tid & (TILE - 1);  // the element-wise step's key
+  float acc[8][DH / 16];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int c = 0; c < DH / 16; ++c) acc[i][c] = 0.f;
+
+  const int n_tiles = (Lq + TILE - 1) / TILE;
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t & 1;
+    const int q0 = t * TILE;
+    cp_wait_all();
+    __syncthreads();
+    float next_l = 0.f, next_d = 0.f;
+    if (t + 1 < n_tiles) {
+      copy_rows<DH>(Qs + (st ^ 1) * TF, qp, ql.sl, q0 + TILE, Lq, dh);
+      copy_rows<DH>(dOs + (st ^ 1) * TF, op, ql.sl, q0 + TILE, Lq, dh);
+      sm90::cp_commit();
+      const int row = q0 + TILE + tid;
+      if (tid < TILE && row < Lq) {
+        next_l = lp[row];
+        next_d = dlp[row];
+      }
+    }
+
+    float s[4][8];  // s^T, or dp^T
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+    scores<DH, DKV_UNROLL_S>(s, is_dp ? Vs : Ks, rk,
+                             (is_dp ? dOs : Qs) + st * TF, rq);
+
+    if (!is_dp) {  // the exponent of p, -inf outside [0, Lk) x [0, Lq)
+      const float* lt = Ls + st * TILE;
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int key = k0 + rk + 16 * i;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const int col = rq + 8 * j;
+          Dt[elem_at<TILE>(rk + 16 * i, col)] =
+              q0 + col < Lq && key < Lk
+                  ? s[i][j] * sm_scale + bias[i] - lt[col]
+                  : -INFINITY;
+        }
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < 4; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j)
+          Pt[elem_at<TILE>(rk + 16 * i, rq + 8 * j)] = s[i][j];
     }
     __syncthreads();
-
-    float s[ROWS][SCOLS], dp[ROWS][SCOLS];  // [key][query]
+    {  // key er of the tile, queries 4 c .. 4 c + 3 for c = (tid >> 6) + 4 u
+      const float* dt = Ds + st * TILE;
+      const unsigned int hx =  // dropout hash input at (q0, key)
+          drop.seed ? flash::dropout_hash_input(drop, seed_bh, q0, k0 + er)
+                    : 0u;
 #pragma unroll
-    for (int i = 0; i < ROWS; ++i)
+      for (int u = 0; u < 4; ++u) {
+        const int c = (tid >> 6) + 4 * u;
+        const int off = chunk_at<TILE>(er, c);
+        float z[4], dp[4], ds[4], pk[4];
+        ld4(z, Dt + off);
+        ld4(dp, Pt + off);
 #pragma unroll
-      for (int j = 0; j < SCOLS; ++j) s[i][j] = dp[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float kv[ROWS], vv[ROWS], qv[SCOLS], ov[SCOLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        kv[i] = Ks[(ty * ROWS + i) * ld + d];
-        vv[i] = Vs[(ty * ROWS + i) * ld + d];
-      }
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        qv[j] = Qs[(tx + 16 * j) * ld + d];
-        ov[j] = dOs[(tx + 16 * j) * ld + d];
-      }
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < SCOLS; ++j) {
-          s[i][j] = fmaf(qv[j], kv[i], s[i][j]);
-          dp[i][j] = fmaf(ov[j], vv[i], dp[i][j]);
+        for (int e = 0; e < 4; ++e) {
+          const float keep =
+              drop.seed ? flash::dropout_keep(drop, hx + 65599u * (4 * c + e))
+                        : 1.f;
+          const float p = expf(z[e]);
+          ds[e] = p * (dp[e] * keep - dt[4 * c + e]);  // ds = p * (dp - delta)
+          pk[e] = p * keep;
         }
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      const int key = k0 + ty * ROWS + i;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        const int slot = tx + 16 * j;
-        const int row = q0 + slot;
-        float p_drop = 0.f, ds = 0.f;
-        if (row < Lq && key < Lk) {
-          const float p = expf(s[i][j] * sm_scale + bias[i] - Ls[slot]);
-          float dpv = dp[i][j];
-          p_drop = p;
-          if (drop.seed) {
-            const float keep = flash::dropout_multiplier(drop, seed_bh, row, key);
-            p_drop = p * keep;
-            dpv *= keep;
-          }
-          ds = p * (dpv - Ds[slot]);
-        }
-        Ps[(ty * ROWS + i) * LDP + slot] = p_drop;
-        dSs[(ty * ROWS + i) * LDP + slot] = ds;
+        st4(Dt + off, ds);
+        st4(Pt + off, pk);
       }
     }
-    __syncthreads();
+    __syncthreads();  // p * keep and ds are complete
 
-    const int n_rows = min(TILE, Lq - q0);
-    for (int n = 0; n < n_rows; ++n) {
-      float pv[ROWS], dsv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) {
-        pv[i] = Ps[(ty * ROWS + i) * LDP + n];
-        dsv[i] = dSs[(ty * ROWS + i) * LDP + n];
-      }
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c) {
-        const int col = tx + 16 * c;
-        if (col < dh) {
-          const float ov = dOs[n * ld + col];
-          const float qv = Qs[n * ld + col];
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) {
-            dv_acc[i][c] = fmaf(pv[i], ov, dv_acc[i][c]);
-            dk_acc[i][c] = fmaf(dsv[i], qv, dk_acc[i][c]);
-          }
-        }
-      }
+    accumulate<DH, 8, DKV_UNROLL_A>(acc, is_dp ? Dt : Pt, kx,
+                                    (is_dp ? Qs : dOs) + st * TF, cx);
+    if (tid < TILE && t + 1 < n_tiles) {
+      Ls[(st ^ 1) * TILE + tid] = next_l;
+      Ds[(st ^ 1) * TILE + tid] = next_d;
     }
   }
 
-  float* dkp = dk + b * kl.sb + h * kl.sh;
-  float* dvp = dv + b * kl.sb + h * kl.sh;
+  float* out = (is_dp ? dk : dv) + b * kl.sb + h * kl.sh;
+  const float scale = is_dp ? sm_scale : 1.f;  // dK carries sm_scale
 #pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int key = k0 + ty * ROWS + i;
+  for (int i = 0; i < 8; ++i) {
+    const int key = k0 + kx + 8 * i;
     if (key >= Lk) continue;
 #pragma unroll
-    for (int c = 0; c < OCOLS; ++c) {
-      const int col = tx + 16 * c;
-      if (col < dh) {
-        dkp[key * kl.sl + col] = dk_acc[i][c] * sm_scale;
-        dvp[key * kl.sl + col] = dv_acc[i][c];
-      }
+    for (int hh = 0; hh < DH / 64; ++hh) {
+      const int col = 4 * (cx + 16 * hh);
+      if (col < dh)
+        *reinterpret_cast<float4*>(out + key * kl.sl + col) = make_float4(
+            acc[i][4 * hh] * scale, acc[i][4 * hh + 1] * scale,
+            acc[i][4 * hh + 2] * scale, acc[i][4 * hh + 3] * scale);
     }
   }
 }
@@ -710,6 +916,14 @@ using sm90::allow_smem;
 using sm90::bad_bf16_grid;
 using sm90::misaligned;
 
+// The f32 kernels copy 16 bytes (4 floats) at a time: every operand starts
+// on 16 bytes and every stride is a multiple of 4 elements.
+bool misaligned_f32(const void* const* ptrs, int n, Layout ql, Layout kl) {
+  for (int i = 0; i < n; ++i)
+    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return true;
+  return (ql.sb | ql.sh | ql.sl | kl.sb | kl.sh | kl.sl) % 4 != 0;
+}
+
 struct Args {
   const void *q, *k, *v, *dout;
   const float *mask, *lse, *delta;
@@ -720,14 +934,13 @@ struct Args {
   cudaStream_t stream;
 };
 
+template <int DH>
 cudaError_t launch_dq_f32(const Args& a, void* dq) {
-  const int ld = a.dh + 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)4 * TILE * ld + (size_t)TILE * LDP + TILE);
-  cudaError_t err = allow_smem(flash_bwd_dq_kernel, smem);
+  constexpr size_t smem = dq_smem_f32<DH>();
+  cudaError_t err = allow_smem(flash_bwd_dq_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lq + TILE - 1) / TILE, a.BH);
-  flash_bwd_dq_kernel<<<grid, THREADS, smem, a.stream>>>(
+  flash_bwd_dq_kernel<DH><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.mask, a.lse, a.delta, static_cast<float*>(dq), a.H, a.Lq, a.Lk, a.dh,
@@ -735,14 +948,13 @@ cudaError_t launch_dq_f32(const Args& a, void* dq) {
   return cudaGetLastError();
 }
 
+template <int DH>
 cudaError_t launch_dkv_f32(const Args& a, void* dk, void* dv) {
-  const int ld = a.dh + 1;
-  const size_t smem = sizeof(float) * ((size_t)4 * TILE * ld +
-                                       (size_t)2 * TILE * LDP + 2 * TILE);
-  cudaError_t err = allow_smem(flash_bwd_dkv_kernel, smem);
+  constexpr size_t smem = dkv_smem_f32<DH>();
+  cudaError_t err = allow_smem(flash_bwd_dkv_kernel<DH>, smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((a.Lk + TILE - 1) / TILE, a.BH);
-  flash_bwd_dkv_kernel<<<grid, THREADS, smem, a.stream>>>(
+  flash_bwd_dkv_kernel<DH><<<grid, THREADS, smem, a.stream>>>(
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), static_cast<const float*>(a.dout),
       a.mask, a.lse, a.delta, static_cast<float*>(dk),
@@ -795,8 +1007,10 @@ extern "C" {
 // q, dout and dq share one layout, k, v, dk and dv another (element strides
 // of batch, head and row; the head dim is dense). mask is (BH / H, Lk) f32,
 // lse and delta are (BH, Lq) f32, all dense. dtype: 0 = float32 (CUDA-core
-// kernels), 1 = bfloat16 (wgmma kernels; q, k, v, dout and the outputs
-// 16-byte aligned, the dropout grid in multiples of 64). seed: null for no
+// kernels), 1 = bfloat16 (wgmma kernels); either way q, k, v, dout and the
+// outputs start on 16 bytes with strides of whole 16-byte chunks, or the
+// call returns cudaErrorMisalignedAddress, and the dropout grid is in
+// multiples of 64. seed: null for no
 // dropout, else one int32 on the device; thresh, drop_scale and the dropout
 // grid (drop_bq, drop_bk) as flash_common.cuh says, the same values the
 // forward was given.
@@ -819,11 +1033,18 @@ int univtg_flash_bwd_dq(const void* q, const void* k, const void* v,
                Dropout{static_cast<const int*>(seed), thresh, drop_scale,
                        drop_bq, drop_bk},
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_dq_f32(a, dq);
+  const void* ptrs[] = {q, k, v, dout, dq};
+  // the f32 kernels, too, take a 64-row tile's dropout hash input from one
+  // block of the grid
+  if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (misaligned_f32(ptrs, 5, a.ql, a.kl))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)(dh <= 64 ? launch_dq_f32<64>(a, dq)
+                          : launch_dq_f32<128>(a, dq));
+  }
   if (dtype == 1) {
-    const void* ptrs[] = {q, k, v, dout, dq};
     if (misaligned(ptrs, 5, a.ql, a.kl)) return (int)cudaErrorMisalignedAddress;
-    if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
     return (int)(dh <= 64 ? launch_dq_bf16<64>(a, dq)
                           : launch_dq_bf16<128>(a, dq));
   }
@@ -848,11 +1069,18 @@ int univtg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                Dropout{static_cast<const int*>(seed), thresh, drop_scale,
                        drop_bq, drop_bk},
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_dkv_f32(a, dk, dv);
+  const void* ptrs[] = {q, k, v, dout, dk, dv};
+  // the f32 kernels, too, take a 64-row tile's dropout hash input from one
+  // block of the grid
+  if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (misaligned_f32(ptrs, 6, a.ql, a.kl))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)(dh <= 64 ? launch_dkv_f32<64>(a, dk, dv)
+                          : launch_dkv_f32<128>(a, dk, dv));
+  }
   if (dtype == 1) {
-    const void* ptrs[] = {q, k, v, dout, dk, dv};
     if (misaligned(ptrs, 6, a.ql, a.kl)) return (int)cudaErrorMisalignedAddress;
-    if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
     return (int)(dh <= 64 ? launch_dkv_bf16<64>(a, dk, dv)
                           : launch_dkv_bf16<128>(a, dk, dv));
   }

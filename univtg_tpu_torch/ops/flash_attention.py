@@ -278,8 +278,9 @@ def _launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed):
 
 
 def _aligned(t):
-    """t itself if its data starts on 16 bytes, else a fresh copy: the bf16
-    kernels copy 16 bytes at a time."""
+    """t itself if its data starts on 16 bytes, else a fresh copy: the
+    kernels copy 16 bytes at a time (and their C entries refuse a pointer
+    off 16 bytes)."""
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
