@@ -9,8 +9,9 @@ printing its seconds:
 
   1. device   -- the card's name and power limit; TF32 off for comparisons.
   2. build    -- nvcc builds every kernel source from csrc/, and the
-                 planted-fault copies of flash_bwd.cu, flash_fwd.cu and
-                 ring_attention.cu (phase 3b), one process per source, all
+                 planted-fault copies of flash_bwd.cu, flash_fwd.cu,
+                 ring_attention.cu and flash_f32.cuh (phase 3b), one
+                 process per source, all
                  started together; ptxas lines printed. cuobjdump -sass of
                  the flash_bwd, flash_fwd, ring_attention and int8_matmul
                  libraries:
@@ -32,7 +33,10 @@ printing its seconds:
                  FORWARD_FAULTS, of the bf16 forward (dropout keep left
                  out, acc not rescaled) at the training shapes with
                  dropout 0.1, and of the bf16 ring block (P . V on p_hi
-                 alone) at 2 x 160 and 8 x 2080, P = 4.
+                 alone) at 2 x 160 and 8 x 2080, P = 4; F32_FORWARD_FAULTS,
+                 of the f32 loop that the forward and ring block share
+                 (flash_f32.cuh: acc not rescaled, the keep left out, every
+                 ring launch taking the `first` branch), at the same shapes.
   3c. int8    -- int8_matmul against its twin at K=2818, N=1024 (the first
                  video projection): M=128, 4096 (one qvhighlights_bf16
                  dispatch) and 16384 (one long_video_bf16 dispatch) in
@@ -220,7 +224,34 @@ FORWARD_FAULTS = {
         "plo[i] = pack_bf16(p[2 * i] - bf16_lo(phi[i]), p[2 * i + 1] - bf16_hi(phi[i]));",
         "plo[i] = 0u;"),
 }
-# the ring shapes (RING_SHAPES names) and ring size of ring_p_lo_dropped
+# planted faults of the f32 online-softmax loop (attend in csrc/flash_f32.cuh,
+# F32_LOOP_SOURCE), which flash_fwd.cu's f32 forward and ring_attention.cu's
+# f32 block instantiate: name -> (the library built with the fault, the
+# output it corrupts, the line as written, the line with the fault).
+# fwd_alpha_dropped_f32 leaves acc unrescaled when a row's max moves on;
+# fwd_keep_dropped_f32 leaves the dropout keep out of p * keep (both held
+# to TOL["float32"] at the training shapes, dropout 0.1);
+# ring_state_ignored_f32 makes every ring launch take the `first` branch
+# (held to RING_TOL["float32"] at RING_FAULT_SHAPES, P = RING_FAULT_P).
+# Built and required to fail as FAULTS are; tests/test_torch_flash.py checks
+# on every run that each line is in the header exactly once, inside attend.
+F32_LOOP_SOURCE = "flash_f32.cuh"
+F32_FORWARD_FAULTS = {
+    "fwd_alpha_dropped_f32": (
+        "flash_fwd", "out",
+        "for (int c = 0; c < DH / 16; ++c) acc[i][c] *= alpha;",
+        "for (int c = 0; c < DH / 16; ++c) acc[i][c] *= 1.f;"),
+    "fwd_keep_dropped_f32": (
+        "flash_fwd", "out",
+        "if (drop) p *= flash::dropout_keep(a.drop, hx + rk + 8 * j);",
+        "if (drop) p *= 1.f;"),
+    "ring_state_ignored_f32": (
+        "ring_attention", "out",
+        "const bool resume = RING && !a.first;",
+        "const bool resume = false;"),
+}
+# the ring shapes (RING_SHAPES names) and ring size of ring_p_lo_dropped and
+# ring_state_ignored_f32
 RING_FAULT_SHAPES, RING_FAULT_P = ("serving_160", "long_video_2080"), 4
 # the bf16 backward kernels, by their names in the SASS and the profiler
 BF16_BWD_KERNELS = ("flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
@@ -229,6 +260,11 @@ SASS_KERNELS = {"flash_bwd": BF16_BWD_KERNELS,
                 "flash_fwd": ("flash_fwd_kernel_sm90",),
                 "ring_attention": ("ring_block_kernel_sm90",),
                 "int8_matmul": ("int8_matmul_kernel_sm90",)}
+# the f32 (CUDA-core) attention kernels, by library: ptxas must report no
+# spill for any instantiation (their register tiles are sized to fit)
+F32_KERNELS = {"flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
+               "flash_fwd": ("flash_fwd_kernel",),
+               "ring_attention": ("ring_block_kernel",)}
 # the f32 train step on the flash kernels vs on plain attention (same
 # weights, same batches, dropouts 0): per-step loss and grad norm
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
@@ -400,30 +436,62 @@ def phase_device(torch):
 
 
 def _fault(name):
-    """(source, output, line as written, line with the fault) of a planted
-    fault of FAULTS or F32_FAULTS (flash_bwd.cu) or FORWARD_FAULTS."""
+    """(library, output, line as written, line with the fault) of a planted
+    fault of FAULTS or F32_FAULTS (flash_bwd.cu), FORWARD_FAULTS or
+    F32_FORWARD_FAULTS."""
     if name in FAULTS or name in F32_FAULTS:
         return ("flash_bwd", *{**FAULTS, **F32_FAULTS}[name])
-    return FORWARD_FAULTS[name]
+    return {**FORWARD_FAULTS, **F32_FORWARD_FAULTS}[name]
 
 
-def _build_fault(name, out_dir):
-    """nvcc of csrc/<source>.cu with the planted fault `name`, in out_dir."""
+def _fault_file(name):
+    """The csrc/ file that holds the line a planted fault edits."""
+    return F32_LOOP_SOURCE if name in F32_FORWARD_FAULTS else f"{_fault(name)[0]}.cu"
+
+
+def stage_edits(library, file, edits, out_dir):
+    """Copy csrc/<library>.cu into out_dir, with csrc/<file> (the source or
+    one of its headers) edited there: each line of `edits` replaced by its
+    value, each required once. A quoted include finds the copy in out_dir
+    first, the other headers in csrc/ (-I). Returns the staged .cu path."""
+    import shutil
     from pathlib import Path
 
     from univtg_tpu_torch.ops import cuda_build
 
-    source, _, line, fault = _fault(name)
-    text = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
-    if text.count(line) != 1:
-        raise AssertionError(f"fault {name}: the line to edit is not in {source}.cu once")
-    src = Path(out_dir) / f"{source}_{name}.cu"
-    src.write_text(text.replace(line, fault))
+    out_dir = Path(out_dir)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    text = (cuda_build.CSRC_DIR / file).read_text()
+    for line, new in edits.items():
+        if text.count(line) != 1:
+            raise AssertionError(f"{line!r} is not in {file} once")
+        text = text.replace(line, new)
+    (out_dir / file).write_text(text)
+    src = out_dir / f"{library}.cu"
+    if src.name != file:
+        shutil.copyfile(cuda_build.CSRC_DIR / src.name, src)
+    return src
+
+
+def nvcc_staged(src):
+    """nvcc of a staged source (stage_edits) into a library beside it."""
+    from univtg_tpu_torch.ops import cuda_build
+
     so = src.with_suffix(".so")
     subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
                     "-I", str(cuda_build.CSRC_DIR), "-o", str(so), str(src)],
                    capture_output=True, text=True, check=True)
     return so
+
+
+def _build_fault(name, out_dir):
+    """nvcc of csrc/<library>.cu with the planted fault `name`, in
+    out_dir/name."""
+    import os
+
+    library, _, line, fault = _fault(name)
+    return nvcc_staged(stage_edits(library, _fault_file(name), {line: fault},
+                                   os.path.join(out_dir, name)))
 
 
 def _cuobjdump():
@@ -505,7 +573,7 @@ def phase_build(fault_dir):
         return time.perf_counter() - t0
 
     sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES + rap.KERNEL_SOURCES
-    names = [*FAULTS, *F32_FAULTS, *FORWARD_FAULTS]
+    names = [*FAULTS, *F32_FAULTS, *FORWARD_FAULTS, *F32_FORWARD_FAULTS]
     with concurrent.futures.ThreadPoolExecutor(len(sources) + len(names)) as pool:
         faults = {n: pool.submit(_build_fault, n, fault_dir) for n in names}
         seconds = dict(zip(sources, pool.map(build, sources)))
@@ -522,10 +590,17 @@ def phase_build(fault_dir):
             if any(w in line for w in ("registers", "spill", "Compiling entry", "arning",
                                        "(C75")):
                 log(f"[build]   {line.strip()}")
-    log(f"[build] planted faults: {', '.join(f'{n} ({_fault(n)[0]}.cu)' for n in faults)}")
+    log(f"[build] planted faults: {', '.join(f'{n} ({_fault_file(n)})' for n in faults)}")
     sass = {}
     for name in SASS_KERNELS:
         sass.update(_sass_counts(name))
+    for name, kernels in F32_KERNELS.items():
+        stats = _ptxas_stats(cuda_build.build_log(name))
+        f32_fns = {fn: s for fn, s in stats.items()
+                   if any(k in fn for k in kernels) and "_sm90" not in fn}
+        if len(f32_fns) < 2 * len(kernels) or any(s[1] or s[2] for s in f32_fns.values()):
+            raise AssertionError(f"{name}: an f32 kernel spills or is missing "
+                                 f"(registers, spill stores, spill loads): {f32_fns}")
     return faults, sass
 
 
@@ -1002,9 +1077,10 @@ def phase_faults(torch, faults):
     """Each planted fault, swapped in for its built library, must fail the
     limit its kernel is held to at each shape it runs: FAULTS (the bf16
     backward kernels, BWD_TOL), F32_FAULTS (the f32 backward kernels,
-    BWD_TOL["float32"]) and the forward's FORWARD_FAULTS (TOL) at the two
-    training shapes with dropout 0.1, the ring's (RING_TOL) at
-    RING_FAULT_SHAPES with P = RING_FAULT_P."""
+    BWD_TOL["float32"]) and the forward's FORWARD_FAULTS and
+    F32_FORWARD_FAULTS (TOL) at the two training shapes with dropout 0.1,
+    the ring's (RING_TOL, bf16 and f32) at RING_FAULT_SHAPES with P =
+    RING_FAULT_P."""
     import ctypes
 
     from univtg_tpu_torch.ops import cuda_build, flash_attention as fa
@@ -1062,24 +1138,38 @@ def phase_faults(torch, faults):
             log(f"[faults] {name} at {shape_name} f32 dropout 0.1: {output} "
                 f"max abs err {err[0]:.3g}, rel {err[1]:.3g} (limit "
                 f"{BWD_TOL['float32']})")
-        del args, want, got
+        want_out, want_lse = fa.flash_attention_reference(*args[:4], seed=seed, **kw)
+        for name in (n for n in F32_FORWARD_FAULTS if _fault(n)[0] == "flash_fwd"):
+            out, lse = run_with(name, lambda: fa.flash_attention_impl(
+                *args[:4], dropout_seed=seed, **kw))
+            err, err_lse = _errs(out, want_out), (lse - want_lse).abs().max().item()
+            tol = TOL["float32"]
+            caught[(name, shape_name)] = err[0] > tol["out"] or err_lse > tol["lse"]
+            log(f"[faults] {name} at {shape_name} f32 dropout 0.1: out max abs err "
+                f"{err[0]:.3g}, lse max abs err {err_lse:.3g} (limits {tol})")
+        del args, want, got, want_out, want_lse, out, lse
         torch.cuda.empty_cache()
+    ring_faults = {"bfloat16": [n for n in FORWARD_FAULTS if _fault(n)[0] == "ring_attention"],
+                   "float32": [n for n in F32_FORWARD_FAULTS
+                               if _fault(n)[0] == "ring_attention"]}
     for shape_name in RING_FAULT_SHAPES:
         B, L, H, dh, _ = RING_SHAPES[shape_name]
-        q, k, v, mask = _attention_inputs(torch, B, L, H, dh, torch.bfloat16, seed=950)
-        mask[-1] = 0
-        ring = RingGroup(RING_FAULT_P)
-        want = rap.ring_attention_pallas_reference(q, k, v, mask, num_heads=H, ring=ring)
-        for name in (n for n in FORWARD_FAULTS if _fault(n)[0] == "ring_attention"):
-            got = run_with(name, lambda: rap.ring_attention_pallas(
-                q, k, v, mask, num_heads=H, ring=ring))
-            err = _errs(got, want)
-            caught[(name, shape_name)] = not _ring_within(err, "bfloat16")
-            log(f"[faults] {name} at {shape_name} P={RING_FAULT_P} bf16: out max abs err "
-                f"{err[0]:.3g}, share that differs {err[2]:.3g} "
-                f"(limits {RING_TOL['bfloat16']})")
-        del q, k, v, mask, want, got
-        torch.cuda.empty_cache()
+        for dname, names in ring_faults.items():
+            q, k, v, mask = _attention_inputs(torch, B, L, H, dh, getattr(torch, dname),
+                                              seed=950)
+            mask[-1] = 0
+            ring = RingGroup(RING_FAULT_P)
+            want = rap.ring_attention_pallas_reference(q, k, v, mask, num_heads=H, ring=ring)
+            for name in names:
+                got = run_with(name, lambda: rap.ring_attention_pallas(
+                    q, k, v, mask, num_heads=H, ring=ring))
+                err = _errs(got, want)
+                caught[(name, shape_name)] = not _ring_within(err, dname)
+                log(f"[faults] {name} at {shape_name} P={RING_FAULT_P} {dname}: out max "
+                    f"abs err {err[0]:.3g}, share that differs {err[2]:.3g} "
+                    f"(limits {RING_TOL[dname]})")
+            del q, k, v, mask, want, got
+            torch.cuda.empty_cache()
     missed = [k for k, hit in caught.items() if not hit]
     if missed:
         raise AssertionError(f"planted faults within their limits: {missed}")

@@ -2,12 +2,14 @@
 """Time versions of the flash backward kernels against each other.
 
     python3 scripts/bench_flash_bwd_tiles.py [--dtype float32|bfloat16]
-        [--baseline OTHER_flash_bwd.cu ...] [--step]
+        [--baseline OTHER_flash_bwd.cu ...] [--variant NAME ... | all | none]
+        [--step]
 
-Builds univtg_tpu_torch/csrc/flash_bwd.cu as written, once per entry of
-VARIANTS[dtype] (source lines replaced, as chip_smoke.py plants its faults)
-and, once per --baseline, another version of the whole file (the parent
-commit's, say, unpacked with git archive), named by its file name. Each build is swapped in for the
+Builds univtg_tpu_torch/csrc/flash_bwd.cu as written, once per chosen entry
+of VARIANTS[dtype] (all by default; source lines replaced, as chip_smoke.py
+plants its faults) and, once per --baseline, another version of the whole
+file (the parent commit's, say, unpacked with git archive, with the headers
+beside it taking precedence over csrc/'s), named by its file name. Each build is swapped in for the
 port's library in turn and, at chip_smoke.py's two training shapes in the
 chosen dtype (bf16 by default) with dropout 0 and 0.1, its dq, dk and dv
 are held against the twins within chip_smoke.BWD_TOL (an ablation, which
@@ -87,9 +89,10 @@ def _build(name, edits, out_dir, source=None):
     src = Path(out_dir) / f"flash_bwd_{name}.cu"
     src.write_text(text)
     so = src.with_suffix(".so")
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS, "-I",
-                    str(cuda_build.CSRC_DIR), "-o", str(so), str(src)],
-                   capture_output=True, text=True, check=True)
+    headers = [Path(source).resolve().parent] if source else []
+    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+                    *(f"-I{d}" for d in (*headers, cuda_build.CSRC_DIR)), "-o", str(so),
+                    str(src)], capture_output=True, text=True, check=True)
     return so
 
 
@@ -156,6 +159,9 @@ def main() -> int:
     parser.add_argument("--baseline", action="append", default=[],
                         help="another flash_bwd.cu to time beside this one, named by "
                              "its file name (repeatable)")
+    parser.add_argument("--variant", action="append", default=[],
+                        help="a name of VARIANTS[dtype] (repeatable), 'all' (the "
+                             "default) or 'none'")
     parser.add_argument("--step", action="store_true",
                         help="also time the long-video train step with each build")
     opts = parser.parse_args()
@@ -167,6 +173,13 @@ def main() -> int:
 
     card = cs.phase_device(torch)
     variants = VARIANTS[opts.dtype]
+    if "none" in opts.variant:
+        variants = {}
+    elif opts.variant and "all" not in opts.variant:
+        unknown = set(opts.variant) - set(variants)
+        if unknown:
+            parser.error(f"no variant {sorted(unknown)} for {opts.dtype}: {sorted(variants)}")
+        variants = {n: variants[n] for n in opts.variant}
     with tempfile.TemporaryDirectory(prefix="univtg_bwd_tiles_") as tmp:
         with concurrent.futures.ThreadPoolExecutor(len(variants) + 2) as pool:
             builds = {n: pool.submit(_build, n, e, tmp) for n, (e, _) in variants.items()}

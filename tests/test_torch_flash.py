@@ -196,22 +196,66 @@ def _chip_smoke():
     return module
 
 
+F32_FORWARD_FAULTS = ["fwd_alpha_dropped_f32", "fwd_keep_dropped_f32",
+                      "ring_state_ignored_f32"]
+
+
 @pytest.mark.parametrize("name", ["fwd_keep_dropped", "fwd_alpha_dropped",
-                                  "ring_p_lo_dropped"])
+                                  "ring_p_lo_dropped", *F32_FORWARD_FAULTS])
 def test_planted_faults_quote_their_source_once(name):
-    """chip_smoke.py plants each fault of the bf16 forward and ring kernels
-    by replacing one line of its source: the line must be there exactly
-    once, inside the wgmma kernels, or the smoke's fault phase tests
+    """chip_smoke.py plants each fault of the forward and ring kernels by
+    replacing one line of its source: the line must be there exactly once,
+    inside the wgmma kernels (bf16) or inside the f32 loop that both
+    instantiate (flash_f32.cuh's attend), or the smoke's fault phase tests
     nothing (or the wrong kernel)."""
-    faults = _chip_smoke().FORWARD_FAULTS
+    cs = _chip_smoke()
+    faults = cs.FORWARD_FAULTS
     assert set(faults) == {"fwd_keep_dropped", "fwd_alpha_dropped",
                            "ring_p_lo_dropped"}
-    source, output, line, fault = faults[name]
-    assert source in ("flash_fwd", "ring_attention") and output == "out"
-    assert line != fault
-    text = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+    assert list(cs.F32_FORWARD_FAULTS) == F32_FORWARD_FAULTS
+    if name in faults:
+        source, output, line, fault = faults[name]
+        assert source in ("flash_fwd", "ring_attention") and output == "out"
+        assert line != fault
+        text = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+        assert text.count(line) == 1, line
+        assert text.index(line) > text.index("namespace sm90 {")
+        return
+    source, output, line, fault = cs.F32_FORWARD_FAULTS[name]
+    assert source == ("ring_attention" if name.startswith("ring") else "flash_fwd")
+    assert output == "out" and line != fault
+    assert cs._fault_file(name) == cs.F32_LOOP_SOURCE == "flash_f32.cuh"
+    text = (cuda_build.CSRC_DIR / cs.F32_LOOP_SOURCE).read_text()
     assert text.count(line) == 1, line
-    assert text.index(line) > text.index("namespace sm90 {")
+    start = text.index("__device__ __forceinline__ void attend(const AttendArgs& a, int bh,")
+    assert start < text.index(line) < text.index("void attend_block(const AttendArgs& a)")
+    # the library built with the fault instantiates that loop
+    kernel = "flash_fwd_kernel" if source == "flash_fwd" else "ring_block_kernel"
+    cu = (cuda_build.CSRC_DIR / f"{source}.cu").read_text()
+    assert f'#include "{cs.F32_LOOP_SOURCE}"' in cu
+    assert f"attend_block<DH, {str(source == 'ring_attention').lower()}, TAILS>(a)" in cu
+    assert kernel in cu
+
+
+@pytest.mark.parametrize("name", ["fwd_alpha_dropped", "ring_p_lo_dropped",
+                                  *F32_FORWARD_FAULTS])
+def test_planted_fault_stages_one_edit(name, tmp_path):
+    """What chip_smoke.py hands nvcc for a planted fault: a copy of the
+    library's source beside the edited file, which differs from csrc/ in the
+    fault's line alone, so a quoted include picks the edited header."""
+    cs = _chip_smoke()
+    library, _, line, fault = cs._fault(name)
+    file = cs._fault_file(name)
+    src = cs.stage_edits(library, file, {line: fault}, tmp_path / name)
+    assert src == tmp_path / name / f"{library}.cu"
+    staged = (tmp_path / name / file).read_text()
+    original = (cuda_build.CSRC_DIR / file).read_text()
+    assert staged == original.replace(line, fault) and staged != original
+    if file != src.name:
+        assert src.read_text() == (cuda_build.CSRC_DIR / src.name).read_text()
+        assert f'#include "{file}"' in src.read_text()
+    with pytest.raises(AssertionError, match="once"):
+        cs.stage_edits(library, file, {fault: line}, tmp_path / "again")
 
 
 def _shifted(t):
@@ -271,3 +315,59 @@ def test_cuda_kernel_matches_twin(cuda_device, dtype, atol_out, atol_lse,
     again = fa.flash_attention(*(_shifted(x) for x in (q, k, v)), mask,
                                num_heads=H, **kw)
     assert torch.equal(again, out)
+
+
+@pytest.mark.cuda
+def test_cuda_f32_entry_refuses_misaligned_pointers(cuda_device):
+    """The f32 forward's C entry itself, called past the wrapper's copy,
+    refuses an operand off 16 bytes, or a row stride that is not a multiple
+    of 4 floats, with cudaErrorMisalignedAddress instead of faulting on its
+    16-byte copies."""
+    B, L, H, dh = 1, 64, 2, 32
+    q, k, v = (torch.randn(B, L, H * dh, device=cuda_device) for _ in range(3))
+    mask = torch.ones(B, L, device=cuda_device)
+    out = torch.empty_like(q)
+    lse = torch.empty(B * H, L, device=cuda_device)
+    lib = fa._library("flash_fwd")
+    args = fa._launch_args(q, k, H, dh, dh**-0.5, 0.0, None)
+    stream = torch.cuda.current_stream().cuda_stream
+    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
+            out.data_ptr(), lse.data_ptr()]
+    misaligned = 716  # cudaErrorMisalignedAddress
+    for i, t in ((0, q), (4, out)):
+        bad = list(ptrs)
+        bad[i] = _shifted(t).data_ptr()
+        assert lib.univtg_flash_fwd(*bad, *args, stream) == misaligned
+    bad_stride = list(args)
+    bad_stride[8] += 2  # q's row stride
+    assert lib.univtg_flash_fwd(*ptrs, *bad_stride, stream) == misaligned
+    assert lib.univtg_flash_fwd(*ptrs, *args, stream) == 0
+    torch.cuda.synchronize()
+
+
+def _bench_fwd_ring():
+    path = Path(__file__).resolve().parent.parent / "scripts" / "bench_flash_fwd_ring.py"
+    spec = importlib.util.spec_from_file_location("bench_flash_fwd_ring", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("name", ["no_scores", "no_pv", "no_exp", "no_copy", "full_tail",
+                                  "unroll_2", "unroll_8"])
+def test_bench_variants_quote_the_f32_loop_once(name, tmp_path):
+    """scripts/bench_flash_fwd_ring.py builds each f32 variant by replacing
+    lines of flash_f32.cuh: each must be there once, inside the loop the
+    forward and ring block share, or the variant times the loop as written."""
+    bench = _bench_fwd_ring()
+    assert set(bench.VARIANTS["float32"]) == {"no_scores", "no_pv", "no_exp", "no_copy",
+                                              "full_tail", "unroll_2", "unroll_8"}
+    file, edits, held = bench.VARIANTS["float32"][name]
+    assert file == "flash_f32.cuh" and held == (not name.startswith("no_"))
+    text = (cuda_build.CSRC_DIR / file).read_text()
+    start = text.index("constexpr int ROWS = 128;")
+    for line in edits:
+        assert text.count(line) == 1 and text.index(line) > start, line
+    for library in bench.SOURCES:
+        src = bench.cs.stage_edits(library, file, edits, tmp_path / library)
+        assert src.exists() and (tmp_path / library / file).read_text() != text

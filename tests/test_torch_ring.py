@@ -415,3 +415,35 @@ def test_cuda_kernel_matches_twin(cuda_device, dtype, atol, Bc, Lc, P, Hc, dh):
         shifted.append(view)
     assert torch.equal(got, rap.ring_attention_pallas(*shifted, mask, num_heads=Hc,
                                                       ring=ring))
+
+
+@pytest.mark.cuda
+def test_cuda_f32_block_entry_refuses_misaligned_pointers(cuda_device):
+    """The f32 block's C entry itself, called past the wrapper's copy,
+    refuses q or the state off 16 bytes, or a row stride that is not a
+    multiple of 4 floats, with cudaErrorMisalignedAddress instead of
+    faulting on its 16-byte copies."""
+    Bc, Lc, Hc, dh = 1, 64, 2, 32
+    Dc = Hc * dh
+    q, k, v = (torch.randn(Bc, Lc, Dc, device=cuda_device) for _ in range(3))
+    mask = torch.ones(Bc, Lc, device=cuda_device)
+    m, l = (torch.empty(Bc * Hc, Lc, device=cuda_device) for _ in range(2))
+    acc = torch.empty(Bc * Hc * Lc * dh + 1, device=cuda_device)
+    buf = torch.empty(q.numel() + 1, device=cuda_device)
+    shifted = buf[1:].view(q.shape)  # one element off 16 bytes
+    shifted.copy_(q)
+    lib = rap._library()
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def call(q_ptr, acc_ptr, q_sl=Dc):
+        return lib.univtg_ring_block(
+            q_ptr, k.data_ptr(), v.data_ptr(), mask.data_ptr(), m.data_ptr(),
+            l.data_ptr(), acc_ptr, 0, Bc * Hc, Hc, Lc, Lc, dh, Lc * Dc, dh, q_sl,
+            Lc * Dc, dh, Dc, Lc, dh**-0.5, 1, stream)
+
+    misaligned = 716  # cudaErrorMisalignedAddress
+    assert call(shifted.data_ptr(), acc.data_ptr()) == misaligned
+    assert call(q.data_ptr(), acc[1:].data_ptr()) == misaligned
+    assert call(q.data_ptr(), acc.data_ptr(), q_sl=Dc + 2) == misaligned
+    assert call(q.data_ptr(), acc.data_ptr()) == 0
+    torch.cuda.synchronize()

@@ -119,6 +119,7 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
@@ -146,14 +147,22 @@ typedef __nv_bfloat16 bf16;
 //   the last products from shared memory: dQ += dS.K on all 256 threads
 //   (4 x 8 a thread), or dV += (P*keep)^T.dO on threads [0, 128) and
 //   dK += dS^T.Q on [128, 256) (8 x 8 a thread).
-// Every tile is row-major, a row's 16-byte chunk c stored at chunk
-// c ^ (row % 8): the threads of a warp that read one chunk of 8 rows with
-// distinct row % 8, or 4 chunks of one row, hit distinct banks, with no
-// padding (dK/dV's tiles fill 230,400 of the 232,448 bytes a block may use).
+// The tiles, copies and products are flash_f32.cuh's, shared with the f32
+// forward and ring block; dK/dV's tiles fill 230,400 of the 232,448 bytes a
+// block may use.
 
-constexpr int TILE = 64;      // query rows and keys per tile
-constexpr int THREADS = 256;  // two halves of 128: S and dP
-constexpr int MAX_DH = 128;
+using f32::accumulate;
+using f32::chunk_at;
+using f32::copy_rows;
+using f32::cp_wait_all;
+using f32::elem_at;
+using f32::ld4;
+using f32::MAX_DH;
+using f32::scores;
+using f32::st4;
+using f32::THREADS;
+using f32::TILE;
+
 // How deep the products' chunk loops unroll (chunks of 4 of the depth: 32
 // in the score products at DH 128, 16 in the last ones), chosen on the card
 // with scripts/bench_flash_bwd_tiles.py (PERF.md §6): dQ's score loop in
@@ -161,121 +170,6 @@ constexpr int MAX_DH = 128;
 // (both in full: 2.2x slower).
 constexpr int DQ_UNROLL_S = 32, DQ_UNROLL_A = 8;
 constexpr int DKV_UNROLL_S = 8, DKV_UNROLL_A = 16;
-
-// Float offset of chunk c (floats 4c .. 4c + 3) of row r in a swizzled tile
-// W floats wide, and of element col.
-template <int W>
-__device__ __forceinline__ int chunk_at(int r, int c) {
-  return r * W + ((c ^ (r & 7)) << 2);
-}
-template <int W>
-__device__ __forceinline__ int elem_at(int r, int col) {
-  return chunk_at<W>(r, col >> 2) + (col & 3);
-}
-
-__device__ __forceinline__ void ld4(float (&v)[4], const float* p) {
-  const float4 t = *reinterpret_cast<const float4*>(p);
-  v[0] = t.x;
-  v[1] = t.y;
-  v[2] = t.z;
-  v[3] = t.w;
-}
-
-__device__ __forceinline__ void st4(float* p, const float (&v)[4]) {
-  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool ok) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   static_cast<uint32_t>(__cvta_generic_to_shared(dst))),
-               "l"(src), "r"(ok ? 16 : 0)
-               : "memory");
-}
-
-__device__ __forceinline__ void cp_wait_all() {
-  asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// Rows [r0, r0 + TILE) of one head into a swizzled tile DH floats wide, by
-// cp.async 16 bytes at a time; rows >= L and head-dim columns >= dh are
-// zero-filled (no global read).
-template <int DH>
-__device__ __forceinline__ void copy_rows(float* dst,
-                                          const float* __restrict__ src,
-                                          long long sl, int r0, int L, int dh) {
-  constexpr int CH = DH / 4;        // chunks per row
-  constexpr int RS = THREADS / CH;  // rows per round, a multiple of 8: a
-                                    // thread's rows share their swizzle
-  static_assert(TILE % RS == 0 && RS % 8 == 0, "whole rounds of copies");
-  const int c = threadIdx.x % CH, r = threadIdx.x / CH;
-  const bool col_ok = 4 * c < dh;
-  float* d = dst + chunk_at<DH>(r, c);
-  const float* s = src + (long long)(r0 + r) * sl + 4 * c;
-#pragma unroll
-  for (int it = 0; it < TILE / RS; ++it) {
-    const bool ok = col_ok && r0 + r + it * RS < L;
-    cp_async16(d + it * RS * DH, ok ? s + it * RS * sl : src, ok);
-  }
-}
-
-// s[i][j] += A row (ra + 16 i) . B row (rb + 8 j) over the head dim, both
-// tiles DH wide: a float4 of each row per 4 columns, 128 FFMA per 12 reads.
-template <int DH, int U>
-__device__ __forceinline__ void scores(float (&s)[4][8], const float* A,
-                                       int ra, const float* B, int rb) {
-  const float* a0 = A + ra * DH;
-  const float* b0 = B + rb * DH;
-#pragma unroll(U)
-  for (int c = 0; c < DH / 4; ++c) {
-    // rows ra + 16 i share ra's swizzle, rows rb + 8 j rb's
-    const int oa = (c ^ (ra & 7)) << 2, ob = (c ^ (rb & 7)) << 2;
-    float a[4][4], b[8][4];
-#pragma unroll
-    for (int i = 0; i < 4; ++i) ld4(a[i], a0 + 16 * i * DH + oa);
-#pragma unroll
-    for (int j = 0; j < 8; ++j) ld4(b[j], b0 + 8 * j * DH + ob);
-#pragma unroll
-    for (int e = 0; e < 4; ++e)
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 8; ++j) s[i][j] = fmaf(a[i][e], b[j][e], s[i][j]);
-  }
-}
-
-// acc[i][4 h + e] += sum over n < TILE of P[ra + (TILE / NI) i][n] *
-// B[n][4 (cx + 16 h) + e]: P a TILE x TILE tile, B a tile DH wide, a float4
-// of each of the thread's NI rows of P per 4 rows of B.
-template <int DH, int NI, int U>
-__device__ __forceinline__ void accumulate(float (&acc)[NI][DH / 16],
-                                           const float* P, int ra,
-                                           const float* B, int cx) {
-  constexpr int RS = TILE / NI, NH = DH / 64;
-  const float* p0 = P + ra * TILE;
-#pragma unroll(U)
-  for (int c = 0; c < TILE / 4; ++c) {
-    const int oa = (c ^ (ra & 7)) << 2;
-    float a[NI][4];
-#pragma unroll
-    for (int i = 0; i < NI; ++i) ld4(a[i], p0 + RS * i * TILE + oa);
-#pragma unroll
-    for (int u = 0; u < 4; ++u) {
-      const int n = 4 * c + u;
-      float b[NH][4];
-#pragma unroll
-      for (int h = 0; h < NH; ++h)
-        ld4(b[h], B + chunk_at<DH>(n, cx + 16 * h));
-#pragma unroll
-      for (int i = 0; i < NI; ++i)
-#pragma unroll
-        for (int h = 0; h < NH; ++h)
-#pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][4 * h + e] = fmaf(a[i][u], b[h][e], acc[i][4 * h + e]);
-    }
-  }
-}
 
 template <int DH>
 constexpr size_t dq_smem_f32() {  // Q, dO; K, V x 2; p, ds; dp; key bias x 2
@@ -916,14 +810,6 @@ using sm90::allow_smem;
 using sm90::bad_bf16_grid;
 using sm90::misaligned;
 
-// The f32 kernels copy 16 bytes (4 floats) at a time: every operand starts
-// on 16 bytes and every stride is a multiple of 4 elements.
-bool misaligned_f32(const void* const* ptrs, int n, Layout ql, Layout kl) {
-  for (int i = 0; i < n; ++i)
-    if (reinterpret_cast<uintptr_t>(ptrs[i]) % 16) return true;
-  return (ql.sb | ql.sh | ql.sl | kl.sb | kl.sh | kl.sl) % 4 != 0;
-}
-
 struct Args {
   const void *q, *k, *v, *dout;
   const float *mask, *lse, *delta;
@@ -1038,7 +924,7 @@ int univtg_flash_bwd_dq(const void* q, const void* k, const void* v,
   // block of the grid
   if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (misaligned_f32(ptrs, 5, a.ql, a.kl))
+    if (f32::misaligned(ptrs, 5, a.ql, a.kl))
       return (int)cudaErrorMisalignedAddress;
     return (int)(dh <= 64 ? launch_dq_f32<64>(a, dq)
                           : launch_dq_f32<128>(a, dq));
@@ -1074,7 +960,7 @@ int univtg_flash_bwd_dkv(const void* q, const void* k, const void* v,
   // block of the grid
   if (bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
   if (dtype == 0) {
-    if (misaligned_f32(ptrs, 6, a.ql, a.kl))
+    if (f32::misaligned(ptrs, 6, a.ql, a.kl))
       return (int)cudaErrorMisalignedAddress;
     return (int)(dh <= 64 ? launch_dkv_f32<64>(a, dk, dv)
                           : launch_dkv_f32<128>(a, dk, dv));

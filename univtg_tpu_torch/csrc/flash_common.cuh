@@ -34,24 +34,6 @@ __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-// Row max and row sum over the 16 threads of a row group, which are lanes
-// [0,16) or [16,32) of one warp (the f32 forward and ring kernels' 16 x 16
-// thread layout).
-__device__ __forceinline__ float group_max(float x) {
-  // the 16 threads of a row group are lanes [0,16) or [16,32) of one warp
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float group_sum(float x) {
-#pragma unroll
-  for (int off = 8; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // Element strides of one operand: batch, head, row. The head dim is dense.
 struct Layout {
   long long sb, sh, sl;

@@ -46,14 +46,26 @@
 // the SM fills the gaps. The exp, in f32 as the reference takes it, and the
 // dropout finalizer run per element.
 //
-// f32 -- CUDA cores (flash_fwd_kernel): TF32 tensor cores have not been
-// measured against the f32 limit (1e-4), and f32 is the correctness path.
-// One block of 256 threads per (batch*head, 64-row query tile); a loop over
-// 64-key tiles of K and V staged in shared memory; each thread owns 4 query
-// rows and computes a 4x4 patch of the score tile and a 4 x (dh/16) patch of
-// the output with scalar FMAs; the row max and sum reduce across the 16
-// threads of a row group by warp shuffles. Bound by the f32 FMA rate
-// (67 TFLOP/s): 2.12 ms at the long shape.
+// f32 -- CUDA cores (flash_fwd_kernel<DH, TAILS>, DH = 64 or 128, the head
+// dim zero-filled up to DH): the online-softmax loop of flash_f32.cuh
+// (attend, whose note spells it out), shared with ring_attention.cu's f32
+// block. One block of 256 threads per (batch*head, 128 query rows), one
+// block per SM (225.5 KB of shared memory at DH 128). Q stays in shared
+// memory; K, V and the key bias stream in 64-key tiles through two cp.async
+// stages. S is 4 rows x 8 keys a thread and acc 8 rows x 8 columns, both
+// outer products from float4 reads of row-major tiles with an XOR swizzle
+// of their 16-byte chunks; the scale comes after the dot, the dropout hash
+// input is taken once per row and tile. A ragged last query tile of at
+// most 32 rows computes only those and runs after every full tile;
+// TAILS picks that path on the host, only for grids that need it. Plain f32
+// FFMA and expf, as the reference: TF32 tensor cores would sum in their own
+// rounding, and f32 is the correctness path. Bound by the f32 FMA rate (67
+// TFLOP/s): 2.12 ms at the long shape, where it runs at 54-56 % of that.
+// What it leaves (ablations on an H100, scripts/bench_flash_fwd_ring.py):
+// the two products take about 1.6 ms each, 65-70 % of the FMA rate, which
+// the shared-memory reads of their register tiles cap; the rest is the
+// softmax between two barriers a tile at one block per SM, with no product
+// under it, and the copies (~0.2 ms).
 //
 // Built by univtg_tpu_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -66,168 +78,21 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
 
 using flash::Dropout;
-using flash::group_max;
-using flash::group_sum;
 using flash::Layout;
-using flash::NEG_INF;
 
 // ---------------------------------------------------------------------------
-// f32: CUDA cores
+// f32: CUDA cores (flash_f32.cuh's loop)
 
-constexpr int BLOCK_M = 64;   // query rows per block
-constexpr int BLOCK_N = 64;   // keys per streamed tile
-constexpr int THREADS = 256;  // 16 row groups x 16 threads
-constexpr int ROWS = 4;       // query rows per thread (16 groups x 4 = 64)
-constexpr int SCOLS = BLOCK_N / 16;  // score columns per thread
-constexpr int MAX_DH = 128;
-constexpr int OCOLS = MAX_DH / 16;   // output columns per thread, at most
-constexpr int LDP = BLOCK_N + 1;     // P tile row stride
-
-__global__ void __launch_bounds__(THREADS)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, const float* __restrict__ mask,
-                 float* __restrict__ out, float* __restrict__ lse, int H,
-                 int Lq, int Lk, int dh, Layout ql, Layout kl, float sm_scale,
-                 Dropout drop) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;  // odd stride: column reads across rows hit distinct banks
-  float* Qs = smem;                        // BLOCK_M x ld
-  float* Ks = Qs + BLOCK_M * ld;           // BLOCK_N x ld
-  float* Vs = Ks + BLOCK_N * ld;           // BLOCK_N x ld
-  float* Ps = Vs + BLOCK_N * ld;           // BLOCK_M x LDP
-  float* Ms = Ps + BLOCK_M * LDP;          // BLOCK_N key-mask values
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // column slot within the row group
-  const int ty = tid >> 4;  // row group: rows ty*ROWS .. ty*ROWS+3
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * BLOCK_M;
-
-  const float* qp = q + b * ql.sb + h * ql.sh;
-  const float* kp = k + b * kl.sb + h * kl.sh;
-  const float* vp = v + b * kl.sb + h * kl.sh;
-  float* op = out + b * ql.sb + h * ql.sh;
-  const float* mp = mask + (long long)b * Lk;
-  const unsigned int seed_bh = drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
-
-  for (int e = tid; e < BLOCK_M * dh; e += THREADS) {
-    const int r = e / dh, c = e - r * dh;
-    const int row = q0 + r;
-    Qs[r * ld + c] = row < Lq ? qp[row * ql.sl + c] : 0.f;
-  }
-
-  float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) acc[i][c] = 0.f;
-  }
-
-  for (int k0 = 0; k0 < Lk; k0 += BLOCK_N) {
-    __syncthreads();  // the previous tile's reads of Ks, Vs and Ps are done
-    for (int e = tid; e < BLOCK_N * dh; e += THREADS) {
-      const int r = e / dh, c = e - r * dh;
-      const int key = k0 + r;
-      const bool in = key < Lk;
-      Ks[r * ld + c] = in ? kp[key * kl.sl + c] : 0.f;
-      Vs[r * ld + c] = in ? vp[key * kl.sl + c] : 0.f;
-    }
-    if (tid < BLOCK_N) Ms[tid] = k0 + tid < Lk ? mp[k0 + tid] : 0.f;
-    __syncthreads();
-
-    float s[ROWS][SCOLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float qv[ROWS], kv[SCOLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = Qs[(ty * ROWS + i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) kv[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < SCOLS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    bool valid[SCOLS];
-    float bias[SCOLS];
-#pragma unroll
-    for (int j = 0; j < SCOLS; ++j) {
-      valid[j] = k0 + tx + 16 * j < Lk;
-      bias[j] = (1.f - Ms[tx + 16 * j]) * NEG_INF;
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        s[i][j] = valid[j] ? s[i][j] * sm_scale + bias[j] : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // every tile holds at least one real key, so m_new is finite
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;  // the denominator takes p before dropout
-        float p_acc = p;
-        if (drop.seed && valid[j])
-          p_acc = p * flash::dropout_multiplier(drop, seed_bh,
-                                                q0 + ty * ROWS + i,
-                                                k0 + tx + 16 * j);
-        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = p_acc;
-      }
-      l[i] = l[i] * alpha + group_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    const int n_keys = min(BLOCK_N, Lk - k0);
-    for (int n = 0; n < n_keys; ++n) {
-      float pv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) pv[i] = Ps[(ty * ROWS + i) * LDP + n];
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c) {
-        const int col = tx + 16 * c;
-        if (col < dh) {
-          const float vv = Vs[n * ld + col];
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + ty * ROWS + i;
-    if (row >= Lq) continue;
-    const float l_safe = fmaxf(l[i], 1e-30f);
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) {
-      const int col = tx + 16 * c;
-      if (col < dh) op[row * ql.sl + col] = acc[i][c] / l_safe;
-    }
-    if (tx == 0) lse[(long long)bh * Lq + row] = m[i] + logf(l_safe);
-  }
+template <int DH, bool TAILS>
+__global__ void __launch_bounds__(f32::THREADS, 1)
+flash_fwd_kernel(const __grid_constant__ f32::AttendArgs a) {
+  f32::attend_block<DH, false, TAILS>(a);
 }
 
 }  // namespace
@@ -380,19 +245,25 @@ struct Args {
   cudaStream_t stream;
 };
 
-cudaError_t launch_f32(const Args& a) {
-  const int ld = a.dh + 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)(BLOCK_M + 2 * BLOCK_N) * ld +
-                       (size_t)BLOCK_M * LDP + BLOCK_N);
-  const cudaError_t err = sm90::allow_smem(flash_fwd_kernel, smem);
+template <int DH, bool TAILS>
+cudaError_t launch_f32_tiles(const Args& a) {
+  constexpr size_t smem = f32::attend_smem<DH>();
+  const cudaError_t err = sm90::allow_smem(flash_fwd_kernel<DH, TAILS>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Lq + BLOCK_M - 1) / BLOCK_M, a.BH);
-  flash_fwd_kernel<<<grid, THREADS, smem, a.stream>>>(
+  const f32::AttendArgs args{
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.mask, static_cast<float*>(a.out),
-      a.lse, a.H, a.Lq, a.Lk, a.dh, a.ql, a.kl, a.sm_scale, a.drop);
+      a.lse, nullptr, nullptr, nullptr, a.H, a.Lq, a.Lk, a.dh, a.ql, a.kl,
+      (long long)a.Lk, a.sm_scale, a.drop, 0};
+  const dim3 grid = f32::attend_grid(a.BH, a.Lq);
+  flash_fwd_kernel<DH, TAILS><<<grid, f32::THREADS, smem, a.stream>>>(args);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_f32(const Args& a) {
+  return f32::attend_tails(a.Lq) ? launch_f32_tiles<DH, true>(a)
+                                 : launch_f32_tiles<DH, false>(a);
 }
 
 template <int DH>
@@ -415,9 +286,11 @@ cudaError_t launch_bf16(const Args& a) {
 extern "C" {
 
 // q and out share one layout, k and v another; mask is (BH / H, Lk) f32 and
-// lse is (BH, Lq) f32, both dense. dtype: 0 = float32 (CUDA-core kernel),
+// lse is (BH, Lq) f32, both dense. dtype: 0 = float32 (CUDA-core kernel;
+// q, k, v and out 16-byte aligned, every stride a multiple of 4 elements),
 // 1 = bfloat16 (wgmma kernel; q, k, v and out 16-byte aligned, every stride
-// a multiple of 8 elements, the dropout grid in multiples of 64).
+// a multiple of 8 elements); either way the dropout grid in multiples of 64,
+// or the call returns cudaErrorMisalignedAddress or cudaErrorInvalidValue.
 // seed: null for no dropout, else one int32 on the device (read by the
 // kernel, so the wrapper never waits for it); thresh, drop_scale and the
 // dropout grid (drop_bq, drop_bk) as flash_common.cuh says.
@@ -430,7 +303,7 @@ int univtg_flash_fwd(const void* q, const void* k, const void* v,
                      long long k_sh, long long k_sl, float sm_scale,
                      const void* seed, unsigned int thresh, float drop_scale,
                      int drop_bq, int drop_bk, void* stream) {
-  if (dh <= 0 || dh > MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
+  if (dh <= 0 || dh > f32::MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
       BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535 ||
       (seed && (drop_bq <= 0 || drop_bk <= 0)))
     return (int)cudaErrorInvalidValue;
@@ -440,12 +313,18 @@ int univtg_flash_fwd(const void* q, const void* k, const void* v,
                Dropout{static_cast<const int*>(seed), thresh, drop_scale,
                        drop_bq, drop_bk},
                static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_f32(a);
+  const void* ptrs[] = {q, k, v, out};
+  // both kernels take a 64-key tile's dropout hash input from one block of
+  // the grid
+  if (sm90::bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) {
+    if (f32::misaligned(ptrs, 4, a.ql, a.kl))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)(dh <= 64 ? launch_f32<64>(a) : launch_f32<128>(a));
+  }
   if (dtype == 1) {
-    const void* ptrs[] = {q, k, v, out};
     if (sm90::misaligned(ptrs, 4, a.ql, a.kl))
       return (int)cudaErrorMisalignedAddress;
-    if (sm90::bad_bf16_grid(a.drop)) return (int)cudaErrorInvalidValue;
     return (int)(dh <= 64 ? launch_bf16<64>(a) : launch_bf16<128>(a));
   }
   return (int)cudaErrorInvalidValue;

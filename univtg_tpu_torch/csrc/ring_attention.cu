@@ -53,11 +53,15 @@
 // accumulator, p_hi = bf16(p) and p_lo = bf16(p - p_hi), both exact bf16
 // inputs against bf16 V; what p_hi + p_lo leaves of p is about 2^-17 of it.
 //
-// f32 -- CUDA cores (ring_block_kernel), the flash forward's f32 design: one
-// block of 256 threads per (batch*head, 64-row query tile); K and V staged
-// in shared memory 64 keys at a time; each thread owns 4 query rows and
-// computes a 4x4 patch of the score tile and a 4 x (dh/16) patch of the
-// accumulator with scalar FMAs.
+// f32 -- CUDA cores (ring_block_kernel<DH, TAILS>, DH = 64 or 128, the head
+// dim zero-filled up to DH): flash_f32.cuh's online-softmax loop (attend),
+// the one flash_fwd.cu's f32 forward runs, with q * scale in f32 before the
+// dot (as the twin), the state read unless `first` and written back, and no
+// dropout. One block of 256 threads per (batch*head, 128 query rows), one
+// block per SM; K, V and the key bias stream in 64-key tiles through two
+// cp.async stages; S is 4 rows x 8 keys a thread and acc 8 x 8; a rank's
+// ragged last query tile (8 rows of 520 at 8 x 2080, P = 4) computes only
+// its rows and runs last.
 //
 // Both leave the state's round trip through global memory at every step (a
 // kernel that loops over the steps itself would keep it in registers, but
@@ -77,170 +81,20 @@
 #include <stdint.h>
 
 #include "flash_common.cuh"
+#include "flash_f32.cuh"
 #include "flash_sm90.cuh"
 
 namespace {
 
 using flash::from_f32;
-using flash::group_max;
-using flash::group_sum;
 using flash::Layout;
-using flash::NEG_INF;
 
-constexpr int BLOCK_M = 64;   // query rows per block
-constexpr int BLOCK_N = 64;   // keys per staged tile
-constexpr int THREADS = 256;  // 16 row groups x 16 threads
-constexpr int ROWS = 4;       // query rows per thread (16 groups x 4 = 64)
-constexpr int SCOLS = BLOCK_N / 16;  // score columns per thread
-constexpr int MAX_DH = 128;
-constexpr int OCOLS = MAX_DH / 16;   // accumulator columns per thread, at most
-constexpr int LDP = BLOCK_N + 1;     // P tile row stride
 constexpr int FINISH_THREADS = 256;
 
-__global__ void __launch_bounds__(THREADS)
-ring_block_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, const float* __restrict__ mask,
-                  float* __restrict__ m_state, float* __restrict__ l_state,
-                  float* __restrict__ acc_state, int H, int Lq, int Lk, int dh,
-                  Layout ql, Layout kl, long long mask_sb, float scale,
-                  int first) {
-  extern __shared__ float smem[];
-  const int ld = dh + 1;  // odd stride: column reads across rows hit distinct banks
-  float* Qs = smem;                        // BLOCK_M x ld, q * scale
-  float* Ks = Qs + BLOCK_M * ld;           // BLOCK_N x ld
-  float* Vs = Ks + BLOCK_N * ld;           // BLOCK_N x ld
-  float* Ps = Vs + BLOCK_N * ld;           // BLOCK_M x LDP
-  float* Ms = Ps + BLOCK_M * LDP;          // BLOCK_N key-mask values
-
-  const int tid = threadIdx.x;
-  const int tx = tid & 15;  // column slot within the row group
-  const int ty = tid >> 4;  // row group: rows ty*ROWS .. ty*ROWS+3
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh - b * H;
-  const int q0 = blockIdx.x * BLOCK_M;
-
-  const float* qp = q + b * ql.sb + h * ql.sh;
-  const float* kp = k + b * kl.sb + h * kl.sh;
-  const float* vp = v + b * kl.sb + h * kl.sh;
-  const float* mp = mask + b * mask_sb;
-  const long long state_row = (long long)bh * Lq;
-
-  for (int e = tid; e < BLOCK_M * dh; e += THREADS) {
-    const int r = e / dh, c = e - r * dh;
-    const int row = q0 + r;
-    Qs[r * ld + c] = row < Lq ? qp[row * ql.sl + c] * scale : 0.f;
-  }
-
-  float m[ROWS], l[ROWS], acc[ROWS][OCOLS];
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + ty * ROWS + i;
-    const bool load = !first && row < Lq;
-    const long long sr = state_row + row;
-    m[i] = load ? m_state[sr] : -INFINITY;
-    l[i] = load ? l_state[sr] : 0.f;
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) {
-      const int col = tx + 16 * c;
-      acc[i][c] = load && col < dh ? acc_state[sr * dh + col] : 0.f;
-    }
-  }
-
-  for (int k0 = 0; k0 < Lk; k0 += BLOCK_N) {
-    __syncthreads();  // the previous tile's reads of Ks, Vs and Ps are done
-    for (int e = tid; e < BLOCK_N * dh; e += THREADS) {
-      const int r = e / dh, c = e - r * dh;
-      const int key = k0 + r;
-      const bool in = key < Lk;
-      Ks[r * ld + c] = in ? kp[key * kl.sl + c] : 0.f;
-      Vs[r * ld + c] = in ? vp[key * kl.sl + c] : 0.f;
-    }
-    if (tid < BLOCK_N) Ms[tid] = k0 + tid < Lk ? mp[k0 + tid] : 0.f;
-    __syncthreads();
-
-    float s[ROWS][SCOLS];
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) s[i][j] = 0.f;
-    for (int d = 0; d < dh; ++d) {
-      float qv[ROWS], kv[SCOLS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) qv[i] = Qs[(ty * ROWS + i) * ld + d];
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) kv[j] = Ks[(tx + 16 * j) * ld + d];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i)
-#pragma unroll
-        for (int j = 0; j < SCOLS; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
-    }
-
-    bool valid[SCOLS];
-    float bias[SCOLS];
-#pragma unroll
-    for (int j = 0; j < SCOLS; ++j) {
-      valid[j] = k0 + tx + 16 * j < Lk;
-      bias[j] = (1.f - Ms[tx + 16 * j]) * NEG_INF;
-    }
-
-#pragma unroll
-    for (int i = 0; i < ROWS; ++i) {
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        s[i][j] = valid[j] ? s[i][j] + bias[j] : -INFINITY;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      // every tile holds at least one real key, so m_new is finite
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);  // 0 on the first tile of step 0
-      float rs = 0.f;
-#pragma unroll
-      for (int j = 0; j < SCOLS; ++j) {
-        const float p = valid[j] ? expf(s[i][j] - m_new) : 0.f;
-        rs += p;
-        Ps[(ty * ROWS + i) * LDP + tx + 16 * j] = p;
-      }
-      l[i] = l[i] * alpha + group_sum(rs);
-      m[i] = m_new;
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c) acc[i][c] *= alpha;
-    }
-    __syncthreads();
-
-    const int n_keys = min(BLOCK_N, Lk - k0);
-    for (int n = 0; n < n_keys; ++n) {
-      float pv[ROWS];
-#pragma unroll
-      for (int i = 0; i < ROWS; ++i) pv[i] = Ps[(ty * ROWS + i) * LDP + n];
-#pragma unroll
-      for (int c = 0; c < OCOLS; ++c) {
-        const int col = tx + 16 * c;
-        if (col < dh) {
-          const float vv = Vs[n * ld + col];
-#pragma unroll
-          for (int i = 0; i < ROWS; ++i) acc[i][c] = fmaf(pv[i], vv, acc[i][c]);
-        }
-      }
-    }
-  }
-
-#pragma unroll
-  for (int i = 0; i < ROWS; ++i) {
-    const int row = q0 + ty * ROWS + i;
-    if (row >= Lq) continue;
-    const long long sr = state_row + row;
-    if (tx == 0) {
-      m_state[sr] = m[i];
-      l_state[sr] = l[i];
-    }
-#pragma unroll
-    for (int c = 0; c < OCOLS; ++c) {
-      const int col = tx + 16 * c;
-      if (col < dh) acc_state[sr * dh + col] = acc[i][c];
-    }
-  }
+template <int DH, bool TAILS>
+__global__ void __launch_bounds__(f32::THREADS, 1)
+ring_block_kernel(const __grid_constant__ f32::AttendArgs a) {
+  f32::attend_block<DH, true, TAILS>(a);
 }
 
 template <typename T>
@@ -421,19 +275,25 @@ struct BlockArgs {
   cudaStream_t stream;
 };
 
-cudaError_t launch_block_f32(const BlockArgs& a) {
-  const int ld = a.dh + 1;
-  const size_t smem =
-      sizeof(float) * ((size_t)(BLOCK_M + 2 * BLOCK_N) * ld +
-                       (size_t)BLOCK_M * LDP + BLOCK_N);
-  const cudaError_t err = sm90::allow_smem(ring_block_kernel, smem);
+template <int DH, bool TAILS>
+cudaError_t launch_block_f32_tiles(const BlockArgs& a) {
+  constexpr size_t smem = f32::attend_smem<DH>();
+  const cudaError_t err = sm90::allow_smem(ring_block_kernel<DH, TAILS>, smem);
   if (err != cudaSuccess) return err;
-  const dim3 grid((a.Lq + BLOCK_M - 1) / BLOCK_M, a.BH);
-  ring_block_kernel<<<grid, THREADS, smem, a.stream>>>(
+  const f32::AttendArgs args{
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
-      static_cast<const float*>(a.v), a.mask, a.m, a.l, a.acc, a.H, a.Lq, a.Lk,
-      a.dh, a.ql, a.kl, a.mask_sb, a.scale, a.first);
+      static_cast<const float*>(a.v), a.mask, nullptr, nullptr, a.m, a.l,
+      a.acc, a.H, a.Lq, a.Lk, a.dh, a.ql, a.kl, a.mask_sb, a.scale,
+      flash::Dropout{nullptr, 0u, 1.f, 0, 0}, a.first};
+  const dim3 grid = f32::attend_grid(a.BH, a.Lq);
+  ring_block_kernel<DH, TAILS><<<grid, f32::THREADS, smem, a.stream>>>(args);
   return cudaGetLastError();
+}
+
+template <int DH>
+cudaError_t launch_block_f32(const BlockArgs& a) {
+  return f32::attend_tails(a.Lq) ? launch_block_f32_tiles<DH, true>(a)
+                                 : launch_block_f32_tiles<DH, false>(a);
 }
 
 template <int DH>
@@ -474,8 +334,10 @@ extern "C" {
 // are the rank's f32 state, dense: read unless `first`, always written.
 // scale multiplies q . k^T (the f32 kernel scales q before the dot, the
 // bf16 kernel the f32 product after it). dtype: 0 = float32 (CUDA-core
-// kernel), 1 = bfloat16 (wgmma kernel; q, k and v 16-byte aligned, every
-// stride a multiple of 8 elements).
+// kernel; q, k, v and acc 16-byte aligned, every stride a multiple of 4
+// elements), 1 = bfloat16 (wgmma kernel; q, k and v 16-byte aligned, every
+// stride a multiple of 8 elements), or the call returns
+// cudaErrorMisalignedAddress.
 // Returns a cudaError_t; 0 on success. Launches on `stream`, allocates
 // nothing and does not synchronise.
 int univtg_ring_block(const void* q, const void* k, const void* v,
@@ -484,7 +346,7 @@ int univtg_ring_block(const void* q, const void* k, const void* v,
                       long long q_sh, long long q_sl, long long k_sb,
                       long long k_sh, long long k_sl, long long mask_sb,
                       float scale, int first, void* stream) {
-  if (dh <= 0 || dh > MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
+  if (dh <= 0 || dh > f32::MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
       BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535)
     return (int)cudaErrorInvalidValue;
   const BlockArgs a{q, k, v, static_cast<const float*>(mask),
@@ -492,7 +354,13 @@ int univtg_ring_block(const void* q, const void* k, const void* v,
                     static_cast<float*>(acc), BH, H, Lq, Lk, dh,
                     Layout{q_sb, q_sh, q_sl}, Layout{k_sb, k_sh, k_sl},
                     mask_sb, scale, first, static_cast<cudaStream_t>(stream)};
-  if (dtype == 0) return (int)launch_block_f32(a);
+  if (dtype == 0) {
+    const void* ptrs[] = {q, k, v, acc};
+    if (f32::misaligned(ptrs, 4, a.ql, a.kl))
+      return (int)cudaErrorMisalignedAddress;
+    return (int)(dh <= 64 ? launch_block_f32<64>(a)
+                          : launch_block_f32<128>(a));
+  }
   if (dtype == 1) {
     const void* ptrs[] = {q, k, v};
     if (sm90::misaligned(ptrs, 3, a.ql, a.kl))
