@@ -3,7 +3,7 @@
 
     python3 chip_smoke.py
 
-Needs one CUDA card, the CUDA toolkit (nvcc) and this checkout; imports
+Needs one CUDA card, the CUDA toolkit (nvcc), g++ and this checkout; imports
 nothing of JAX or of the JAX package. Phases, each raising on failure and
 printing its seconds:
 
@@ -80,7 +80,12 @@ printing its seconds:
                  items), bf16, attention_impl="pallas", dropouts at their
                  defaults, evaluating the val split after each epoch, so
                  model_best.ckpt is chosen by MR-full-mAP: 4 launches of
-                 each kernel per step and 4 flash_fwd per eval batch. Then
+                 each kernel per step and 4 flash_fwd per eval batch;
+                 with profile_dir and tensorboard_dir=auto, so the run also
+                 leaves opt.json (read back by config_io), code.zip, one
+                 torch.profiler trace of its first PROFILE_STEPS steps that
+                 must name each flash kernel, and TensorBoard events where
+                 the tensorboard package is importable (printed). Then
                  the f32 "pallas" step held against the f32 "xla" step
                  (same weights, same 3 batches, dropouts 0), one seeded
                  step with attention dropout 0.1 through the kernels, and
@@ -106,9 +111,15 @@ printing its seconds:
                  (N_VAL_FULL queries of 75 clips, synthetic), bf16 and f32,
                  as train-mr pays it every eval_epoch: seconds of the
                  driver's inference (_run_eval_shard) and scoring
-                 (_finish_eval) per evaluation and per batch, the loader's
-                 own seconds, and one inference under torch.profiler (the
-                 eval cells).
+                 (_finish_eval, on the native AP kernel, g++-built from
+                 native/src) per evaluation and per batch; the native APs
+                 held against the numpy twin's (AP_TOL), whose scoring is
+                 timed too; one pass on the native npz reader, its features
+                 held against numpy's on every file (FEAT_TOL) with none
+                 rejected; the loader's own ms per batch on either reader;
+                 where h5py is importable, cli pack-h5 and one pass on the
+                 h5 cache with lazy metadata (else printed and not run);
+                 and one inference under torch.profiler (the eval cells).
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -298,6 +309,12 @@ N_VAL = 64  # val items of the training corpus: 2 eval batches of 32
 # QVHighlights' val split (upstream data/highlight_val_release.jsonl): 1550
 # queries, 49 eval batches of 32; phase 7d evaluates one of that size
 N_VAL_FULL = 1550
+# the train-mr profiler window of phase 7 (profile_steps): 2 of epoch 0's 3 steps
+PROFILE_STEPS = 2
+# the native AP against its numpy twin (both f64; the same operations, in
+# the same order) and the native npz reader against np.load + l2_normalize
+# (an f64 sum of squares on both sides; the norm's last ulp may differ)
+AP_TOL, FEAT_TOL = 1e-12, 1e-6
 # H100 SXM dense peaks (NVIDIA data sheet): bf16 tensor cores, f32 CUDA cores
 PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
 PEAK_BYTES = 3.35e12
@@ -1475,6 +1492,7 @@ def phase_train(torch, np, fa, card, tmp):
     log(f"[train] synthetic corpus: 96 train and {N_VAL} val items, 2816-d video, "
         f"512-d text ({time.perf_counter() - t0:.1f} s)")
     run_dir = os.path.join(tmp, "run")
+    profile_dir = os.path.join(tmp, "profile")
     epochs, eval_batches = 2, -(-N_VAL // 32)
     argv = ["train-mr", "--preset", "qvhighlights_mr",
             f"train_data.data_path={corpus['train_path']}",
@@ -1483,7 +1501,8 @@ def phase_train(torch, np, fa, card, tmp):
             "train_data.v_feat_dim=2816", *_eval_overrides(corpus), "eval_epoch=1",
             f"n_epoch={epochs}", "bsz=32", "eval_bsz=32",
             "model.attention_impl=pallas", "model.compute_dtype=bfloat16",
-            f"results_dir={run_dir}"]
+            f"results_dir={run_dir}", f"profile_dir={profile_dir}",
+            f"profile_steps={PROFILE_STEPS}", "tensorboard_dir=auto"]
     _reset_launches()  # the training main path starts here
     t0 = time.perf_counter()
     cli.main(argv)
@@ -1517,6 +1536,7 @@ def phase_train(torch, np, fa, card, tmp):
             or latest["epoch"] != epochs - 1 or len(made) != 3):
         raise AssertionError("in-training evaluation did not keep the best/latest pair")
     del blob, latest
+    _check_run_records(run_dir, profile_dir)
 
     # f32 on the flash kernels vs f32 on plain attention
     sd = UniVTG(flagship_model(), device="cpu", seed=0).state_dict()
@@ -1564,6 +1584,40 @@ def phase_train(torch, np, fa, card, tmp):
     log(f"[train] served {best}: top-1 window {res['top1_window']}; largest weight "
         f"change from the initial weights {moved:.3g}")
     return corpus, run_dir, sd, launches
+
+
+def _check_run_records(run_dir, profile_dir):
+    """What train-mr writes beside its logs: opt.json, code.zip with the
+    kernel sources, one torch.profiler trace of its first PROFILE_STEPS steps
+    that names each flash kernel, and TensorBoard events where the
+    tensorboard package is importable (TBWriter is a no-op without it)."""
+    import zipfile
+
+    from univtg_tpu_torch.train.config_io import load_config
+    from univtg_tpu_torch.train.driver_mr import TrainConfig
+
+    cfg = load_config(TrainConfig, run_dir)
+    with zipfile.ZipFile(os.path.join(run_dir, "code.zip")) as z:
+        zipped = [n for n in z.namelist() if n.endswith((".cu", ".cuh", ".cpp"))]
+    traces = [f for f in os.listdir(profile_dir) if f.endswith(".pt.trace.json")]
+    if len(traces) != 1:
+        raise AssertionError(f"train-mr wrote {traces} into profile_dir, not one trace")
+    path = os.path.join(profile_dir, traces[0])
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = {e["name"] for e in events if e.get("cat") == "kernel"}
+    named = {k: sorted(n for n in kernels if f"{k}_kernel" in n) for k in FLASH_KERNELS}
+    tb_dir = os.path.join(run_dir, "tb")
+    tb_files = sorted(os.listdir(tb_dir)) if os.path.isdir(tb_dir) else []
+    log(f"[train] opt.json restores profile_steps={cfg.profile_steps}, "
+        f"tensorboard_dir={cfg.tensorboard_dir!r}; code.zip holds {len(zipped)} kernel "
+        f"sources; trace {traces[0]} ({os.path.getsize(path) / 1e6:.1f} MB, "
+        f"{len(kernels)} kernel names) names {named}; TBWriter "
+        f"{'active: ' + str(tb_files) if tb_files else 'inactive (no tensorboard package)'}")
+    if cfg.profile_steps != PROFILE_STEPS or not any(n.endswith("flash_fwd.cu") for n in zipped):
+        raise AssertionError("opt.json or code.zip does not hold the run")
+    if not all(named.values()):
+        raise AssertionError(f"the train-mr trace does not name every flash kernel: {named}")
 
 
 def _infer_mr(torch, np, tmp, ckpt, corpus, name, impl, dtype, *overrides):
@@ -1787,6 +1841,72 @@ def phase_quantize(torch, np, tmp, corpus, run_dir, f32_brief):
     return launches, call_launches, records
 
 
+def _native_dataset(MRDataset, data_cfg):
+    """MRDataset(data_cfg) with its FeatureSources on the native npz reader,
+    as UNIVTG_NATIVE_IO=1 selects it."""
+    saved = os.environ.get("UNIVTG_NATIVE_IO")
+    os.environ["UNIVTG_NATIVE_IO"] = "1"
+    try:
+        ds = MRDataset(data_cfg)
+    finally:
+        if saved is None:
+            del os.environ["UNIVTG_NATIVE_IO"]
+        else:
+            os.environ["UNIVTG_NATIVE_IO"] = saved
+    if not all(src.native for src in (*ds.v_sources, ds.q_source)):
+        raise AssertionError("UNIVTG_NATIVE_IO=1 did not select the native reader")
+    return ds
+
+
+def _feature_err(np, ds, ref, ref_query=None):
+    """Largest |difference| of every video and query feature ds reads from
+    ref's (the query's passed through ref_query first, if given), and the
+    count of files compared."""
+    vids = sorted({m["vid"] for m in ref.data})
+    qids = sorted({m["qid"] for m in ref.data})
+    pairs = [(a, b, vids) for a, b in zip(ds.v_sources, ref.v_sources, strict=True)]
+    pairs.append((ds.q_source, ref.q_source, qids))
+    err, n = 0.0, 0
+    for a, b, ids in pairs:
+        for fid in ids:
+            x, y = a.get(fid), b.get(fid)
+            if b is ref.q_source and ref_query is not None and y is not None:
+                y = ref_query(y)
+            if x is None or y is None or x.shape != y.shape:
+                raise AssertionError(f"feature {fid} read as {x} and {y}")
+            err = max(err, float(np.abs(x - y).max()))
+            n += 1
+    return err, n
+
+
+def _score(driver_mr, mr_metrics, cfg, sub, eval_ds, ap_fn):
+    """driver_mr._finish_eval (the driver's scoring) with the evaluator's
+    batched AP run by ap_fn; returns (brief metrics, seconds, the AP array
+    of each call)."""
+    aps = []
+
+    def run(*args, **kw):
+        aps.append(ap_fn(*args, **kw))
+        return aps[-1]
+
+    saved = mr_metrics.detection_ap_batch
+    mr_metrics.detection_ap_batch = run
+    try:
+        t0 = time.perf_counter()
+        brief = driver_mr._finish_eval(cfg, sub, eval_ds, 0)["brief"]
+        return brief, time.perf_counter() - t0, aps
+    finally:
+        mr_metrics.detection_ap_batch = saved
+
+
+def _load_ms(driver_mr, cfg, ds, n_batches):
+    """ms per batch of the driver's eval loader alone (reading, collating)."""
+    t0 = time.perf_counter()
+    for _ in driver_mr._eval_loader(cfg, ds):
+        pass
+    return 1e3 * (time.perf_counter() - t0) / n_batches
+
+
 def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     """Evaluation of model_best.ckpt over a synthetic val split of
     QVHighlights' size (N_VAL_FULL queries, up to 75 clips, 2816-d video,
@@ -1794,12 +1914,21 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     every eval_epoch: after one warm pass, the seconds of the driver's
     inference (_run_eval_shard: its eval loader, the eval step, host decode)
     and of its scoring (_finish_eval: the predictions written, the
-    evaluator), per evaluation and per batch; the loader's own seconds per
-    batch (reading and collating); then one inference under torch.profiler
-    (the eval_qvhighlights cells' [profile] lines). Returns the timings."""
+    evaluator on the native AP kernel), per evaluation and per batch; the
+    native APs of the last pass held against the numpy twin's on the same
+    submission (AP_TOL), whose scoring is timed too; one inference pass on
+    the native npz reader (UNIVTG_NATIVE_IO=1), whose features are held
+    against numpy's on every file (FEAT_TOL) with no file rejected; the
+    loader's own ms per batch on either reader; where h5py is importable,
+    `cli pack-h5` of the split and one pass on its h5 cache with lazy
+    metadata; then one inference under torch.profiler (the eval_qvhighlights
+    cells' [profile] lines). Returns the timings."""
     from univtg_tpu_torch import cli
+    from univtg_tpu_torch.data.features import l2_normalize
     from univtg_tpu_torch.data.mr import MRDataset
     from univtg_tpu_torch.data.synthetic import create_synthetic_mr_corpus
+    from univtg_tpu_torch.evals import ap, mr_metrics
+    from univtg_tpu_torch.native import reader
     from univtg_tpu_torch.train import driver_mr
     from univtg_tpu_torch.train.steps import make_eval_step
 
@@ -1812,12 +1941,50 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     best = os.path.join(run_dir, "model_best.ckpt")
     results = os.path.join(tmp, "evalsize")
     os.makedirs(results, exist_ok=True)
+
+    reader.rejections = 0
+    data_cfg = _eval_cfg(corpus).eval_data
+    eval_ds = MRDataset(data_cfg)
+    native_ds = _native_dataset(MRDataset, data_cfg)
+    t0 = time.perf_counter()
+    feat_err, n_files = _feature_err(np, native_ds, eval_ds)
+    log(f"[evalsize] native npz reader vs np.load + l2_normalize: {n_files} files, "
+        f"max |diff| {feat_err:.3g} (limit {FEAT_TOL}), {reader.rejections} rejected "
+        f"({time.perf_counter() - t0:.1f} s)")
+    if feat_err > FEAT_TOL or reader.rejections:
+        raise AssertionError("the native reader disagrees with numpy or rejected a file")
+    try:
+        import h5py  # noqa: F401
+    except ImportError:
+        h5_ds = None
+        log("[evalsize] h5py is not importable here: the h5 cache path (cli pack-h5, "
+            "h5_cache_dir, lazy_metadata) is not run")
+    else:
+        h5_dir = os.path.join(tmp, "val_h5py")
+        t0 = time.perf_counter()
+        cli.main(["pack-h5", "--metadata", corpus["val_path"], "--v-feat-dirs",
+                  *corpus["v_feat_dirs"], "--q-feat-dir", corpus["q_feat_dir"],
+                  "--out-dir", h5_dir])
+        t1 = time.perf_counter()
+        h5_ds = MRDataset(_eval_cfg(corpus, f"eval_data.h5_cache_dir={h5_dir}",
+                                    "eval_data.lazy_metadata=True").eval_data)
+        t2 = time.perf_counter()
+        # pack-h5 stores every feature L2-normalized, the text's too, which
+        # MRDataset normalizes on use (normalize_t)
+        h5_err, n_h5 = _feature_err(np, h5_ds, eval_ds, ref_query=l2_normalize)
+        log(f"[evalsize] cli pack-h5 {t1 - t0:.1f} s, h5 cache preloaded in {t2 - t1:.1f} "
+            f"s; {n_h5} cached features vs npz max |diff| {h5_err:.3g} (limit {FEAT_TOL})")
+        if h5_err > FEAT_TOL:
+            raise AssertionError("the h5 cache disagrees with the npz files")
+
+    def numpy_ap(gt, pred, score, thds, n_threads=None):
+        return ap.detection_ap_batch_numpy(gt, pred, score, thds)
+
     timings = {}
     for dtype in ("bfloat16", "float32"):
         cfg = _eval_cfg(corpus, "model.attention_impl=pallas",
                         f"model.compute_dtype={dtype}", f"results_dir={results}")
         model = cli.restored_model(cfg, best, "cuda")
-        eval_ds = MRDataset(cfg.eval_data)
         step = make_eval_step(cfg.eval_mode)
         n_batches = len(driver_mr._eval_loader(cfg, eval_ds))
         driver_mr._run_eval_shard(cfg, model, eval_ds, step)  # warm
@@ -1826,19 +1993,38 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
         for _ in range(passes):
             t0 = time.perf_counter()
             sub = driver_mr._run_eval_shard(cfg, model, eval_ds, step)  # ends on the host
-            t1 = time.perf_counter()
-            brief = driver_mr._finish_eval(cfg, sub, eval_ds, 0)["brief"]
-            infer_s.append(t1 - t0)
-            score_s.append(time.perf_counter() - t1)
+            infer_s.append(time.perf_counter() - t0)
+            brief, dt, native_aps = _score(driver_mr, mr_metrics, cfg, sub, eval_ds,
+                                           ap.detection_ap_batch)
+            score_s.append(dt)
         launches = fa.launches["flash_fwd"] - before
         if (len(sub) != N_VAL_FULL or launches != 4 * n_batches * passes
                 or not all(np.isfinite(v) for v in brief.values())):
             raise AssertionError(f"evaluation of {N_VAL_FULL} queries, {dtype}: "
                                  f"{len(sub)} rows, {launches} flash_fwd launches, {brief}")
+        numpy_brief, score_numpy_s, numpy_aps = _score(driver_mr, mr_metrics, cfg, sub,
+                                                       eval_ds, numpy_ap)
+        ap_err = max(float(np.abs(a - b).max()) for a, b in
+                     zip(native_aps, numpy_aps, strict=True))
+        if (ap_err > AP_TOL or numpy_brief != brief
+                or (N_VAL_FULL, 10) not in [a.shape for a in native_aps]):
+            raise AssertionError(f"native AP vs numpy, {dtype}: max |diff| {ap_err} "
+                                 f"over {[a.shape for a in native_aps]}")
         t0 = time.perf_counter()
-        for _ in driver_mr._eval_loader(cfg, eval_ds):  # reading and collating alone
-            pass
-        load_s = time.perf_counter() - t0
+        native_sub = driver_mr._run_eval_shard(cfg, model, native_ds, step)
+        infer_native_s = time.perf_counter() - t0
+        if len(native_sub) != N_VAL_FULL:
+            raise AssertionError(f"the native reader's pass scored {len(native_sub)} rows")
+        h5 = None
+        if h5_ds is not None:
+            t0 = time.perf_counter()
+            h5_sub = driver_mr._run_eval_shard(cfg, model, h5_ds, step)
+            h5 = {"infer_s": time.perf_counter() - t0,
+                  "load_ms_per_batch": _load_ms(driver_mr, cfg, h5_ds, n_batches)}
+            if len(h5_sub) != N_VAL_FULL:
+                raise AssertionError(f"the h5 pass scored {len(h5_sub)} rows")
+        load_ms = _load_ms(driver_mr, cfg, eval_ds, n_batches)
+        load_native_ms = _load_ms(driver_mr, cfg, native_ds, n_batches)
         cell = f"eval_qvhighlights_{'bf16' if dtype == 'bfloat16' else 'f32'}"
         kernels, wall_us = _profile_window(
             torch, lambda: driver_mr._run_eval_shard(cfg, model, eval_ds, step), 1)
@@ -1848,10 +2034,17 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
             "items": N_VAL_FULL, "batches": n_batches, "passes": passes,
             "s_per_eval": [i + s for i, s in zip(infer_s, score_s)],
             "infer_s": infer_s, "infer_ms_per_batch": [1e3 * t / n_batches for t in infer_s],
-            "score_s": score_s, "load_ms_per_batch": 1e3 * load_s / n_batches,
-            "flash_fwd_launches_per_pass": launches // passes}
+            "score_s": score_s, "load_ms_per_batch": load_ms,
+            "flash_fwd_launches_per_pass": launches // passes,
+            "score_numpy_s": score_numpy_s, "ap_max_abs_err": ap_err,
+            "infer_native_reader_s": infer_native_s,
+            "load_native_reader_ms_per_batch": load_native_ms,
+            "s_per_eval_all_native": infer_native_s + score_s[-1],
+            "s_per_eval_all_numpy": infer_s[-1] + score_numpy_s, "h5": h5}
         del model
         torch.cuda.empty_cache()
+    if reader.rejections:
+        raise AssertionError(f"the native reader rejected {reader.rejections} files")
     log(f"[evalsize] ({card}) {json.dumps(timings)}")
     return timings
 

@@ -85,11 +85,16 @@ def test_items_and_batches_equal_the_jax_package(corpus, kw):
     np.testing.assert_array_equal(port.feature_lengths(), ref.feature_lengths())
 
 
-def test_unported_dataset_options_raise(corpus):
-    c, _ = corpus
+def test_h5_dir_without_caches_and_lazy_metadata_equal_jax(corpus):
+    """h5_cache_dir naming a dir without caches (the npz files are read)
+    and lazy_metadata build the dataset, with JAX's items."""
+    c, j = corpus
     for kw in ({"h5_cache_dir": "/nonexistent"}, {"lazy_metadata": True}):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            mr.MRDataset(_cfg(mr.MRDataConfig, c, **kw))
+        port = mr.MRDataset(_cfg(mr.MRDataConfig, c, **kw))
+        ref = jmr.MRDataset(_cfg(jmr.MRDataConfig, j, **kw))
+        assert len(port) == len(ref) == 12
+        for i in (0, 5, 11):
+            _assert_same(port[i], ref[i], f"item {i} with {kw}")
 
 
 @pytest.mark.parametrize("lengths", [False, True])

@@ -3,11 +3,13 @@ train-mr --device cpu`` for 2 epochs on a tiny synthetic corpus; the
 train log, opt.json and the checkpoint they write; the checkpoint read back
 by ``restore_params``, ``restore_checkpoint`` (resume_all) and the serving
 pipeline; ``length_buckets`` padding each batch to its rung of the ladder;
-the options this slice does not run raising with ROADMAP named. In-training
-evaluation is tests/test_torch_infer.py's."""
+the profiler trace, TensorBoard events and code.zip of ``profile_dir`` and
+``tensorboard_dir="auto"``; the options this slice does not run raising with
+ROADMAP named. In-training evaluation is tests/test_torch_infer.py's."""
 import dataclasses
 import json
 import os
+import zipfile
 
 import numpy as np
 import pytest
@@ -133,6 +135,35 @@ def test_length_buckets_pad_each_batch_to_its_rung(corpus, tmp_path, monkeypatch
     assert len({padded for padded, _ in seen}) > 1
 
 
+def test_train_mr_writes_a_trace_tensorboard_events_and_its_code(corpus, tmp_path):
+    run = tmp_path / "run"
+    cfg = TrainConfig(model=ModelConfig(**MODEL, attention_impl="pallas"),
+                      train_data=_data(corpus), eval_data=_data(corpus),
+                      results_dir=str(run), bsz=4, n_epoch=2, eval_epoch=1,
+                      num_io_threads=2, profile_dir=str(run / "profile"),
+                      profile_steps=2, tensorboard_dir="auto")
+    train_mr(cfg, device="cpu")
+    assert [line["steps"] for line in _log(str(run))] == [3, 3]
+    with open(run / "opt.json") as f:
+        opt = json.load(f)
+    assert opt["tensorboard_dir"] == "auto" and opt["profile_steps"] == 2
+    with zipfile.ZipFile(run / "code.zip") as z:
+        assert "univtg_tpu_torch/csrc/flash_bwd.cu" in z.namelist()
+    # one trace, of the first two steps of epoch 0: the flash kernels' CPU
+    # twins under the train step
+    [trace] = os.listdir(run / "profile")
+    with open(run / "profile" / trace) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert {"aten::mm", "aten::addmm"} & names
+    from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+
+    acc = EventAccumulator(str(run / "tb"))
+    acc.Reload()
+    tags = set(acc.Tags()["scalars"])
+    assert {"train/loss_overall", "train/grad_norm", "eval/MR-full-mAP-key"} <= tags
+    assert [e.step for e in acc.Scalars("train/loss_overall")] == [0, 1]
+
+
 def test_cli_defaults_to_cuda_for_train_mr():
     args = cli.build_parser().parse_args(["train-mr", "--preset", "qvhighlights_mr"])
     assert args.device == "cuda" and args.overrides == []
@@ -141,7 +172,7 @@ def test_cli_defaults_to_cuda_for_train_mr():
 @pytest.mark.parametrize("field,value", [
     ("scan_steps", 2), ("dp", 2), ("tp", 2),
     ("pp", 2), ("ep", 2), ("num_shards", 2), ("model_id", "moment_detr"),
-    ("profile_dir", "prof"), ("tensorboard_dir", "auto"), ("inject_fault_epoch", 0),
+    ("inject_fault_epoch", 0),
 ])
 def test_unported_driver_options_raise(corpus, field, value):
     cfg = dataclasses.replace(TrainConfig(train_data=_data(corpus)), **{field: value})

@@ -9,6 +9,9 @@
       --resume model_best.ckpt --out model_int8.ckpt [key=value ...]
   python -m univtg_tpu_torch.cli serve --resume model_best.ckpt \\
       [--config model.json] [--device cuda] [--port 8008] ...
+  python -m univtg_tpu_torch.cli pack-h5 --metadata train.jsonl \\
+      --v-feat-dirs data/x/vid_slowfast data/x/vid_clip \\
+      --q-feat-dir data/x/txt_clip --out-dir data/x/h5py
 
 ``train-mr``, ``infer-mr`` and ``quantize`` take a preset
 (univtg_tpu_torch/presets.py) and dotted ``key=value`` overrides of its
@@ -22,7 +25,10 @@ writes, or an int8 checkpoint from ``quantize`` (told apart by its keys);
 ``--config`` a ModelConfig JSON (the same JSON the JAX package writes),
 defaulting to the flagship with attention_impl="pallas", the hand-written
 CUDA flash kernels. The commands that run the model run on CUDA unless
-``--device cpu`` is given.
+``--device cpu`` is given. ``pack-h5`` packs the feature dirs a metadata
+jsonl references into ``{out_dir}/{dir name}.hdf5`` caches
+(tools/pack_h5.py), L2-normalized, which ``MRDataConfig.h5_cache_dir``
+reads.
 """
 from __future__ import annotations
 
@@ -136,6 +142,14 @@ def cmd_quantize(args):
           f"({os.path.getsize(args.out) / 1e6:.1f} MB)")
 
 
+def cmd_pack_h5(args):
+    """Whole-split h5 feature caches (tools/pack_h5.py)."""
+    from univtg_tpu_torch.tools.pack_h5 import pack_dataset
+
+    out = pack_dataset(args.metadata, args.v_feat_dirs, args.q_feat_dir, args.out_dir)
+    print(json.dumps(out, indent=1))
+
+
 def cmd_serve(args):
     """HTTP grounding service with dynamic micro-batching."""
     from univtg_tpu_torch.serve import GroundingPipeline, GroundingServer
@@ -227,6 +241,12 @@ def build_parser():
     sp.add_argument("--resume", required=True)
     sp.add_argument("--out", required=True)
     sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("pack-h5")
+    sp.set_defaults(fn=cmd_pack_h5)
+    sp.add_argument("--metadata", required=True)
+    sp.add_argument("--v-feat-dirs", nargs="+", required=True)
+    sp.add_argument("--q-feat-dir", required=True)
+    sp.add_argument("--out-dir", required=True)
     sp = sub.add_parser("serve")
     sp.set_defaults(fn=cmd_serve)
     sp.add_argument("--resume", required=True,

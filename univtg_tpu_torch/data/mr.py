@@ -1,5 +1,5 @@
-"""Moment-retrieval dataset: jsonl metadata + npz features -> dense per-clip
-supervision; a copy of ``univtg_tpu/data/mr.py``.
+"""Moment-retrieval dataset: jsonl metadata + npz/h5 features -> dense
+per-clip supervision; a copy of ``univtg_tpu/data/mr.py``.
 
 Behavioral contract follows DatasetMR (main/dataset.py:392-696):
   * timestamp grid: ((i + clip_len/2) / ctx_l) duplicated to (st, ed),
@@ -14,9 +14,6 @@ Behavioral contract follows DatasetMR (main/dataset.py:392-696):
 Randomness is explicit: sampling draws from a per-(seed, epoch, index)
 np.random.Generator instead of the reference's global `random`, making every
 batch reproducible under data sharding.
-
-Whole-split h5 caches (``h5_cache_dir``) and lazy metadata
-(``lazy_metadata``) are not ported yet and raise (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
 
@@ -164,22 +161,38 @@ class MRDataset:
     """Map-style host dataset producing per-item numpy dicts."""
 
     def __init__(self, cfg: MRDataConfig):
-        for name in ("h5_cache_dir", "lazy_metadata"):
-            if getattr(cfg, name):
-                raise NotImplementedError(
-                    f"MRDataConfig.{name} is not ported to univtg_tpu_torch "
-                    f"yet (ROADMAP.md, queue 1)"
-                )
         self.cfg = cfg
-        self.data = load_jsonl(cfg.data_path)
+        self.data = load_jsonl(cfg.data_path, lazy=cfg.lazy_metadata)
         if cfg.data_ratio != 1.0:
             self.data = self.data[: int(len(self.data) * cfg.data_ratio)]
         self.is_test_split = "test" in os.path.basename(cfg.data_path)
+
+        def cache_path(feat_dir):
+            if not cfg.h5_cache_dir:
+                return None
+            name = os.path.basename(feat_dir.rstrip("/"))
+            return os.path.join(cfg.h5_cache_dir, f"{name}.hdf5")
+
+        if cfg.h5_cache_dir:  # cache preload keys need a full metadata scan
+            vids = sorted({m["vid"] for m in self.data})
+            qids = sorted({m["qid"] for m in self.data})
+        else:
+            vids = qids = None
+        # h5 caches store already-normalized features (tools/pack_h5.py),
+        # mirroring use_cache (main/dataset.py:448-467)
         self.v_sources = [
-            FeatureSource(d, normalize=cfg.normalize_v) for d in cfg.v_feat_dirs
+            FeatureSource(
+                d, normalize=cfg.normalize_v, h5_cache_path=cache_path(d),
+                cache_keys=vids,
+            )
+            for d in cfg.v_feat_dirs
         ]
         self.q_source = FeatureSource(
-            cfg.q_feat_dir, key="last_hidden_state", normalize=False
+            cfg.q_feat_dir,
+            key="last_hidden_state",
+            normalize=False,
+            h5_cache_path=cache_path(cfg.q_feat_dir),
+            cache_keys=qids,
         )
         self.epoch = 0
 

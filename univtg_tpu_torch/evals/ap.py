@@ -1,5 +1,6 @@
-"""Average-precision kernels (host-side numpy, dependency-free); a copy of
-``univtg_tpu/evals/ap.py`` without its native C++ path.
+"""Average-precision kernels on the host; a copy of ``univtg_tpu/evals/ap.py``.
+Batched detection AP runs the native C++ kernel (native/src/ap_kernel.cpp);
+``detection_ap_batch_numpy`` is its numpy twin.
 
 Numerically identical to the reference metric stack:
   * `binary_pr_curve` reproduces sklearn.metrics.precision_recall_curve
@@ -165,16 +166,68 @@ def detection_ap_batch(
     tiou_thresholds=np.linspace(0.5, 0.95, 10),
     n_threads: int = 8,
 ) -> np.ndarray:
-    """Batched detection AP over queries -> (n_queries, n_thds).
+    """Batched detection AP over queries -> (n_queries, n_thds), on the
+    native C++ kernel (univtg_tpu_torch/native) over ``n_threads`` threads.
+    Tie order on equal IoUs is stable-descending, as in
+    ``detection_ap_batch_numpy``, which gives the same values."""
+    import ctypes
 
-    The numpy path of the JAX package's function; its native C++ kernel
-    (a host kernel, ``univtg_tpu/native``) is not ported (ROADMAP.md).
-    ``n_threads`` is kept for the signature and not read.
-    """
+    from univtg_tpu_torch.native import load_ap_kernel
+
+    lib = load_ap_kernel()
     thds = np.ascontiguousarray(tiou_thresholds, np.float64)
     n_q = len(gt_list)
     out = np.zeros((n_q, len(thds)), np.float64)
+    gt_off = np.zeros(n_q + 1, np.int64)
+    pred_off = np.zeros(n_q + 1, np.int64)
+    for i in range(n_q):
+        gt_off[i + 1] = gt_off[i] + len(gt_list[i])
+        pred_off[i + 1] = pred_off[i] + len(pred_list[i])
+    gt_flat = np.ascontiguousarray(
+        np.concatenate([np.asarray(g, np.float64).reshape(-1, 2) for g in gt_list])
+        if gt_off[-1]
+        else np.zeros((0, 2))
+    )
+    pred_flat = np.ascontiguousarray(
+        np.concatenate([np.asarray(p, np.float64).reshape(-1, 2) for p in pred_list])
+        if pred_off[-1]
+        else np.zeros((0, 2))
+    )
+    score_flat = np.ascontiguousarray(
+        np.concatenate([np.asarray(s, np.float64).reshape(-1) for s in score_list])
+        if pred_off[-1]
+        else np.zeros(0)
+    )
 
+    def p(a, t):
+        return a.ctypes.data_as(ctypes.POINTER(t))
+
+    lib.detection_ap_batch(
+        p(gt_flat, ctypes.c_double),
+        p(gt_off, ctypes.c_int64),
+        p(pred_flat, ctypes.c_double),
+        p(score_flat, ctypes.c_double),
+        p(pred_off, ctypes.c_int64),
+        n_q,
+        p(thds, ctypes.c_double),
+        len(thds),
+        n_threads,
+        p(out, ctypes.c_double),
+    )
+    return out
+
+
+def detection_ap_batch_numpy(
+    gt_list,
+    pred_list,
+    score_list,
+    tiou_thresholds=np.linspace(0.5, 0.95, 10),
+) -> np.ndarray:
+    """The numpy loop of the JAX package's ``detection_ap_batch``: the
+    native kernel's twin, one ``detection_ap`` per query."""
+    thds = np.ascontiguousarray(tiou_thresholds, np.float64)
+    n_q = len(gt_list)
+    out = np.zeros((n_q, len(thds)), np.float64)
     for i in range(n_q):
         out[i] = detection_ap(
             np.asarray(gt_list[i], np.float64).reshape(-1, 2),

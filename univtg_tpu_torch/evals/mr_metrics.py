@@ -43,8 +43,8 @@ def compute_mr_ap(
 ):
     """mAP over IoU thresholds, averaged over queries (eval/eval.py:20-70).
 
-    Runs through the batched numpy AP kernel; `num_workers` is passed on
-    as its thread count, which the numpy path does not read.
+    Runs through the batched native AP kernel, `num_workers` its thread
+    count.
     """
     iou_thds = [float(f"{e:.2f}") for e in iou_thds]
     pred_by_qid = defaultdict(list)

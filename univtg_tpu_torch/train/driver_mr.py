@@ -7,15 +7,18 @@ steps -> epoch loop with periodic evaluation on ``eval_data`` (every
 early stopping and the best/latest/periodic checkpoint triple. Per-epoch
 metric means stream to ``train_log.jsonl``, each evaluation's brief metrics
 to ``eval_log.jsonl``, its predictions to ``latest_val_preds.jsonl`` and its
-full metrics to ``metrics_eNNNN.json``, the config to ``opt.json``, all in
-``results_dir``; checkpoints are torch files in the upstream container
-(train/checkpoint.py). ``TrainConfig`` has the JAX package's fields and
-JSON. What this slice does not run raises ``NotImplementedError`` naming
-ROADMAP.md: ``scan_steps > 1``, more than one device or process
-(``dp``/``tp``/``pp``/``ep``, ``num_shards``, and with them
-``sharded_eval``) and the fault injection of their elastic restarts,
-Moment-DETR, and the profiler and TensorBoard outputs. Checkpoints are
-written synchronously, whatever ``async_checkpoint`` says.
+full metrics to ``metrics_eNNNN.json``, the config to ``opt.json``
+(train/config_io.py) and the source to ``code.zip``, all in
+``results_dir``; the epoch and evaluation scalars also to TensorBoard with
+``tensorboard_dir`` ("auto": ``results_dir/tb``), and a torch.profiler
+trace of the first ``profile_steps`` steps into ``profile_dir``.
+Checkpoints are torch files in the upstream container (train/checkpoint.py).
+``TrainConfig`` has the JAX package's fields and JSON. What this slice does
+not run raises ``NotImplementedError`` naming ROADMAP.md: ``scan_steps >
+1``, more than one device or process (``dp``/``tp``/``pp``/``ep``,
+``num_shards``, and with them ``sharded_eval``) and the fault injection of
+their elastic restarts, and Moment-DETR. Checkpoints are written
+synchronously, whatever ``async_checkpoint`` says.
 """
 from __future__ import annotations
 
@@ -38,7 +41,8 @@ from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.models.univtg import UniVTG
 from univtg_tpu_torch.train import checkpoint as ckpt
-from univtg_tpu_torch.train.epoch_runner import run_train_epoch
+from univtg_tpu_torch.train.config_io import snapshot_code, to_json
+from univtg_tpu_torch.train.epoch_runner import StepProfiler, run_train_epoch
 from univtg_tpu_torch.train.infer_mr import (
     apply_nms,
     evaluate_submission,
@@ -51,6 +55,7 @@ from univtg_tpu_torch.train.steps import (
     make_optimizer,
     make_train_step,
 )
+from univtg_tpu_torch.utils.tb import TBWriter
 
 logger = logging.getLogger(__name__)
 
@@ -125,10 +130,6 @@ class TrainConfig:
     sharded_eval: bool = False
 
 
-def to_json(cfg) -> str:
-    return json.dumps(dataclasses.asdict(cfg), indent=1)
-
-
 def _refuse_unported(cfg: TrainConfig):
     unported = {
         "scan_steps > 1": cfg.scan_steps > 1,
@@ -139,8 +140,6 @@ def _refuse_unported(cfg: TrainConfig):
         "num_shards > 1": cfg.num_shards > 1,
         "inject_fault_epoch": cfg.inject_fault_epoch >= 0,
         "model_id='moment_detr'": cfg.model_id == "moment_detr",
-        "profile_dir": bool(cfg.profile_dir),
-        "tensorboard_dir": bool(cfg.tensorboard_dir),
     }
     named = [k for k, on in unported.items() if on]
     if named:
@@ -212,6 +211,10 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     cfg_json = to_json(cfg)
     with open(os.path.join(cfg.results_dir, "opt.json"), "w") as f:
         f.write(cfg_json)
+    snapshot_code(cfg.results_dir)
+    tb_dir = cfg.tensorboard_dir
+    if tb_dir == "auto":
+        tb_dir = os.path.join(cfg.results_dir, "tb")
 
     best_score, best_metrics, es_cnt = -np.inf, None, 0
     best_path = os.path.join(cfg.results_dir, "model_best.ckpt")
@@ -220,15 +223,24 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     if resume_epoch is not None:
         start_epoch = resume_epoch + 1
     with open(os.path.join(cfg.results_dir, "train_log.jsonl"), "a") as train_log, \
-            open(os.path.join(cfg.results_dir, "eval_log.jsonl"), "a") as eval_log:
+            open(os.path.join(cfg.results_dir, "eval_log.jsonl"), "a") as eval_log, \
+            TBWriter(tb_dir) as tb, \
+            StepProfiler(cfg.profile_dir, cfg.profile_steps) as profiler:
         for epoch in range(start_epoch, cfg.n_epoch):
             if epoch > -1:
-                _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed,
-                                 dev, train_log)
+                if epoch == max(start_epoch, 0):
+                    # one profiler window per run, over the first
+                    # profile_steps steps of the first trained epoch
+                    profiler.start()
+                line = _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed,
+                                        dev, train_log, profiler)
+                profiler.stop()  # short epoch: close the trace at epoch end
+                tb.scalars(line, epoch, prefix="train/")
             if eval_ds is not None and (epoch + 1) % cfg.eval_epoch == 0:
                 metrics = _eval_once(cfg, model, eval_ds, eval_step, epoch)
                 eval_log.write(json.dumps({"epoch": epoch, **metrics["brief"]}) + "\n")
                 eval_log.flush()
+                tb.scalars(metrics["brief"], epoch, prefix="eval/")
                 score = metrics["brief"].get(f"{cfg.main_metric}-key")
                 if score is None:
                     score = metrics["brief"].get(cfg.main_metric)
@@ -254,19 +266,25 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
 
 
 def _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed, dev,
-                     train_log):
-    """One training epoch (the state is updated in place) and its line of
-    train_log.jsonl."""
+                     train_log, profiler):
+    """One training epoch (the state is updated in place); returns its line
+    of train_log.jsonl, written there."""
     train_loader.set_epoch(epoch)
     t0 = time.time()
-    # metrics stay on the card until the epoch ends: no host sync per step;
-    # the epoch means are the reference's AverageMeter
+    # metrics stay on the card until the epoch ends: no host sync per step
+    # (but the one that closes the profiler window); the epoch means are the
+    # reference's AverageMeter
     step_metrics = []
+
+    def record(metrics):
+        step_metrics.append(metrics)
+        profiler.after_step(len(step_metrics), metrics)
+
     _, n_steps = run_train_epoch(
         train_loader, train_step, state, seed, dev,
         transfer_dtype=cfg.transfer_dtype,
         prefetch_depth=cfg.prefetch_depth,
-        record=step_metrics.append,
+        record=record,
     )
     means = {}
     if step_metrics:
@@ -277,6 +295,7 @@ def _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed, dev,
     train_log.write(json.dumps(line) + "\n")
     train_log.flush()
     logger.info(f"epoch {epoch}: {line}")
+    return line
 
 
 def _eval_loader(cfg, eval_ds):

@@ -1,5 +1,5 @@
 """Training-epoch runtime; counterpart of ``univtg_tpu/train/epoch_runner.py``
-(``strip_meta``, ``run_train_epoch``).
+(``strip_meta``, ``StepProfiler``, ``run_train_epoch``).
 
   * ``strip_meta`` -- the collated numpy batch as (model_inputs, targets)
     torch tensors, the feature tensors cast for the host-to-device copy
@@ -7,19 +7,25 @@
     quantization, data/collate.quantize_for_transfer, which the step undoes
     on the device, train/steps.dequantize_inputs; compute runs in
     ModelConfig's compute_dtype either way);
+  * ``StepProfiler`` -- the profile_dir/profile_steps torch.profiler
+    window, closed after a synchronize (closing it while the card still
+    runs the queued steps would record the launches, not the kernels);
   * ``run_train_epoch`` -- the per-batch loop, with the batch N+1 cast and
     copy running in a background thread while the card runs step N
     (data/prefetch.device_prefetch).
-
-The profiler window is not ported yet (ROADMAP.md, queue 1).
 """
 from __future__ import annotations
+
+import logging
 
 import numpy as np
 import torch
 
 from univtg_tpu_torch.data.collate import quantize_for_transfer
 from univtg_tpu_torch.data.prefetch import device_prefetch, to_device
+from univtg_tpu_torch.utils.profiling import trace_profiler
+
+logger = logging.getLogger(__name__)
 
 _FEATURES = ("src_txt", "src_vid")
 TRANSFER_DTYPES = ("float32", "bfloat16", "int8")
@@ -44,6 +50,49 @@ def strip_meta(batch, transfer_dtype: str = "float32"):
     tg = {k: torch.from_numpy(np.ascontiguousarray(v))
           for k, v in batch["targets"].items()}
     return mi, tg
+
+
+class StepProfiler:
+    """torch.profiler window over the first ``profile_steps`` steps.
+
+    start() opens the window (no-op when profile_dir is empty or
+    profile_steps is 0); after_step() closes it once enough steps have been
+    launched, first synchronizing the card the step metrics live on, so the
+    trace holds the kernels of those steps; stop() closes it at epoch end
+    for short epochs, as does leaving its ``with`` block. One window per run;
+    the trace is a Chrome trace json in profile_dir
+    (utils/profiling.trace_profiler)."""
+
+    def __init__(self, profile_dir: str, profile_steps: int = 5):
+        self.profile_dir = profile_dir
+        self.profile_steps = profile_steps
+        self.enabled = bool(profile_dir) and profile_steps > 0
+        self._prof = None
+
+    def start(self):
+        if self.enabled and self._prof is None:
+            self._prof = trace_profiler(self.profile_dir)
+            self._prof.start()
+
+    def after_step(self, n_steps: int, metrics):
+        if self._prof is not None and n_steps >= self.profile_steps:
+            devices = {v.device for v in metrics.values() if v.is_cuda}
+            for dev in devices:
+                torch.cuda.synchronize(dev)
+            self.stop()
+
+    def stop(self):
+        if self._prof is not None:
+            self._prof.stop()  # writes the trace
+            logger.info(f"profiler trace written to {self.profile_dir}")
+            self._prof = None
+            self.enabled = False  # one window per run
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *exc):
+        self.stop()
 
 
 def run_train_epoch(loader, train_step, state, seed: int, device, *,
