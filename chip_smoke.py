@@ -120,6 +120,32 @@ printing its seconds:
                  where h5py is importable, cli pack-h5 and one pass on the
                  h5 cache with lazy metadata (else printed and not run);
                  and one inference under torch.profiler (the eval cells).
+  7e. scan    -- scan_steps on CUDA graphs: `cli train-mr` on phase 7's
+                 corpus with scan_steps=2, "pallas", bf16, SCAN_EPOCHS
+                 epochs (the group of epoch 0 runs eagerly, epoch 1's is
+                 captured and replayed, epoch 2's replayed): 4 launches of
+                 each kernel per step, replays counted; then
+                 make_scan_train_step at B=32, 75 + 32 tokens, bf16 and f32,
+                 K in SCAN_KS (1: the eager make_train_step): wall and
+                 CUDA-event ms per step over SCAN_TIMED_STEPS steps, peak
+                 memory, one call under torch.profiler (host ms, busy ms,
+                 idle share; the trace must name each flash kernel 4 K
+                 times); at dropouts 0 three groups (eager, captured,
+                 replayed) against six eager single steps, bit for bit or
+                 within TRAIN_TOL; at attention dropout 0.1 and rate 0,
+                 fresh losses per replay and the kernels' keep share over
+                 one step's 4 calls within KEEP_SIGMAS sigma of 0.9.
+  7f. hl      -- highlight detection: a TVSum-shaped corpus at full width
+                 (2816-d video, 512-d text, 20 annotators, up to 512
+                 clips; HL_DOMAINS domains of 4 train + 1 val), `cli
+                 train-hl --preset tvsum_hl` on "pallas", f32, HL_EPOCHS
+                 epochs evaluated each epoch (4 launches of each kernel per
+                 step, 4 flash_fwd per eval batch; best_tvsum_metrics.json
+                 with both domains and AVG); `cli infer-hl` on "pallas" and
+                 "xla": mAP equal, f32 fused scores within HL_SCORE_TOL;
+                 make_train_step ms per HL step (B=4, 512 + 32), "pallas"
+                 vs "xla", f32 and bf16. Phase 3 checks the kernels at
+                 HL_SHAPE too.
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -133,9 +159,12 @@ printing its seconds:
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving is phases 4-5, training phase 7's train-mr
 run (its evaluations included), eval phase 7b's bf16 infer-mr run,
-quantize phase 7c's entry points, ring serving phase 6b's ring dispatches
-and ring training phase 9b's ring_pallas steps; the smoke's own int8_matmul
-call is counted apart. Every kernel of a path must have run there. The last lines
+quantize phase 7c's entry points, ring serving phase 6b's ring dispatches,
+ring training phase 9b's ring_pallas steps, scan training phase 7e's
+train-mr run, HL training phase 7f's train-hl run (its evaluations
+included) and HL inference its "pallas" infer-hl run; the smoke's own
+int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
+of a path must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
@@ -356,6 +385,22 @@ KERNEL_NOTES = {  # name -> (source, the Pallas kernel it replaces)
                        "univtg_tpu/ops/ring_attention_pallas.py:56"),
 }
 FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
+# scan_steps on CUDA graphs (phase 7e): K = 1 is the eager make_train_step;
+# each K is timed over SCAN_TIMED_STEPS steps after its warm-up; train-mr
+# runs SCAN_EPOCHS epochs of 3 steps at K = 2, so epoch 0's group runs
+# eagerly, epoch 1's is captured and replayed, epoch 2's replayed
+SCAN_KS = (1, 2, 4, 8)
+SCAN_TIMED_STEPS = 32
+SCAN_EPOCHS = 3
+KEEP_SIGMAS = 4.0  # the kernels' keep rate over a step, against 1 - rate
+# highlight detection (phase 7f): a TVSum-shaped corpus of HL_DOMAINS
+# domains of HL_TRAIN + HL_VAL videos (configs/hl_splits/tvsum.json: 10 of
+# 4 + 1), trained HL_EPOCHS epochs; fused scores "pallas" vs "xla" in f32
+# at phase 4's f32 saliency limit; HL_SHAPE, its attention (B=4, 512 clips
+# + 32 tokens), joins phase 3's kernel checks
+HL_DOMAINS, HL_TRAIN, HL_VAL, HL_EPOCHS = 2, 4, 1, 3
+HL_SCORE_TOL = 2e-3
+HL_SHAPE = {"train_hl": (4, 512 + 32, 8, 128)}
 
 
 def log(msg: str) -> None:
@@ -987,7 +1032,7 @@ def _bwd_within(err, dname):
 
 def phase_train_kernels(torch):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their twins at the
-    two training shapes, f32 and bf16, dropout 0 and 0.1: each output on
+    two training shapes and HL's, f32 and bf16, dropout 0 and 0.1: each output on
     its own, relative to the twin's largest value. Kernel times of the
     backward pair come from torch.profiler (one call launches both); each
     backward kernel is timed against its own twin. SDPA has no call for dQ
@@ -999,7 +1044,7 @@ def phase_train_kernels(torch):
     from univtg_tpu_torch.ops import flash_attention as fa
 
     records = []
-    for shape_name, (B, L, H, dh) in TRAIN_SHAPES.items():
+    for shape_name, (B, L, H, dh) in {**TRAIN_SHAPES, **HL_SHAPE}.items():
         for dname in ("float32", "bfloat16"):
             for rate in (0.0, 0.1):
                 dtype = getattr(torch, dname)
@@ -2345,6 +2390,490 @@ def phase_ring_train(torch, np, sd, card, long_stats):
     return launches
 
 
+def _scan_state(torch, cfg, sd, schedule=None):
+    """A TrainState of a fresh model (cfg) holding state_dict sd on the card,
+    AdamW on phase 7's schedule (or the one given)."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer
+
+    model = UniVTG(cfg, device="meta")
+    model.load_state_dict({k: v.cuda() for k, v in sd.items()}, assign=True)
+    return TrainState(model, make_optimizer(
+        model.parameters(), schedule or build_schedule(1e-4, 10, 200, 0.1, 3), 1e-4, 0.1))
+
+
+def _count_replays(torch):
+    """Wraps CUDAGraph.replay to count its calls; returns (counts, undo)."""
+    graph_cls, orig = torch.cuda.CUDAGraph, torch.cuda.CUDAGraph.replay
+    counts = {"replay": 0}
+
+    def replay(self):
+        counts["replay"] += 1
+        return orig(self)
+
+    graph_cls.replay = replay
+    return counts, lambda: setattr(graph_cls, "replay", orig)
+
+
+def _profile_counts(torch, fn):
+    """fn() once under torch.profiler after a synchronize: (kernel device
+    us by name, launches by name, wall us)."""
+    from collections import Counter, defaultdict
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    us, n = defaultdict(float), Counter()
+    for evt in prof.events():
+        if evt.device_type == DeviceType.CUDA and not getattr(
+                evt, "is_user_annotation", False):
+            us[evt.name] += evt.time_range.elapsed_us()
+            n[evt.name] += 1
+    return us, n, wall_us
+
+
+def phase_scan_train(torch, np, tmp, corpus):
+    """7e(i), the scan training main path: `cli train-mr` on phase 7's
+    corpus with scan_steps=2, "pallas", bf16, SCAN_EPOCHS epochs (no
+    evaluation): 4 launches of each flash kernel per step, replays
+    included, and at least two groups replayed from a graph. Returns the
+    launches."""
+    from univtg_tpu_torch import cli
+
+    run_dir = os.path.join(tmp, "scan_run")
+    argv = ["train-mr", "--preset", "qvhighlights_mr",
+            f"train_data.data_path={corpus['train_path']}",
+            f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
+            f"train_data.q_feat_dir={corpus['q_feat_dir']}", "train_data.v_feat_dim=2816",
+            "eval_data=None", f"n_epoch={SCAN_EPOCHS}", "bsz=32", "scan_steps=2",
+            "model.attention_impl=pallas", "model.compute_dtype=bfloat16",
+            f"results_dir={run_dir}"]
+    replays, undo = _count_replays(torch)
+    _reset_launches()  # the scan training main path starts here
+    t0 = time.perf_counter()
+    try:
+        cli.main(argv)
+        torch.cuda.synchronize()
+    finally:
+        undo()
+    wall = time.perf_counter() - t0
+    launches = _launches()  # ... and ends here
+    lines = _jsonl(os.path.join(run_dir, "train_log.jsonl"))
+    steps = sum(line["steps"] for line in lines)
+    log(f"[scan] cli train-mr scan_steps=2: {steps} steps in {len(lines)} epochs, "
+        f"{replays['replay']} graph replays, {wall:.2f} s with model build; losses "
+        f"{[round(line['loss_overall'], 4) for line in lines]}; launches {launches}")
+    if steps != 3 * SCAN_EPOCHS or not all(np.isfinite(x["loss_overall"]) for x in lines):
+        raise AssertionError(f"scan train-mr did not take 3 finite steps an epoch: {lines}")
+    if replays["replay"] < 2:
+        raise AssertionError(f"fewer than two groups replayed from a graph: {replays}")
+    want = {name: 4 * steps for name in FLASH_KERNELS}
+    if {k: launches[k] for k in FLASH_KERNELS} != want:
+        raise AssertionError(f"expected 4 launches of each kernel per step: {launches}")
+    return launches
+
+
+def _scan_groups(batches, K, n):
+    """n groups of K batches, taken from the batches in turn (3 batches:
+    the groups repeat every 3)."""
+    return [[batches[(g * K + i) % len(batches)] for i in range(K)] for g in range(n)]
+
+
+def _time_scan(torch, cfg, sd, batches, K):
+    """ms per step of K = 1 (the eager make_train_step) or of
+    make_scan_train_step at K, each call's inputs cast (K = 1), or stacked
+    (K > 1), and pinned ahead, as the driver's prefetch thread hands them
+    over; over SCAN_TIMED_STEPS steps after the warm-up (two steps, or two
+    groups: eager, then captured): wall and CUDA-event ms, peak GiB, and
+    one call for the profiler."""
+    from univtg_tpu_torch.data.prefetch import to_pinned
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.steps import (
+        make_scan_train_step,
+        make_train_step,
+        stack_batches,
+    )
+
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    state = _scan_state(torch, cfg, sd)
+    n = SCAN_TIMED_STEPS // K
+    # the groups repeat with the period of the batches: pin each once
+    groups = _scan_groups(batches, K, len(batches))
+    if K == 1:
+        step = make_train_step(weights)
+        ready = [tuple(to_pinned(t, "cuda") for t in strip_meta(g[0])) for g in groups]
+
+        def call(i):
+            mi, tg = ({k: v.to("cuda", non_blocking=True) for k, v in t.items()}
+                      for t in ready[i % len(ready)])
+            step(state, mi, tg, 0)
+    else:
+        step = make_scan_train_step(weights)
+        ready = [tuple(to_pinned(t, "cuda") for t in stack_batches(g)) for g in groups]
+
+        def call(i):
+            step(state, *ready[i % len(ready)], 0)
+
+    for i in range(2):
+        call(i)
+    torch.cuda.synchronize()
+    start, stop = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    t0 = time.perf_counter()
+    start.record()
+    for i in range(2, n + 2):
+        call(i)
+    stop.record()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3 / (n * K)
+    return {"wall_ms": wall, "cuda_ms": start.elapsed_time(stop) / (n * K),
+            "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "steps": n * K}, (lambda: call(0))
+
+
+def _compare_runs(torch, got, want, a, b):
+    """Per-step loss equality, max |diff| and rel of losses and grad norms,
+    max |diff| of params, and whether each is bit-equal, between two runs
+    (metrics with a leading K axis, or per step) and their states."""
+    def flat(ms):
+        return {k: torch.cat([m[k].reshape(-1) for m in ms]) for k in ("loss_overall",
+                                                                        "grad_norm")}
+
+    g, w = flat(got), flat(want)
+    diff = {"steps_equal": (g["loss_overall"] == w["loss_overall"]).tolist()}
+    for key in g:
+        d = (g[key] - w[key]).abs()
+        diff[key] = d.max().item()
+        diff[f"{key}_rel"] = (d / w[key].abs().clamp_min(1e-12)).max().item()
+        diff[f"{key}_equal"] = torch.equal(g[key], w[key])
+    pa, pb = list(a.model.parameters()), list(b.model.parameters())
+    diff["params"] = max((p - q).abs().max().item() for p, q in zip(pa, pb))
+    diff["params_equal"] = all(torch.equal(p, q) for p, q in zip(pa, pb))
+    diff["equal"] = all(diff[f"{k}_equal"] for k in ("loss_overall", "grad_norm", "params"))
+    return diff
+
+
+def _replay_vs_eager(torch, cfg, sd, batches):
+    """Dropouts 0: three groups of K = 2 (eager, captured, replayed) from
+    one state against six single steps from another, both from sd, and
+    those six against six more from a third (is the eager step itself
+    deterministic?): _compare_runs of each pair."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.steps import (
+        make_scan_train_step,
+        make_train_step,
+        stack_batches,
+    )
+
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    a, b, c = (_scan_state(torch, cfg, sd) for _ in range(3))
+    scan, single = make_scan_train_step(weights), make_train_step(weights)
+    got, want, again = [], [], []
+    for group in _scan_groups(batches, 2, 3):
+        got.append(scan(a, *stack_batches(group), 0)[1])
+        for batch in group:
+            mi, tg = (to_device(t, "cuda") for t in strip_meta(batch))
+            want.append(single(b, mi, tg, 0)[1])
+            again.append(single(c, mi, tg, 0)[1])
+    return _compare_runs(torch, got, want, a, b), _compare_runs(torch, again, want, c, b)
+
+
+def _keep_rate(torch, fa, seeds, B, L, H, dh, rate):
+    """The flash_fwd kernel's keep share at the step's shape for each
+    recorded dropout seed: q = k = 0 (every probability 1/L) and V = one-hot
+    per key (L <= dh), so out[b, i, h*dh + j] > 0 exactly where key j is
+    kept for (b, h, i). Returns (kept, elements)."""
+    D = H * dh
+    q = torch.zeros(B, L, D, device="cuda")
+    eye = torch.zeros(L, dh, device="cuda")
+    eye[torch.arange(L), torch.arange(L)] = 1.0
+    v = eye.repeat(1, H)[None].expand(B, L, D).contiguous()
+    mask = torch.ones(B, L, device="cuda")
+    kept = 0
+    for seed in seeds:
+        out = fa.flash_attention(q, q, v, mask, num_heads=H, dropout_rate=rate,
+                                 dropout_seed=seed)
+        kept += (out.reshape(B, L, H, dh)[..., :L] > 0).sum().item()
+    return kept, len(seeds) * B * H * L * L
+
+
+def phase_scan(torch, np, fa, card, corpus, sd):
+    """7e(ii)-(iv): make_scan_train_step at B=32, 75 + 32 tokens, "pallas",
+    dropouts at the preset's defaults, bf16 and f32, K in SCAN_KS (1: the
+    eager single step): ms per step (wall and CUDA events) and peak memory,
+    and one group under torch.profiler (host ms, busy ms, idle share, each
+    flash kernel named 4 K times in the trace); at dropouts 0, replays
+    against eager single steps; at attention dropout 0.1 and rate 0, fresh
+    losses per replay and the kernels' keep rate over one step."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.ops import attention as attn
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.steps import make_scan_train_step, stack_batches
+
+    batches = _train_batches(np, corpus, 3)
+    stats = {}
+    for dname in ("bfloat16", "float32"):
+        cfg = flagship_model(attention_impl="pallas", compute_dtype=dname)
+        stats[dname] = {}
+        for K in SCAN_KS:
+            rec, one_call = _time_scan(torch, cfg, sd, batches, K)
+            us, n, wall_us = _profile_counts(torch, one_call)
+            busy = sum(us.values())
+            named = {k: sum(c for name, c in n.items() if f"{k}_kernel" in name)
+                     for k in FLASH_KERNELS}
+            rec.update(profiled_host_ms=wall_us / 1e3, profiled_busy_ms=busy / 1e3,
+                       idle_share=1.0 - busy / wall_us if busy else None,
+                       trace_launches=named)
+            stats[dname][K] = rec
+            log(f"[scan] {dname} K={K}: {rec['wall_ms']:.2f} ms per step wall, "
+                f"{rec['cuda_ms']:.2f} by CUDA events over {rec['steps']} steps, peak "
+                f"{rec['peak_gib']:.2f} GiB ({card}); one {'step' if K == 1 else 'group'} "
+                f"profiled: host {wall_us / 1e3:.2f} ms, busy {busy / 1e3:.2f} ms, idle "
+                f"{rec['idle_share']}; flash kernels in the trace {named}")
+            if named != {k: 4 * K for k in FLASH_KERNELS}:
+                raise AssertionError(f"the trace of one K={K} call names the flash kernels "
+                                     f"{named}, not 4 K = {4 * K} times each")
+            torch.cuda.empty_cache()
+    log(f"[scan] ({card}) {json.dumps(stats)}")
+
+    quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
+    for dname in ("float32", "bfloat16"):
+        diff, repeat = _replay_vs_eager(torch, flagship_model(
+            attention_impl="pallas", compute_dtype=dname, **quiet), sd, batches)
+        log(f"[scan] {dname} dropouts 0, 3 groups of 2 (eager, captured, replayed) vs 6 "
+            f"eager single steps: {'bit-equal' if diff['equal'] else 'NOT bit-equal'} "
+            f"{diff}; the eager steps run twice: "
+            f"{'bit-equal' if repeat['equal'] else 'NOT bit-equal'} {repeat}")
+        # the replay must equal the eager step bit for bit, unless the eager
+        # step does not equal itself: then within phase 7's limits, and again
+        # with cuDNN held to its deterministic algorithms, bit for bit
+        if not diff["equal"] and (repeat["equal"]
+                                  or diff["loss_overall_rel"] > TRAIN_TOL["loss"]
+                                  or diff["grad_norm_rel"] > TRAIN_TOL["grad_norm"]):
+            raise AssertionError(f"{dname} graph replay disagrees with eager steps: {diff}")
+        if not diff["equal"]:
+            torch.backends.cudnn.deterministic = True
+            try:
+                diff, repeat = _replay_vs_eager(torch, flagship_model(
+                    attention_impl="pallas", compute_dtype=dname, **quiet), sd, batches)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            log(f"[scan] {dname} again with torch.backends.cudnn.deterministic: replay vs "
+                f"eager {'bit-equal' if diff['equal'] else 'NOT bit-equal'} {diff}; eager "
+                f"twice {'bit-equal' if repeat['equal'] else 'NOT bit-equal'}")
+            if repeat["equal"] and not diff["equal"]:
+                raise AssertionError(f"{dname} graph replay disagrees with deterministic "
+                                     f"eager steps: {diff}")
+        torch.cuda.empty_cache()
+
+    # attention dropout 0.1 at rate 0: the losses move only with the masks
+    rate = 0.1
+    cfg = flagship_model(attention_impl="pallas", compute_dtype="bfloat16",
+                         dropout=rate, droppath=0.0, input_dropout=0.0)
+    state = _scan_state(torch, cfg, sd, schedule=lambda count: 0.0)
+    scan = make_scan_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    stacked = stack_batches([batches[0], batches[0]])
+    seeds, orig = [], attn.flash_attention
+
+    def recording(q, k, v, mask, **kw):
+        if not torch.cuda.is_current_stream_capturing():
+            seeds.append(kw["dropout_seed"].clone())
+        return orig(q, k, v, mask, **kw)
+
+    attn.flash_attention = recording
+    try:
+        losses = [scan(state, *stacked, 0)[1]["loss_overall"].tolist() for _ in range(3)]
+    finally:
+        attn.flash_attention = orig
+    before = dict(fa.launches)
+    kept, total = _keep_rate(torch, fa, seeds[:4], 32, 75 + 32, 8, 128, rate)
+    for k in before:  # the check's own launches are not the main path's
+        fa.launches[k] = before[k]
+    share, sigma = kept / total, (rate * (1 - rate) / total) ** 0.5
+    log(f"[scan] attention dropout {rate}, rate 0, one batch twice a group: losses "
+        f"{losses} (eager, captured, replayed); the kernels' keep share over one step's "
+        f"4 calls {share:.6f} of {total} ({(share - (1 - rate)) / sigma:+.2f} sigma)")
+    if losses[1] == losses[2] or losses[1][0] == losses[1][1]:
+        raise AssertionError("graph replays did not draw fresh attention-dropout masks")
+    if len(seeds) < 4 or abs(share - (1 - rate)) > KEEP_SIGMAS * sigma:
+        raise AssertionError(f"keep share {share} is not within {KEEP_SIGMAS} sigma of "
+                             f"{1 - rate}")
+    return stats
+
+
+def _hl_corpus(tmp):
+    """A TVSum-shaped corpus at full width: HL_DOMAINS domains named as the
+    first of configs/hl_splits/tvsum.json, HL_TRAIN + HL_VAL videos each,
+    2816-d video (+2 TEF), 512-d text, 20 annotators, 256-512 clips.
+    Returns (corpus, splits path, domains)."""
+    from univtg_tpu_torch.data.hl import load_hl_splits
+    from univtg_tpu_torch.data.synthetic import create_synthetic_hl_corpus
+
+    n_train, n_val = HL_DOMAINS * HL_TRAIN, HL_DOMAINS * HL_VAL
+    corpus = create_synthetic_hl_corpus(os.path.join(tmp, "hl"), "tvsum", n_train=n_train,
+                                        n_val=n_val, v_dim=2816, q_dim=512,
+                                        max_clips=512, seed=0)
+    domains = list(load_hl_splits("tvsum"))[:HL_DOMAINS]
+    splits = {d: {"train": [f"hlv_{i * HL_TRAIN + j}" for j in range(HL_TRAIN)],
+                  "val": [f"hlv_{n_train + i * HL_VAL + j}" for j in range(HL_VAL)]}
+              for i, d in enumerate(domains)}
+    path = os.path.join(tmp, "hl", "tvsum_two_domains.json")
+    with open(path, "w") as f:
+        json.dump(splits, f)
+    return corpus, path, domains
+
+
+def _hl_overrides(corpus, splits_path):
+    return [f"data.anno_path={corpus['anno_path']}", f"data.splits_path={splits_path}",
+            f"data.v_feat_dirs={tuple(corpus['v_feat_dirs'])}",
+            f"data.q_feat_dir={corpus['q_feat_dir']}"]
+
+
+def _infer_hl(torch, run_dir, overrides, impl):
+    """`cli infer-hl` on run_dir: (printed mAPs, flash_fwd launches)."""
+    import contextlib
+    import io
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.ops import flash_attention as fa
+
+    before = fa.launches["flash_fwd"]
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["infer-hl", "--preset", "tvsum_hl", "--ckpt-dir", run_dir, *overrides,
+                  f"model.attention_impl={impl}"])
+    torch.cuda.synchronize()
+    return json.loads(printed.getvalue()), fa.launches["flash_fwd"] - before
+
+
+def phase_hl(torch, np, fa, card, tmp):
+    """7f, the highlight-detection paths: `cli train-hl --preset tvsum_hl`
+    at full width, f32 (the preset's dtype), "pallas", HL_EPOCHS epochs
+    evaluated each epoch (4 launches of each flash kernel per step, 4
+    flash_fwd per eval batch; best_tvsum_metrics.json with both domains and
+    AVG); `cli infer-hl` on its checkpoints, "pallas" (4 flash_fwd per
+    batch) and "xla": mAP equal, fused scores within HL_SCORE_TOL; then
+    make_train_step ms per HL step (CUDA events) and one profiled step
+    (host, device-busy and flash kernel ms), "pallas" vs "xla", f32 and
+    bf16. Returns (training launches, inference launches, step ms)."""
+    import contextlib
+    import dataclasses
+    import io
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.data.hl import HLDataset, collate_hl
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.presets import PRESETS
+    from univtg_tpu_torch.train import checkpoint as ckpt
+    from univtg_tpu_torch.train.driver_hl import domain_scores
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    t0 = time.perf_counter()
+    corpus, splits_path, domains = _hl_corpus(tmp)
+    overrides = _hl_overrides(corpus, splits_path)
+    log(f"[hl] synthetic TVSum-shaped corpus: domains {domains}, {HL_TRAIN} train + "
+        f"{HL_VAL} val videos each, 2816-d video, 512-d text, 256-512 clips "
+        f"({time.perf_counter() - t0:.1f} s)")
+    run_dir = os.path.join(tmp, "hl_run")
+    printed = io.StringIO()
+    _reset_launches()  # the HL training main path starts here
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["train-hl", "--preset", "tvsum_hl", *overrides,
+                  "model.attention_impl=pallas", f"n_epoch={HL_EPOCHS}", "eval_epoch=1",
+                  f"results_dir={run_dir}"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = _launches()  # ... and ends here
+    scores = json.loads(printed.getvalue())
+    with open(os.path.join(run_dir, "best_tvsum_metrics.json")) as f:
+        written = json.load(f)
+    steps = HL_DOMAINS * HL_EPOCHS * (-(-HL_TRAIN // 4))
+    eval_batches = HL_DOMAINS * HL_EPOCHS * (-(-HL_VAL // 4))
+    want = {name: 4 * steps for name in FLASH_KERNELS}
+    want["flash_fwd"] += 4 * eval_batches
+    log(f"[hl] cli train-hl: {steps} steps and {eval_batches} eval batches over "
+        f"{HL_DOMAINS} domains in {wall:.2f} s with model builds ({card}); best mAP "
+        f"{scores}; launches {train_launches}")
+    if written != scores or set(scores) != {*domains, "AVG"}:
+        raise AssertionError(f"best_tvsum_metrics.json {written} vs printed {scores}")
+    if {k: train_launches[k] for k in FLASH_KERNELS} != want:
+        raise AssertionError(f"expected 4 launches of each kernel per HL step and 4 "
+                             f"flash_fwd per eval batch: {train_launches}, not {want}")
+
+    _reset_launches()  # the HL inference main path starts here
+    inferred, fwd = _infer_hl(torch, run_dir, overrides, "pallas")
+    infer_launches = _launches()  # ... and ends here
+    plain, _ = _infer_hl(torch, run_dir, overrides, "xla")
+    log(f"[hl] cli infer-hl: pallas {inferred} ({fwd} flash_fwd launches), xla {plain}")
+    if inferred != scores or plain != inferred or fwd != 4 * HL_DOMAINS * (-(-HL_VAL // 4)):
+        raise AssertionError("infer-hl disagrees with train-hl, across impls or in launches")
+
+    base = PRESETS["tvsum_hl"]()
+    cfg = cli.apply_overrides(base, overrides)
+    worst = 0.0
+    for domain in domains:
+        ds = HLDataset(dataclasses.replace(cfg.data, domain=domain))
+        fused = {}
+        for impl in ("pallas", "xla"):
+            model_cfg = dataclasses.replace(cfg.model, attention_impl=impl)
+            model = UniVTG(model_cfg, device="cuda")
+            path = os.path.join(run_dir, f"model_{domain}_best.ckpt")
+            model.load_state_dict(ckpt.restore_params(path, model.state_dict()))
+            fused[impl] = domain_scores(dataclasses.replace(cfg, model=model_cfg), model,
+                                        ds)[0]
+        worst = max(worst, max(float(np.abs(a - b).max())
+                               for a, b in zip(fused["pallas"], fused["xla"], strict=True)))
+    log(f"[hl] f32 fused scores, pallas vs xla: max |diff| {worst:.3g} (limit "
+        f"{HL_SCORE_TOL})")
+    if not worst <= HL_SCORE_TOL:
+        raise AssertionError(f"HL fused scores disagree across impls: {worst}")
+
+    ds = HLDataset(dataclasses.replace(cfg.data, domain=domains[0]))
+    batch = collate_hl([ds[i] for i in range(4)], cfg.data.max_q_l, cfg.data.max_v_l)
+    mi = to_device({k: torch.from_numpy(v) for k, v in batch["model_inputs"].items()}, "cuda")
+    tg = to_device({k: torch.from_numpy(v) for k, v in batch["targets"].items()}, "cuda")
+    sd = UniVTG(cfg.model, device="cpu", seed=0).state_dict()
+    step = make_train_step(cfg.weights, tuple(cfg.losses))
+    step_ms = {}
+    for dname in ("float32", "bfloat16"):
+        for impl in ("pallas", "xla"):
+            state = _scan_state(torch, dataclasses.replace(
+                cfg.model, attention_impl=impl, compute_dtype=dname), sd)
+            holder = {}
+
+            def one():
+                holder["m"] = step(state, mi, tg, 0)[1]
+
+            ms = cuda_ms(one, iters=10, warmup=2)
+            us, _, wall_us = _profile_counts(torch, one)
+            flash = sum(t for name, t in us.items()
+                        if any(f"{k}_kernel" in name for k in FLASH_KERNELS))
+            step_ms[f"{dname}_{impl}"] = {
+                "ms": ms, "profiled_host_ms": wall_us / 1e3,
+                "profiled_busy_ms": sum(us.values()) / 1e3, "flash_kernels_ms": flash / 1e3}
+            if not np.isfinite(float(holder["m"]["loss_overall"])):
+                raise AssertionError(f"HL {dname} {impl} step is not finite")
+            del state
+            torch.cuda.empty_cache()
+    log(f"[hl] make_train_step per HL step (B=4, 512 + 32; ms by CUDA events over 10 "
+        f"steps, then one step under torch.profiler: host, device-busy and flash "
+        f"kernel ms; {card}): {json.dumps(step_ms)}")
+    return train_launches, infer_launches, step_ms
+
+
 def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
                  sass):
     """One entry per kernel for the final JSON line: times of the headline
@@ -2477,6 +3006,13 @@ def main() -> int:
         log(f"[main path] int8 tier (quantize, serve, infer-mr) launches: "
             f"{quantize_launches}; the smoke's int8_matmul call: {call_launches}")
         timed("evalsize", phase_eval_size, torch, np, fa, smi, tmp, run_dir)
+        scan_launches = timed("scan", phase_scan_train, torch, np, tmp, corpus)
+        log(f"[main path] scan training launches: {scan_launches}")
+        timed("scan", phase_scan, torch, np, fa, smi, corpus, sd)
+        hl_train_launches, hl_infer_launches, _ = timed("hl", phase_hl, torch, np, fa,
+                                                        smi, tmp)
+        log(f"[main path] HL training launches: {hl_train_launches}; HL inference "
+            f"launches: {hl_infer_launches}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -2497,7 +3033,10 @@ def main() -> int:
                             "eval": eval_launches, "int8_tier": quantize_launches,
                             "int8_smoke_call": call_launches,
                             "ring_serving": ring_serve_launches,
-                            "ring_training": ring_train_launches}, sass)
+                            "ring_training": ring_train_launches,
+                            "scan_training": scan_launches,
+                            "hl_training": hl_train_launches,
+                            "hl_inference": hl_infer_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

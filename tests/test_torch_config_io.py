@@ -22,14 +22,16 @@ from univtg_tpu_torch.train.epoch_runner import StepProfiler
 from univtg_tpu_torch.utils.tb import TBWriter
 
 
-@pytest.mark.parametrize("name", list(presets.PRESETS))  # the six MR presets
+@pytest.mark.parametrize("name", list(presets.PRESETS))  # six MR presets, two HL
 def test_preset_round_trips_through_json(name):
     cfg = presets.PRESETS[name](**{"bsz": 16, "model.hidden_dim": 512, "weights.b": 5.0})
-    back = config_io.from_json(TrainConfig, config_io.to_json(cfg))
+    back = config_io.from_json(type(cfg), config_io.to_json(cfg))
     assert back == cfg
     assert isinstance(back.model, ModelConfig) and isinstance(back.weights, LossWeights)
-    assert back.train_data.v_feat_dirs == cfg.train_data.v_feat_dirs
-    assert isinstance(back.train_data.v_feat_dirs, tuple)
+    data, want = ((back.train_data, cfg.train_data) if isinstance(cfg, TrainConfig)
+                  else (back.data, cfg.data))
+    assert data.v_feat_dirs == want.v_feat_dirs
+    assert isinstance(data.v_feat_dirs, tuple)
 
 
 def _common(a, b, path=""):

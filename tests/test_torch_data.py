@@ -128,8 +128,9 @@ def test_strip_meta_and_prefetch_keep_order_and_dtype(corpus):
     mi8, _ = strip_meta(batches[0], "int8")
     assert "src_vid" not in mi8 and mi8["src_vid_q"].dtype == torch.int8
     assert mi8["src_vid_scale"].shape == mi["src_vid"].shape[:2]
-    with pytest.raises(ValueError, match="float16"):
-        strip_meta(batches[0], "float16")
+    assert strip_meta(batches[0], "float16")[0]["src_vid"].dtype == torch.float16
+    with pytest.raises(ValueError, match="int16"):
+        strip_meta(batches[0], "int16")
     out = list(device_prefetch(batches, lambda b: to_device(strip_meta(b)[0], "cpu"), 2))
     for b, o in zip(batches, out, strict=True):
         np.testing.assert_array_equal(o["src_vid"].numpy(), b["model_inputs"]["src_vid"])

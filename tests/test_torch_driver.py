@@ -170,7 +170,7 @@ def test_cli_defaults_to_cuda_for_train_mr():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("scan_steps", 2), ("dp", 2), ("tp", 2),
+    ("dp", 2), ("tp", 2),
     ("pp", 2), ("ep", 2), ("num_shards", 2), ("model_id", "moment_detr"),
     ("inject_fault_epoch", 0),
 ])

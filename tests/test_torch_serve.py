@@ -243,10 +243,12 @@ def test_port_imports_nothing_of_jax():
         "for m in pkgutil.walk_packages(univtg_tpu_torch.__path__, 'univtg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-        "'univtg_tpu')]\n"
+        "'ml_dtypes', 'univtg_tpu')]\n"
         "n = sum(m.startswith('univtg_tpu_torch.') for m in sys.modules)\n"
         "print(n, bad)\n"
         "assert not bad, bad\n"
+        "for name in ('train.driver_hl', 'data.hl', 'evals.hl_domain', 'train.steps'):\n"
+        "    assert 'univtg_tpu_torch.' + name in sys.modules, name\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           timeout=120)

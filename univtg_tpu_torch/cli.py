@@ -4,6 +4,10 @@
       [--resume ckpt] [--device cuda] [key=value ...]
   python -m univtg_tpu_torch.cli infer-mr --preset qvhighlights_mr \\
       --resume model_best.ckpt [--out preds.jsonl] [--device cuda] [key=value ...]
+  python -m univtg_tpu_torch.cli train-hl --preset tvsum_hl [--device cuda] \\
+      [key=value ...]
+  python -m univtg_tpu_torch.cli infer-hl --preset tvsum_hl --ckpt-dir DIR \\
+      [--device cuda] [key=value ...]
   python -m univtg_tpu_torch.cli eval --submission preds.jsonl --gt val.jsonl
   python -m univtg_tpu_torch.cli quantize --preset qvhighlights_mr \\
       --resume model_best.ckpt --out model_int8.ckpt [key=value ...]
@@ -13,11 +17,14 @@
       --v-feat-dirs data/x/vid_slowfast data/x/vid_clip \\
       --q-feat-dir data/x/txt_clip --out-dir data/x/h5py
 
-``train-mr``, ``infer-mr`` and ``quantize`` take a preset
-(univtg_tpu_torch/presets.py) and dotted ``key=value`` overrides of its
-TrainConfig, e.g. ``bsz=16 model.attention_impl=pallas eval_data=None``;
-values parse as Python literals, else stay strings. ``infer-mr`` scores
-the preset's eval split and writes the submission jsonl; ``eval`` scores a
+``train-mr``, ``infer-mr``, ``train-hl``, ``infer-hl`` and ``quantize``
+take a preset (univtg_tpu_torch/presets.py) and dotted ``key=value``
+overrides of its TrainConfig (HLTrainConfig for the HL commands), e.g.
+``bsz=16 model.attention_impl=pallas eval_data=None``; values parse as
+Python literals, else stay strings. ``infer-mr`` scores the preset's eval
+split and writes the submission jsonl; ``train-hl`` trains a model per
+highlight-detection domain and prints the best mAPs; ``infer-hl`` scores
+the ``model_{domain}_best.ckpt`` files of ``--ckpt-dir``; ``eval`` scores a
 submission file against ground truth; ``quantize`` writes an int8 serving
 checkpoint. ``serve --resume`` takes an upstream-format torch checkpoint
 ({'model': state_dict}), such as the ``model_best.ckpt`` that train-mr
@@ -115,6 +122,22 @@ def cmd_infer_mr(args):
     save_jsonl(submission, args.out or "inference_preds.jsonl")
     metrics = evaluate_submission(submission, eval_ds.data)
     print(json.dumps(metrics["brief"], indent=1))
+
+
+def cmd_train_hl(args):
+    """Highlight-detection training, one model per domain (train/driver_hl.py)."""
+    from univtg_tpu_torch.train.driver_hl import train_hl
+
+    print(json.dumps(train_hl(_preset_cfg(args), device=args.device), indent=1))
+
+
+def cmd_infer_hl(args):
+    """Per-domain mAP of the best HL checkpoints (the reference's
+    main/inference_hl.py)."""
+    from univtg_tpu_torch.train.driver_hl import infer_hl
+
+    print(json.dumps(infer_hl(_preset_cfg(args), args.ckpt_dir, device=args.device),
+                     indent=1))
 
 
 def cmd_eval(args):
@@ -228,6 +251,17 @@ def build_parser():
     sp.add_argument("--resume", required=True)
     sp.add_argument("--out", default=None,
                     help="submission jsonl (default inference_preds.jsonl)")
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("train-hl")
+    sp.set_defaults(fn=cmd_train_hl)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("infer-hl")
+    sp.set_defaults(fn=cmd_infer_hl)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--ckpt-dir", required=True)
     sp.add_argument("--device", default="cuda", help=device_help)
     sp.add_argument("overrides", nargs="*")
     sp = sub.add_parser("eval")

@@ -1,6 +1,6 @@
 """Device prefetch: overlap host batch prep + host->device transfer with
 device compute; a copy of ``univtg_tpu/data/prefetch.py`` plus
-``to_device``.
+``to_device`` and ``to_pinned``.
 
 The training loop's per-step critical path is
     collate -> cast -> host-to-device copy -> train_step
@@ -35,6 +35,15 @@ def to_device(tree: dict, device) -> dict:
         return dict(tree)
     return {k: v.pin_memory().to(device, non_blocking=True)
             for k, v in tree.items()}
+
+
+def to_pinned(tree: dict, device) -> dict:
+    """{name: CPU tensor} -> the same in pinned memory when ``device`` is a
+    CUDA device (the scan step copies them into its graph's buffers), as
+    they are otherwise."""
+    if torch.device(device).type != "cuda":
+        return dict(tree)
+    return {k: v.pin_memory() for k, v in tree.items()}
 
 
 def device_prefetch(

@@ -1,10 +1,11 @@
-"""Synthetic QVHighlights-style corpus generator; a copy of
-``univtg_tpu/data/synthetic.py:create_synthetic_mr_corpus``.
+"""Synthetic corpus generators; copies of
+``univtg_tpu/data/synthetic.py:create_synthetic_mr_corpus`` and
+``create_synthetic_hl_corpus`` (TVSum/YouTube-HL style).
 
 Produces jsonl metadata + per-id npz feature dirs with a *learnable* signal:
 inside the GT window, video features point toward the query embedding; the
 saliency annotator scores follow the same signal. The same seed writes the
-same corpus as the JAX package's generator."""
+same corpus as the JAX package's generators."""
 from __future__ import annotations
 
 import json
@@ -78,5 +79,77 @@ def create_synthetic_mr_corpus(
         "v_dim": v_dim,
         "q_dim": q_dim,
         "clip_len": clip_len,
+        "max_clips": max_clips,
+    }
+
+
+def create_synthetic_hl_corpus(
+    root: str,
+    dset_name: str = "tvsum",
+    n_train: int = 8,
+    n_val: int = 4,
+    v_dim: int = 64,
+    q_dim: int = 32,
+    max_clips: int = 60,
+    seed: int = 0,
+):
+    """TVSum/YouTube-style corpus: annotations json + feature dirs + a
+    single-domain split table."""
+    rng = np.random.default_rng(seed)
+    vid_dir = os.path.join(root, "hl_vid")
+    txt_dir = os.path.join(root, "hl_txt")
+    os.makedirs(vid_dir, exist_ok=True)
+    os.makedirs(txt_dir, exist_ok=True)
+
+    label, train_ids, val_ids = {}, [], []
+    for i in range(n_train + n_val):
+        vid = f"hlv_{i}"
+        n = int(rng.integers(max_clips // 2, max_clips + 1))
+        q = rng.standard_normal(q_dim).astype(np.float32)
+        feats = 0.5 * rng.standard_normal((n, v_dim)).astype(np.float32)
+        highlight = rng.uniform(0, 1, n) > 0.75
+        if not highlight.any():
+            highlight[int(rng.integers(0, n))] = True
+        proj = np.zeros(v_dim, np.float32)
+        proj[: q_dim] = q
+        feats[highlight] += proj
+        np.savez(os.path.join(vid_dir, f"{vid}.npz"), features=feats)
+        np.savez(
+            os.path.join(txt_dir, f"{vid}.npz"),
+            last_hidden_state=q[None] + 0.1 * rng.standard_normal((4, q_dim)).astype(np.float32),
+        )
+        if dset_name == "tvsum":
+            base = np.where(highlight[:, None], 4.0, 1.0)
+            anno = base + rng.normal(0, 0.5, (n, 20))
+            label[vid] = {
+                "anno": anno.tolist(),
+                "frames": n * 32,
+                "fps": 16,
+                "domain": "SYN",
+                "title": f"synthetic {vid}",
+            }
+        else:
+            label[vid] = {
+                "match": highlight.astype(float).tolist(),
+                "clip": list(range(n)),
+                "frames": n * 32,
+                "fps": 16,
+                "domain": "SYN",
+            }
+        (train_ids if i < n_train else val_ids).append(vid)
+
+    anno_path = os.path.join(root, f"{dset_name}_anno.json")
+    with open(anno_path, "w") as f:
+        json.dump(label, f)
+    splits_path = os.path.join(root, f"{dset_name}_splits.json")
+    with open(splits_path, "w") as f:
+        json.dump({"SYN": {"train": train_ids, "val": val_ids}}, f)
+    return {
+        "anno_path": anno_path,
+        "splits_path": splits_path,
+        "v_feat_dirs": [vid_dir],
+        "q_feat_dir": txt_dir,
+        "v_dim": v_dim,
+        "q_dim": q_dim,
         "max_clips": max_clips,
     }

@@ -42,8 +42,8 @@ def _safe_div(num, den):
 
 def _clip(x, lo: float, hi: float):
     """jnp.clip(x, lo, hi) = minimum(hi, maximum(lo, x)), ties halved."""
-    lo_t = torch.tensor(lo, dtype=x.dtype, device=x.device)
-    hi_t = torch.tensor(hi, dtype=x.dtype, device=x.device)
+    lo_t = torch.full((), lo, dtype=x.dtype, device=x.device)
+    hi_t = torch.full((), hi, dtype=x.dtype, device=x.device)
     return torch.minimum(torch.maximum(x, lo_t), hi_t)
 
 
@@ -134,7 +134,7 @@ def loss_saliency(outputs, targets, gates=None):
     mask = targets["timestamp_mask"]
     selected = sal[batch_idx, pos_idx][:, None]  # (B, 1)
     below = (sal < selected).to(mask.dtype)
-    below[batch_idx, pos_idx] = 1.0
+    below = below.scatter(1, pos_idx[:, None], 1.0)  # no host scalar: capturable
     in_mask = below * mask
 
     sim_in = _cosine_rows(vid_mem, txt_feats[:, None, :])  # (B, Lv)

@@ -137,8 +137,9 @@ class UniVTG(nn.Module):
         raw_spans = self.span_embed(vid_mem, vmask)
         if cfg.span_loss_type == "l1":
             # (-sigmoid, +sigmoid): left offsets negative, right positive
-            sign = torch.tensor([-1.0, 1.0], dtype=dt, device=raw_spans.device)
-            pred_spans = torch.sigmoid(raw_spans) * sign
+            # (no host tensor: a CUDA graph cannot capture its copy)
+            spans = torch.sigmoid(raw_spans)
+            pred_spans = torch.cat([-spans[..., :1], spans[..., 1:]], dim=-1)
         else:
             pred_spans = raw_spans  # (B, Lv, 2*max_v_l) start/end logits
 

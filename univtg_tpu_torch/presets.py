@@ -2,16 +2,19 @@
 ``univtg_tpu/presets.py`` (QVHighlights, Charades-STA, Ego4D-NLQ, TACoS,
 ActivityNet, DiDeMo), each with its train and eval split and the same
 hyperparameters (the reference's launch scripts: slowfast 2304 + CLIP 512
-(+2 TEF) video, CLIP 512 text). The highlight-detection, QFVS and
-pretraining presets come with their drivers (ROADMAP.md).
+(+2 TEF) video, CLIP 512 text), and the highlight-detection presets
+(``youtube_hl``, ``tvsum_hl``). The QFVS and pretraining presets come with
+their drivers (ROADMAP.md).
 """
 from __future__ import annotations
 
 import dataclasses
 
+from univtg_tpu_torch.data.hl import HLDataConfig
 from univtg_tpu_torch.data.mr import MRDataConfig
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
+from univtg_tpu_torch.train.driver_hl import HLTrainConfig
 from univtg_tpu_torch.train.driver_mr import TrainConfig
 
 SLOWFAST_DIM = 2304
@@ -146,6 +149,37 @@ def didemo_mr(data_root="data/didemo", results_dir="results/mr-didemo", **kw):
     )
 
 
+def _hl(dset_name, data_root, results_dir, **kw) -> HLTrainConfig:
+    """The HL template: the flagship on 2304 + 512 + 2 = 2818-d video, bsz
+    4, lr 1e-4, 200 epochs, labels + saliency (b=0, g=0, f=10,
+    s_intra=0.1, s_inter=0.1)."""
+    cfg = HLTrainConfig(
+        model=flagship_model(vid_dim=SLOWFAST_DIM + CLIP_DIM + TEF_DIM),
+        data=HLDataConfig(
+            dset_name=dset_name,
+            anno_path=f"{data_root}/{dset_name}_anno.json",
+            v_feat_dirs=(f"{data_root}/vid_slowfast", f"{data_root}/vid_clip"),
+            q_feat_dir=f"{data_root}/txt_clip",
+        ),
+        results_dir=results_dir,
+        bsz=4,
+        n_epoch=200,
+        lr=1e-4,
+        weights=LossWeights(b=0, g=0, f=10, s_intra=0.1, s_inter=0.1),
+    )
+    for k, v in kw.items():
+        cfg = _replace(cfg, k, v)
+    return cfg
+
+
+def youtube_hl(data_root="data/youtube", results_dir="results/hl-youtube", **kw):
+    return _hl("youtube", data_root, results_dir, **kw)
+
+
+def tvsum_hl(data_root="data/tvsum", results_dir="results/hl-tvsum", **kw):
+    return _hl("tvsum", data_root, results_dir, **kw)
+
+
 def _replace(cfg, key, value):
     """dataclasses.replace along a dotted path (``model.hidden_dim``)."""
     if "." in key:
@@ -164,4 +198,6 @@ PRESETS = {
     "tacos_mr": tacos_mr,
     "anet_mr": anet_mr,
     "didemo_mr": didemo_mr,
+    "youtube_hl": youtube_hl,
+    "tvsum_hl": tvsum_hl,
 }

@@ -14,11 +14,14 @@ full metrics to ``metrics_eNNNN.json``, the config to ``opt.json``
 trace of the first ``profile_steps`` steps into ``profile_dir``.
 Checkpoints are torch files in the upstream container (train/checkpoint.py).
 ``TrainConfig`` has the JAX package's fields and JSON. What this slice does
-not run raises ``NotImplementedError`` naming ROADMAP.md: ``scan_steps >
-1``, more than one device or process (``dp``/``tp``/``pp``/``ep``,
+not run raises ``NotImplementedError`` naming ROADMAP.md: more than one
+device or process (``dp``/``tp``/``pp``/``ep``,
 ``num_shards``, and with them ``sharded_eval``) and the fault injection of
 their elastic restarts, and Moment-DETR. Checkpoints are written
-synchronously, whatever ``async_checkpoint`` says.
+synchronously, whatever ``async_checkpoint`` says. ``scan_steps = K > 1``
+stacks K batches of one video-length bucket into one call of
+``make_scan_train_step`` (on a card, one CUDA-graph replay); a ragged
+remainder, or a bucket change, goes through the single step.
 """
 from __future__ import annotations
 
@@ -36,13 +39,14 @@ from univtg_tpu_torch.data.collate import collate_mr
 from univtg_tpu_torch.data.features import save_jsonl
 from univtg_tpu_torch.data.loader import Loader
 from univtg_tpu_torch.data.mr import MRDataConfig, MRDataset
+from univtg_tpu_torch.data.prefetch import device_prefetch, to_device, to_pinned
 from univtg_tpu_torch.device import resolve_device
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.models.univtg import UniVTG
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.config_io import snapshot_code, to_json
-from univtg_tpu_torch.train.epoch_runner import StepProfiler, run_train_epoch
+from univtg_tpu_torch.train.epoch_runner import StepProfiler, run_train_epoch, strip_meta
 from univtg_tpu_torch.train.infer_mr import (
     apply_nms,
     evaluate_submission,
@@ -53,7 +57,9 @@ from univtg_tpu_torch.train.steps import (
     TrainState,
     make_eval_step,
     make_optimizer,
+    make_scan_train_step,
     make_train_step,
+    stack_batches,
 )
 from univtg_tpu_torch.utils.tb import TBWriter
 
@@ -110,7 +116,7 @@ class TrainConfig:
     num_shards: int = 1
     scan_steps: int = 1
     tensorboard_dir: str = ""
-    # host-to-device feature copy: "float32", "bfloat16" or "int8" (compute
+    # host-to-device feature copy: a name of epoch_runner.TRANSFER_DTYPES (compute
     # always runs in ModelConfig.compute_dtype); evaluation batches take
     # transfer_dtype_eval, so a training throughput choice never moves the
     # reported metrics
@@ -132,7 +138,6 @@ class TrainConfig:
 
 def _refuse_unported(cfg: TrainConfig):
     unported = {
-        "scan_steps > 1": cfg.scan_steps > 1,
         "dp > 1": (cfg.dp or 1) > 1,
         "tp > 1": cfg.tp > 1,
         "pp > 1": cfg.pp > 1,
@@ -206,6 +211,10 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
 
     train_step = make_train_step(cfg.weights, tuple(cfg.losses),
                                  use_gates=cfg.use_gates)
+    scan_step = None
+    if cfg.scan_steps > 1:
+        scan_step = make_scan_train_step(cfg.weights, tuple(cfg.losses),
+                                         use_gates=cfg.use_gates)
     eval_step = make_eval_step(cfg.eval_mode)
     seed = cfg.seed + 1  # the JAX driver's PRNGKey(seed + 1)
     cfg_json = to_json(cfg)
@@ -232,8 +241,8 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                     # one profiler window per run, over the first
                     # profile_steps steps of the first trained epoch
                     profiler.start()
-                line = _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed,
-                                        dev, train_log, profiler)
+                line = _train_one_epoch(cfg, epoch, train_loader, train_step, scan_step,
+                                        state, seed, dev, train_log, profiler)
                 profiler.stop()  # short epoch: close the trace at epoch end
                 tb.scalars(line, epoch, prefix="train/")
             if eval_ds is not None and (epoch + 1) % cfg.eval_epoch == 0:
@@ -265,30 +274,38 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     return best_metrics, best_path
 
 
-def _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed, dev,
-                     train_log, profiler):
+def _train_one_epoch(cfg, epoch, train_loader, train_step, scan_step, state, seed,
+                     dev, train_log, profiler):
     """One training epoch (the state is updated in place); returns its line
     of train_log.jsonl, written there."""
     train_loader.set_epoch(epoch)
     t0 = time.time()
     # metrics stay on the card until the epoch ends: no host sync per step
-    # (but the one that closes the profiler window); the epoch means are the
-    # reference's AverageMeter
+    # (but the one that closes the profiler window); scan groups record (K,)
+    # tensors, and the epoch means are over steps, the reference's
+    # AverageMeter
     step_metrics = []
+    n_steps = 0
 
     def record(metrics):
+        nonlocal n_steps
         step_metrics.append(metrics)
-        profiler.after_step(len(step_metrics), metrics)
+        n_steps += metrics["loss_overall"].numel()
+        profiler.after_step(n_steps, metrics)
 
-    _, n_steps = run_train_epoch(
-        train_loader, train_step, state, seed, dev,
-        transfer_dtype=cfg.transfer_dtype,
-        prefetch_depth=cfg.prefetch_depth,
-        record=record,
-    )
+    if scan_step is None:
+        run_train_epoch(
+            train_loader, train_step, state, seed, dev,
+            transfer_dtype=cfg.transfer_dtype,
+            prefetch_depth=cfg.prefetch_depth,
+            record=record,
+        )
+    else:
+        _run_scan_epoch(cfg, train_loader, train_step, scan_step, state, seed, dev,
+                        record)
     means = {}
     if step_metrics:
-        stacked = {k: torch.stack([m[k] for m in step_metrics])
+        stacked = {k: torch.cat([m[k].reshape(-1) for m in step_metrics])
                    for k in step_metrics[0]}
         means = {k: float(v.float().mean()) for k, v in stacked.items()}
     line = {"epoch": epoch, "time": time.time() - t0, "steps": n_steps, **means}
@@ -296,6 +313,44 @@ def _train_one_epoch(cfg, epoch, train_loader, train_step, state, seed, dev,
     train_log.flush()
     logger.info(f"epoch {epoch}: {line}")
     return line
+
+
+def _scan_groups(loader, K: int):
+    """The JAX driver's grouping: batches of one video-length bucket in
+    groups of K; a bucket change flushes the pending batches, and the
+    epoch's remainder, one by one (groups of 1)."""
+
+    def vlen(batch):
+        return batch["model_inputs"]["src_vid"].shape[1]
+
+    pending = []
+    for batch in loader:
+        if pending and vlen(batch) != vlen(pending[0]):
+            yield from ([b] for b in pending)
+            pending = []
+        pending.append(batch)
+        if len(pending) == K:
+            yield pending
+            pending = []
+    yield from ([b] for b in pending)
+
+
+def _run_scan_epoch(cfg, train_loader, train_step, scan_step, state, seed, dev,
+                    record):
+    """The scan loop: each group of cfg.scan_steps batches goes to the scan
+    step, stacked and pinned (on a card) in the prefetch thread; a group of
+    one goes to the single step, cast and copied there."""
+
+    def prep(group):
+        if len(group) == cfg.scan_steps:
+            smi, stg = stack_batches(group, cfg.transfer_dtype)
+            return scan_step, to_pinned(smi, dev), to_pinned(stg, dev)
+        mi, tg = strip_meta(group[0], cfg.transfer_dtype)
+        return train_step, to_device(mi, dev), to_device(tg, dev)
+
+    for step, mi, tg in device_prefetch(_scan_groups(train_loader, cfg.scan_steps),
+                                        prep, cfg.prefetch_depth):
+        record(step(state, mi, tg, seed)[1])
 
 
 def _eval_loader(cfg, eval_ds):

@@ -2,11 +2,12 @@
 (``strip_meta``, ``StepProfiler``, ``run_train_epoch``).
 
   * ``strip_meta`` -- the collated numpy batch as (model_inputs, targets)
-    torch tensors, the feature tensors cast for the host-to-device copy
-    ("bfloat16" halves its bytes; "int8" quarters them through per-token
-    quantization, data/collate.quantize_for_transfer, which the step undoes
-    on the device, train/steps.dequantize_inputs; compute runs in
-    ModelConfig's compute_dtype either way);
+    torch tensors, the feature tensors cast for the host-to-device copy to
+    any of ``TRANSFER_DTYPES`` ("bfloat16" or "float16" halve its bytes;
+    "int8" quarters them through per-token quantization,
+    data/collate.quantize_for_transfer, which the step undoes on the
+    device, train/steps.dequantize_inputs; compute runs in ModelConfig's
+    compute_dtype either way);
   * ``StepProfiler`` -- the profile_dir/profile_steps torch.profiler
     window, closed after a synchronize (closing it while the card still
     runs the queued steps would record the launches, not the kernels);
@@ -28,7 +29,11 @@ from univtg_tpu_torch.utils.profiling import trace_profiler
 logger = logging.getLogger(__name__)
 
 _FEATURES = ("src_txt", "src_vid")
-TRANSFER_DTYPES = ("float32", "bfloat16", "int8")
+# the JAX package casts to any dtype name numpy or ml_dtypes knows; the port
+# takes the floating ones torch has under the same name, and "int8" (the
+# per-token quantization). Any other name raises ValueError.
+TRANSFER_DTYPES = ("float16", "bfloat16", "float32", "float64", "float8_e4m3fn",
+                   "float8_e4m3fnuz", "float8_e5m2", "float8_e5m2fnuz", "int8")
 
 
 def strip_meta(batch, transfer_dtype: str = "float32"):
@@ -44,9 +49,10 @@ def strip_meta(batch, transfer_dtype: str = "float32"):
     if transfer_dtype == "int8":
         mi = quantize_for_transfer(mi)
     mi = {k: torch.from_numpy(np.ascontiguousarray(v)) for k, v in mi.items()}
-    if transfer_dtype == "bfloat16":
+    if transfer_dtype not in ("float32", "int8"):
         for k in _FEATURES:
-            mi[k] = mi[k].to(torch.bfloat16)
+            if k in mi:
+                mi[k] = mi[k].to(getattr(torch, transfer_dtype))
     tg = {k: torch.from_numpy(np.ascontiguousarray(v))
           for k, v in batch["targets"].items()}
     return mi, tg

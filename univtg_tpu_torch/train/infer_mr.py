@@ -84,9 +84,10 @@ def run_inference(
     """Run the eval step over a loader's collated batches on the model's
     device; returns submission rows.
 
-    transfer_dtype: "float32", "bfloat16", or "int8", which quantizes the
-    input features on the host to cut the host-to-device copy 4x
-    (data/collate.quantize_for_transfer) and dequantizes them on the device.
+    transfer_dtype: one of epoch_runner.TRANSFER_DTYPES: a float name casts
+    the input features for the copy; "int8" quantizes them on the host to
+    cut the host-to-device copy 4x (data/collate.quantize_for_transfer) and
+    dequantizes them on the device.
     """
     if eval_step is None:
         eval_step = make_eval_step(eval_mode)

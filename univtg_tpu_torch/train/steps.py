@@ -1,13 +1,15 @@
 """The train and eval steps and the device-side decode; counterpart of
 ``univtg_tpu/train/steps.py`` (``make_optimizer``, ``TrainState``,
 ``step_dropout_rngs``, ``dequantize_inputs``, ``forward``,
-``make_train_step``, ``make_eval_step``, ``decode_dense_outputs``).
+``make_train_step``, ``make_scan_train_step``, ``stack_batches``,
+``make_eval_step``, ``decode_dense_outputs``).
 
 PyTorch runs eagerly, so the train step is a plain function over a mutable
 ``TrainState``: forward in train mode, ``compute_losses``, backward, the
 global-norm clip and AdamW, with every metric left on the device (no host
-sync per step). The eval step is the forward in eval mode and the dense
-decode, under ``torch.inference_mode()``.
+sync per step). The scan step runs K of them per call, on a card as one
+CUDA-graph replay (``ScanTrainStep``). The eval step is the forward in eval
+mode and the dense decode, under ``torch.inference_mode()``.
 """
 from __future__ import annotations
 
@@ -18,6 +20,7 @@ import numpy as np
 import torch
 
 from univtg_tpu_torch.models.losses import LossWeights, compute_losses
+from univtg_tpu_torch.train.epoch_runner import strip_meta
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -29,13 +32,19 @@ class ClippedAdamW:
     """optax ``chain(clip_by_global_norm(grad_clip), adamw(schedule, b1=0.9,
     b2=0.999, eps=1e-8, weight_decay))`` over a model's parameters.
 
-    ``step(count)`` clips the gradients in place with optax's formula
-    (``g / norm * max_norm`` when ``norm >= max_norm``; torch's
-    ``clip_grad_norm_`` adds 1e-6 to the norm instead), sets the rate to
-    ``schedule(count)`` -- optax reads the schedule at the count before the
-    increment -- and takes one AdamW step. Every parameter decays, biases
-    and LayerNorms included: one parameter group, as optax.adamw does.
-    Returns the unclipped global norm, on the device.
+    ``step(count)`` gives every parameter without a gradient a zero one
+    (optax decays every parameter; torch's AdamW skips a ``.grad`` of None,
+    e.g. the span head under HL's losses), clips the gradients in place
+    with optax's formula (``g / norm * max_norm`` when ``norm >=
+    max_norm``; torch's ``clip_grad_norm_`` adds 1e-6 to the norm instead),
+    sets the rate to ``schedule(count)`` -- optax reads the schedule at the
+    count before the increment -- and takes one AdamW step. Every parameter
+    decays, biases and LayerNorms included: one parameter group, as
+    optax.adamw does. Returns the unclipped global norm, on the device.
+
+    On a card AdamW is ``capturable`` and its rate a device tensor, so the
+    step can be captured in a CUDA graph (``make_scan_train_step``);
+    ``step_with_lr(lr)`` takes the rate as such a tensor.
     """
 
     def __init__(self, params, schedule: Callable[[int], float],
@@ -43,9 +52,14 @@ class ClippedAdamW:
         self.params = [p for p in params if p.requires_grad]
         self.schedule = schedule
         self.grad_clip = grad_clip
+        self.capturable = bool(self.params) and self.params[0].is_cuda
+        lr = float(schedule(0))
+        if self.capturable:
+            lr = torch.tensor(lr, dtype=torch.float32, device=self.params[0].device)
+        self.lr = lr
         self.adamw = torch.optim.AdamW(
-            self.params, lr=schedule(0), betas=(0.9, 0.999), eps=1e-8,
-            weight_decay=weight_decay,
+            self.params, lr=lr, betas=(0.9, 0.999), eps=1e-8,
+            weight_decay=weight_decay, capturable=self.capturable,
         )
 
     def zero_grad(self):
@@ -53,22 +67,45 @@ class ClippedAdamW:
 
     @torch.no_grad()
     def step(self, count: int) -> torch.Tensor:
-        grads = [p.grad for p in self.params if p.grad is not None]
+        if self.capturable:
+            self.lr.fill_(float(self.schedule(count)))
+        else:
+            self.lr = float(self.schedule(count))
+        return self.step_with_lr(self.lr)
+
+    @torch.no_grad()
+    def step_with_lr(self, lr) -> torch.Tensor:
+        """The zero fill, the clip and one AdamW step at rate ``lr`` (a
+        float, or on a card a one-element f32 device tensor)."""
+        for p in self.params:
+            if p.grad is None:
+                p.grad = torch.zeros_like(p)
+        grads = [p.grad for p in self.params]
         norm = global_norm(grads)
         if self.grad_clip > 0:
             keep = norm < self.grad_clip
             for g in grads:
                 g.copy_(torch.where(keep, g, g / norm * self.grad_clip))
         for group in self.adamw.param_groups:
-            group["lr"] = float(self.schedule(count))
+            group["lr"] = lr
         self.adamw.step()
         return norm
 
     def state_dict(self):
-        return self.adamw.state_dict()
+        state = self.adamw.state_dict()
+        for group in state["param_groups"]:  # a plain rate in the file
+            group["lr"] = float(group["lr"])
+        return state
 
     def load_state_dict(self, state):
+        """torch's AdamW takes ``capturable`` and ``lr`` from the file's
+        param groups; this optimizer keeps its own (a file written on the
+        CPU resumes on a card and the other way round)."""
+        state = {**state, "param_groups": [
+            {**g, "capturable": self.capturable} for g in state["param_groups"]]}
         self.adamw.load_state_dict(state)
+        for group in self.adamw.param_groups:
+            group["lr"] = self.lr
 
 
 def make_optimizer(params, schedule, weight_decay=1e-4, grad_clip=0.1):
@@ -86,14 +123,18 @@ class TrainState:
     step: int = 0
 
 
+def step_seed(seed: int, step: int) -> int:
+    """The 63-bit generator seed of (seed, step)."""
+    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+    return (int(state[0]) << 32 | int(state[1])) & 0x7FFFFFFFFFFFFFFF
+
+
 def step_generator(seed: int, step: int, device) -> torch.Generator:
     """The step's dropout/droppath generator, on ``device``, seeded from
     (seed, step): a resumed run draws the same masks. Counterpart of
     ``step_dropout_rngs`` (its bits differ: torch's generator is not the
     TPU's)."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
-    s = (int(state[0]) << 32 | int(state[1])) & 0x7FFFFFFFFFFFFFFF
-    return torch.Generator(device=device).manual_seed(s)
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
 
 
 def dequantize_inputs(model_inputs):
@@ -122,6 +163,23 @@ def forward(model, model_inputs, *, train=False, generator=None):
     return model(*args, train=train, generator=generator)
 
 
+def _train_body(state: TrainState, model_inputs, targets, generator, update,
+                weights, losses, use_gates, static_inputs=None):
+    """Forward in train mode, losses, backward and ``update()`` (the
+    optimizer step, returning the global norm); returns the metrics."""
+    if static_inputs:
+        model_inputs = {**model_inputs, **static_inputs}
+    state.model.train()
+    outputs = forward(state.model, model_inputs, train=True, generator=generator)
+    gates = targets.get("gates") if use_gates else None
+    loss_dict = compute_losses(outputs, targets, weights, losses, gates)
+    state.optimizer.zero_grad()
+    loss_dict["loss_overall"].backward()
+    metrics = {k: v.detach() for k, v in loss_dict.items()}
+    metrics["grad_norm"] = update()
+    return metrics
+
+
 def make_train_step(weights: LossWeights,
                     losses: Sequence[str] = ("spans", "labels", "saliency"),
                     use_gates: bool = False, static_inputs=None):
@@ -135,24 +193,184 @@ def make_train_step(weights: LossWeights,
     """
 
     def step(state: TrainState, model_inputs, targets, seed: int):
-        model = state.model
-        device = next(model.parameters()).device
-        if static_inputs:
-            model_inputs = {**model_inputs, **static_inputs}
-        model.train()
-        outputs = forward(model, model_inputs, train=True,
-                          generator=step_generator(seed, state.step, device))
-        gates = targets.get("gates") if use_gates else None
-        loss_dict = compute_losses(outputs, targets, weights, losses, gates)
-        state.optimizer.zero_grad()
-        loss_dict["loss_overall"].backward()
-        grad_norm = state.optimizer.step(state.step)
+        device = next(state.model.parameters()).device
+        metrics = _train_body(
+            state, model_inputs, targets, step_generator(seed, state.step, device),
+            lambda: state.optimizer.step(state.step), weights, losses, use_gates,
+            static_inputs)
         state.step += 1
-        metrics = {k: v.detach() for k, v in loss_dict.items()}
-        metrics["grad_norm"] = grad_norm
         return state, metrics
 
     return step
+
+
+def stack_batches(batches, transfer_dtype: str = "float32"):
+    """K collated batches -> (model_inputs, targets) CPU tensors with a
+    leading K axis, meta dropped, each batch cast as ``strip_meta`` casts
+    it for the single step (JAX ``stack_batches``)."""
+    pairs = [strip_meta(b, transfer_dtype) for b in batches]
+
+    def stack(trees):
+        return {k: torch.stack([t[k] for t in trees]) for k in trees[0]}
+
+    return stack([mi for mi, _ in pairs]), stack([tg for _, tg in pairs])
+
+
+def _replay_counters():
+    """The kernel launch and attention dispatch counts, which the wrappers
+    add to in Python: at a graph's capture, not at its replays."""
+    from univtg_tpu_torch.ops import attention, flash_attention, int8_matmul
+    from univtg_tpu_torch.ops import ring_attention_pallas
+
+    return (attention.dispatches, flash_attention.launches, int8_matmul.launches,
+            ring_attention_pallas.launches)
+
+
+def _shapes(tree):
+    return tuple((k, tuple(v.shape), v.dtype) for k, v in sorted(tree.items()))
+
+
+class _Group:
+    """One key's static (K, ...) input buffers, its (K,) rates, and, once
+    captured, its graph, the graph's (K,) metrics and what its capture
+    counted."""
+
+    def __init__(self, stacked_mi, stacked_tg, K, device):
+        def buffers(tree):
+            return {k: torch.empty(v.shape, dtype=v.dtype, device=device)
+                    for k, v in tree.items()}
+
+        self.mi, self.tg = buffers(stacked_mi), buffers(stacked_tg)
+        self.lr = torch.empty(K, dtype=torch.float32, device=device)
+        self.graph = None
+        self.metrics = None
+        self.counts = None
+
+
+class ScanTrainStep:
+    """K training steps per call over K stacked batches; the counterpart of
+    JAX ``make_scan_train_step`` (``lax.scan``, one dispatch per K steps).
+
+    (state, stacked_model_inputs, stacked_targets, seed) -> (state,
+    stacked_metrics): the inputs carry a leading K axis (``stack_batches``),
+    every metric too (``grad_norm`` included, which JAX's scan drops).
+
+    On the CPU the K single steps of ``make_train_step`` run in order, with
+    the same bits. On a card there is one ``torch.cuda.CUDAGraph`` per key
+    (K, the attention impl and the shapes and dtypes of the stacked
+    inputs), all in one memory pool, capturing K steps (forward, losses,
+    backward, zero fill, clip, AdamW) over static (K, ...) buffers that each
+    call fills by ``copy_`` from pinned memory: one ``replay()`` per K
+    steps. A key's first call runs the same K steps eagerly on the capture
+    stream (cuBLAS, the kernels' libraries and their attributes, AdamW's
+    state come into being there); its second call captures and replays. A
+    failed capture or replay raises. Dropout draws from one CUDA generator
+    registered with every graph, seeded before every call from (seed, the step
+    at the group's start), so a resumed run draws the same masks; its bits
+    differ from the single step's. Each step ``k`` reads its rate from a
+    (K,) device buffer filled from ``schedule(step + k)``. The launch and
+    dispatch counters count once per replay what the capture counted. A
+    graph holds the addresses of the parameters, gradients and AdamW state
+    of the state it captured, so one ScanTrainStep serves one TrainState,
+    loaded before the first call. Under an active ring it raises.
+    """
+
+    def __init__(self, weights, losses, use_gates):
+        self.weights, self.losses, self.use_gates = weights, tuple(losses), use_gates
+        self.single = make_train_step(weights, self.losses, use_gates)
+        self.groups = {}
+        self.stream = self.pool = self.generator = None
+
+    def __call__(self, state: TrainState, stacked_mi, stacked_tg, seed: int):
+        from univtg_tpu_torch.parallel.ring import active_ring
+
+        impl = state.model.cfg.attention_impl
+        if impl in ("ring", "ring_pallas") and active_ring() is not None:
+            raise NotImplementedError(
+                "scan_steps > 1 under an active ring: the ring's streams and "
+                "events are not captured in a CUDA graph yet (ROADMAP.md, queue 1)")
+        K = int(next(iter(stacked_mi.values())).shape[0])
+        device = next(state.model.parameters()).device
+        if device.type != "cuda":
+            per_step = []
+            for i in range(K):
+                state, m = self.single(state, {k: v[i] for k, v in stacked_mi.items()},
+                                       {k: v[i] for k, v in stacked_tg.items()}, seed)
+                per_step.append(m)
+            return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+        return state, self._on_card(state, stacked_mi, stacked_tg, seed, K, impl, device)
+
+    def _steps(self, state, group, K):
+        """The K steps over the group's buffers (eager, or under capture)."""
+        per_step = []
+        for i in range(K):
+            lr = group.lr[i]
+            per_step.append(_train_body(
+                state, {k: v[i] for k, v in group.mi.items()},
+                {k: v[i] for k, v in group.tg.items()}, self.generator,
+                lambda: state.optimizer.step_with_lr(lr), self.weights, self.losses,
+                self.use_gates))
+        return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
+
+    def _on_card(self, state, stacked_mi, stacked_tg, seed, K, impl, device):
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(device)
+            self.pool = torch.cuda.graph_pool_handle()
+            self.generator = torch.Generator(device=device)
+        key = (K, impl, _shapes(stacked_mi), _shapes(stacked_tg))
+        group = self.groups.get(key)
+        first = group is None
+        if first:
+            group = self.groups[key] = _Group(stacked_mi, stacked_tg, K, device)
+        rates = torch.tensor([float(state.optimizer.schedule(state.step + i))
+                              for i in range(K)], dtype=torch.float32)
+        for dst, src in ((group.mi, stacked_mi), (group.tg, stacked_tg)):
+            for k, v in src.items():
+                if not (v.is_cuda or v.is_pinned()):
+                    v = v.pin_memory()
+                dst[k].copy_(v, non_blocking=True)
+        group.lr.copy_(rates.pin_memory(), non_blocking=True)
+        current = torch.cuda.current_stream(device)
+        if first:
+            self.generator.manual_seed(step_seed(seed, state.step))
+            self.stream.wait_stream(current)
+            with torch.cuda.stream(self.stream):
+                metrics = self._steps(state, group, K)
+            current.wait_stream(self.stream)
+        else:
+            if group.graph is None:
+                self._capture(state, group, K)
+            self.generator.manual_seed(step_seed(seed, state.step))
+            group.graph.replay()
+            for counts, made in zip(_replay_counters(), group.counts):
+                for name, n in made.items():
+                    counts[name] += n
+            metrics = {k: v.clone() for k, v in group.metrics.items()}
+        state.step += K
+        return metrics
+
+    def _capture(self, state, group, K):
+        graph = torch.cuda.CUDAGraph()
+        graph.register_generator_state(self.generator)
+        before = [dict(c) for c in _replay_counters()]
+        # thread_local: the driver's prefetch thread pins and copies the next
+        # batches meanwhile, which a global capture would count against it
+        with torch.cuda.graph(graph, pool=self.pool, stream=self.stream,
+                              capture_error_mode="thread_local"):
+            group.metrics = self._steps(state, group, K)
+        # the capture ran no kernel: its counts come back at each replay
+        group.counts = []
+        for counts, was in zip(_replay_counters(), before):
+            group.counts.append({k: counts[k] - was[k] for k in counts})
+            counts.update(was)
+        group.graph = graph
+
+
+def make_scan_train_step(weights: LossWeights,
+                         losses: Sequence[str] = ("spans", "labels", "saliency"),
+                         use_gates: bool = False) -> ScanTrainStep:
+    """K same-shape training steps per call (``ScanTrainStep``)."""
+    return ScanTrainStep(weights, losses, use_gates)
 
 
 def make_eval_step(eval_mode: Optional[str] = "add"):
