@@ -146,6 +146,30 @@ printing its seconds:
                  make_train_step ms per HL step (B=4, 512 + 32), "pallas"
                  vs "xla", f32 and bf16. Phase 3 checks the kernels at
                  HL_SHAPE too.
+  7g. qfvs    -- query-focused summarization: a UT-Egocentric-shaped tree
+                 at full width (QFVS_VIDEOS videos of 20 segments x 200
+                 frames, 512-d features + 2 TEF, 4 concepts of 3 tokens),
+                 its grids kept in memory (data/qfvs.load_video_grid, the
+                 one h5 read, replaced, so that no h5py is needed),
+                 `cli train-qfvs --preset qfvs` on "pallas", f32,
+                 QFVS_SPLITS of the 4 leave-one-out splits x QFVS_EPOCHS
+                 epochs evaluated each epoch (12 launches of each kernel per
+                 step: three forwards into one backward; 4 flash_fwd per eval
+                 forward; qfvs_metrics.json with each split's F/R/P and
+                 AVG_F); `cli infer-qfvs` on "pallas" and "xla": F/R/P equal
+                 to training's best and across impls (near-ties at the top-2%
+                 cut excepted), per-shot scores within QFVS_SCORE_TOL;
+                 make_qfvs_train_step ms and one profiled step, "pallas" vs
+                 "xla", f32 and bf16. Phase 3 checks QFVS_SHAPES too.
+  7h. vlp     -- one-process pretraining: train_vlp on the vlp_pretrain
+                 preset (bsz 64) over three full-width synthetic corpora
+                 (point, interval, curve; VLP_PER_TYPE items each) with a
+                 VLP_VAL-query zero-shot val split, "pallas", f32,
+                 VLP_EPOCHS epochs (4 launches of each kernel per step, 4
+                 flash_fwd per eval batch; MR-full-mAP-key in the brief
+                 metrics); 3 gated f32 steps at dropouts 0, the third on an
+                 all-curve batch, "pallas" vs "xla" at TRAIN_TOL; the step's
+                 ms at B = 64, f32 and bf16. Phase 3 checks VLP_SHAPE too.
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -162,7 +186,10 @@ run (its evaluations included), eval phase 7b's bf16 infer-mr run,
 quantize phase 7c's entry points, ring serving phase 6b's ring dispatches,
 ring training phase 9b's ring_pallas steps, scan training phase 7e's
 train-mr run, HL training phase 7f's train-hl run (its evaluations
-included) and HL inference its "pallas" infer-hl run; the smoke's own
+included) and HL inference its "pallas" infer-hl run, QFVS training and
+inference phase 7g's train-qfvs (evaluations included) and "pallas"
+infer-qfvs runs, VLP training phase 7h's train_vlp run (evaluations
+included); the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
 of a path must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
@@ -401,6 +428,25 @@ KEEP_SIGMAS = 4.0  # the kernels' keep rate over a step, against 1 - rate
 HL_DOMAINS, HL_TRAIN, HL_VAL, HL_EPOCHS = 2, 4, 1, 3
 HL_SCORE_TOL = 2e-3
 HL_SHAPE = {"train_hl": (4, 512 + 32, 8, 128)}
+# QFVS (phase 7g): a UT-Egocentric-shaped tree (QFVS_VIDEOS videos of 20
+# segments x 200 frames of 512-d CLIP features, 4 concepts of 3 tokens each,
+# the synthetic generator's own; the released query.pkl's token counts are
+# not in the repo), `cli train-qfvs --preset qfvs` over QFVS_SPLITS of the 4
+# leave-one-out splits for QFVS_EPOCHS of 20 epochs; per-shot scores
+# "pallas" vs "xla" at phase 4's f32 saliency limit. QFVS_SHAPES, its
+# attention (the segments are the batch: 20 x (200 + 3) for a concept,
+# 20 x (200 + 6) for the oracle's pair), join phase 3's kernel checks
+QFVS_VIDEOS, QFVS_SPLITS, QFVS_EPOCHS = 4, 2, 2
+QFVS_SCORE_TOL = 2e-3
+QFVS_SHAPES = {"train_qfvs_concept": (20, 200 + 3, 8, 128),
+               "train_qfvs_oracle": (20, 200 + 6, 8, 128)}
+# VLP (phase 7h): three synthetic MR corpora at full width (2816-d video,
+# 512-d text, up to 75 clips), one per supervision type, VLP_PER_TYPE train
+# items each, and a VLP_VAL-query QVHighlights-shaped val split;
+# train_vlp on the vlp_pretrain preset (bsz 64) for VLP_EPOCHS of 10 epochs;
+# VLP_SHAPE, its attention (B = 64, 75 clips + 32 tokens), joins phase 3
+VLP_PER_TYPE, VLP_VAL, VLP_EPOCHS = 64, 64, 2
+VLP_SHAPE = {"train_vlp": (64, 75 + 32, 8, 128)}
 
 
 def log(msg: str) -> None:
@@ -1032,7 +1078,8 @@ def _bwd_within(err, dname):
 
 def phase_train_kernels(torch):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their twins at the
-    two training shapes and HL's, f32 and bf16, dropout 0 and 0.1: each output on
+    two training shapes and HL's, QFVS's two and VLP's, f32 and bf16, dropout
+    0 and 0.1: each output on
     its own, relative to the twin's largest value. Kernel times of the
     backward pair come from torch.profiler (one call launches both); each
     backward kernel is timed against its own twin. SDPA has no call for dQ
@@ -1044,7 +1091,8 @@ def phase_train_kernels(torch):
     from univtg_tpu_torch.ops import flash_attention as fa
 
     records = []
-    for shape_name, (B, L, H, dh) in {**TRAIN_SHAPES, **HL_SHAPE}.items():
+    for shape_name, (B, L, H, dh) in {**TRAIN_SHAPES, **HL_SHAPE, **QFVS_SHAPES,
+                                       **VLP_SHAPE}.items():
         for dname in ("float32", "bfloat16"):
             for rate in (0.0, 0.1):
                 dtype = getattr(torch, dname)
@@ -2757,6 +2805,26 @@ def _infer_hl(torch, run_dir, overrides, impl):
     return json.loads(printed.getvalue()), fa.launches["flash_fwd"] - before
 
 
+def _time_step(torch, fn, iters=5):
+    """fn() timed by CUDA events over iters calls after 2 warm ones, then
+    once under torch.profiler: {ms, profiled host ms, busy ms, idle share,
+    flash ms, flash share, flash launches in the trace, peak GiB allocated
+    from the first call on}."""
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(fn, iters=iters, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    us, n, wall_us = _profile_counts(torch, fn)
+    busy = sum(us.values())
+    flash = sum(t for name, t in us.items()
+                if any(f"{k}_kernel" in name for k in FLASH_KERNELS))
+    return {"ms": ms, "profiled_host_ms": wall_us / 1e3, "profiled_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us if busy else None,
+            "flash_kernels_ms": flash / 1e3,
+            "flash_share_of_busy": flash / busy if busy else None,
+            "trace_launches": {k: sum(c for name, c in n.items() if f"{k}_kernel" in name)
+                               for k in FLASH_KERNELS}, "peak_gib": peak}
+
+
 def phase_hl(torch, np, fa, card, tmp):
     """7f, the highlight-detection paths: `cli train-hl --preset tvsum_hl`
     at full width, f32 (the preset's dtype), "pallas", HL_EPOCHS epochs
@@ -2857,13 +2925,7 @@ def phase_hl(torch, np, fa, card, tmp):
             def one():
                 holder["m"] = step(state, mi, tg, 0)[1]
 
-            ms = cuda_ms(one, iters=10, warmup=2)
-            us, _, wall_us = _profile_counts(torch, one)
-            flash = sum(t for name, t in us.items()
-                        if any(f"{k}_kernel" in name for k in FLASH_KERNELS))
-            step_ms[f"{dname}_{impl}"] = {
-                "ms": ms, "profiled_host_ms": wall_us / 1e3,
-                "profiled_busy_ms": sum(us.values()) / 1e3, "flash_kernels_ms": flash / 1e3}
+            step_ms[f"{dname}_{impl}"] = _time_step(torch, one, iters=10)
             if not np.isfinite(float(holder["m"]["loss_overall"])):
                 raise AssertionError(f"HL {dname} {impl} step is not finite")
             del state
@@ -2872,6 +2934,341 @@ def phase_hl(torch, np, fa, card, tmp):
         f"steps, then one step under torch.profiler: host, device-busy and flash "
         f"kernel ms; {card}): {json.dumps(step_ms)}")
     return train_launches, infer_launches, step_ms
+
+
+def _has_h5py() -> bool:
+    import importlib.util
+
+    return importlib.util.find_spec("h5py") is not None
+
+
+def _qfvs_tree(np, tmp):
+    """The UT-Egocentric-shaped tree at full width, its grids held in
+    memory: (corpus, {h5 path: (features, seg_len)}). The smoke needs no
+    h5py: write_video_grid, the generator's one h5 write, keeps the grids
+    instead; tags, oracle summaries, query.pkl and Tags.mat go to disk."""
+    from univtg_tpu_torch.data import synthetic
+
+    grids = {}
+
+    def keep(path, features, seg_len):
+        grids[path] = (features, np.asarray(seg_len, np.int64))
+
+    write = synthetic.write_video_grid
+    synthetic.write_video_grid = keep
+    try:
+        corpus = synthetic.create_synthetic_qfvs_corpus(
+            os.path.join(tmp, "qfvs"), videos=tuple(range(1, QFVS_VIDEOS + 1)),
+            max_segment_num=20, max_frame_num=200, v_dim=512, q_dim=512, seed=0)
+    finally:
+        synthetic.write_video_grid = write
+    return corpus, grids
+
+
+def _qfvs_cli(torch, cmd, *args):
+    """`cli train-qfvs` / `infer-qfvs` in-process on the qfvs preset, its
+    options before its key=value pairs: (printed results, seconds)."""
+    import contextlib
+    import io
+
+    from univtg_tpu_torch import cli
+
+    printed = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli.main([cmd, "--preset", "qfvs", *args])
+    torch.cuda.synchronize()
+    return json.loads(printed.getvalue()), time.perf_counter() - t0
+
+
+def _qfvs_tops_agree(np, a, b, k, tol):
+    """The top-k shots of scores a and b are the same set, but for shots
+    whose b score lies within tol of b's k-th score (near-ties may swap)."""
+    ta = set(np.argsort(-a, kind="stable")[:k].tolist())
+    tb = set(np.argsort(-b, kind="stable")[:k].tolist())
+    kth = np.sort(b)[::-1][k - 1]
+    return all(abs(b[i] - kth) <= tol for i in ta ^ tb)
+
+
+def phase_qfvs(torch, np, card, tmp):
+    """7g, the QFVS paths: `cli train-qfvs --preset qfvs` at full width, f32
+    (the preset's dtype), "pallas", QFVS_SPLITS splits x QFVS_EPOCHS epochs
+    evaluated each epoch (12 launches of each flash kernel per step: three
+    forwards of 4 layers into one backward; 4 flash_fwd per eval forward;
+    qfvs_metrics.json with each split's F/R/P and AVG_F); `cli infer-qfvs`
+    on its checkpoints, "pallas" and "xla": F/R/P equal to training's best
+    and to each other, per-shot scores within QFVS_SCORE_TOL; then
+    make_qfvs_train_step ms per step (CUDA events) and one profiled step,
+    "pallas" vs "xla", f32 and bf16. Returns (training launches, inference
+    launches, step stats)."""
+    from univtg_tpu_torch.data import qfvs as qfvs_data
+
+    t0 = time.perf_counter()
+    corpus, grids = _qfvs_tree(np, tmp)
+    read = qfvs_data.load_video_grid
+    qfvs_data.load_video_grid = lambda cfg, vid: grids[qfvs_data._h5_path(cfg, vid)]
+    seg = [int(g[1].sum()) for g in grids.values()]
+    log(f"[qfvs] synthetic UT-Egocentric-shaped tree: {QFVS_VIDEOS} videos of 20 x 200 "
+        f"frames of 512-d features ({seg} valid shots), concepts {corpus['concepts']} of "
+        f"3 tokens ({time.perf_counter() - t0:.1f} s); data/qfvs.load_video_grid, the "
+        f"port's one grid read (h5, and h5py importable here: {_has_h5py()}), is replaced "
+        f"by a read of the grids kept in memory; every other file of the tree is on disk")
+    try:
+        return _qfvs_paths(torch, np, card, tmp, corpus)
+    finally:
+        qfvs_data.load_video_grid = read
+
+
+def _qfvs_paths(torch, np, card, tmp, corpus):
+    """phase_qfvs's runs, with the grids read from memory."""
+    import dataclasses
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.data import qfvs as qfvs_data
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import compact_to_grid
+    from univtg_tpu_torch.presets import PRESETS
+    from univtg_tpu_torch.train import checkpoint as ckpt
+    from univtg_tpu_torch.train.driver_qfvs import (
+        _test_videos,
+        make_qfvs_train_step,
+        split_scores,
+    )
+
+    base = PRESETS["qfvs"]()
+    splits = tuple(base.splits[:QFVS_SPLITS])
+    run_dir = os.path.join(tmp, "qfvs_run")
+    overrides = [f"data.root={corpus['root']}", f"tags_mat_path={corpus['tags_mat_path']}",
+                 f"splits={splits}"]
+    _reset_launches()  # the QFVS training main path starts here
+    scores, wall = _qfvs_cli(torch, "train-qfvs", *overrides, "model.attention_impl=pallas",
+                             f"n_epoch={QFVS_EPOCHS}", f"results_dir={run_dir}")
+    train_launches = _launches()  # ... and ends here
+    cfg = cli.apply_overrides(base, overrides)
+    tests = [f"V{v}" for v in _test_videos(cfg)]
+    with open(os.path.join(run_dir, "qfvs_metrics.json")) as f:
+        written = json.load(f)
+    items = len(qfvs_data.QFVSDataset(dataclasses.replace(
+        cfg.data, train_videos=tuple(splits[0]))))
+    steps = QFVS_SPLITS * QFVS_EPOCHS * items
+    oracles = len(qfvs_data.QFVSDataset(dataclasses.replace(cfg.data, train_videos=(1,))))
+    eval_fwds = QFVS_SPLITS * QFVS_EPOCHS * oracles
+    want = {name: 12 * steps for name in FLASH_KERNELS}
+    want["flash_fwd"] += 4 * eval_fwds
+    log(f"[qfvs] cli train-qfvs: {steps} steps ({items} items a split) and {eval_fwds} "
+        f"eval forwards over {QFVS_SPLITS} splits in {wall:.2f} s with model builds "
+        f"({card}); best {scores}; launches {train_launches}")
+    if written != scores or set(scores) != {*tests, "AVG_F"} or any(
+            set(scores[t]) != {"F", "R", "P"} for t in tests):
+        raise AssertionError(f"qfvs_metrics.json {written} vs printed {scores}")
+    if {k: train_launches[k] for k in FLASH_KERNELS} != want:
+        raise AssertionError(f"expected 12 launches of each kernel per QFVS step and 4 "
+                             f"flash_fwd per eval forward: {train_launches}, not {want}")
+
+    ckpt_dir = ["--ckpt-dir", run_dir]
+    _reset_launches()  # the QFVS inference main path starts here
+    inferred, _ = _qfvs_cli(torch, "infer-qfvs", *ckpt_dir, *overrides,
+                            "model.attention_impl=pallas")
+    infer_launches = _launches()  # ... and ends here
+    plain, _ = _qfvs_cli(torch, "infer-qfvs", *ckpt_dir, *overrides,
+                         "model.attention_impl=xla")
+    log(f"[qfvs] cli infer-qfvs: pallas {inferred} ({infer_launches['flash_fwd']} "
+        f"flash_fwd launches), xla {plain}")
+    if inferred != scores or infer_launches["flash_fwd"] != 4 * QFVS_SPLITS * oracles:
+        raise AssertionError("infer-qfvs disagrees with train-qfvs or in launches")
+
+    worst, swapped = 0.0, 0
+    for t in tests:
+        video = int(t[1:])
+        by_impl = {}
+        for impl in ("pallas", "xla"):
+            mcfg = dataclasses.replace(cfg.model, attention_impl=impl)
+            model = UniVTG(mcfg, device="cuda")
+            model.load_state_dict(ckpt.restore_params(
+                os.path.join(run_dir, f"model_{t}_best.ckpt"), model.state_dict()))
+            by_impl[impl] = split_scores(dataclasses.replace(cfg, model=mcfg), model, video)
+        tags = len(corpus["videos_tag"][video - 1])
+        for (_, a), (_, b) in zip(by_impl["pallas"], by_impl["xla"], strict=True):
+            worst = max(worst, float(np.abs(a - b).max()))
+            a, b = a[:tags], b[:tags]
+            k = max(int(len(b) * cfg.data.top_percent), 1)
+            if not _qfvs_tops_agree(np, a, b, k, QFVS_SCORE_TOL):
+                raise AssertionError(f"{t}: pallas and xla pick other top-{k} shots")
+            top_a = set(np.argsort(-a, kind="stable")[:k].tolist())
+            swapped += len(top_a ^ set(np.argsort(-b, kind="stable")[:k].tolist()))
+    log(f"[qfvs] f32 per-shot scores, pallas vs xla: max |diff| {worst:.3g} (limit "
+        f"{QFVS_SCORE_TOL}); top-2% shots swapped at near-ties: {swapped}")
+    if not worst <= QFVS_SCORE_TOL:
+        raise AssertionError(f"QFVS scores disagree across impls: {worst}")
+    if plain != inferred and not swapped:
+        raise AssertionError(f"infer-qfvs F/R/P differ across impls: {plain} vs {inferred}")
+
+    ds = qfvs_data.QFVSDataset(dataclasses.replace(cfg.data, train_videos=(splits[0][0],)))
+    item = ds[0]
+    in1, in2, ino, mask_flat = qfvs_data.prepare_qfvs_batch(item, cfg.max_q_l)
+    n = int(item["seg_len"].sum())
+    gts = [compact_to_grid(item[k][:n], item["seg_len"], 20, 200)
+           for k in ("concept1_GT", "concept2_GT", "oracle_summary")]
+
+    def dev(x):
+        if isinstance(x, dict):
+            return {k: torch.from_numpy(v).cuda() for k, v in x.items()}
+        return torch.from_numpy(x).cuda()
+
+    args = [dev(x) for x in (in1, in2, ino, *gts, mask_flat)]
+    sd = UniVTG(cfg.model, device="cpu", seed=0).state_dict()
+    step = make_qfvs_train_step(cfg.weights)
+    step_ms = {}
+    for dname in ("float32", "bfloat16"):
+        for impl in ("pallas", "xla"):
+            state = _scan_state(torch, dataclasses.replace(
+                cfg.model, attention_impl=impl, compute_dtype=dname), sd)
+            holder = {}
+
+            def one():
+                holder["m"] = step(state, *args, 0)[1]
+
+            rec = _time_step(torch, one)
+            step_ms[f"{dname}_{impl}"] = rec
+            if not np.isfinite(float(holder["m"]["loss_overall"])):
+                raise AssertionError(f"QFVS {dname} {impl} step is not finite")
+            if impl == "pallas" and rec["trace_launches"] != {k: 12 for k in FLASH_KERNELS}:
+                raise AssertionError(f"one QFVS step's trace: {rec['trace_launches']}")
+            del state
+            torch.cuda.empty_cache()
+    log(f"[qfvs] make_qfvs_train_step per step (3 forwards at 20 x (200 + 3, 3, 6) into "
+        f"one backward; ms by CUDA events over 5 steps, then one step under "
+        f"torch.profiler; {card}): {json.dumps(step_ms)}")
+    return train_launches, infer_launches, step_ms
+
+
+def _vlp_corpora(tmp):
+    """Three MR corpora at full width, one per supervision type, and the
+    64-query val split of the curve corpus (QVHighlights-shaped): the
+    VLPCorpusSpec tuple and the val corpus."""
+    from univtg_tpu_torch.data.synthetic import create_synthetic_mr_corpus
+    from univtg_tpu_torch.data.vlp import VLPCorpusSpec
+
+    specs, val = [], None
+    for i, (kind, dset) in enumerate((("point", "ego4d"), ("interval", "videocc"),
+                                      ("curve", "videocc"))):
+        c = create_synthetic_mr_corpus(os.path.join(tmp, f"vlp_{kind}"),
+                                       n_train=VLP_PER_TYPE,
+                                       n_val=VLP_VAL if kind == "curve" else 1,
+                                       v_dim=2816, q_dim=512, max_clips=75, seed=20 + i)
+        specs.append(VLPCorpusSpec(data_path=c["train_path"], dset_name=dset,
+                                   v_feat_dirs=tuple(c["v_feat_dirs"]),
+                                   q_feat_dir=c["q_feat_dir"], type=kind))
+        val = c
+    return tuple(specs), val
+
+
+def phase_vlp(torch, np, card, tmp):
+    """7h, one-process VLP: train_vlp on the vlp_pretrain preset (bsz 64)
+    over three full-width corpora (point, interval, curve), called
+    directly (the CLI's key=value overrides cannot build a tuple of
+    VLPCorpusSpec), "pallas", f32 (the preset's dtype), VLP_EPOCHS epochs
+    with a zero-shot evaluation each (4 launches of each flash kernel per
+    step, 4 flash_fwd per eval batch; brief metrics with MR-full-mAP-key);
+    then 3 gated f32 steps at dropouts 0 (the third on an all-curve batch),
+    "pallas" against "xla" at TRAIN_TOL; the step's ms at B = 64, f32 and
+    bf16. Returns (training launches, step stats)."""
+    import dataclasses
+
+    from univtg_tpu_torch.data.collate import collate_mr
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.data.vlp import VLPDataset
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.presets import PRESETS
+    from univtg_tpu_torch.train.driver_vlp import train_vlp
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    t0 = time.perf_counter()
+    specs, val = _vlp_corpora(tmp)
+    log(f"[vlp] synthetic corpora: point, interval, curve x {VLP_PER_TYPE} items, "
+        f"2816-d video, 512-d text, 37-75 clips; {VLP_VAL} val queries "
+        f"({time.perf_counter() - t0:.1f} s)")
+    run_dir = os.path.join(tmp, "vlp_run")
+    cfg = PRESETS["vlp_pretrain"](**{
+        "vlp_data.corpora": specs, "eval_data.data_path": val["val_path"],
+        "eval_data.v_feat_dirs": tuple(val["v_feat_dirs"]),
+        "eval_data.q_feat_dir": val["q_feat_dir"], "model.attention_impl": "pallas",
+        "n_epoch": VLP_EPOCHS, "eval_epoch": 1, "results_dir": run_dir})
+    _reset_launches()  # the VLP training main path starts here
+    t0 = time.perf_counter()
+    metrics, best = train_vlp(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    train_launches = _launches()  # ... and ends here
+    steps = VLP_EPOCHS * (3 * VLP_PER_TYPE // cfg.bsz)
+    eval_batches = VLP_EPOCHS * (-(-VLP_VAL // cfg.eval_bsz))
+    want = {name: 4 * steps for name in FLASH_KERNELS}
+    want["flash_fwd"] += 4 * eval_batches
+    brief = metrics.get("brief", {})
+    log(f"[vlp] train_vlp: {steps} steps of {cfg.bsz} and {eval_batches} eval batches in "
+        f"{wall:.2f} s with the model build ({card}); best brief {json.dumps(brief)}; "
+        f"launches {train_launches}")
+    if "MR-full-mAP-key" not in brief or not os.path.exists(best):
+        raise AssertionError(f"train_vlp gave no zero-shot MR-full-mAP-key: {brief}")
+    if {k: train_launches[k] for k in FLASH_KERNELS} != want:
+        raise AssertionError(f"expected 4 launches of each kernel per VLP step and 4 "
+                             f"flash_fwd per eval batch: {train_launches}, not {want}")
+    with open(os.path.join(run_dir, "opt.json")) as f:
+        if json.load(f)["use_gates"] is not True:
+            raise AssertionError("train_vlp's opt.json does not say use_gates")
+
+    ds = VLPDataset(cfg.vlp_data)
+    curve = np.flatnonzero(ds.part_ids == 2)
+    order = np.random.default_rng(0).permutation(len(ds))
+    picks = [order[:64], order[64:128], curve[:64]]
+    batches = [collate_mr([ds[int(i)] for i in idx], cfg.model.max_q_l, cfg.model.max_v_l)
+               for idx in picks]
+    gated = [(to_device(mi, "cuda"), to_device(tg, "cuda"))
+             for mi, tg in (strip_meta(b) for b in batches)]
+    quiet = dataclasses.replace(cfg.model, dropout=0.0, droppath=0.0, input_dropout=0.0)
+    sd = UniVTG(quiet, device="cpu", seed=0).state_dict()
+    step = make_train_step(cfg.weights, tuple(cfg.losses), use_gates=True)
+    runs = {}
+    for impl in ("pallas", "xla"):
+        state = _scan_state(torch, dataclasses.replace(quiet, attention_impl=impl), sd)
+        runs[impl] = [{k: float(v) for k, v in step(state, mi, tg, 0)[1].items()}
+                      for mi, tg in gated]
+        del state
+    for i, (a, b) in enumerate(zip(runs["pallas"], runs["xla"], strict=True)):
+        lrel = abs(a["loss_overall"] - b["loss_overall"]) / abs(b["loss_overall"])
+        grel = abs(a["grad_norm"] - b["grad_norm"]) / abs(b["grad_norm"])
+        log(f"[vlp] gated f32 step {i}{' (all curve)' if i == 2 else ''}: loss "
+            f"{a['loss_overall']:.7g} vs xla {b['loss_overall']:.7g} (rel {lrel:.3g}), "
+            f"grad norm {a['grad_norm']:.7g} vs {b['grad_norm']:.7g} (rel {grel:.3g}); "
+            f"span losses {a['loss_b']:.4g}, {a['loss_g']:.4g}")
+        if not (lrel <= TRAIN_TOL["loss"] and grel <= TRAIN_TOL["grad_norm"]
+                and all(np.isfinite(v) for v in a.values())):
+            raise AssertionError(f"gated VLP step {i}: pallas {a} vs xla {b}")
+    if runs["pallas"][2]["loss_b"] != 0.0 or runs["pallas"][2]["loss_g"] != 0.0:
+        raise AssertionError("the all-curve batch's span losses are not gated to 0")
+
+    mi, tg = gated[0]
+    sd = UniVTG(cfg.model, device="cpu", seed=0).state_dict()
+    step_ms = {}
+    for dname in ("float32", "bfloat16"):
+        for impl in ("pallas", "xla"):
+            state = _scan_state(torch, dataclasses.replace(
+                cfg.model, attention_impl=impl, compute_dtype=dname), sd)
+            holder = {}
+
+            def one():
+                holder["m"] = step(state, mi, tg, 0)[1]
+
+            rec = _time_step(torch, one, iters=10)
+            step_ms[f"{dname}_{impl}"] = rec
+            if not np.isfinite(float(holder["m"]["loss_overall"])):
+                raise AssertionError(f"VLP {dname} {impl} step is not finite")
+            del state
+            torch.cuda.empty_cache()
+    log(f"[vlp] make_train_step per gated step (B = 64, 75 + 32; ms by CUDA events over "
+        f"10 steps, then one step under torch.profiler; {card}): {json.dumps(step_ms)}")
+    return train_launches, step_ms
 
 
 def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
@@ -3013,6 +3410,12 @@ def main() -> int:
                                                         smi, tmp)
         log(f"[main path] HL training launches: {hl_train_launches}; HL inference "
             f"launches: {hl_infer_launches}")
+        qfvs_train_launches, qfvs_infer_launches, _ = timed("qfvs", phase_qfvs, torch, np,
+                                                            smi, tmp)
+        log(f"[main path] QFVS training launches: {qfvs_train_launches}; QFVS inference "
+            f"launches: {qfvs_infer_launches}")
+        vlp_train_launches, _ = timed("vlp", phase_vlp, torch, np, smi, tmp)
+        log(f"[main path] VLP training launches: {vlp_train_launches}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -3036,7 +3439,10 @@ def main() -> int:
                             "ring_training": ring_train_launches,
                             "scan_training": scan_launches,
                             "hl_training": hl_train_launches,
-                            "hl_inference": hl_infer_launches}, sass)
+                            "hl_inference": hl_infer_launches,
+                            "qfvs_training": qfvs_train_launches,
+                            "qfvs_inference": qfvs_infer_launches,
+                            "vlp_training": vlp_train_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -22,16 +22,51 @@ from univtg_tpu_torch.train.epoch_runner import StepProfiler
 from univtg_tpu_torch.utils.tb import TBWriter
 
 
-@pytest.mark.parametrize("name", list(presets.PRESETS))  # six MR presets, two HL
+# six MR presets, two HL, QFVS and the two multi-corpus pretraining presets
+@pytest.mark.parametrize("name", list(presets.PRESETS))
 def test_preset_round_trips_through_json(name):
-    cfg = presets.PRESETS[name](**{"bsz": 16, "model.hidden_dim": 512, "weights.b": 5.0})
+    size = "n_epoch" if name == "qfvs" else "bsz"  # QFVS trains one video a step
+    cfg = presets.PRESETS[name](**{size: 16, "model.hidden_dim": 512, "weights.b": 5.0})
     back = config_io.from_json(type(cfg), config_io.to_json(cfg))
     assert back == cfg
     assert isinstance(back.model, ModelConfig) and isinstance(back.weights, LossWeights)
-    data, want = ((back.train_data, cfg.train_data) if isinstance(cfg, TrainConfig)
-                  else (back.data, cfg.data))
+    if name == "qfvs":
+        from univtg_tpu_torch.data.qfvs import QFVSDataConfig
+
+        assert isinstance(back.data, QFVSDataConfig)
+        assert isinstance(back.splits, tuple) and back.splits[0] == (2, 3, 4)
+        assert isinstance(back.data.train_videos, tuple)
+        return
+    if getattr(cfg, "vlp_data", None) is not None:
+        from univtg_tpu_torch.data.vlp import VLPCorpusSpec, VLPDataConfig
+
+        assert isinstance(back.vlp_data, VLPDataConfig) and back.train_data is None
+        assert all(isinstance(c, VLPCorpusSpec) for c in back.vlp_data.corpora)
+        data, want = back.vlp_data.corpora[-1], cfg.vlp_data.corpora[-1]
+    elif isinstance(cfg, TrainConfig):
+        data, want = back.train_data, cfg.train_data
+    else:
+        data, want = back.data, cfg.data
     assert data.v_feat_dirs == want.v_feat_dirs
     assert isinstance(data.v_feat_dirs, tuple)
+
+
+@pytest.mark.parametrize("name", ["qfvs", "vlp_pretrain", "cotrain"])
+def test_a_jax_opt_json_of_qfvs_and_vlp_loads_into_the_port(name, tmp_path):
+    """The JAX package's opt.json of a QFVS or VLP run restores the port's
+    config: every field the two share is equal, the corpora as
+    VLPCorpusSpec."""
+    jcfg = jpresets.PRESETS[name](**{"model.num_layers": 2, "lr": 3e-4})
+    jconfig_io.save_config(jcfg, str(tmp_path))
+    cfg = config_io.load_config(type(presets.PRESETS[name]()), str(tmp_path))
+    assert cfg.model.num_layers == 2 and cfg.lr == 3e-4
+    mine, theirs = json.loads(config_io.to_json(cfg)), json.loads(jconfig_io.to_json(jcfg))
+    _common(mine, theirs)
+    _common(theirs, mine)
+    if name != "qfvs":
+        from univtg_tpu_torch.data.vlp import VLPCorpusSpec
+
+        assert all(isinstance(c, VLPCorpusSpec) for c in cfg.vlp_data.corpora)
 
 
 def _common(a, b, path=""):

@@ -194,7 +194,9 @@ def test_mr_presets_equal_the_jax_presets(name):
 def test_the_port_has_every_mr_preset_of_the_jax_package():
     mr = {k for k in presets.PRESETS if k.endswith("_mr")}
     assert mr == {k for k in jax_presets.PRESETS if k.endswith("_mr")}
-    assert set(presets.PRESETS) - mr == {"tvsum_hl", "youtube_hl"}
+    assert set(presets.PRESETS) - mr == {"tvsum_hl", "youtube_hl", "qfvs", "vlp_pretrain",
+                                         "cotrain"}
+    assert set(presets.PRESETS) == set(jax_presets.PRESETS)
 
 
 def test_train_mr_with_the_int8_transfer(corpus, tmp_path):

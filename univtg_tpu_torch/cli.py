@@ -8,6 +8,12 @@
       [key=value ...]
   python -m univtg_tpu_torch.cli infer-hl --preset tvsum_hl --ckpt-dir DIR \\
       [--device cuda] [key=value ...]
+  python -m univtg_tpu_torch.cli train-qfvs --preset qfvs [--device cuda] \\
+      [key=value ...]
+  python -m univtg_tpu_torch.cli infer-qfvs --preset qfvs --ckpt-dir DIR \\
+      [--device cuda] [key=value ...]
+  python -m univtg_tpu_torch.cli train-vlp --preset vlp_pretrain [--resume ckpt] \\
+      [--device cuda] [key=value ...]
   python -m univtg_tpu_torch.cli eval --submission preds.jsonl --gt val.jsonl
   python -m univtg_tpu_torch.cli quantize --preset qvhighlights_mr \\
       --resume model_best.ckpt --out model_int8.ckpt [key=value ...]
@@ -17,14 +23,20 @@
       --v-feat-dirs data/x/vid_slowfast data/x/vid_clip \\
       --q-feat-dir data/x/txt_clip --out-dir data/x/h5py
 
-``train-mr``, ``infer-mr``, ``train-hl``, ``infer-hl`` and ``quantize``
-take a preset (univtg_tpu_torch/presets.py) and dotted ``key=value``
-overrides of its TrainConfig (HLTrainConfig for the HL commands), e.g.
+``train-mr``, ``infer-mr``, ``train-hl``, ``infer-hl``, ``train-qfvs``,
+``infer-qfvs``, ``train-vlp`` and ``quantize`` take a preset
+(univtg_tpu_torch/presets.py) and dotted ``key=value`` overrides of its
+TrainConfig (HLTrainConfig for the HL commands, QFVSTrainConfig for QFVS,
+VLPTrainConfig for ``train-vlp``), e.g.
 ``bsz=16 model.attention_impl=pallas eval_data=None``; values parse as
 Python literals, else stay strings. ``infer-mr`` scores the preset's eval
 split and writes the submission jsonl; ``train-hl`` trains a model per
 highlight-detection domain and prints the best mAPs; ``infer-hl`` scores
-the ``model_{domain}_best.ckpt`` files of ``--ckpt-dir``; ``eval`` scores a
+the ``model_{domain}_best.ckpt`` files of ``--ckpt-dir``; ``train-qfvs``
+trains a model per leave-one-out split and prints each split's best F/R/P
+and AVG_F; ``infer-qfvs`` scores the ``model_V{n}_best.ckpt`` files of
+``--ckpt-dir``; ``train-vlp`` pretrains on the preset's corpora with the
+per-sample loss gates, in one process; ``eval`` scores a
 submission file against ground truth; ``quantize`` writes an int8 serving
 checkpoint. ``serve --resume`` takes an upstream-format torch checkpoint
 ({'model': state_dict}), such as the ``model_best.ckpt`` that train-mr
@@ -138,6 +150,31 @@ def cmd_infer_hl(args):
 
     print(json.dumps(infer_hl(_preset_cfg(args), args.ckpt_dir, device=args.device),
                      indent=1))
+
+
+def cmd_train_qfvs(args):
+    """QFVS training, one model per leave-one-out split (train/driver_qfvs.py)."""
+    from univtg_tpu_torch.train.driver_qfvs import train_qfvs
+
+    print(json.dumps(train_qfvs(_preset_cfg(args), device=args.device), indent=1))
+
+
+def cmd_infer_qfvs(args):
+    """Per-split F/R/P of the best QFVS checkpoints (the reference's
+    main/inference_qfvs.py)."""
+    from univtg_tpu_torch.train.driver_qfvs import infer_qfvs
+
+    print(json.dumps(infer_qfvs(_preset_cfg(args), args.ckpt_dir, device=args.device),
+                     indent=1))
+
+
+def cmd_train_vlp(args):
+    """Multi-corpus pretraining in one process (train/driver_vlp.py)."""
+    from univtg_tpu_torch.train.driver_vlp import train_vlp
+
+    metrics, best = train_vlp(_preset_cfg(args), resume=args.resume, device=args.device)
+    print(json.dumps(metrics.get("brief", {}), indent=1))
+    print(f"best checkpoint: {best}")
 
 
 def cmd_eval(args):
@@ -262,6 +299,23 @@ def build_parser():
     sp.set_defaults(fn=cmd_infer_hl)
     sp.add_argument("--preset", required=True)
     sp.add_argument("--ckpt-dir", required=True)
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("train-qfvs")
+    sp.set_defaults(fn=cmd_train_qfvs)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("infer-qfvs")
+    sp.set_defaults(fn=cmd_infer_qfvs)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--ckpt-dir", required=True)
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*")
+    sp = sub.add_parser("train-vlp")
+    sp.set_defaults(fn=cmd_train_vlp)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--resume", default=None)
     sp.add_argument("--device", default="cuda", help=device_help)
     sp.add_argument("overrides", nargs="*")
     sp = sub.add_parser("eval")

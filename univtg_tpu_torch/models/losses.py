@@ -1,5 +1,5 @@
-"""Grounding losses; counterpart of ``univtg_tpu/models/losses.py`` (the
-QFVS criterion comes with the QFVS vertical, ROADMAP.md queue 1).
+"""Grounding losses; counterpart of ``univtg_tpu/models/losses.py``, the
+QFVS criterion (``qfvs_losses``, ``compact_to_grid``) included.
 
 Dense per-clip supervision with no Hungarian matching, mask-disciplined for
 static shapes (multiply-by-mask and masked reductions instead of boolean
@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -178,6 +179,46 @@ def loss_saliency_cls(outputs, targets, gates=None):
         out["loss_s_intra"] = -(logsm * cls_idx).sum() / count
     on = has_signal(sal, inter)
     return {k: v * on for k, v in out.items()}
+
+
+def qfvs_losses(outputs, gt_grid, mask_flat):
+    """QFVS criterion over the segment-flattened grid (upstream
+    model/univtg_qfvs.py:215-261, 358-377, which masked_selects the valid
+    frames; here the labels sit at their grid positions, scattered on the
+    host by ``compact_to_grid``).
+
+    outputs: (S, F, 1) pred_logits and (S, F) saliency_scores; gt_grid and
+    mask_flat: (S*F,) binary labels and validity. Returns {'loss_f',
+    'loss_s_intra', 'loss_s_inter'}: the foreground BCE over valid frames
+    and the MIL-NCE over all valid frames (positives in the numerator),
+    each normalised by the positive count and 0 without positives;
+    loss_s_inter is 0."""
+    probs = outputs["pred_logits"].reshape(-1)
+    sal = outputs["saliency_scores"].reshape(-1)
+    gt = gt_grid.to(probs.dtype)
+    mask = mask_flat.to(probs.dtype)
+    n_pos = gt.sum()
+    has_pos = n_pos > 0
+    zero = torch.zeros((), dtype=probs.dtype, device=probs.device)
+
+    logp, log1mp = _bce_logs(probs)
+    ce = -(gt * logp + (1.0 - gt) * log1mp) * mask
+    loss_f = torch.where(has_pos, ce.sum() / n_pos.clamp_min(1.0), zero)
+
+    logsm = F.log_softmax(sal / TEMPERATURE + mask_log(mask), dim=0)
+    intra = -torch.where(has_pos, (logsm * gt).sum() / n_pos.clamp_min(1.0), zero)
+    return {"loss_f": loss_f, "loss_s_intra": intra, "loss_s_inter": zero}
+
+
+def compact_to_grid(vec_compact, seg_len, max_segments: int, max_frames: int):
+    """A compact per-shot vector (shot i = the i-th valid frame) scattered
+    onto the padded (S*F,) grid of the flattened model inputs (numpy)."""
+    grid = np.zeros(max_segments * max_frames, np.float32)
+    pos = 0
+    for j, n in enumerate(np.asarray(seg_len, int)):
+        grid[j * max_frames : j * max_frames + n] = vec_compact[pos : pos + n]
+        pos += n
+    return grid
 
 
 @dataclasses.dataclass(frozen=True)

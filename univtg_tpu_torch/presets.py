@@ -2,9 +2,10 @@
 ``univtg_tpu/presets.py`` (QVHighlights, Charades-STA, Ego4D-NLQ, TACoS,
 ActivityNet, DiDeMo), each with its train and eval split and the same
 hyperparameters (the reference's launch scripts: slowfast 2304 + CLIP 512
-(+2 TEF) video, CLIP 512 text), and the highlight-detection presets
-(``youtube_hl``, ``tvsum_hl``). The QFVS and pretraining presets come with
-their drivers (ROADMAP.md).
+(+2 TEF) video, CLIP 512 text), the highlight-detection presets
+(``youtube_hl``, ``tvsum_hl``), QFVS (``qfvs``: CLIP 512 + 2 TEF over 200
+frames per segment) and the multi-corpus pretraining presets
+(``vlp_pretrain``, ``cotrain``).
 """
 from __future__ import annotations
 
@@ -12,10 +13,12 @@ import dataclasses
 
 from univtg_tpu_torch.data.hl import HLDataConfig
 from univtg_tpu_torch.data.mr import MRDataConfig
+from univtg_tpu_torch.data.qfvs import QFVSDataConfig
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.train.driver_hl import HLTrainConfig
 from univtg_tpu_torch.train.driver_mr import TrainConfig
+from univtg_tpu_torch.train.driver_qfvs import QFVSTrainConfig
 
 SLOWFAST_DIM = 2304
 CLIP_DIM = 512
@@ -180,6 +183,144 @@ def tvsum_hl(data_root="data/tvsum", results_dir="results/hl-tvsum", **kw):
     return _hl("tvsum", data_root, results_dir, **kw)
 
 
+def qfvs(data_root="data/qfvs", results_dir="results/qfvs", **kw) -> QFVSTrainConfig:
+    """QFVS on UT-Egocentric (main/train_qfvs.py): the flagship on CLIP 512
+    + 2 TEF video over 200 frames per segment, 20 epochs, leave-one-out
+    over the 4 videos."""
+    cfg = QFVSTrainConfig(
+        model=flagship_model(
+            vid_dim=CLIP_DIM + TEF_DIM, max_v_l=200, hidden_dim=1024
+        ),
+        data=QFVSDataConfig(root=data_root),
+        tags_mat_path="data/ute_query/Tags.mat",
+        results_dir=results_dir,
+        n_epoch=20,
+    )
+    for k, v in kw.items():
+        cfg = _replace(cfg, k, v)
+    return cfg
+
+
+def vlp_pretrain(data_root="data", results_dir="results/vlp-pretrain", **kw):
+    """Large-scale point+interval+curve pretraining (scripts/pretrain.sh:
+    bsz 64, 10 epochs, hidden 1024, Ego4D point + VideoCC interval/curve;
+    corpus jsonl paths follow the reference vlp_mapping,
+    main/dataset.py:66-97)."""
+    from univtg_tpu_torch.data.vlp import VLPCorpusSpec, VLPDataConfig
+    from univtg_tpu_torch.train.driver_vlp import VLPTrainConfig
+
+    def corpus(rel_jsonl, dset, ftype, v_suffix="", q_suffix=""):
+        return VLPCorpusSpec(
+            data_path=f"{data_root}/{rel_jsonl}",
+            dset_name=dset,
+            v_feat_dirs=(
+                f"{data_root}/{dset}/vid_slowfast{v_suffix}",
+                f"{data_root}/{dset}/vid_clip{v_suffix}",
+            ),
+            q_feat_dir=f"{data_root}/{dset}/txt_clip{q_suffix}",
+            type=ftype,
+        )
+
+    cfg = VLPTrainConfig(
+        model=flagship_model(),
+        vlp_data=VLPDataConfig(
+            corpora=(
+                corpus("ego4d/metadata/point_egoclip_wo_val.jsonl", "ego4d", "point",
+                       "_point", "_point"),
+                corpus("videocc/metadata/interval_900k.jsonl", "videocc", "interval"),
+                corpus("videocc/metadata/curve_5_window.jsonl", "videocc", "curve",
+                       "", "_concept"),
+            ),
+            v_feat_dim=SLOWFAST_DIM + CLIP_DIM,
+            q_feat_dim=CLIP_DIM,
+            txt_drop_ratio=0.1,
+        ),
+        train_data=None,
+        eval_data=_zero_shot_qvhighlights(data_root),
+        results_dir=results_dir,
+        bsz=64,
+        n_epoch=10,
+        lr=1e-4,
+        lr_warmup=1,
+        lr_drop=200,
+        weights=LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1),
+        eval_mode="add",
+        max_es_cnt=-1,
+    )
+    for k, v in kw.items():
+        cfg = _replace(cfg, k, v)
+    return cfg
+
+
+def _zero_shot_qvhighlights(data_root) -> MRDataConfig:
+    """The QVHighlights val split the pretraining presets evaluate
+    zero-shot (train_vlp_ddp.py:246-259)."""
+    return MRDataConfig(
+        dset_name="qvhighlights",
+        data_path=f"{data_root}/qvhighlights/metadata/qvhighlights_val.jsonl",
+        v_feat_dirs=(
+            f"{data_root}/qvhighlights/vid_slowfast",
+            f"{data_root}/qvhighlights/vid_clip",
+        ),
+        q_feat_dir=f"{data_root}/qvhighlights/txt_clip",
+        v_feat_dim=SLOWFAST_DIM + CLIP_DIM,
+        q_feat_dim=CLIP_DIM,
+    )
+
+
+def cotrain(data_root="data", results_dir="results/cotrain", resume="", **kw):
+    """Multi-corpus downstream co-training (scripts/cotrain.sh: 6 corpora,
+    100 epochs, resume from pretraining). Corpus types follow vlp_mapping
+    (main/dataset.py:77-96): qvhighlights=curve, the rest=interval;
+    Charades at 1 s clips."""
+    from univtg_tpu_torch.data.vlp import VLPCorpusSpec, VLPDataConfig
+    from univtg_tpu_torch.train.driver_vlp import VLPTrainConfig
+
+    def corpus(dset, jsonl, ftype, clip_len=2.0):
+        return VLPCorpusSpec(
+            data_path=f"{data_root}/{dset}/metadata/{jsonl}",
+            dset_name=dset,
+            v_feat_dirs=(
+                f"{data_root}/{dset}/vid_slowfast",
+                f"{data_root}/{dset}/vid_clip",
+            ),
+            q_feat_dir=f"{data_root}/{dset}/txt_clip",
+            type=ftype,
+            clip_len=clip_len,
+        )
+
+    cfg = VLPTrainConfig(
+        model=flagship_model(),
+        vlp_data=VLPDataConfig(
+            corpora=(
+                corpus("qvhighlights", "qvhighlights_train.jsonl", "curve"),
+                corpus("charades", "charades_train.jsonl", "interval", 1.0),
+                corpus("ego4d", "nlq_train.jsonl", "interval"),
+                corpus("tacos", "train.jsonl", "interval"),
+                corpus("anet", "train.jsonl", "interval"),
+                corpus("didemo", "train.jsonl", "interval"),
+            ),
+            v_feat_dim=SLOWFAST_DIM + CLIP_DIM,
+            q_feat_dim=CLIP_DIM,
+            txt_drop_ratio=0.1,
+        ),
+        train_data=None,
+        eval_data=_zero_shot_qvhighlights(data_root),
+        results_dir=results_dir,
+        bsz=64,
+        n_epoch=100,
+        lr=1e-4,
+        lr_warmup=1,
+        lr_drop=200,
+        weights=LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1),
+        eval_mode="add",
+        max_es_cnt=-1,
+    )
+    for k, v in kw.items():
+        cfg = _replace(cfg, k, v)
+    return cfg
+
+
 def _replace(cfg, key, value):
     """dataclasses.replace along a dotted path (``model.hidden_dim``)."""
     if "." in key:
@@ -200,4 +341,7 @@ PRESETS = {
     "didemo_mr": didemo_mr,
     "youtube_hl": youtube_hl,
     "tvsum_hl": tvsum_hl,
+    "qfvs": qfvs,
+    "vlp_pretrain": vlp_pretrain,
+    "cotrain": cotrain,
 }

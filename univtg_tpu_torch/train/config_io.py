@@ -29,7 +29,7 @@ def _build(cls: Type, data: Any):
         for k, v in data.items():
             if k not in fields:
                 continue
-            kwargs[k] = _build(_resolve(fields[k].type, cls), v)
+            kwargs[k] = _build(_resolve(fields[k].type, _owner(cls, k)), v)
         return cls(**kwargs)
     import collections.abc
 
@@ -41,6 +41,16 @@ def _build(cls: Type, data: Any):
         # the preset defaults); plain list annotations stay lists
         return out if origin is list or cls is list else tuple(out)
     return data
+
+
+def _owner(cls, name):
+    """The class of cls's MRO that declares field ``name``: a subclass's
+    inherited field (VLPTrainConfig's ``model``) resolves its string
+    annotation in the module of the class that wrote it."""
+    for klass in cls.__mro__:
+        if name in vars(klass).get("__annotations__", {}):
+            return klass
+    return cls
 
 
 def _resolve(tp, owner_cls):
