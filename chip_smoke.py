@@ -170,6 +170,23 @@ printing its seconds:
                  metrics); 3 gated f32 steps at dropouts 0, the third on an
                  all-curve batch, "pallas" vs "xla" at TRAIN_TOL; the step's
                  ms at B = 64, f32 and bf16. Phase 3 checks VLP_SHAPE too.
+  7i. md      -- Moment-DETR: train_mr with model_id="moment_detr" at
+                 MomentDETRConfig()'s defaults (the flagship's widths: hidden
+                 1024, 4 encoder layers, 8 heads, FFN 1024, 2818-d video,
+                 512-d text; 10 queries, 2 decoder layers, aux_loss) on
+                 phase 7's corpus, B = 32: "l1" for MD_EPOCHS epochs
+                 evaluated each epoch, then "ce" for one epoch (its windows,
+                 unrounded, on the 2 s clip grid); no launch of any kernel
+                 and only "xla" attention dispatches, as in the JAX package,
+                 where Moment-DETR ignores attention_impl; model_best.ckpt
+                 reloaded through load_torch_checkpoint gives its
+                 evaluation's metrics, model_latest.ckpt the last
+                 evaluation's rows (model_best.ckpt's too, when it is the
+                 last epoch's); "exhaustive" matching equal to scipy's on the
+                 step's own costs (near-ties within MATCH_TIE_REL); the f32
+                 step's ms by CUDA events over MD_TIMED_STEPS steps, then
+                 one step under torch.profiler (busy ms, idle share, the
+                 matcher's ms, the largest device items).
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -189,9 +206,11 @@ train-mr run, HL training phase 7f's train-hl run (its evaluations
 included) and HL inference its "pallas" infer-hl run, QFVS training and
 inference phase 7g's train-qfvs (evaluations included) and "pallas"
 infer-qfvs runs, VLP training phase 7h's train_vlp run (evaluations
-included); the smoke's own
+included), Moment-DETR training phase 7i's two train_mr runs (evaluations
+included) and Moment-DETR inference its reloaded checkpoint's evaluation,
+where no kernel may run; the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
-of a path must have run there. The last lines
+of the other paths must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
 {"ok": true, "device": {...}}. Without CUDA it exits 1 and prints no result.
 """
@@ -447,6 +466,12 @@ QFVS_SHAPES = {"train_qfvs_concept": (20, 200 + 3, 8, 128),
 # VLP_SHAPE, its attention (B = 64, 75 clips + 32 tokens), joins phase 3
 VLP_PER_TYPE, VLP_VAL, VLP_EPOCHS = 64, 64, 2
 VLP_SHAPE = {"train_vlp": (64, 75 + 32, 8, 128)}
+# Moment-DETR (phase 7i): train_mr "l1" for MD_EPOCHS epochs on phase 7's
+# corpus; the f32 step timed over MD_TIMED_STEPS steps; "exhaustive"
+# matching may differ from scipy's only where its total cost is within
+# MATCH_TIE_REL of scipy's (f32 sums of 5 costs in another order)
+MD_EPOCHS, MD_TIMED_STEPS = 2, 10
+MATCH_TIE_REL = 1e-5
 
 
 def log(msg: str) -> None:
@@ -2464,26 +2489,41 @@ def _count_replays(torch):
     return counts, lambda: setattr(graph_cls, "replay", orig)
 
 
-def _profile_counts(torch, fn):
+def _flash_counts(n):
+    return {k: sum(c for name, c in n.items() if f"{k}_kernel" in name)
+            for k in FLASH_KERNELS}
+
+
+def _profile_counts(torch, fn, want=None):
     """fn() once under torch.profiler after a synchronize: (kernel device
-    us by name, launches by name, wall us)."""
+    us by name, launches by name, wall us). With ``want`` ({flash kernel:
+    launches fn makes}), a trace that names the flash kernels otherwise is
+    logged and fn profiled once more: torch.profiler has left a kernel's
+    record out of a trace (11 of 12 flash_fwd in one QFVS step whose
+    launch counter read 12). The caller still holds the trace it gets to
+    ``want``."""
     from collections import Counter, defaultdict
 
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
+    for _ in range(1 if want is None else 2):
         torch.cuda.synchronize()
-        wall_us = (time.perf_counter() - t0) * 1e6
-    us, n = defaultdict(float), Counter()
-    for evt in prof.events():
-        if evt.device_type == DeviceType.CUDA and not getattr(
-                evt, "is_user_annotation", False):
-            us[evt.name] += evt.time_range.elapsed_us()
-            n[evt.name] += 1
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_us = (time.perf_counter() - t0) * 1e6
+        us, n = defaultdict(float), Counter()
+        for evt in prof.events():
+            if evt.device_type == DeviceType.CUDA and not getattr(
+                    evt, "is_user_annotation", False):
+                us[evt.name] += evt.time_range.elapsed_us()
+                n[evt.name] += 1
+        if want is None or _flash_counts(n) == want:
+            break
+        log(f"[profile] the trace names the flash kernels {_flash_counts(n)}, not "
+            f"{want}: profiled once more")
     return us, n, wall_us
 
 
@@ -2676,10 +2716,10 @@ def phase_scan(torch, np, fa, card, corpus, sd):
         stats[dname] = {}
         for K in SCAN_KS:
             rec, one_call = _time_scan(torch, cfg, sd, batches, K)
-            us, n, wall_us = _profile_counts(torch, one_call)
+            us, n, wall_us = _profile_counts(torch, one_call,
+                                             {k: 4 * K for k in FLASH_KERNELS})
             busy = sum(us.values())
-            named = {k: sum(c for name, c in n.items() if f"{k}_kernel" in name)
-                     for k in FLASH_KERNELS}
+            named = _flash_counts(n)
             rec.update(profiled_host_ms=wall_us / 1e3, profiled_busy_ms=busy / 1e3,
                        idle_share=1.0 - busy / wall_us if busy else None,
                        trace_launches=named)
@@ -2805,15 +2845,15 @@ def _infer_hl(torch, run_dir, overrides, impl):
     return json.loads(printed.getvalue()), fa.launches["flash_fwd"] - before
 
 
-def _time_step(torch, fn, iters=5):
+def _time_step(torch, fn, iters=5, want=None):
     """fn() timed by CUDA events over iters calls after 2 warm ones, then
-    once under torch.profiler: {ms, profiled host ms, busy ms, idle share,
-    flash ms, flash share, flash launches in the trace, peak GiB allocated
-    from the first call on}."""
+    once under torch.profiler (``want`` as _profile_counts takes it): {ms,
+    profiled host ms, busy ms, idle share, flash ms, flash share, flash
+    launches in the trace, peak GiB allocated from the first call on}."""
     torch.cuda.reset_peak_memory_stats()
     ms = cuda_ms(fn, iters=iters, warmup=2)
     peak = torch.cuda.max_memory_allocated() / 2**30
-    us, n, wall_us = _profile_counts(torch, fn)
+    us, n, wall_us = _profile_counts(torch, fn, want)
     busy = sum(us.values())
     flash = sum(t for name, t in us.items()
                 if any(f"{k}_kernel" in name for k in FLASH_KERNELS))
@@ -2821,8 +2861,7 @@ def _time_step(torch, fn, iters=5):
             "idle_share": 1.0 - busy / wall_us if busy else None,
             "flash_kernels_ms": flash / 1e3,
             "flash_share_of_busy": flash / busy if busy else None,
-            "trace_launches": {k: sum(c for name, c in n.items() if f"{k}_kernel" in name)
-                               for k in FLASH_KERNELS}, "peak_gib": peak}
+            "trace_launches": _flash_counts(n), "peak_gib": peak}
 
 
 def phase_hl(torch, np, fa, card, tmp):
@@ -3128,11 +3167,12 @@ def _qfvs_paths(torch, np, card, tmp, corpus):
             def one():
                 holder["m"] = step(state, *args, 0)[1]
 
-            rec = _time_step(torch, one)
+            full = {k: 12 for k in FLASH_KERNELS} if impl == "pallas" else None
+            rec = _time_step(torch, one, want=full)
             step_ms[f"{dname}_{impl}"] = rec
             if not np.isfinite(float(holder["m"]["loss_overall"])):
                 raise AssertionError(f"QFVS {dname} {impl} step is not finite")
-            if impl == "pallas" and rec["trace_launches"] != {k: 12 for k in FLASH_KERNELS}:
+            if full is not None and rec["trace_launches"] != full:
                 raise AssertionError(f"one QFVS step's trace: {rec['trace_launches']}")
             del state
             torch.cuda.empty_cache()
@@ -3269,6 +3309,237 @@ def phase_vlp(torch, np, card, tmp):
     log(f"[vlp] make_train_step per gated step (B = 64, 75 + 32; ms by CUDA events over "
         f"10 steps, then one step under torch.profiler; {card}): {json.dumps(step_ms)}")
     return train_launches, step_ms
+
+
+def _md_data(corpus, split, span):
+    from univtg_tpu_torch.data.mr import MRDataConfig
+
+    return MRDataConfig(data_path=corpus[split], v_feat_dirs=corpus["v_feat_dirs"],
+                        q_feat_dir=corpus["q_feat_dir"], v_feat_dim=corpus["v_dim"],
+                        q_feat_dim=corpus["q_dim"], max_q_l=32, max_v_l=75,
+                        span_loss_type=span)
+
+
+def _md_cfg(corpus, run_dir, span, n_epoch):
+    """train_mr's config of phase 7i: Moment-DETR at MomentDETRConfig()'s
+    defaults (the flagship's widths), B = 32, evaluated every epoch."""
+    from univtg_tpu_torch.models.moment_detr import MomentDETRConfig
+    from univtg_tpu_torch.train.driver_mr import TrainConfig
+
+    # "ce" rows unrounded (round_multiple 0), so the clip grid is the decode's
+    return TrainConfig(model=MomentDETRConfig(span_loss_type=span), model_id="moment_detr",
+                       train_data=_md_data(corpus, "train_path", span),
+                       eval_data=_md_data(corpus, "val_path", span), results_dir=run_dir,
+                       bsz=32, eval_bsz=32, n_epoch=n_epoch, eval_epoch=1,
+                       save_interval=-1, eval_mode=None,
+                       round_multiple=0 if span == "ce" else 1)
+
+
+def _md_train(torch, np, cfg, card):
+    """train_mr on the card; returns its train_log lines after checking 3
+    finite steps an epoch and one evaluation an epoch."""
+    from univtg_tpu_torch.train.driver_mr import train_mr
+
+    t0 = time.perf_counter()
+    metrics, best = train_mr(cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    lines = _jsonl(os.path.join(cfg.results_dir, "train_log.jsonl"))
+    evals = _jsonl(os.path.join(cfg.results_dir, "eval_log.jsonl"))
+    log(f"[md] train_mr {cfg.model.span_loss_type}: {sum(x['steps'] for x in lines)} "
+        f"steps in {len(lines)} epochs, {wall:.2f} s with the model build and "
+        f"{len(evals)} evaluations ({card}); loss by epoch "
+        f"{[round(x['loss_overall'], 4) for x in lines]}; MR-full-mAP by epoch "
+        f"{[e['MR-full-mAP-key'] for e in evals]}")
+    if ([x["steps"] for x in lines] != [3] * cfg.n_epoch
+            or not all(np.isfinite(x["loss_overall"]) for x in lines)
+            or [e["epoch"] for e in evals] != list(range(cfg.n_epoch))
+            or not os.path.exists(best)):
+        raise AssertionError(f"Moment-DETR train_mr: {lines}, {evals}")
+    return lines
+
+
+def _md_rows_equal(np, got, want):
+    if [r["qid"] for r in got] != [r["qid"] for r in want]:
+        return False
+    return all(np.array_equal(a["pred_relevant_windows"], b["pred_relevant_windows"])
+               and np.array_equal(a["pred_saliency_scores"], b["pred_saliency_scores"])
+               for a, b in zip(got, want))
+
+
+def _md_match_check(torch, np, model, mi, tg, span):
+    """hungarian_match "exhaustive" (on the card) against "callback" (scipy)
+    on the costs of the model's outputs for one batch, main and aux decoder
+    layers: the same assignment, or one whose total cost is within
+    MATCH_TIE_REL of scipy's. Returns (calls checked, items that differed
+    within the tie rule, ms of one exhaustive call)."""
+    from univtg_tpu_torch.models.moment_detr import hungarian_match, match_cost
+    from univtg_tpu_torch.train.steps import forward
+
+    with torch.no_grad():
+        model.eval()
+        out = forward(model, mi, train=False)
+    n_win = tg["n_windows"]
+    ties, calls = 0, [out, *out.get("aux_outputs", [])]
+    for o in calls:
+        args = (o, tg["span_labels"], n_win)
+        got = hungarian_match(*args, impl="exhaustive", span_loss_type=span).cpu().numpy()
+        want = hungarian_match(*args, impl="callback", span_loss_type=span).cpu().numpy()
+        cost = match_cost(o, tg["span_labels"], span_loss_type=span).double().cpu().numpy()
+        for b, n in enumerate(n_win.cpu().numpy()):
+            if np.array_equal(got[b], want[b]):
+                continue
+            cg = cost[b, got[b, :n], np.arange(n)].sum()
+            cw = cost[b, want[b, :n], np.arange(n)].sum()
+            if (got[b, n:] != -1).any() or abs(cg - cw) > MATCH_TIE_REL * abs(cw):
+                raise AssertionError(f"exhaustive matching item {b}: {got[b]} (cost {cg}) "
+                                     f"vs scipy {want[b]} (cost {cw})")
+            ties += 1
+    ms = cuda_ms(lambda: hungarian_match(out, tg["span_labels"], n_win,
+                                         impl="exhaustive", span_loss_type=span), iters=20)
+    return len(calls), ties, ms
+
+
+def phase_md(torch, np, card, tmp, corpus):
+    """7i, Moment-DETR through train_mr at MomentDETRConfig()'s defaults
+    (the flagship's widths: hidden 1024, 4 encoder layers, 8 heads, FFN
+    1024, 2818-d video, 512-d text; 10 queries, 2 decoder layers, aux_loss)
+    on phase 7's corpus, B = 32: "l1" for MD_EPOCHS epochs evaluated each
+    epoch, then "ce" for one (its windows on the 2 s clip grid); no flash
+    kernel launched, "xla" attention dispatched. model_best.ckpt reloaded
+    through load_torch_checkpoint gives its evaluation's metrics, and
+    model_latest.ckpt the last evaluation's rows. "exhaustive" matching
+    against scipy on the step's own costs. The f32 step's ms by CUDA events
+    over MD_TIMED_STEPS steps, then one step under torch.profiler. Returns
+    (training launches, inference launches, step stats)."""
+    from univtg_tpu_torch.data.mr import MRDataset
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.interop import load_torch_checkpoint, read_checkpoint
+    from univtg_tpu_torch.models.moment_detr import MomentDETR
+    from univtg_tpu_torch.ops import attention
+    from univtg_tpu_torch.train.driver_mr import _run_eval_shard
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.infer_mr import evaluate_submission
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import (TrainState, make_md_eval_step,
+                                              make_md_train_step, make_optimizer)
+
+    cfg = _md_cfg(corpus, os.path.join(tmp, "md_run"), "l1", MD_EPOCHS)
+    ce_cfg = _md_cfg(corpus, os.path.join(tmp, "md_ce_run"), "ce", 1)
+    _reset_launches()  # the Moment-DETR training main path starts here
+    _md_train(torch, np, cfg, card)
+    _md_train(torch, np, ce_cfg, card)
+    train_launches = _launches()  # ... and ends here
+    dispatched = dict(attention.dispatches)
+    log(f"[md] training launches {train_launches}; attention dispatches {dispatched}")
+    if any(train_launches.values()) or dispatched["xla"] == 0 or any(
+            n for impl, n in dispatched.items() if impl != "xla"):
+        raise AssertionError("Moment-DETR must run the plain attention alone, as the JAX "
+                             f"package does: launches {train_launches}, {dispatched}")
+    rows = _jsonl(os.path.join(cfg.results_dir, "latest_val_preds.jsonl"))
+    if {len(r["pred_relevant_windows"]) for r in rows} != {cfg.model.num_queries}:
+        raise AssertionError("a Moment-DETR row does not carry num_queries windows")
+    ce_rows = _jsonl(os.path.join(ce_cfg.results_dir, "latest_val_preds.jsonl"))
+    dur = {r["qid"]: r["duration"] for r in MRDataset(ce_cfg.eval_data).data}
+    off = [w for r in ce_rows for w in r["pred_relevant_windows"]
+           if w[0] % 2.0 or w[1] % 2.0 or not 0 <= w[0] <= dur[r["qid"]]
+           or not 0 <= w[1] <= dur[r["qid"]]]
+    log(f"[md] ce: {len(ce_rows)} rows, {sum(len(r['pred_relevant_windows']) for r in ce_rows)} "
+        f"windows, {len(off)} off the 2 s clip grid or the video")
+    if off:
+        raise AssertionError(f"ce windows off the clip grid: {off[:5]}")
+
+    # the checkpoints reloaded: their evaluations' metrics and rows again
+    eval_ds = MRDataset(cfg.eval_data)
+    eval_step = make_md_eval_step("l1", 2.0)
+
+    def reload(name):
+        path = os.path.join(cfg.results_dir, name)
+        model = MomentDETR(cfg.model, device="meta")
+        model.load_state_dict({k: v.cuda() for k, v in load_torch_checkpoint(
+            path, cfg.model).items()}, assign=True)
+        return model, read_checkpoint(path)["epoch"]
+
+    model, best_epoch = reload("model_best.ckpt")
+    _reset_launches()  # the Moment-DETR inference main path starts here
+    sub = _run_eval_shard(cfg, model, eval_ds, eval_step)
+    torch.cuda.synchronize()
+    infer_launches = _launches()  # ... and ends here
+    brief = evaluate_submission(sub, eval_ds.data)["brief"]
+    with open(os.path.join(cfg.results_dir, f"metrics_e{best_epoch:04d}.json")) as f:
+        want = json.load(f)["brief"]
+    # latest_val_preds.jsonl holds the last evaluation's rows, model_latest's
+    latest, latest_epoch = reload("model_latest.ckpt")
+    same_rows = _md_rows_equal(np, _run_eval_shard(cfg, latest, eval_ds, eval_step), rows)
+    if best_epoch == latest_epoch:
+        same_rows = same_rows and _md_rows_equal(np, sub, rows)
+    del latest
+    log(f"[md] model_best.ckpt (epoch {best_epoch}) reloaded: brief metrics equal "
+        f"{brief == want}; rows of model_latest.ckpt (epoch {latest_epoch})"
+        f"{' and model_best.ckpt' if best_epoch == latest_epoch else ''} equal to the "
+        f"last evaluation's {same_rows}; launches {infer_launches}")
+    if brief != want or not same_rows or any(infer_launches.values()):
+        raise AssertionError("a reloaded Moment-DETR checkpoint does not give its "
+                             "evaluation's rows and metrics")
+
+    # exhaustive matching against scipy, and the step's time
+    batch = _train_batches(np, corpus, 1)[0]
+    mi, tg = (to_device(t, "cuda") for t in strip_meta(batch))
+    n_calls, ties, match_ms = _md_match_check(torch, np, model, mi, tg, "l1")
+    ce_batch = _md_batches(corpus, ce_cfg)
+    ce_model = MomentDETR(ce_cfg.model, device="meta")
+    ce_model.load_state_dict({k: v.cuda() for k, v in load_torch_checkpoint(
+        os.path.join(ce_cfg.results_dir, "model_best.ckpt"), ce_cfg.model).items()},
+        assign=True)
+    ce_calls, ce_ties, ce_match_ms = _md_match_check(torch, np, ce_model, *ce_batch, "ce")
+    log(f"[md] exhaustive matching vs scipy on the step's costs (B = 32, 10 queries, 5 "
+        f"windows, P(10, 5) = 30240 rows): l1 {n_calls} calls, {ties} near-ties, "
+        f"{match_ms:.3f} ms a call; ce {ce_calls} calls, {ce_ties} near-ties, "
+        f"{ce_match_ms:.3f} ms a call ({card})")
+    del ce_model
+
+    model = MomentDETR(cfg.model, device="cuda", seed=0)
+    state = TrainState(model, make_optimizer(
+        model.parameters(), build_schedule(cfg.lr, cfg.lr_warmup, cfg.lr_drop,
+                                           cfg.lr_gamma, 3), cfg.wd, cfg.grad_clip))
+    step = make_md_train_step(cfg.weights, cfg.weights.eos_coef, cfg.saliency_margin, "l1")
+    holder = {}
+
+    def one():
+        holder["m"] = step(state, mi, tg, 0)[1]
+
+    torch.cuda.reset_peak_memory_stats()
+    ms = cuda_ms(one, iters=MD_TIMED_STEPS, warmup=2)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    us, _, wall_us = _profile_counts(torch, one)
+    busy = sum(us.values())
+    top = sorted(us.items(), key=lambda kv: -kv[1])[:8]
+    stats = {"cell": "train_md_f32", "device": card, "B": 32, "tokens": 75 + 32,
+             "ms": ms, "profiled_host_ms": wall_us / 1e3, "profiled_busy_ms": busy / 1e3,
+             "idle_share": 1.0 - busy / wall_us if busy else None,
+             "matcher_ms_per_call": match_ms,
+             "matcher_calls_per_step": n_calls, "peak_gib": peak,
+             "top_kernels_ms": [[k[:90], t / 1e3] for k, t in top]}
+    if not busy:
+        stats["note"] = "torch.profiler recorded no device activity: not measured"
+    log(f"[md] make_md_train_step, f32, B = 32, 75 + 32 tokens (ms by CUDA events over "
+        f"{MD_TIMED_STEPS} steps, then one step under torch.profiler; {card}): "
+        f"{json.dumps(stats)}")
+    if not np.isfinite(float(holder["m"]["loss_overall"])):
+        raise AssertionError("the Moment-DETR step is not finite")
+    return train_launches, infer_launches, stats
+
+
+def _md_batches(corpus, cfg):
+    """The first training batch of a Moment-DETR config's data, on the card."""
+    from univtg_tpu_torch.data.collate import collate_mr
+    from univtg_tpu_torch.data.mr import MRDataset
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+
+    ds = MRDataset(cfg.train_data)
+    batch = collate_mr([ds[i] for i in range(32)], 32, 75)
+    return tuple(to_device(t, "cuda") for t in strip_meta(batch))
 
 
 def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
@@ -3416,6 +3687,10 @@ def main() -> int:
             f"launches: {qfvs_infer_launches}")
         vlp_train_launches, _ = timed("vlp", phase_vlp, torch, np, smi, tmp)
         log(f"[main path] VLP training launches: {vlp_train_launches}")
+        md_train_launches, md_infer_launches, _ = timed("md", phase_md, torch, np, smi,
+                                                        tmp, corpus)
+        log(f"[main path] Moment-DETR training launches: {md_train_launches}; "
+            f"Moment-DETR inference launches: {md_infer_launches}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -3442,7 +3717,9 @@ def main() -> int:
                             "hl_inference": hl_infer_launches,
                             "qfvs_training": qfvs_train_launches,
                             "qfvs_inference": qfvs_infer_launches,
-                            "vlp_training": vlp_train_launches}, sass)
+                            "vlp_training": vlp_train_launches,
+                            "md_training": md_train_launches,
+                            "md_inference": md_infer_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

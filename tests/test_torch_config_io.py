@@ -98,6 +98,40 @@ def test_a_jax_opt_json_loads_into_the_port(name, tmp_path):
         assert f.read() == config_io.to_json(cfg)
 
 
+def test_a_moment_detr_config_round_trips(tmp_path):
+    """The model of a model_id="moment_detr" config rebuilds as a
+    MomentDETRConfig with its own fields (the JAX copy of config_io drops
+    them); a plain UniVTG config stays a ModelConfig."""
+    from univtg_tpu_torch.models.moment_detr import MomentDETRConfig
+
+    cfg = TrainConfig(model=MomentDETRConfig(num_queries=7, aux_loss=False,
+                                             span_loss_type="ce"),
+                      model_id="moment_detr")
+    back = config_io.from_json(TrainConfig, config_io.to_json(cfg))
+    assert type(back.model) is MomentDETRConfig and back == cfg
+    plain = config_io.from_json(TrainConfig, config_io.to_json(TrainConfig()))
+    assert type(plain.model) is ModelConfig
+
+
+def test_a_jax_opt_json_of_a_moment_detr_run_loads_into_the_port(tmp_path):
+    from univtg_tpu.models.moment_detr import MomentDETRConfig as JaxMDConfig
+    from univtg_tpu.train.driver_mr import TrainConfig as JaxTrainConfig
+    from univtg_tpu_torch.models.moment_detr import MomentDETRConfig
+
+    jcfg = JaxTrainConfig(model=JaxMDConfig(num_queries=7, num_decoder_layers=3,
+                                            contrastive_align=True),
+                          model_id="moment_detr", bsz=8)
+    jconfig_io.save_config(jcfg, str(tmp_path))
+    cfg = config_io.load_config(TrainConfig, str(tmp_path))
+    assert type(cfg.model) is MomentDETRConfig and cfg.model_id == "moment_detr"
+    assert (cfg.model.num_queries, cfg.model.num_decoder_layers, cfg.bsz) == (7, 3, 8)
+    assert cfg.model.contrastive_align
+    mine = json.loads(config_io.to_json(cfg))
+    theirs = json.loads(jconfig_io.to_json(jcfg))
+    _common(mine, theirs)
+    _common(theirs, mine)
+
+
 def test_snapshot_code_zips_the_port_with_its_kernels(tmp_path):
     out = config_io.snapshot_code(str(tmp_path))
     assert out == str(tmp_path / "code.zip")

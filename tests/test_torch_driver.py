@@ -171,10 +171,18 @@ def test_cli_defaults_to_cuda_for_train_mr():
 
 @pytest.mark.parametrize("field,value", [
     ("dp", 2), ("tp", 2),
-    ("pp", 2), ("ep", 2), ("num_shards", 2), ("model_id", "moment_detr"),
+    ("pp", 2), ("ep", 2), ("num_shards", 2),
     ("inject_fault_epoch", 0),
 ])
 def test_unported_driver_options_raise(corpus, field, value):
     cfg = dataclasses.replace(TrainConfig(train_data=_data(corpus)), **{field: value})
     with pytest.raises(NotImplementedError, match="ROADMAP"):
+        train_mr(cfg, device="cpu")
+
+
+def test_moment_detr_needs_its_config(corpus):
+    """model_id="moment_detr" with a plain ModelConfig names the class it
+    needs (the JAX driver fails there with an AttributeError)."""
+    cfg = TrainConfig(train_data=_data(corpus), model_id="moment_detr")
+    with pytest.raises(ValueError, match="MomentDETRConfig"):
         train_mr(cfg, device="cpu")

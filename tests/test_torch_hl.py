@@ -132,7 +132,7 @@ def test_hl_driver_trains_checkpoints_and_infer_hl_reads_them(corpus, tmp_path):
     assert scores["AVG"] == scores["SYN"]
     with open(tmp_path / "hl_run" / "best_tvsum_metrics.json") as f:
         assert json.load(f) == scores
-    blob = ckpt._load(str(tmp_path / "hl_run" / "model_SYN_best.ckpt"))
+    blob = ckpt.read_checkpoint(str(tmp_path / "hl_run" / "model_SYN_best.ckpt"))
     assert set(blob) == {"model", "optimizer", "epoch", "step", "opt"}
     assert blob["step"] == 2 * (blob["epoch"] + 1)  # 6 items, bsz 4: 2 steps an epoch
     assert infer_hl(cfg, str(tmp_path / "hl_run"), device="cpu") == scores

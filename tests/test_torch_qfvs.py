@@ -476,7 +476,7 @@ def test_train_qfvs_writes_metrics_and_checkpoints_infer_qfvs_reads(corpus, tmp_
     with open(tmp_path / "run" / "qfvs_metrics.json") as f:
         assert json.load(f) == results
     for v in ("V1", "V4"):
-        blob = ckpt._load(str(tmp_path / "run" / f"model_{v}_best.ckpt"))
+        blob = ckpt.read_checkpoint(str(tmp_path / "run" / f"model_{v}_best.ckpt"))
         assert set(blob) == {"model", "optimizer", "epoch", "step", "opt"}
         assert blob["step"] == 9 * (blob["epoch"] + 1)
     assert infer_qfvs(cfg, str(tmp_path / "run"), device="cpu") == results

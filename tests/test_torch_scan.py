@@ -204,7 +204,7 @@ def _log(results_dir):
 
 
 def _params(path):
-    return ckpt._load(path)["model"]
+    return ckpt.read_checkpoint(path)["model"]
 
 
 def test_train_mr_scan_steps_equals_single_steps(corpus40, tmp_path):

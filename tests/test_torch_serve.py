@@ -249,7 +249,7 @@ def test_port_imports_nothing_of_jax():
         "assert not bad, bad\n"
         "for name in ('train.driver_hl', 'data.hl', 'evals.hl_domain', 'train.steps',\n"
         "             'data.qfvs', 'data.vlp', 'evals.qfvs_metric', 'train.driver_qfvs',\n"
-        "             'train.driver_vlp'):\n"
+        "             'train.driver_vlp', 'models.moment_detr', 'interop.flax_msgpack'):\n"
         "    assert 'univtg_tpu_torch.' + name in sys.modules, name\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -100,7 +100,7 @@ def restored_model(cfg, path, device):
 
     dev = resolve_device(device)
     model = UniVTG(cfg.model, device="meta")
-    params = ckpt.restore_params(path, model.state_dict())
+    params = ckpt.restore_params(path, model.state_dict(), cfg.model)
     model.load_state_dict({k: v.to(dev) for k, v in params.items()}, assign=True)
     return model
 
@@ -197,7 +197,7 @@ def cmd_quantize(args):
 
     cfg = _preset_cfg(args)
     template = UniVTG(cfg.model, device="meta").state_dict()
-    save_quantized(args.out, ckpt.restore_params(args.resume, template))
+    save_quantized(args.out, ckpt.restore_params(args.resume, template, cfg.model))
     print(f"wrote int8 checkpoint: {args.out} "
           f"({os.path.getsize(args.out) / 1e6:.1f} MB)")
 

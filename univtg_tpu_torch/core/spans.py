@@ -1,5 +1,6 @@
 """Temporal span algebra; counterpart of ``univtg_tpu/core/spans.py``
-(``xx_to_cxw``, ``cxw_to_xx``, ``iou_paired``, ``giou_paired``).
+(``xx_to_cxw``, ``cxw_to_xx``, ``iou_cross``, ``iou_paired``,
+``giou_cross``, ``giou_paired``).
 
 Span formats: xx = (start, end), cxw = (center, width); the last dim is 2.
 ``torch.maximum``/``torch.minimum`` stand where the reference takes
@@ -28,6 +29,29 @@ def cxw_to_xx(spans):
 def _relu(x):
     """jnp.clip(x, 0, None): maximum(0, x), ties halved."""
     return torch.maximum(x, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def iou_cross(spans1, spans2):
+    """Pairwise IoU of (..., N, 2) and (..., M, 2) xx spans -> (iou, union),
+    each (..., N, M). The division is left raw, as the reference leaves it:
+    two zero-width spans at one point give nan."""
+    areas1 = spans1[..., 1] - spans1[..., 0]
+    areas2 = spans2[..., 1] - spans2[..., 0]
+    left = torch.maximum(spans1[..., :, None, 0], spans2[..., None, :, 0])
+    right = torch.minimum(spans1[..., :, None, 1], spans2[..., None, :, 1])
+    inter = _relu(right - left)
+    union = areas1[..., :, None] + areas2[..., None, :] - inter
+    return inter / union, union
+
+
+def giou_cross(spans1, spans2):
+    """Pairwise generalized IoU of (..., N, 2) and (..., M, 2) xx spans ->
+    (..., N, M); the spans must be ordered (start <= end)."""
+    iou, union = iou_cross(spans1, spans2)
+    left = torch.minimum(spans1[..., :, None, 0], spans2[..., None, :, 0])
+    right = torch.maximum(spans1[..., :, None, 1], spans2[..., None, :, 1])
+    enclose = _relu(right - left)
+    return iou - (enclose - union) / enclose
 
 
 def iou_paired(spans1, spans2):

@@ -1,4 +1,4 @@
-"""Shared building blocks: projection stacks, conv heads, pooling.
+"""Shared building blocks: projection stacks, conv and MLP heads, pooling.
 
 Counterpart of ``univtg_tpu/models/layers.py``. Modules and parameters carry
 the upstream UniVTG state-dict names, so released checkpoints load with
@@ -155,6 +155,25 @@ class ConvHead(nn.Module):
                 x = F.relu(x)
             if m is not None:
                 x = x * m
+        return x
+
+
+class MLP(nn.Module):
+    """Plain ReLU MLP head (upstream ``MLP``): ``layers.{i}`` Linear layers,
+    ReLU between them, the last one linear."""
+
+    def __init__(self, in_dim: int, hidden_dim: int, out_dim: int,
+                 num_layers: int):
+        super().__init__()
+        ins = [in_dim] + [hidden_dim] * (num_layers - 1)
+        outs = [hidden_dim] * (num_layers - 1) + [out_dim]
+        self.layers = nn.ModuleList(Linear(i, o) for i, o in zip(ins, outs))
+
+    def forward(self, x):
+        for i, layer in enumerate(self.layers):
+            x = layer(x)
+            if i != len(self.layers) - 1:
+                x = F.relu(x)
         return x
 
 

@@ -1,6 +1,8 @@
 """Config json round-trip (the reference's opt.json save/load contract,
 main/config.py:206-213 + TestOptions:233-247); a copy of
-``univtg_tpu/train/config_io.py``.
+``univtg_tpu/train/config_io.py``, except that the ``model`` of a
+``model_id="moment_detr"`` config rebuilds as a MomentDETRConfig (the JAX
+copy rebuilds a plain ModelConfig and drops the Moment-DETR fields).
 
 Nested dataclass configs serialize to plain json next to checkpoints and
 reconstruct exactly, so an eval-only run can restore the full training
@@ -29,7 +31,7 @@ def _build(cls: Type, data: Any):
         for k, v in data.items():
             if k not in fields:
                 continue
-            kwargs[k] = _build(_resolve(fields[k].type, _owner(cls, k)), v)
+            kwargs[k] = _build(_field_class(cls, fields[k], data), v)
         return cls(**kwargs)
     import collections.abc
 
@@ -41,6 +43,18 @@ def _build(cls: Type, data: Any):
         # the preset defaults); plain list annotations stay lists
         return out if origin is list or cls is list else tuple(out)
     return data
+
+
+def _field_class(cls, field, data):
+    """The class a field of ``cls`` rebuilds as: its annotation's, except
+    the ``model`` of a config whose ``model_id`` is "moment_detr", which is
+    a MomentDETRConfig (the annotation, ModelConfig, would drop every
+    Moment-DETR field)."""
+    if field.name == "model" and data.get("model_id") == "moment_detr":
+        from univtg_tpu_torch.models.moment_detr import MomentDETRConfig
+
+        return MomentDETRConfig
+    return _resolve(field.type, _owner(cls, field.name))
 
 
 def _owner(cls, name):

@@ -165,7 +165,7 @@ def infer_hl(cfg: HLTrainConfig, ckpt_dir: str, device="cuda") -> dict:
     for domain in _domains(cfg):
         dataset = HLDataset(dataclasses.replace(cfg.data, domain=domain))
         path = os.path.join(ckpt_dir, f"model_{domain}_best.ckpt")
-        model.load_state_dict(ckpt.restore_params(path, model.state_dict()))
+        model.load_state_dict(ckpt.restore_params(path, model.state_dict(), cfg.model))
         scores[domain] = eval_domain(cfg, model, dataset)
     scores["AVG"] = sum(scores.values()) / len(scores)
     return scores

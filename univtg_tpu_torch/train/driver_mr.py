@@ -17,11 +17,13 @@ Checkpoints are torch files in the upstream container (train/checkpoint.py).
 not run raises ``NotImplementedError`` naming ROADMAP.md: more than one
 device or process (``dp``/``tp``/``pp``/``ep``,
 ``num_shards``, and with them ``sharded_eval``) and the fault injection of
-their elastic restarts, and Moment-DETR. Checkpoints are written
-synchronously, whatever ``async_checkpoint`` says. ``scan_steps = K > 1``
-stacks K batches of one video-length bucket into one call of
-``make_scan_train_step`` (on a card, one CUDA-graph replay); a ragged
-remainder, or a bucket change, goes through the single step.
+their elastic restarts. Checkpoints are written synchronously, whatever
+``async_checkpoint`` says. ``scan_steps = K > 1`` stacks K batches of one
+video-length bucket into one call of ``make_scan_train_step`` (on a card,
+one CUDA-graph replay); a ragged remainder, or a bucket change, goes
+through the single step. ``model_id="moment_detr"`` trains MomentDETR
+(cfg.model a MomentDETRConfig) through the Moment-DETR steps, step by step
+whatever scan_steps says.
 """
 from __future__ import annotations
 
@@ -43,6 +45,7 @@ from univtg_tpu_torch.data.prefetch import device_prefetch, to_device, to_pinned
 from univtg_tpu_torch.device import resolve_device
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
+from univtg_tpu_torch.models.moment_detr import MomentDETR, MomentDETRConfig
 from univtg_tpu_torch.models.univtg import UniVTG
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.config_io import snapshot_code, to_json
@@ -56,6 +59,8 @@ from univtg_tpu_torch.train.schedule import build_schedule
 from univtg_tpu_torch.train.steps import (
     TrainState,
     make_eval_step,
+    make_md_eval_step,
+    make_md_train_step,
     make_optimizer,
     make_scan_train_step,
     make_train_step,
@@ -144,7 +149,6 @@ def _refuse_unported(cfg: TrainConfig):
         "ep > 1": cfg.ep > 1,
         "num_shards > 1": cfg.num_shards > 1,
         "inject_fault_epoch": cfg.inject_fault_epoch >= 0,
-        "model_id='moment_detr'": cfg.model_id == "moment_detr",
     }
     named = [k for k, on in unported.items() if on]
     if named:
@@ -152,8 +156,19 @@ def _refuse_unported(cfg: TrainConfig):
             f"train_mr of univtg_tpu_torch does not run {', '.join(named)} "
             f"yet (ROADMAP.md, queue 1)"
         )
-    if cfg.model_id != "univtg":
+    if cfg.model_id not in ("univtg", "moment_detr"):
         raise ValueError(f"unknown model_id {cfg.model_id!r}")
+    if cfg.model_id == "moment_detr" and not isinstance(cfg.model, MomentDETRConfig):
+        raise ValueError(
+            f"model_id='moment_detr' needs cfg.model to be a MomentDETRConfig, "
+            f"not a {type(cfg.model).__name__}")
+
+
+def build_model(cfg: TrainConfig, device="cuda", seed: int = 0):
+    """The model of cfg.model_id: MomentDETR or UniVTG, on ``device``."""
+    if cfg.model_id == "moment_detr":
+        return MomentDETR(cfg.model, device=device, seed=seed)
+    return UniVTG(cfg.model, device=device, seed=seed)
 
 
 def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
@@ -191,7 +206,7 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
         lengths=lengths,
     )
     steps_per_epoch = len(train_loader)
-    model = UniVTG(cfg.model, device=dev, seed=cfg.seed)
+    model = build_model(cfg, dev, cfg.seed)
     schedule = build_schedule(cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma,
                               max(steps_per_epoch, 1))
     state = TrainState(model, make_optimizer(model.parameters(), schedule,
@@ -207,15 +222,23 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
             state, resume_epoch = ckpt.restore_checkpoint(resume, state)
         else:  # weights only
             model.load_state_dict(
-                ckpt.restore_params(resume, model.state_dict()), strict=True)
+                ckpt.restore_params(resume, model.state_dict(), cfg.model), strict=True)
 
-    train_step = make_train_step(cfg.weights, tuple(cfg.losses),
-                                 use_gates=cfg.use_gates)
     scan_step = None
-    if cfg.scan_steps > 1:
-        scan_step = make_scan_train_step(cfg.weights, tuple(cfg.losses),
-                                         use_gates=cfg.use_gates)
-    eval_step = make_eval_step(cfg.eval_mode)
+    if cfg.model_id == "moment_detr":
+        # step by step whatever scan_steps says, as the JAX driver runs it
+        span_loss_type = cfg.model.span_loss_type
+        train_step = make_md_train_step(cfg.weights, cfg.weights.eos_coef,
+                                        cfg.saliency_margin, span_loss_type)
+        eval_step = make_md_eval_step(
+            span_loss_type, cfg.eval_data.clip_len if cfg.eval_data else 2.0)
+    else:
+        train_step = make_train_step(cfg.weights, tuple(cfg.losses),
+                                     use_gates=cfg.use_gates)
+        if cfg.scan_steps > 1:
+            scan_step = make_scan_train_step(cfg.weights, tuple(cfg.losses),
+                                             use_gates=cfg.use_gates)
+        eval_step = make_eval_step(cfg.eval_mode)
     seed = cfg.seed + 1  # the JAX driver's PRNGKey(seed + 1)
     cfg_json = to_json(cfg)
     with open(os.path.join(cfg.results_dir, "opt.json"), "w") as f:

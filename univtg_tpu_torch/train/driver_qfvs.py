@@ -215,7 +215,7 @@ def infer_qfvs(cfg: QFVSTrainConfig, ckpt_dir: str, videos_tag=None,
     results = {}
     for test_video in _test_videos(cfg):
         path = os.path.join(ckpt_dir, f"model_V{test_video}_best.ckpt")
-        model.load_state_dict(ckpt.restore_params(path, model.state_dict()))
+        model.load_state_dict(ckpt.restore_params(path, model.state_dict(), cfg.model))
         results[f"V{test_video}"] = eval_split(cfg, model, test_video, videos_tag)
     results["AVG_F"] = _average_f(cfg, results)
     return results

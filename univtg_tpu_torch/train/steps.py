@@ -2,7 +2,8 @@
 ``univtg_tpu/train/steps.py`` (``make_optimizer``, ``TrainState``,
 ``step_dropout_rngs``, ``dequantize_inputs``, ``forward``,
 ``make_train_step``, ``make_scan_train_step``, ``stack_batches``,
-``make_eval_step``, ``decode_dense_outputs``).
+``make_md_train_step``, ``make_md_eval_step``, ``make_eval_step``,
+``decode_dense_outputs``).
 
 PyTorch runs eagerly, so the train step is a plain function over a mutable
 ``TrainState``: forward in train mode, ``compute_losses``, backward, the
@@ -14,11 +15,13 @@ mode and the dense decode, under ``torch.inference_mode()``.
 from __future__ import annotations
 
 import dataclasses
+import re
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from univtg_tpu_torch.core.spans import cxw_to_xx
 from univtg_tpu_torch.models.losses import LossWeights, compute_losses
 from univtg_tpu_torch.train.epoch_runner import strip_meta
 
@@ -163,16 +166,26 @@ def forward(model, model_inputs, *, train=False, generator=None):
     return model(*args, train=train, generator=generator)
 
 
+def _dense_losses(weights, losses, use_gates):
+    """(outputs, targets) -> compute_losses' dict, loss_overall included."""
+
+    def loss_fn(outputs, targets):
+        gates = targets.get("gates") if use_gates else None
+        return compute_losses(outputs, targets, weights, losses, gates)
+
+    return loss_fn
+
+
 def _train_body(state: TrainState, model_inputs, targets, generator, update,
-                weights, losses, use_gates, static_inputs=None):
-    """Forward in train mode, losses, backward and ``update()`` (the
-    optimizer step, returning the global norm); returns the metrics."""
+                loss_fn, static_inputs=None):
+    """Forward in train mode, ``loss_fn(outputs, targets)`` (a dict holding
+    loss_overall), backward and ``update()`` (the optimizer step, returning
+    the global norm); returns the metrics."""
     if static_inputs:
         model_inputs = {**model_inputs, **static_inputs}
     state.model.train()
     outputs = forward(state.model, model_inputs, train=True, generator=generator)
-    gates = targets.get("gates") if use_gates else None
-    loss_dict = compute_losses(outputs, targets, weights, losses, gates)
+    loss_dict = loss_fn(outputs, targets)
     state.optimizer.zero_grad()
     loss_dict["loss_overall"].backward()
     metrics = {k: v.detach() for k, v in loss_dict.items()}
@@ -192,12 +205,18 @@ def make_train_step(weights: LossWeights,
     of TAL-style pretraining).
     """
 
+    return _single_step(_dense_losses(weights, losses, use_gates), static_inputs)
+
+
+def _single_step(loss_fn, static_inputs=None):
+    """(state, model_inputs, targets, seed) -> (state, metrics): one
+    ``_train_body`` on the step's generator and the scheduled rate."""
+
     def step(state: TrainState, model_inputs, targets, seed: int):
         device = next(state.model.parameters()).device
         metrics = _train_body(
             state, model_inputs, targets, step_generator(seed, state.step, device),
-            lambda: state.optimizer.step(state.step), weights, losses, use_gates,
-            static_inputs)
+            lambda: state.optimizer.step(state.step), loss_fn, static_inputs)
         state.step += 1
         return state, metrics
 
@@ -276,8 +295,8 @@ class ScanTrainStep:
     """
 
     def __init__(self, weights, losses, use_gates):
-        self.weights, self.losses, self.use_gates = weights, tuple(losses), use_gates
-        self.single = make_train_step(weights, self.losses, use_gates)
+        self.loss_fn = _dense_losses(weights, tuple(losses), use_gates)
+        self.single = _single_step(self.loss_fn)
         self.groups = {}
         self.stream = self.pool = self.generator = None
 
@@ -308,8 +327,7 @@ class ScanTrainStep:
             per_step.append(_train_body(
                 state, {k: v[i] for k, v in group.mi.items()},
                 {k: v[i] for k, v in group.tg.items()}, self.generator,
-                lambda: state.optimizer.step_with_lr(lr), self.weights, self.losses,
-                self.use_gates))
+                lambda: state.optimizer.step_with_lr(lr), self.loss_fn))
         return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
     def _on_card(self, state, stacked_mi, stacked_tg, seed, K, impl, device):
@@ -371,6 +389,62 @@ def make_scan_train_step(weights: LossWeights,
                          use_gates: bool = False) -> ScanTrainStep:
     """K same-shape training steps per call (``ScanTrainStep``)."""
     return ScanTrainStep(weights, losses, use_gates)
+
+
+def make_md_train_step(weights: LossWeights, eos_coef: float = 0.1,
+                       saliency_margin: float = 0.2, span_loss_type: str = "l1"):
+    """The Moment-DETR train step: Hungarian matching and the matched losses
+    (models/moment_detr.moment_detr_losses); each aux decoder layer's term
+    ``{k}_{i}`` takes the weight of ``k``, and a loss that
+    ``weights.as_dict()`` does not name (loss_contrastive_align) weighs 0,
+    as in the JAX package. Same signature and metrics as make_train_step."""
+    from univtg_tpu_torch.models.moment_detr import moment_detr_losses
+
+    wd = weights.as_dict()
+
+    def loss_fn(outputs, targets):
+        ld = moment_detr_losses(outputs, targets, eos_coef=eos_coef,
+                                saliency_margin=saliency_margin,
+                                span_loss_type=span_loss_type)
+        ld["loss_overall"] = sum(wd.get(re.sub(r"_\d+$", "", k), 0.0) * v
+                                 for k, v in ld.items())
+        return ld
+
+    return _single_step(loss_fn)
+
+
+def make_md_eval_step(span_loss_type: str = "l1", clip_length: float = 2.0):
+    """The Moment-DETR decode, as make_eval_step's: 'l1' -> per-query
+    softmax foreground probability and cxw -> xx normalized spans; 'ce' ->
+    argmax start/end clip indices -> absolute seconds (``absolute_spans``),
+    scores the product of the st/ed max probabilities."""
+
+    @torch.inference_mode()
+    def step(model, model_inputs, targets):
+        model.eval()
+        outputs = forward(model, model_inputs, train=False)
+        saliency = outputs["saliency_scores"].half().float()
+        spans = outputs["pred_spans"]
+        if span_loss_type == "ce":
+            B, Q, two_l = spans.shape
+            sp = torch.softmax(spans.reshape(B, Q, 2, two_l // 2), dim=-1)
+            top, idx = sp.max(dim=-1)  # (B, Q, 2)
+            scores = top.prod(dim=-1)
+            # the end index is inclusive: + 1 clip
+            end = torch.tensor([0.0, 1.0], device=spans.device)
+            spans = (idx.float() + end) * clip_length
+        else:
+            scores = torch.softmax(outputs["pred_logits"], dim=-1)[..., 0]
+            spans = cxw_to_xx(spans)
+        return {
+            "scores": scores,
+            "spans": spans,
+            "saliency": saliency,
+            "valid_len": model_inputs["src_vid_mask"].sum(dim=1).to(torch.int32),
+            "absolute_spans": span_loss_type == "ce",
+        }
+
+    return step
 
 
 def make_eval_step(eval_mode: Optional[str] = "add"):
