@@ -19,7 +19,8 @@ printing its seconds:
                  registers and spill bytes; fails unless every bf16
                  (wgmma) kernel, SASS_KERNELS, issues HGMMA.
   3. kernels  -- each kernel against its plain twin: flash_fwd at the
-                 serving shapes; flash_fwd, flash_bwd_dq and flash_bwd_dkv
+                 serving shapes and GROUND_SHAPE (one ground_video
+                 dispatch); flash_fwd, flash_bwd_dq and flash_bwd_dkv
                  at the two training shapes, f32 and bf16, dropout 0 and
                  0.1; kernel, twin and library times, the bound, TFLOP/s
                  and the share of the bound.
@@ -187,6 +188,31 @@ printing its seconds:
                  step's ms by CUDA events over MD_TIMED_STEPS steps, then
                  one step under torch.profiler (busy ms, idle share, the
                  matcher's ms, the largest device items).
+  7j. ground  -- raw-video grounding at the upstream demo's configuration:
+                 CLIP ViT-B/32 (vit_b32(), random weights from seed 0,
+                 written with torch.save and read back by
+                 load_clip_checkpoint) in front of the flagship at vid_dim
+                 514 (512 CLIP + 2 TEF) and txt_dim 512 (the port's .ckpt),
+                 "pallas", f32; a GROUND_CLIPS x 2 s video written and
+                 decoded by ffmpeg or cv2, or, where the machine has
+                 neither, extract/video.decode_frames replaced by seeded
+                 uint8 frames (printed). `cli ground` on it (the answer and
+                 its JSON), `cli extract-text` on GROUND_TEXT_ROWS queries
+                 (one npz each, equal to txt2clip), the demo app's callbacks
+                 through a stub gradio module, and a GroundingServer with
+                 the encoder: a raw-video PUT and GROUND_QUERIES concurrent
+                 text POSTs, answers equal to ground_features. Held:
+                 "pallas" vs "xla" on the same features at PIPE_TOL's f32
+                 limits; the card's f32 encoder vs the same encoder on the
+                 CPU (CLIP_DEVICE_TOL); uint8 frames vs host-normalized f32
+                 (CLIP_U8_TOL); bf16 vs f32 (CLIP_BF16_TOL). Timed by CUDA
+                 events: the image tower's frames/s at image_batch 64 over
+                 GROUND_TIMED_FRAMES frames and the text tower's ms a query,
+                 f32 and bf16, beside PEAK_FLOPS; ground_video's host ms
+                 and its split, each step through its entry (decode,
+                 encode_images with the uint8 copy inside it, txt2clip,
+                 ground_features; the copy also alone); one ground_video
+                 under torch.profiler.
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -208,7 +234,10 @@ inference phase 7g's train-qfvs (evaluations included) and "pallas"
 infer-qfvs runs, VLP training phase 7h's train_vlp run (evaluations
 included), Moment-DETR training phase 7i's two train_mr runs (evaluations
 included) and Moment-DETR inference its reloaded checkpoint's evaluation,
-where no kernel may run; the smoke's own
+where no kernel may run, raw-video grounding phase 7j's `cli ground`, `cli
+extract-text` and demo-app runs (4 flash_fwd per grounding dispatch, none
+from the CLIP towers or extract-text) and the grounding server its raw-video
+PUT and text POSTs (4 flash_fwd per batch); the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
 of the other paths must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
@@ -226,6 +255,7 @@ import tempfile
 import threading
 import time
 import urllib.request
+from types import SimpleNamespace
 
 # tolerances of kernel vs twin (same inputs, same dtype, on the card)
 TOL = {
@@ -472,6 +502,29 @@ VLP_SHAPE = {"train_vlp": (64, 75 + 32, 8, 128)}
 # MATCH_TIE_REL of scipy's (f32 sums of 5 costs in another order)
 MD_EPOCHS, MD_TIMED_STEPS = 2, 10
 MATCH_TIE_REL = 1e-5
+# raw-video grounding (phase 7j), at the upstream demo's configuration
+# (main_gradio.py:19-53): CLIP ViT-B/32 in front of the flagship, whose video
+# input is 512 CLIP dims + 2 TEF (GROUND_OVERRIDES); a video of GROUND_CLIPS
+# clips of 2 s (150 s); GROUND_QUERIES concurrent text POSTs; `cli
+# extract-text` on GROUND_TEXT_ROWS queries; the image tower timed over
+# GROUND_TIMED_FRAMES frames (a 68-minute video at 2 s clips). GROUND_SHAPE,
+# the attention of one ground_video dispatch (B = 1, bucket 128 + 32
+# tokens), joins phase 3
+GROUND_OVERRIDES = ("model.vid_dim=514", "model.txt_dim=512", "model.attention_impl=pallas")
+GROUND_CLIPS, GROUND_QUERIES, GROUND_TEXT_ROWS, GROUND_TIMED_FRAMES = 75, 8, 64, 2048
+GROUND_SHAPE = {"ground_160": (1, 128 + 32, 8, 128)}
+# phase 7j's limits. extract-text's files against txt2clip: both pad to one
+# text batch on the same card, so only a fault can differ. The card's f32
+# CLIP against the same CLIP on the CPU, max |d| / max |cpu|: only the
+# summation order differs over 12 layers (TF32 off). uint8 frames normalized
+# on the card against f32 frames normalized on the host: the JAX package's
+# test limit. bf16 against f32, max |d| / max |f32|: 2.8x the larger reading
+# on the H100 (image 4.7e-3, text 8.8e-3, with the attention projections and
+# the residual stream in f32 as JAX promotes them)
+GROUND_TEXT_TOL = 1e-5
+CLIP_DEVICE_TOL = 1e-4
+CLIP_U8_TOL = 1e-4
+CLIP_BF16_TOL = 2.5e-2
 
 
 def log(msg: str) -> None:
@@ -754,7 +807,7 @@ def phase_kernels(torch):
     from univtg_tpu_torch.ops import flash_attention as fa
 
     records = []
-    for shape_name, (B, L, H, dh) in SHAPES.items():
+    for shape_name, (B, L, H, dh) in {**SHAPES, **GROUND_SHAPE}.items():
         for dname in ("float32", "bfloat16"):
             dtype = getattr(torch, dname)
             q, k, v, mask = _attention_inputs(torch, B, L, H, dh, dtype, seed=len(records))
@@ -3542,6 +3595,438 @@ def _md_batches(corpus, cfg):
     return tuple(to_device(t, "cuda") for t in strip_meta(batch))
 
 
+def _clip_flops(cfg, tokens=None):
+    """Multiply-adds x 2 of one frame through the ViT image tower (tokens
+    None) or of one query of ``tokens`` tokens through the text tower:
+    the patch conv, per layer the q/k/v and out projections, the scores and
+    P . V, the MLP, then the projection (univtg_tpu/extract/clip/model.py
+    :84-131 and :265-307)."""
+    if tokens is None:
+        L, D, layers = cfg.grid**2 + 1, cfg.vision_width, cfg.vision_layers
+        extra = (L - 1) * 3 * cfg.vision_patch_size**2 * D + D * cfg.embed_dim
+    else:
+        L, D, layers = tokens, cfg.transformer_width, cfg.transformer_layers
+        extra = D * cfg.embed_dim
+    per_layer = 4 * L * D * D + 2 * L * L * D + 2 * L * D * 4 * D
+    return 2 * (layers * per_layer + extra)
+
+
+def _ground_queries(np, n, seed=0):
+    """n seeded English queries."""
+    rng = np.random.default_rng(seed)
+    who = ["a man", "a woman", "the chef", "a child", "two friends", "the vlogger",
+           "a dog", "the driver"]
+    does = ["opens", "cleans", "carries", "points at", "talks about", "walks past",
+            "picks up", "throws"]
+    what = ["the door", "a red car", "the kitchen table", "a bowl of noodles",
+            "the beach at sunset", "a tall building", "her phone", "the camera"]
+    return [f"{who[rng.integers(len(who))]} {does[rng.integers(len(does))]} "
+            f"{what[rng.integers(len(what))]}" for _ in range(n)]
+
+
+def _ground_video(np, tmp):
+    """A GROUND_CLIPS x 2 s synthetic video written by the decoder the card's
+    machine has (ffmpeg, else cv2): (path, decoder). Without either, a
+    placeholder file and None: the phase then replaces
+    extract/video.decode_frames with seeded frames."""
+    import shutil
+
+    seconds = GROUND_CLIPS * 2
+    path = os.path.join(tmp, "ground.avi")
+    if shutil.which("ffmpeg") and shutil.which("ffprobe"):
+        subprocess.run(["ffmpeg", "-v", "error", "-nostdin", "-f", "lavfi", "-i",
+                        f"testsrc=size=320x240:rate=5:duration={seconds}", "-c:v",
+                        "mjpeg", "-q:v", "5", path], check=True, timeout=300)
+        return path, "ffmpeg"
+    try:
+        import cv2
+    except ImportError:
+        with open(path, "wb") as f:
+            f.write(b"placeholder: no decoder on this machine")
+        return path, None
+    writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"MJPG"), 5.0, (320, 240))
+    base = np.random.default_rng(0).integers(0, 256, (30, 40, 3)).astype(np.uint8)
+    for i in range(seconds * 5):
+        writer.write(np.roll(base, i, axis=1).repeat(8, axis=0).repeat(8, axis=1))
+    writer.release()
+    return path, "cv2"
+
+
+class _StubComponent:
+    def __init__(self, wired, label=None, **kw):
+        self.wired, self.label = wired, label
+
+    def click(self, fn, inputs=None, outputs=None):
+        self.wired.append((self.label, fn))
+
+
+class _StubBlocks:
+    def __init__(self, **kw):
+        self.launched = None
+
+    def __enter__(self):
+        return self
+
+    def __exit__(self, *a):
+        return False
+
+    def launch(self, **kw):
+        self.launched = kw
+
+
+def _stub_gradio(wired):
+    """The gradio API that serve/app.launch_app uses (no gradio on the card's
+    machine); clicks are recorded in ``wired``."""
+    import contextlib
+
+    def component(label=None, **kw):
+        return _StubComponent(wired, label, **kw)
+
+    return SimpleNamespace(Blocks=_StubBlocks, Row=contextlib.nullcontext,
+                           Column=contextlib.nullcontext, Markdown=lambda *a, **k: None,
+                           Video=component, Button=component, Textbox=component)
+
+
+def _rel(np, a, b):
+    """max |a - b| / max |b|."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / max(np.abs(b).max(), 1e-30))
+
+
+def phase_ground(torch, np, card, tmp):
+    """7j, raw-video grounding at the upstream demo's configuration: CLIP
+    ViT-B/32 (vit_b32(): 224^2, patch 32, vision 768 x 12, text 512 x 12, 8
+    heads, vocabulary 49408, context 77) in front of the flagship at
+    vid_dim 514 (512 CLIP + 2 TEF) and txt_dim 512, random weights from
+    seeds, "pallas", f32. Returns (ground launches, ground_server launches,
+    stats)."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.extract import video
+    from univtg_tpu_torch.extract.clip.model import CLIP, vit_b32
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.presets import PRESETS
+
+    t0 = time.perf_counter()
+    clip_cfg = vit_b32()
+    clip_sd = CLIP(clip_cfg, device="cpu", seed=0).state_dict()
+    clip_path = os.path.join(tmp, "clip_vitb32.pt")
+    torch.save(clip_sd, clip_path)
+    model_cfg = cli.apply_overrides(PRESETS["qvhighlights_mr"](), GROUND_OVERRIDES).model
+    sd = UniVTG(model_cfg, device="cpu", seed=0).state_dict()
+    ckpt = os.path.join(tmp, "ground_univtg.ckpt")
+    torch.save({"model": sd}, ckpt)
+    path, decoder = _ground_video(np, tmp)
+    log(f"[ground] CLIP ViT-B/32 from seed 0: {sum(v.numel() for v in clip_sd.values()) / 1e6:.2f}"
+        f" M params ({os.path.getsize(clip_path) / 1e6:.0f} MB file); UniVTG "
+        f"{model_cfg.vid_dim}/{model_cfg.txt_dim} -> {model_cfg.hidden_dim} x "
+        f"{model_cfg.num_layers}, {model_cfg.attention_impl}; video decoder: "
+        f"{decoder or 'none (no ffmpeg, no cv2): extract/video.decode_frames replaced by seeded uint8 frames'}"
+        f" ({time.perf_counter() - t0:.1f} s)")
+    decode = video.decode_frames
+    if decoder is None:
+        frames = np.random.default_rng(7).integers(0, 256, (GROUND_CLIPS, 224, 224, 3),
+                                                   dtype=np.uint8)
+        video.decode_frames = lambda p, clip_len=2.0, **kw: (
+            frames, {"fps": None, "duration": GROUND_CLIPS * clip_len,
+                     "width": None, "height": None})
+    s = SimpleNamespace(card=card, tmp=tmp, clip_cfg=clip_cfg, clip_sd=clip_sd,
+                        clip_path=clip_path, model_cfg=model_cfg, sd=sd, ckpt=ckpt,
+                        path=path)
+    try:
+        _ground_paths(torch, np, s)
+        _ground_server(torch, np, s)
+        return _ground_checks(torch, np, s)
+    finally:
+        video.decode_frames = decode
+
+
+def _ground_paths(torch, np, s):
+    """phase_ground's counted main path (cli ground, cli extract-text, the
+    demo app) on the video that ``s.path`` names, decoded by the machine's
+    decoder or the stand-in. Adds the encoder, the pipeline, the frames, the
+    queries and the launches to ``s``."""
+    import contextlib
+    import io
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.extract import video
+    from univtg_tpu_torch.extract.pipeline import ClipEncoder, txt2clip
+    from univtg_tpu_torch.serve import GroundingPipeline, app
+
+    tmp, clip_cfg, clip_sd, model_cfg, path = s.tmp, s.clip_cfg, s.clip_sd, s.model_cfg, s.path
+    queries = _ground_queries(np, GROUND_TEXT_ROWS)
+    frames, _ = video.decode_frames(path)
+    if not GROUND_CLIPS - 1 <= len(frames) <= GROUND_CLIPS + 1:
+        raise AssertionError(f"decoded {len(frames)} frames of a {GROUND_CLIPS * 2} s video")
+
+    # --- the main path, counted: cli ground, cli extract-text, the demo app
+    _reset_launches()
+    printed = io.StringIO()
+    t = time.perf_counter()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["ground", "--preset", "qvhighlights_mr", "--resume", s.ckpt, "--clip-ckpt",
+                  s.clip_path, "--video", path, "--query", queries[0], *GROUND_OVERRIDES])
+    torch.cuda.synchronize()
+    cli_s = time.perf_counter() - t
+    cli_launches = _launches()
+    out = printed.getvalue()
+    described, _, answer = out.partition("\n{")
+    result = json.loads("{" + answer)
+    log(f"[ground] cli ground ({cli_s:.1f} s, loads included): {described!r}; top-1 "
+        f"{result['top1_window']}, duration {result['duration']}, launches {cli_launches}")
+    win = np.asarray(result["topk_windows"])
+    if (not described.startswith(f"For query: {queries[0]}") or result["duration"]
+            != len(frames) * 2.0 or not np.isfinite(win).all() or (win[:, :2] < 0).any()
+            or (win[:, :2] > result["duration"]).any() or len(win) != 5):
+        raise AssertionError(f"cli ground answered {out!r}")
+    rows = [{"qid": i, "query": q} for i, q in enumerate(queries)]
+    meta = os.path.join(tmp, "ground_queries.jsonl")
+    with open(meta, "w") as f:
+        f.writelines(json.dumps(r) + "\n" for r in rows)
+    out_dir = os.path.join(tmp, "txt_clip")
+    before = _launches()
+    with contextlib.redirect_stdout(io.StringIO()):
+        cli.main(["extract-text", "--metadata", meta, "--clip-ckpt", s.clip_path,
+                  "--out-dir", out_dir])
+    extract_launches = {k: v - before[k] for k, v in _launches().items()}
+
+    enc = ClipEncoder(clip_sd, clip_cfg, device="cuda")
+    pipe = GroundingPipeline(model_cfg, s.sd, clip_encoder=enc, device="cuda")
+    wired = []
+    demo = app.launch_app(pipe, server_port=0, gr=_stub_gradio(wired))
+    if [w[0] for w in wired] != ["Extract features", "Ground"] or demo.launched is None:
+        raise AssertionError(f"the demo app wired {wired}")
+    before = _launches()
+    status = wired[0][1](path)
+    answer = wired[1][1](queries[1])
+    app_launches = {k: v - before[k] for k, v in _launches().items()}
+    ground_launches = _launches()
+    log(f"[ground] cli extract-text on {len(rows)} queries: launches {extract_launches}; "
+        f"demo app: {status!r}, launches {app_launches}")
+    if status != f"Extracted {len(frames)} clip features ({len(frames) * 2}s video).":
+        raise AssertionError(f"the demo's extract said {status!r}")
+    if not answer.startswith(f"For query: {queries[1]}") or answer.count("conf") != 5:
+        raise AssertionError(f"the demo's ground said {answer!r}")
+    want_launches = {k: 0 for k in ground_launches}
+    want_launches["flash_fwd"] = 2 * model_cfg.num_layers  # cli ground and the app: 1 dispatch each
+    if ground_launches != want_launches or any(extract_launches.values()):
+        raise AssertionError(f"ground launches {ground_launches} (extract-text "
+                             f"{extract_launches}), expected {want_launches}")
+
+    # extract-text's files against txt2clip on the same weights
+    err = 0.0
+    for r in rows:
+        with np.load(os.path.join(out_dir, f"{r['qid']}.npz")) as z:
+            got = z["last_hidden_state"]
+        want = txt2clip(enc, r["query"])
+        if got.shape != want.shape or not np.isfinite(got).all():
+            raise AssertionError(f"extract-text {r['qid']}: {got.shape} vs {want.shape}")
+        err = max(err, float(np.abs(got - want).max()))
+    log(f"[ground] extract-text npz vs txt2clip: {len(rows)} files, max abs err {err:.3g} "
+        f"(limit {GROUND_TEXT_TOL}: both pad to one batch of {enc.text_batch})")
+    if err > GROUND_TEXT_TOL:
+        raise AssertionError("cli extract-text disagrees with txt2clip")
+
+    s.enc, s.pipe, s.frames, s.queries, s.ground_launches = (
+        enc, pipe, frames, queries, ground_launches)
+
+
+def _ground_server(torch, np, s):
+    """The server's counted main path: GroundingServer with the encoder, the
+    raw video PUT, then GROUND_QUERIES concurrent text POSTs, each answer
+    equal to the direct ground_features call on the same features. Adds the
+    launches and the server's stats to ``s``."""
+    from univtg_tpu_torch.extract.pipeline import txt2clip, vid2clip
+    from univtg_tpu_torch.serve import GroundingServer
+
+    pipe, path, queries = s.pipe, s.path, s.queries
+
+    server = GroundingServer(pipe, host="127.0.0.1", port=0, max_batch=16,
+                             max_wait_ms=50.0).start()
+    base = f"http://127.0.0.1:{server.port}"
+
+    def call(route, data=None, method=None, headers=None):
+        req = urllib.request.Request(base + route, data=data, method=method,
+                                     headers=headers or {})
+        with urllib.request.urlopen(req, timeout=300) as r:
+            return r.status, json.loads(r.read())
+
+    _reset_launches()
+    try:
+        with open(path, "rb") as f:
+            body = f.read()
+        t = time.perf_counter()
+        status, reg = call("/videos/raw", body, "PUT", {"Content-Type": "video/x-msvideo"})
+        put_ms = (time.perf_counter() - t) * 1e3
+        if status != 200 or reg["clips"] != GROUND_CLIPS:
+            raise AssertionError(f"raw-video PUT: {status} {reg}")
+        qs = queries[:GROUND_QUERIES]
+        results = [None] * len(qs)
+        barrier = threading.Barrier(len(qs))
+
+        def fire(i):
+            barrier.wait()
+            results[i] = call("/ground", json.dumps({"video": "raw", "query": qs[i]}).encode(),
+                              "POST")
+
+        t = time.perf_counter()
+        threads = [threading.Thread(target=fire, args=(i,)) for i in range(len(qs))]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(timeout=300)
+        wall_ms = (time.perf_counter() - t) * 1e3
+        if any(th.is_alive() for th in threads):
+            raise AssertionError("a text /ground request did not finish")
+        _, stats = call("/stats")
+    finally:
+        server.close()
+    launches = _launches()
+    feats = vid2clip(pipe.clip_encoder, path)
+    for q, (status, got) in zip(qs, results):
+        want = pipe.ground_features(feats, txt2clip(pipe.clip_encoder, q))
+        if status != 200 or not (
+                np.allclose(got["topk_windows"], want["topk_windows"], atol=1e-4)
+                and np.allclose(got["saliency"], want["saliency"], atol=1e-4)):
+            raise AssertionError(f"text /ground answer differs from ground_features ({q!r})")
+    log(f"[ground] server: raw-video PUT {put_ms:.1f} ms ({reg}); {len(qs)} concurrent text "
+        f"/ground {wall_ms:.1f} ms wall, {stats['batches']} batches, max batch "
+        f"{stats['max_batch_size']}, launches {launches}")
+    want_launches = {k: 0 for k in launches}
+    want_launches["flash_fwd"] = pipe.cfg.num_layers * stats["batches"]
+    if launches != want_launches:
+        raise AssertionError(f"server launches {launches}, expected {want_launches}")
+    s.server_launches = launches
+    s.server_stats = {"put_ms": put_ms, "post_wall_ms": wall_ms, "batches": stats["batches"]}
+
+
+def _ground_checks(torch, np, s):
+    """phase_ground's holds, times and profile, outside the counted paths.
+    Returns (ground launches, ground_server launches, stats)."""
+    import dataclasses
+    import itertools
+
+    from univtg_tpu_torch.extract import video
+    from univtg_tpu_torch.extract.clip.tokenizer import tokenize
+    from univtg_tpu_torch.extract.pipeline import ClipEncoder, txt2clip, vid2clip
+    from univtg_tpu_torch.extract.video import preprocess_frames
+    from univtg_tpu_torch.serve import GroundingPipeline
+
+    card, clip_cfg, clip_sd, model_cfg = s.card, s.clip_cfg, s.clip_sd, s.model_cfg
+    enc, pipe, path, frames, queries = s.enc, s.pipe, s.path, s.frames, s.queries
+    qs = queries[:GROUND_QUERIES]
+    feats = vid2clip(enc, path)
+    txts = [txt2clip(enc, q) for q in qs]
+    # "pallas" against "xla" on the same features, phase 4's f32 limits
+    pipe_xla = GroundingPipeline(dataclasses.replace(model_cfg, attention_impl="xla"), s.sd,
+                                 device="cuda")
+    _hold_against_xla(np, "ground f32 B=1 L=128+32",
+                      [pipe.ground_features(feats, t) for t in txts],
+                      [pipe_xla.ground_features(feats, t) for t in txts],
+                      len(feats), PIPE_TOL["float32"])
+    del pipe_xla
+
+    # the card's f32 encoder against the same encoder on the CPU
+    cpu = ClipEncoder(clip_sd, clip_cfg, image_batch=8, text_batch=8, device="cpu")
+    few = frames[:8]
+    img_rel = _rel(np, enc.encode_images(few), cpu.encode_images(few))
+    h_card, p_card = enc.encode_texts(qs)
+    h_cpu, p_cpu = cpu.encode_texts(qs)
+    txt_rel = max(_rel(np, p_card, p_cpu),
+                  max(_rel(np, a, b) for a, b in zip(h_card, h_cpu)))
+    del cpu
+    # uint8 normalized on the card against f32 frames normalized on the host
+    u8 = enc.encode_images(frames)
+    u8_err = float(np.abs(u8 - enc.encode_images(preprocess_frames(frames))).max())
+    # bf16 against f32
+    enc16 = ClipEncoder(clip_sd, dataclasses.replace(clip_cfg, compute_dtype="bfloat16"),
+                        device="cuda")
+    bf16_img = _rel(np, enc16.encode_images(frames), u8)
+    h16, p16 = enc16.encode_texts(qs)
+    bf16_txt = max(_rel(np, p16, p_card), max(_rel(np, a, b) for a, b in zip(h16, h_card)))
+    log(f"[ground] card f32 vs CPU f32 (8 frames, 8 queries), max |d| / max |cpu|: image "
+        f"{img_rel:.3g}, text {txt_rel:.3g} (limit {CLIP_DEVICE_TOL}, TF32 off); uint8 vs "
+        f"host-normalized f32 frames, {len(frames)} frames: max abs {u8_err:.3g} (limit "
+        f"{CLIP_U8_TOL}); bf16 vs f32, max |d| / max |f32|: image {bf16_img:.3g}, text "
+        f"{bf16_txt:.3g} (limit {CLIP_BF16_TOL})")
+    if max(img_rel, txt_rel) > CLIP_DEVICE_TOL or u8_err > CLIP_U8_TOL or max(
+            bf16_img, bf16_txt) > CLIP_BF16_TOL:
+        raise AssertionError("a CLIP hold failed")
+
+    # the towers' times, CUDA events after warm-up
+    g = torch.Generator(device="cuda").manual_seed(0)
+    frames_dev = torch.randint(0, 256, (GROUND_TIMED_FRAMES, 224, 224, 3), dtype=torch.uint8,
+                               device="cuda", generator=g)
+    batches = frames_dev.split(enc.image_batch)
+    frame_flops = _clip_flops(clip_cfg)
+    text_flops = _clip_flops(clip_cfg, clip_cfg.context_length)
+    tokens = torch.from_numpy(tokenize(queries[:enc.text_batch],
+                                       clip_cfg.context_length)).to("cuda")
+    towers = {}
+    for dname, e in (("float32", enc), ("bfloat16", enc16)):
+        ring = itertools.cycle(batches)
+        batch_ms = cuda_ms(lambda: e._encode_image(next(ring)), len(batches))
+        fps = enc.image_batch / batch_ms * 1e3
+        bound_fps = PEAK_FLOPS[dname] / frame_flops
+        text_ms = cuda_ms(lambda: e._encode_text(tokens), 20)
+        towers[dname] = {
+            "image_batch_ms": batch_ms, "frames_per_s": fps, "bound_frames_per_s": bound_fps,
+            "bound_share": fps / bound_fps, "tflops": frame_flops * fps / 1e12,
+            "text_batch_ms": text_ms, "text_ms_per_query": text_ms / enc.text_batch,
+            "text_bound_share": text_flops * enc.text_batch / (text_ms * 1e-3)
+            / PEAK_FLOPS[dname]}
+        log(f"[ground] {dname} image tower at B={enc.image_batch} over "
+            f"{GROUND_TIMED_FRAMES} frames: {batch_ms:.3f} ms a batch, {fps:.0f} frames/s "
+            f"({frame_flops / 1e9:.3f} GFLOP a frame, {frame_flops * fps / 1e12:.1f} "
+            f"TFLOP/s, {fps / bound_fps:.3f} of the {PEAK_FLOPS[dname] / 1e12:.0f} TFLOP/s "
+            f"bound); text tower {text_ms:.3f} ms a batch of {enc.text_batch} = "
+            f"{text_ms / enc.text_batch:.4f} ms a query ({text_flops / 1e9:.3f} GFLOP at "
+            f"{clip_cfg.context_length} tokens) ({card})")
+    host = frames_dev.cpu().numpy()
+    t = time.perf_counter()
+    enc.encode_images(host)
+    towers["float32"]["host_frames_per_s"] = len(host) / (time.perf_counter() - t)
+    log(f"[ground] encode_images from host uint8, f32, {len(host)} frames: "
+        f"{towers['float32']['host_frames_per_s']:.0f} frames/s (pageable copies included)")
+    del frames_dev, batches, host, enc16
+    torch.cuda.empty_cache()
+
+    # the whole ground_video of the GROUND_CLIPS-clip video, and its split
+    q = queries[2]
+    pipe.ground_video(path, q)  # warm
+    whole = []
+    for _ in range(3):
+        t = time.perf_counter()
+        pipe.ground_video(path, q)
+        whole.append((time.perf_counter() - t) * 1e3)
+    # its split: each step through the entry it calls, synchronized; the
+    # copy of the uint8 frames alone is also timed (it is inside image_ms)
+    split = {}
+
+    def timed(key, fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        split[key] = (time.perf_counter() - t) * 1e3
+        return out
+
+    got, _ = timed("decode_ms", lambda: video.decode_frames(path))
+    timed("copy_ms", lambda: torch.from_numpy(got).to("cuda"))
+    vid_feats = timed("image_ms", lambda: enc.encode_images(got))
+    txt = timed("text_ms", lambda: txt2clip(enc, q))
+    timed("grounding_ms", lambda: pipe.ground_features(vid_feats, txt))
+    log(f"[ground] ground_video, {len(got)} clips, f32: {', '.join(f'{w:.2f}' for w in whole)} "
+        f"ms host clock; split (one run each, synchronized): "
+        f"{json.dumps({k: round(v, 3) for k, v in split.items()})} ({card})")
+
+    kernels, wall_us = _profile_window(torch, lambda: pipe.ground_video(path, q), 1)
+    _profile_record("ground_vitb32_f32", card, 1, "dispatch", kernels, wall_us, ["flash_fwd"],
+                    clips=len(got))
+    return s.ground_launches, s.server_launches, {
+        "towers": towers, "ground_video_ms": whole, "split": split, **s.server_stats}
+
+
 def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
                  sass):
     """One entry per kernel for the final JSON line: times of the headline
@@ -3691,6 +4176,10 @@ def main() -> int:
                                                         tmp, corpus)
         log(f"[main path] Moment-DETR training launches: {md_train_launches}; "
             f"Moment-DETR inference launches: {md_infer_launches}")
+        ground_launches, ground_server_launches, _ = timed("ground", phase_ground, torch,
+                                                           np, smi, tmp)
+        log(f"[main path] raw-video grounding launches: {ground_launches}; grounding "
+            f"server launches: {ground_server_launches}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -3719,7 +4208,9 @@ def main() -> int:
                             "qfvs_inference": qfvs_infer_launches,
                             "vlp_training": vlp_train_launches,
                             "md_training": md_train_launches,
-                            "md_inference": md_infer_launches}, sass)
+                            "md_inference": md_infer_launches,
+                            "ground": ground_launches,
+                            "ground_server": ground_server_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -18,7 +18,12 @@
   python -m univtg_tpu_torch.cli quantize --preset qvhighlights_mr \\
       --resume model_best.ckpt --out model_int8.ckpt [key=value ...]
   python -m univtg_tpu_torch.cli serve --resume model_best.ckpt \\
-      [--config model.json] [--device cuda] [--port 8008] ...
+      [--config model.json] [--clip-ckpt ViT-B-32.pt] [--device cuda] [--port 8008] ...
+  python -m univtg_tpu_torch.cli ground --preset qvhighlights_mr \\
+      --resume model_best.ckpt --clip-ckpt ViT-B-32.pt --video v.mp4 \\
+      --query "..." [--device cuda] model.vid_dim=514 model.txt_dim=512 [key=value ...]
+  python -m univtg_tpu_torch.cli extract-text --metadata val.jsonl \\
+      --clip-ckpt ViT-B-32.pt --out-dir data/x/txt_clip [--device cuda]
   python -m univtg_tpu_torch.cli pack-h5 --metadata train.jsonl \\
       --v-feat-dirs data/x/vid_slowfast data/x/vid_clip \\
       --q-feat-dir data/x/txt_clip --out-dir data/x/h5py
@@ -43,8 +48,16 @@ checkpoint. ``serve --resume`` takes an upstream-format torch checkpoint
 writes, or an int8 checkpoint from ``quantize`` (told apart by its keys);
 ``--config`` a ModelConfig JSON (the same JSON the JAX package writes),
 defaulting to the flagship with attention_impl="pallas", the hand-written
-CUDA flash kernels. The commands that run the model run on CUDA unless
-``--device cpu`` is given. ``pack-h5`` packs the feature dirs a metadata
+CUDA flash kernels; with ``--clip-ckpt`` (a released CLIP ``.pt``) the
+server also takes raw videos and text queries. ``ground`` grounds one text
+query in one raw video (the upstream demo's path: decode, CLIP towers,
+UniVTG) and prints the answer and its JSON; its model comes from
+``--preset`` and overrides, and CLIP video features are 512-d plus 2 TEF
+dims, so a model for raw video takes ``model.vid_dim=514
+model.txt_dim=512``; ``--resume`` takes what ``serve --resume`` takes.
+``extract-text`` writes the CLIP token features of every query of a
+metadata jsonl as ``{qid}.npz``. The commands that run a model run on CUDA
+unless ``--device cpu`` is given. ``pack-h5`` packs the feature dirs a metadata
 jsonl references into ``{out_dir}/{dir name}.hdf5`` caches
 (tools/pack_h5.py), L2-normalized, which ``MRDataConfig.h5_cache_dir``
 reads.
@@ -210,6 +223,40 @@ def cmd_pack_h5(args):
     print(json.dumps(out, indent=1))
 
 
+def clip_encoder(path, device):
+    """A ClipEncoder on ``device`` over the CLIP checkpoint at ``path``."""
+    from univtg_tpu_torch.extract.pipeline import ClipEncoder
+    from univtg_tpu_torch.interop.clip_ckpt import load_clip_checkpoint
+
+    clip_params, clip_cfg = load_clip_checkpoint(path)
+    return ClipEncoder(clip_params, clip_cfg, device=device)
+
+
+def cmd_ground(args):
+    """One video + one query grounded (the upstream demo's path)."""
+    from univtg_tpu_torch.serve import GroundingPipeline
+    from univtg_tpu_torch.serve.quantize import restore_serving_params
+
+    cfg = _preset_cfg(args)
+    pipe = GroundingPipeline(
+        cfg.model, restore_serving_params(args.resume, cfg.model),
+        clip_encoder=clip_encoder(args.clip_ckpt, args.device), device=args.device,
+    )
+    result = pipe.ground_video(args.video, args.query)
+    print(pipe.describe(result, args.query))
+    print(json.dumps({k: v for k, v in result.items() if k != "saliency"}, indent=1))
+
+
+def cmd_extract_text(args):
+    """Offline query-feature dump (upstream run_on_video/text_extractor.py)."""
+    from univtg_tpu_torch.data.features import load_jsonl
+    from univtg_tpu_torch.extract.pipeline import extract_query_features
+
+    rows = load_jsonl(args.metadata)
+    extract_query_features(clip_encoder(args.clip_ckpt, args.device), rows, args.out_dir)
+    print(f"wrote {len(rows)} query features to {args.out_dir}")
+
+
 def cmd_serve(args):
     """HTTP grounding service with dynamic micro-batching."""
     from univtg_tpu_torch.serve import GroundingPipeline, GroundingServer
@@ -222,8 +269,9 @@ def cmd_serve(args):
         cfg = flagship_config()
     # saliency + foreground ranking, as every JAX preset serves
     pipe = GroundingPipeline(
-        cfg, restore_serving_params(args.resume, cfg), eval_mode="add",
-        param_dtype=args.param_dtype, device=args.device,
+        cfg, restore_serving_params(args.resume, cfg),
+        clip_encoder=clip_encoder(args.clip_ckpt, args.device) if args.clip_ckpt else None,
+        eval_mode="add", param_dtype=args.param_dtype, device=args.device,
     )
     # POST /reload takes a client-chosen filesystem path, so on a NON-local
     # bind it stays disabled unless --reload-token gates it
@@ -343,6 +391,9 @@ def build_parser():
     sp.add_argument("--config", default=None,
                     help="ModelConfig JSON (default: the flagship, "
                          "attention_impl='pallas')")
+    sp.add_argument("--clip-ckpt", default=None,
+                    help="a CLIP .pt: the server then also takes raw videos "
+                         "(PUT Content-Type video/*) and text queries")
     sp.add_argument("--device", default="cuda", help=device_help)
     sp.add_argument("--host", default="127.0.0.1")
     sp.add_argument("--port", type=int, default=8008)
@@ -358,6 +409,29 @@ def build_parser():
     sp.add_argument("--warmup", nargs="?", const="default", default=None,
                     help="run the batch ladder before accepting traffic; "
                          "optionally a comma-separated list of video lengths")
+    sp = sub.add_parser(
+        "ground", help="ground one text query in one raw video",
+        epilog="CLIP video features are 512-d plus 2 TEF dims: a model for raw "
+               "video takes the overrides model.vid_dim=514 model.txt_dim=512")
+    sp.set_defaults(fn=cmd_ground)
+    sp.add_argument("--preset", required=True)
+    sp.add_argument("--resume", required=True,
+                    help="what serve --resume takes: an upstream .ckpt, an int8 "
+                         "file, or the JAX package's msgpack (float or int8)")
+    sp.add_argument("--clip-ckpt", required=True,
+                    help="a released CLIP .pt (TorchScript or state_dict)")
+    sp.add_argument("--video", required=True)
+    sp.add_argument("--query", required=True)
+    sp.add_argument("--device", default="cuda", help=device_help)
+    sp.add_argument("overrides", nargs="*",
+                    help="dotted key=value overrides, e.g. model.vid_dim=514 "
+                         "model.txt_dim=512")
+    sp = sub.add_parser("extract-text")
+    sp.set_defaults(fn=cmd_extract_text)
+    sp.add_argument("--metadata", required=True)
+    sp.add_argument("--clip-ckpt", required=True)
+    sp.add_argument("--out-dir", required=True)
+    sp.add_argument("--device", default="cuda", help=device_help)
     return p
 
 

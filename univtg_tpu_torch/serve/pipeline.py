@@ -4,12 +4,13 @@ Counterpart of ``univtg_tpu/serve/pipeline.py``. L2-normalized features +
 TEF + timestamp grid -> model forward -> dense decode -> top-k windows
 ranked by foreground confidence + argmax highlight. Feature lengths pad to
 a bucket ladder and the batch to powers of two, as in the JAX package, so
-the card sees a few shapes however the traffic varies.
-
-The raw-video path (a CLIP tower) arrives with a later slice.
+the card sees a few shapes however the traffic varies. With a
+``clip_encoder`` (extract/pipeline.ClipEncoder) ``ground_video`` grounds a
+query in a raw video file, as the upstream demo does.
 """
 from __future__ import annotations
 
+import time
 from collections.abc import Mapping
 from typing import Optional, Sequence
 
@@ -25,6 +26,10 @@ from univtg_tpu_torch.models import ModelConfig, UniVTG
 from univtg_tpu_torch.train.steps import decode_dense_outputs
 
 TEXT_BUCKETS = (32, 77)
+
+
+def hms(seconds: float) -> str:
+    return time.strftime("%H:%M:%S", time.gmtime(seconds))
 
 
 class PreparedVideo:
@@ -48,12 +53,14 @@ class GroundingPipeline:
         params,
         clip_len: float = 2.0,
         buckets: Optional[Sequence[int]] = None,
+        clip_encoder=None,
         eval_mode: Optional[str] = None,
         param_dtype: Optional[str] = None,
         device="cuda",
     ):
         """params: a state_dict (e.g. from ``load_torch_checkpoint``) or a
-        ``UniVTG`` module whose weights are served.
+        ``UniVTG`` module whose weights are served. clip_encoder: an optional
+        ClipEncoder, which ``ground_video`` needs.
 
         eval_mode=None ranks by raw saliency; 'add' adds the foreground
         probability, as the batch evaluator does. param_dtype='bfloat16'
@@ -65,6 +72,7 @@ class GroundingPipeline:
         self.param_dtype = param_dtype
         self.clip_len = clip_len
         self.buckets = list(buckets or default_buckets(2048, base=128))
+        self.clip_encoder = clip_encoder
         self.eval_mode = eval_mode
         if isinstance(params, nn.Module):
             params = params.state_dict()
@@ -217,3 +225,25 @@ class GroundingPipeline:
                     out["saliency"][row], pv.ctx_l, top_k,
                 )
         return results
+
+    def ground_video(self, video_path: str, query: str, top_k: int = 5):
+        """Raw video + text query -> grounding (needs a clip_encoder)."""
+        if self.clip_encoder is None:
+            raise ValueError("ground_video needs the pipeline constructed with a "
+                             "clip_encoder")
+        from univtg_tpu_torch.extract.pipeline import txt2clip, vid2clip
+
+        vid_feats = vid2clip(self.clip_encoder, video_path, clip_len=self.clip_len)
+        txt_feats = txt2clip(self.clip_encoder, query)
+        return self.ground_features(vid_feats, txt_feats, top_k)
+
+    def describe(self, result: dict, query: str) -> str:
+        """Human-readable answer, as the upstream demo prints it."""
+        mr = " - ".join(hms(int(t)) for t in result["top1_window"])
+        return "\n".join(
+            [
+                f"For query: {query}",
+                f"The Top-1 interval is: {mr}",
+                f"The Top-1 highlight is: {hms(result['top1_highlight'])}",
+            ]
+        )

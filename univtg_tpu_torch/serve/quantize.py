@@ -14,13 +14,22 @@ and the scale taken per output channel of the JAX layout, which is dim 0 of
 a torch Linear, MHA in-projection or Conv1d weight (``interop/jax_params.py``
 transposes them) and the last axis of ``weightedpool.weight``, which the
 port keeps in JAX's (D, 1) layout.
+
+``restore_serving_params`` also reads the JAX package's int8 file (flax
+msgpack of ``{'q': param tree, 'scales': {'a/b/kernel': scale}}``): it
+dequantizes the tree as the JAX package does (its path strings, its
+last-axis scales) and carries it over with ``interop/jax_params.py``.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
-from univtg_tpu_torch.interop.jax_params import read_checkpoint, select_state_dict
+from univtg_tpu_torch.interop.jax_params import (
+    read_checkpoint,
+    select_state_dict,
+    state_dict_from_jax,
+)
 
 # state_dict tensors held in the JAX layout (interop/jax_params.py): their
 # output channel is the last axis, as in JAX; every other quantized tensor
@@ -76,6 +85,28 @@ def is_quantized(blob) -> bool:
     return isinstance(blob, dict) and set(blob) == {"q", "scales"}
 
 
+def is_jax_quantized(blob) -> bool:
+    """The JAX package's int8 file holds a nested param tree under 'q'; the
+    port's holds a flat state_dict."""
+    return is_quantized(blob) and any(isinstance(v, dict) for v in blob["q"].values())
+
+
+def dequantize_jax_tree(q, scales, prefix: str = "") -> dict:
+    """The JAX package's ``dequantize_params`` over a tree as read from its
+    msgpack file: each leaf whose "/"-joined path has a scale becomes
+    ``float32(q) * scale``; every other leaf stays as it is."""
+    out = {}
+    for key, leaf in q.items():
+        path = f"{prefix}/{key}" if prefix else key
+        if isinstance(leaf, dict):
+            out[key] = dequantize_jax_tree(leaf, scales, path)
+        elif path in scales:
+            out[key] = (np.asarray(leaf, np.float32) * scales[path]).astype(np.float32)
+        else:
+            out[key] = leaf
+    return out
+
+
 def load_quantized(path: str) -> dict:
     blob = read_checkpoint(path)
     if not is_quantized(blob):
@@ -85,11 +116,14 @@ def load_quantized(path: str) -> dict:
 
 def restore_serving_params(path: str, cfg) -> dict:
     """Serving-side checkpoint loader: EITHER a float checkpoint (the
-    upstream container train-mr writes, or a bare state_dict) OR an int8
-    checkpoint from save_quantized, told apart by the blob's keys, so
-    ``cli serve --resume`` takes both without a flag. Returns the
-    state_dict of UniVTG(cfg), dequantized to f32 for an int8 file."""
+    upstream container train-mr writes, a bare state_dict, or the JAX
+    package's msgpack) OR an int8 checkpoint (from save_quantized, or the
+    JAX package's), told apart by the blob's keys, so ``cli serve
+    --resume`` takes each without a flag. Returns the state_dict of
+    UniVTG(cfg), dequantized to f32 for an int8 file."""
     blob = read_checkpoint(path)
-    if is_quantized(blob):
+    if is_jax_quantized(blob):
+        blob = state_dict_from_jax(dequantize_jax_tree(blob["q"], blob["scales"]), cfg)
+    elif is_quantized(blob):
         blob = dequantize_state_dict(blob["q"], blob["scales"])
     return select_state_dict(blob, cfg, path)

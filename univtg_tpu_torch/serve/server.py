@@ -11,9 +11,10 @@ GroundingPipeline:
     across videos and across clients;
   * stdlib-only (ThreadingHTTPServer + threading + queue).
 
-Raw-video registration and text queries need the CLIP tower, which arrives
-with a later slice (ROADMAP.md); until then they answer 400, as the JAX
-server does without a clip_encoder.
+With a pipeline that holds a clip_encoder, ``PUT /videos/<id>`` also takes
+raw video bytes (decoded on the host, encoded by the CLIP image tower on
+the card) and ``POST /ground`` a text ``query``; without one both answer
+400, as the JAX server does.
 
 Request latency under load is bounded by ``max_wait_ms`` (the batching
 window) plus one forward; an idle server dispatches immediately.
@@ -207,15 +208,16 @@ class GroundingServer:
       GET    /videos            -> {"videos": [ids...]}
       PUT    /videos/<id>       -> register clip features. Body: .npz bytes
                                    (key "features" or the first array) or
-                                   JSON {"features": [[...]]}. RAW VIDEO
-                                   bytes (Content-Type: video/*) answer
-                                   400 until the CLIP tower is ported
+                                   JSON {"features": [[...]]} -- or RAW
+                                   VIDEO bytes (Content-Type: video/*) when
+                                   the pipeline has a clip_encoder: decoded
+                                   on the host (ffmpeg/cv2), encoded by the
+                                   CLIP image tower, then registered
       DELETE /videos/<id>       -> evict
       POST   /ground            -> {"video": id, "query_feats": [[...]],
-                                   "top_k": 5}. Returns the grounding dict
-                                   (saliency included). {"query": "text"}
-                                   answers 400 until the CLIP tower is
-                                   ported.
+                                   "top_k": 5} or {"query": "text"} when the
+                                   pipeline has a clip_encoder. Returns the
+                                   grounding dict (saliency included).
       POST   /reload            -> hot-swap the serving weights from
                                    {"checkpoint": path} (default: the
                                    startup checkpoint, typically the
@@ -507,11 +509,27 @@ class GroundingServer:
         return feats
 
     def _extract_video(self, body: bytes, content_type: str) -> np.ndarray:
-        """Raw video bytes need the CLIP tower, which a later slice ports."""
-        raise ValueError(
-            "raw-video registration needs the pipeline constructed "
-            "with a clip_encoder; send pre-extracted features instead"
-        )
+        """Raw video bytes -> (T, embed_dim) clip features: host decode
+        (extract/video.decode_frames, ffmpeg or cv2) feeding the CLIP image
+        tower in uint8 batches (extract/pipeline.vid2clip). Decoders need a
+        real file path, so the body lands in a temp file for the call."""
+        if self.pipeline.clip_encoder is None:
+            raise ValueError(
+                "raw-video registration needs the pipeline constructed "
+                "with a clip_encoder; send pre-extracted features instead"
+            )
+        import tempfile
+
+        from univtg_tpu_torch.extract.pipeline import vid2clip
+
+        suffix = "." + (content_type.split("/", 1)[1].split(";")[0] or "mp4")
+        with tempfile.NamedTemporaryFile(suffix=suffix) as f:
+            f.write(body)
+            f.flush()
+            return vid2clip(
+                self.pipeline.clip_encoder, f.name,
+                clip_len=self.pipeline.clip_len,
+            )
 
     def _query_features(self, req: dict) -> np.ndarray:
         if "query_feats" in req:
@@ -520,7 +538,13 @@ class GroundingServer:
                 raise ValueError(f"query_feats must be (L, D), got {txt.shape}")
             return txt
         if "query" in req:
-            raise ValueError("text queries need a clip_encoder; send query_feats")
+            if self.pipeline.clip_encoder is None:
+                raise ValueError(
+                    "text queries need a clip_encoder; send query_feats"
+                )
+            from univtg_tpu_torch.extract.pipeline import txt2clip
+
+            return txt2clip(self.pipeline.clip_encoder, req["query"])
         raise ValueError("request needs query_feats or query")
 
     def _prometheus_metrics(self) -> str:
