@@ -171,6 +171,30 @@ printing its seconds:
                  metrics); 3 gated f32 steps at dropouts 0, the third on an
                  all-curve batch, "pallas" vs "xla" at TRAIN_TOL; the step's
                  ms at B = 64, f32 and bf16. Phase 3 checks VLP_SHAPE too.
+  7k. dist    -- training across processes (parallel/dist.py), after 7h,
+                 whose kernels and corpora it reuses: (i) a NCCL gang of
+                 one on the card: train_vlp one epoch with the group and
+                 without, the logged losses and the final parameters bit
+                 for bit; make_scan_train_step (K = 2) under the group, the
+                 all-gather and all-reduce captured in its CUDA graph, bit
+                 for bit against its eager steps; the gated step's ms with
+                 and without the group. (ii) two ranks sharing the card
+                 over gloo (the backend rule: NCCL refuses two ranks on one
+                 GPU), each a `chip_smoke.py --dist-worker` subprocess:
+                 train_vlp on vlp_pretrain at full width, B = 64 per rank,
+                 "pallas", f32, dropouts 0, DIST_EPOCHS epochs, each
+                 evaluated by sharded_eval; the curve held against one
+                 process on the assembled B = 128 batches at TRAIN_TOL, the
+                 ranks' parameter digests equal, the sharded evaluation
+                 equal to a full one of rank 0's latest checkpoint; each
+                 rank's step ms, host ms inside the collectives and idle
+                 share; the elastic restart at DIST_ELASTIC's smaller
+                 depth (rank 1 exits 3 after DIST_FAULT_EPOCH, the gang resumes from
+                 rank 0's model_latest.ckpt, epoch for epoch equal to an
+                 uninterrupted gang run beside it). (iii) the CLIP teacher's
+                 similarity sweep on the card against the CPU at 512 dims.
+                 Each rank writes its launch counts to a file; cuDNN is held
+                 deterministic through the phase.
   7i. md      -- Moment-DETR: train_mr with model_id="moment_detr" at
                  MomentDETRConfig()'s defaults (the flagship's widths: hidden
                  1024, 4 encoder layers, 8 heads, FFN 1024, 2818-d video,
@@ -232,7 +256,9 @@ train-mr run, HL training phase 7f's train-hl run (its evaluations
 included) and HL inference its "pallas" infer-hl run, QFVS training and
 inference phase 7g's train-qfvs (evaluations included) and "pallas"
 infer-qfvs runs, VLP training phase 7h's train_vlp run (evaluations
-included), Moment-DETR training phase 7i's two train_mr runs (evaluations
+included), VLP training across processes phase 7k's gloo gang's train_vlp
+runs (each rank counts its own, evaluations included; summed) and the NCCL
+gang of one its train_vlp run, Moment-DETR training phase 7i's two train_mr runs (evaluations
 included) and Moment-DETR inference its reloaded checkpoint's evaluation,
 where no kernel may run, raw-video grounding phase 7j's `cli ground`, `cli
 extract-text` and demo-app runs (4 flash_fwd per grounding dispatch, none
@@ -495,6 +521,12 @@ QFVS_SHAPES = {"train_qfvs_concept": (20, 200 + 3, 8, 128),
 # train_vlp on the vlp_pretrain preset (bsz 64) for VLP_EPOCHS of 10 epochs;
 # VLP_SHAPE, its attention (B = 64, 75 clips + 32 tokens), joins phase 3
 VLP_PER_TYPE, VLP_VAL, VLP_EPOCHS = 64, 64, 2
+# phase 7k: the gang's epochs, its timed steps, the elastic restart's
+# smaller depth, each gang's time limit and the teacher's sweep
+DIST_EPOCHS, DIST_TIMED_STEPS, DIST_GANG_TIMEOUT_S = 2, 3, 300
+DIST_ELASTIC = {"n_epoch": 2, "bsz": 64, "model.num_layers": 1}
+DIST_FAULT_EPOCH = 0  # rank 1 of the elastic gang exits after this epoch
+TEACHER_CLIPS, TEACHER_CONCEPTS, TEACHER_TOL = 150, 1000, 1e-5
 VLP_SHAPE = {"train_vlp": (64, 75 + 32, 8, 128)}
 # Moment-DETR (phase 7i): train_mr "l1" for MD_EPOCHS epochs on phase 7's
 # corpus; the f32 step timed over MD_TIMED_STEPS steps; "exhaustive"
@@ -3361,7 +3393,447 @@ def phase_vlp(torch, np, card, tmp):
             torch.cuda.empty_cache()
     log(f"[vlp] make_train_step per gated step (B = 64, 75 + 32; ms by CUDA events over "
         f"10 steps, then one step under torch.profiler; {card}): {json.dumps(step_ms)}")
-    return train_launches, step_ms
+    return train_launches, step_ms, specs, val
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def _dist_cfg(job, results_dir):
+    """The vlp_pretrain run of a phase-7k gang (job: the corpora, the mode
+    and its knobs), dropouts 0, "pallas", f32."""
+    from univtg_tpu_torch.data.vlp import VLPCorpusSpec
+    from univtg_tpu_torch.presets import PRESETS
+
+    val = job["val"]
+    kw = {"vlp_data.corpora": tuple(VLPCorpusSpec(**c) for c in job["specs"]),
+          "eval_data.data_path": val["val_path"],
+          "eval_data.v_feat_dirs": tuple(val["v_feat_dirs"]),
+          "eval_data.q_feat_dir": val["q_feat_dir"], "model.attention_impl": "pallas",
+          "model.dropout": 0.0, "model.droppath": 0.0, "model.input_dropout": 0.0,
+          "results_dir": results_dir, **job["overrides"]}
+    if job.get("no_eval"):
+        kw["eval_data"] = None
+    return PRESETS["vlp_pretrain"](**kw)
+
+
+def _timed_collectives(torch, dist):
+    """Wrap the gang's collectives with host timers (after a synchronize,
+    so the queued step is not counted); returns (seconds by name, undo)."""
+    spent = {}
+    orig = {name: getattr(dist, name) for name in ("gather_batch", "all_reduce_grads",
+                                                   "check_same")}
+
+    def wrap(name, fn):
+        def timed_fn(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed_fn
+
+    for name, fn in orig.items():
+        setattr(dist, name, wrap(name, fn))
+    return spent, lambda: [setattr(dist, n, f) for n, f in orig.items()]
+
+
+def _gang_step_stats(torch, np, cfg, batches, seed):
+    """The global-batch step of this rank at cfg's width on its own
+    ``batches``: ms per step by CUDA events over DIST_TIMED_STEPS steps,
+    the host seconds inside the collectives per step, and one profiled
+    step (busy ms, idle share, NCCL kernels' ms, flash kernels' ms)."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.parallel import dist
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    sd = UniVTG(cfg.model, device="cpu", seed=cfg.seed).state_dict()
+    state = _scan_state(torch, cfg.model, sd)
+    step = make_train_step(cfg.weights, tuple(cfg.losses), use_gates=True)
+    it = iter(range(10 ** 6))
+
+    def one():
+        mi, tg = batches[next(it) % len(batches)]
+        step(state, mi, tg, seed)
+
+    ms = cuda_ms(one, iters=DIST_TIMED_STEPS)
+    spent, undo = _timed_collectives(torch, dist)
+    try:
+        for _ in range(DIST_TIMED_STEPS):
+            one()
+    finally:
+        undo()
+    us, _, wall_us = _profile_counts(torch, one)
+    busy = sum(us.values())
+    return {"ms": ms,
+            "collective_host_ms": {k: v * 1e3 / DIST_TIMED_STEPS for k, v in spent.items()},
+            "profiled_host_ms": wall_us / 1e3, "profiled_busy_ms": busy / 1e3,
+            "idle_share": 1.0 - busy / wall_us if busy else None,
+            "nccl_ms": sum(t for k, t in us.items() if "nccl" in k.lower()) / 1e3,
+            "memcpy_ms": sum(t for k, t in us.items() if "memcpy" in k.lower()) / 1e3,
+            "flash_kernels_ms": sum(t for k, t in us.items() if any(
+                f"{f}_kernel" in k for f in FLASH_KERNELS)) / 1e3}
+
+
+def _rank_batches(torch, cfg, n):
+    """The first n batches of this rank's shard of the VLP data, on its card."""
+    from univtg_tpu_torch.data.collate import collate_mr
+    from univtg_tpu_torch.data.loader import Loader
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.data.vlp import VLPDataset
+    from univtg_tpu_torch.parallel import dist
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+
+    loader = Loader(VLPDataset(cfg.vlp_data), cfg.bsz, lambda items, pad_batch_to: collate_mr(
+        items, cfg.vlp_data.max_q_l, cfg.vlp_data.max_v_l, pad_batch_to), shuffle=True,
+        seed=cfg.seed, num_threads=4, shard_index=dist.rank(), num_shards=dist.world())
+    out = []
+    for batch in loader:
+        out.append(tuple(to_device(t, "cuda") for t in strip_meta(batch)))
+        if len(out) == n:
+            break
+    return out
+
+
+def dist_worker(job_path, rank, world, port) -> int:
+    """One rank of a phase-7k gang (``chip_smoke.py --dist-worker``): joins
+    the gang on this host's card (two ranks, one card: gloo, by the
+    backend rule), runs train_vlp on the job's config with the launch
+    counters at 0 just before and read just after, and writes its launches,
+    its parameters' digest, and in the job's "main" mode its step timings,
+    to ``r{rank}.json`` in the job's results directory."""
+    import numpy as np
+    import torch
+
+    from univtg_tpu_torch.parallel import dist
+    from univtg_tpu_torch.train import driver_mr
+    from univtg_tpu_torch.train.driver_vlp import init_distributed, train_vlp
+
+    with open(job_path) as f:
+        job = json.load(f)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cudnn.deterministic = True
+    assert init_distributed(f"127.0.0.1:{port}", world, rank) == (rank, world)
+    gang = dist.active()
+    base = job["results"]
+    cfg = _dist_cfg(job, os.path.join(base, f"p{rank}"))
+    built = []
+    build_model = driver_mr.build_model
+    driver_mr.build_model = lambda *a, **k: built.append(build_model(*a, **k)) or built[-1]
+    resume, resume_all = None, False
+    if job["mode"] == "resume":  # every rank restarts from rank 0's latest checkpoint
+        resume, resume_all = os.path.join(base, "p0", "model_latest.ckpt"), True
+    _reset_launches()  # this rank's share of the main path starts here
+    t0 = time.perf_counter()
+    train_vlp(cfg, resume=resume, resume_all=resume_all)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "backend": gang.backend, "device": str(gang.device),
+           "train_vlp_s": time.perf_counter() - t0, "launches": _launches(),
+           "digest": dist.tensor_digest(built[0].state_dict().values())}
+    if job["mode"] == "main":
+        out["step"] = _gang_step_stats(torch, np, cfg, _rank_batches(torch, cfg, 2),
+                                       cfg.seed + 1)
+    with open(os.path.join(base, f"r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+    return 0
+
+
+def _gang(job, base, world=2):
+    """Start a gang of ``world`` dist_worker processes for ``job``."""
+    os.makedirs(base, exist_ok=True)
+    job = {**job, "results": base}
+    path = os.path.join(base, "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    port = _free_port()
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), "--dist-worker", path, str(r),
+         str(world), str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True) for r in range(world)]
+
+
+def _wait_gang(procs, rcs=None, timeout=DIST_GANG_TIMEOUT_S):
+    """Each rank's output, after its exit code was checked (0 unless
+    ``rcs`` names another, None: any); every rank is killed on the way
+    out, so no process outlives the phase."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        want = 0 if rcs is None else rcs[r]
+        if want is not None and p.returncode != want:
+            raise AssertionError(f"gang rank {r} exited {p.returncode}, not {want}:\n"
+                                 f"{out[-4000:]}")
+    return outs
+
+
+def _train_log(run_dir):
+    return _jsonl(os.path.join(run_dir, "train_log.jsonl"))
+
+
+def _nccl_of_one(torch, np, card, job, tmp):
+    """7k(i): a NCCL gang of one on the card. train_vlp one epoch with the
+    group, then without: the logged losses, grad norms and the final
+    parameters bit-equal; scan_steps=2 under the group (the all-gather and
+    all-reduce captured in the graph) bit-equal to its eager steps; the
+    step's ms with and without the group. cuDNN held deterministic."""
+    import dataclasses
+
+    from univtg_tpu_torch.data.collate import collate_mr
+    from univtg_tpu_torch.data.vlp import VLPDataset
+    from univtg_tpu_torch.parallel import dist
+    from univtg_tpu_torch.train.driver_vlp import train_vlp
+
+    out = {}
+    gang = dist.init_gang(f"127.0.0.1:{_free_port()}", 1, 0, device="cuda")
+    try:
+        if gang.backend != "nccl":
+            raise AssertionError(f"a gang of one on a card chose {gang.backend}, not nccl")
+        cfg = _dist_cfg({**job, "no_eval": True, "overrides": {"n_epoch": 1}},
+                        os.path.join(tmp, "nccl1_group"))
+        _reset_launches()  # the NCCL-of-one training path starts here
+        train_vlp(cfg)
+        torch.cuda.synchronize()
+        out["launches"] = _launches()  # ... and ends here
+        ds = VLPDataset(cfg.vlp_data)
+        order = np.random.default_rng(1).permutation(len(ds))
+        batches = [collate_mr([ds[int(i)] for i in order[k * 32:(k + 1) * 32]],
+                              cfg.model.max_q_l, cfg.model.max_v_l) for k in range(6)]
+        sd = {k: v for k, v in torch.load(os.path.join(cfg.results_dir, "model_best.ckpt"),
+                                          map_location="cpu", weights_only=True)["model"]
+              .items()}
+        scan_vs_eager, eager_vs_eager = _replay_vs_eager(torch, cfg.model, sd, batches)
+        out["scan_vs_eager"], out["eager_vs_eager"] = scan_vs_eager, eager_vs_eager
+        gated = _rank_batches(torch, cfg, 2)
+        out["step_group"] = _gang_step_stats(torch, np, cfg, gated, cfg.seed + 1)
+    finally:
+        dist.shutdown()
+    alone = dataclasses.replace(cfg, results_dir=os.path.join(tmp, "nccl1_alone"))
+    train_vlp(alone)
+    out["step_alone"] = _gang_step_stats(torch, np, cfg, gated, cfg.seed + 1)
+    a, b = _train_log(cfg.results_dir), _train_log(alone.results_dir)
+    keys = [k for k in b[0] if k.startswith("loss_") or k == "grad_norm"]
+    out["log_equal"] = all(x[k] == y[k] for x, y in zip(a, b, strict=True) for k in keys)
+    sa, sb = (torch.load(os.path.join(d, "model_best.ckpt"), map_location="cpu",
+                         weights_only=True)["model"] for d in (cfg.results_dir,
+                                                               alone.results_dir))
+    out["params_equal"] = all(torch.equal(sa[k], sb[k]) for k in sb)
+    log(f"[dist] (i) NCCL gang of one ({card}): train_vlp log equal to the run without a "
+        f"group {out['log_equal']}, final params equal {out['params_equal']}; scan_steps=2 "
+        f"with the collectives captured vs eager {json.dumps(scan_vs_eager)}; eager vs "
+        f"eager {json.dumps(eager_vs_eager)}; launches {out['launches']}")
+    log(f"[dist] (i) gated f32 step at B = 64 with the NCCL group of one "
+        f"{json.dumps(out['step_group'])}; without {json.dumps(out['step_alone'])}")
+    if not (out["log_equal"] and out["params_equal"] and scan_vs_eager["equal"]):
+        raise AssertionError("the NCCL gang of one did not give the no-group run's bits")
+    if any(out["launches"][k] == 0 for k in FLASH_KERNELS):
+        raise AssertionError(f"train_vlp under the NCCL group skipped a kernel: "
+                             f"{out['launches']}")
+    return out
+
+
+def _one_process_curve(torch, np, cfg):
+    """The one-process global-batch run the gang must equal: per epoch, the
+    two shards' batches of cfg.bsz concatenated into one batch of 2 x bsz,
+    make_train_step (gated) from the same init; per-epoch means of the
+    losses and the grad norm."""
+    from univtg_tpu_torch.data.collate import collate_mr
+    from univtg_tpu_torch.data.loader import Loader
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.data.vlp import VLPDataset
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    ds = VLPDataset(cfg.vlp_data)
+    loaders = [Loader(ds, cfg.bsz, lambda items, pad_batch_to: collate_mr(
+        items, cfg.vlp_data.max_q_l, cfg.vlp_data.max_v_l, pad_batch_to), shuffle=True,
+        seed=cfg.seed, num_threads=4, shard_index=s, num_shards=2) for s in range(2)]
+    sd = UniVTG(cfg.model, device="cpu", seed=cfg.seed).state_dict()
+    state = _scan_state(torch, cfg.model, sd, build_schedule(
+        cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma, len(loaders[0])))
+    step = make_train_step(cfg.weights, tuple(cfg.losses), use_gates=True)
+    curve = []
+    for epoch in range(cfg.n_epoch):
+        per = []
+        for ld in loaders:
+            ld.set_epoch(epoch)
+        for b0, b1 in zip(*loaders):
+            mi, tg = ({k: np.concatenate([b0[part][k], b1[part][k]]) for k in b0[part]}
+                      for part in ("model_inputs", "targets"))
+            mi, tg = strip_meta({"model_inputs": mi, "targets": tg})
+            per.append({k: float(v) for k, v in step(state, to_device(mi, "cuda"),
+                                                      to_device(tg, "cuda"),
+                                                      cfg.seed + 1)[1].items()})
+        curve.append({k: float(np.mean([p[k] for p in per])) for k in per[0]})
+    return curve, dist_digest(state)
+
+
+def dist_digest(state):
+    from univtg_tpu_torch.parallel import dist
+
+    return dist.tensor_digest(state.model.state_dict().values())
+
+
+def phase_dist(torch, np, card, tmp, specs, val):
+    """7k, training across processes: (i) a NCCL gang of one on the card
+    (_nccl_of_one); (ii) two ranks sharing the card over gloo: train_vlp on
+    vlp_pretrain at full width, B = 64 per rank, "pallas", f32, dropouts 0,
+    DIST_EPOCHS epochs, each evaluated by sharded_eval; the loss curve held
+    against one process on the assembled B = 128 batches at TRAIN_TOL, the
+    ranks' parameter digests equal, the sharded evaluation equal to a full
+    one of rank 0's latest checkpoint; each rank's step ms, collective ms
+    and idle share; the elastic restart at a smaller depth
+    (DIST_ELASTIC); (iii) the CLIP teacher on the card against the CPU at
+    ViT-B/32's text width. Returns (the gang's launches summed over its
+    ranks, the NCCL gang's launches, stats)."""
+    import dataclasses
+
+    from univtg_tpu_torch.data.mr import MRDataset
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.tools import teacher
+    from univtg_tpu_torch.train import checkpoint as ckpt
+    from univtg_tpu_torch.train import driver_mr
+    from univtg_tpu_torch.train.steps import make_eval_step
+
+    job = {"specs": [dataclasses.asdict(s) for s in specs], "val": val}
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        nccl = _nccl_of_one(torch, np, card, job, tmp)
+        log(f"[dist] (i) in {time.perf_counter() - t0:.1f} s")
+
+        # (ii) two ranks on one card over gloo, with the main path's counts
+        t0 = time.perf_counter()
+        main_job = {**job, "mode": "main", "overrides": {
+            "n_epoch": DIST_EPOCHS, "eval_epoch": 1, "sharded_eval": True}}
+        base = os.path.join(tmp, "dist_main")
+        _wait_gang(_gang(main_job, base))
+        ranks = [json.load(open(os.path.join(base, f"r{r}.json"))) for r in range(2)]
+        gang_s = time.perf_counter() - t0
+        launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+        cfg = _dist_cfg(main_job, os.path.join(base, "p0"))
+        logs = [_train_log(os.path.join(base, f"p{r}")) for r in range(2)]
+        curve, one_digest = _one_process_curve(torch, np, cfg)
+        rel = {}
+        for epoch, (l0, l1, want) in enumerate(zip(*logs, curve, strict=True)):
+            for key in ("loss_overall", "grad_norm"):
+                if l0[key] != l1[key]:
+                    raise AssertionError(f"the ranks logged different {key}s: {l0} {l1}")
+                rel[f"{key}_e{epoch}"] = abs(l0[key] - want[key]) / abs(want[key])
+        lim = {"loss_overall": TRAIN_TOL["loss"], "grad_norm": TRAIN_TOL["grad_norm"]}
+        bad = {k: v for k, v in rel.items() if v > lim[k.rsplit("_e", 1)[0]]}
+        digests_equal = ranks[0]["digest"] == ranks[1]["digest"]
+        eval_ds = MRDataset(cfg.eval_data)
+        model = UniVTG(cfg.model, device="cuda", seed=cfg.seed)
+        model.load_state_dict(ckpt.restore_params(
+            os.path.join(base, "p0", "model_latest.ckpt"), model.state_dict()))
+        sub = driver_mr._run_eval_shard(cfg, model, eval_ds, make_eval_step(cfg.eval_mode))
+        full = driver_mr.evaluate_submission(sub, eval_ds.data)["brief"]
+        sharded = _jsonl(os.path.join(base, "p0", "eval_log.jsonl"))[-1]
+        eval_bad = {k: (sharded[k], v) for k, v in full.items()
+                    if abs(sharded[k] - v) > 1e-6 * max(1.0, abs(v))}
+        log(f"[dist] (ii) gloo gang of 2 ranks on one card ({card}): backends "
+            f"{[r['backend'] for r in ranks]} on {[r['device'] for r in ranks]}; train_vlp "
+            f"{DIST_EPOCHS} epochs of B = {cfg.bsz} per rank in "
+            f"{[round(r['train_vlp_s'], 2) for r in ranks]} s (gang {gang_s:.1f} s with "
+            f"the processes' start); logged curve {[(l['loss_overall'], l['grad_norm']) for l in logs[0]]} "
+            f"vs one process on B = {2 * cfg.bsz} {[(c['loss_overall'], c['grad_norm']) for c in curve]}: "
+            f"rel {json.dumps(rel)}; rank digests equal {digests_equal} (one process's "
+            f"{'equal' if one_digest == ranks[0]['digest'] else 'differs'}); sharded eval "
+            f"{json.dumps({k: sharded[k] for k in full})} vs full {json.dumps(full)}; "
+            f"launches per rank {[r['launches'] for r in ranks]}")
+        for r in ranks:
+            log(f"[dist] (ii) rank {r['rank']} gated f32 step at B = {cfg.bsz} over gloo "
+                f"({card}): {json.dumps(r['step'])}")
+        if bad or not digests_equal or eval_bad:
+            raise AssertionError(f"gang vs one process {bad}, digests equal "
+                                 f"{digests_equal}, sharded vs full eval {eval_bad}")
+        if any(launches[k] == 0 for k in FLASH_KERNELS):
+            raise AssertionError(f"the gang skipped a flash kernel: {launches}")
+
+        # the elastic restart at a smaller depth: A (rank 1 exits after epoch
+        # DIST_FAULT_EPOCH) beside C (uninterrupted), then B (A restarted
+        # from rank 0's latest checkpoint with resume_all)
+        t0 = time.perf_counter()
+        small = {**job, "overrides": {**DIST_ELASTIC, "eval_epoch": 1}}
+        base_a, base_c = os.path.join(tmp, "dist_elastic"), os.path.join(tmp, "dist_full")
+        gang_a = _gang({**small, "mode": "elastic", "overrides": {
+            **small["overrides"], "inject_fault_epoch": DIST_FAULT_EPOCH,
+            "inject_fault_rank": 1}}, base_a)
+        gang_c = _gang({**small, "mode": "full"}, base_c)
+        _wait_gang(gang_a, rcs=[None, 3])
+        if gang_a[0].returncode == 0:
+            raise AssertionError("rank 0 of the faulted gang ended as if nothing happened")
+        resumed_from = torch.load(os.path.join(base_a, "p0", "model_latest.ckpt"),
+                                  map_location="cpu", weights_only=True)["epoch"]
+        _wait_gang(_gang({**small, "mode": "resume"}, base_a))
+        _wait_gang(gang_c)
+        got = _train_log(os.path.join(base_a, "p0"))[DIST_FAULT_EPOCH + 1:]
+        want = {l["epoch"]: l for l in _train_log(os.path.join(base_c, "p0"))}
+        n_epoch = DIST_ELASTIC["n_epoch"]
+        if [l["epoch"] for l in got] != list(range(resumed_from + 1, n_epoch)):
+            raise AssertionError(f"the restarted gang logged epochs {got}")
+        elastic_rel = max(abs(l["loss_overall"] - want[l["epoch"]]["loss_overall"])
+                          / abs(want[l["epoch"]]["loss_overall"]) for l in got)
+        digests = [json.load(open(os.path.join(d, "r0.json")))["digest"]
+                   for d in (base_a, base_c)]
+        log(f"[dist] (ii) elastic restart ({DIST_ELASTIC}): rank 1 exited 3 after epoch "
+            f"{DIST_FAULT_EPOCH}, "
+            f"rank 0 {gang_a[0].returncode}; restarted from epoch {resumed_from}'s "
+            f"checkpoint: epochs {[l['epoch'] for l in got]}, loss rel to the uninterrupted "
+            f"gang {elastic_rel:.3g}, final params equal {digests[0] == digests[1]} "
+            f"({time.perf_counter() - t0:.1f} s)")
+        if elastic_rel > 1e-6:
+            raise AssertionError(f"the restarted gang left the uninterrupted curve: "
+                                 f"rel {elastic_rel}")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+
+    # (iii) the teacher's similarity sweep on the card against the CPU
+    rng = np.random.default_rng(0)
+    bank = rng.standard_normal((TEACHER_CONCEPTS, 512)).astype(np.float32)
+    feats = rng.standard_normal((TEACHER_CLIPS, 512)).astype(np.float32)
+    feats[40:60] += 3 * bank[7]
+    names = [f"concept {i}" for i in range(TEACHER_CONCEPTS)]
+    t0 = time.perf_counter()
+    rows = teacher.pseudo_label_video("v", feats, bank, names)
+    card_ms = (time.perf_counter() - t0) * 1e3
+    cpu_rows = teacher.pseudo_label_video("v", feats, bank, names, device="cpu")
+    cpu_sim = teacher._sim(torch.from_numpy(feats), torch.from_numpy(bank)).numpy()
+    sim_err = float(np.abs(teacher._sim(torch.from_numpy(feats).cuda(),
+                                        torch.from_numpy(bank).cuda()).cpu().numpy()
+                           - cpu_sim).max())
+    # a score may fall on the other side of a multiple of the threshold
+    # only where the CPU's similarity lies within TEACHER_TOL of one
+    flips = [(r["qid"], i) for r, c in zip(rows, cpu_rows) for i, (a, b) in enumerate(
+        zip(r["saliency_scores"], c["saliency_scores"])) if a != b]
+    edge = [abs(cpu_sim[i, q] / 0.05 - round(cpu_sim[i, q] / 0.05)) * 0.05 <= TEACHER_TOL
+            for q, i in flips]
+    same_concepts = [r["qid"] for r in rows] == [r["qid"] for r in cpu_rows]
+    log(f"[dist] (iii) teacher: {TEACHER_CLIPS} clips x {TEACHER_CONCEPTS} concepts at 512 "
+        f"dims, similarity card vs CPU max |d| {sim_err:.3g}, rows equal "
+        f"{rows == cpu_rows} (concepts equal {same_concepts}; {len(flips)} scores across a "
+        f"threshold edge) ({len(rows)} rows, {card_ms:.1f} ms on the card)")
+    if sim_err > TEACHER_TOL or not same_concepts or not all(edge) or not rows:
+        raise AssertionError("the teacher on the card disagrees with the CPU")
+    return launches, nccl["launches"], {"nccl": nccl, "ranks": ranks, "rel": rel}
 
 
 def _md_data(corpus, split, span):
@@ -4114,6 +4586,9 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
 
 
 def main() -> int:
+    if sys.argv[1:2] == ["--dist-worker"]:  # one rank of a phase-7k gang
+        return dist_worker(sys.argv[2], int(sys.argv[3]), int(sys.argv[4]),
+                           int(sys.argv[5]))
     import torch
 
     if not torch.cuda.is_available():
@@ -4170,8 +4645,13 @@ def main() -> int:
                                                             smi, tmp)
         log(f"[main path] QFVS training launches: {qfvs_train_launches}; QFVS inference "
             f"launches: {qfvs_infer_launches}")
-        vlp_train_launches, _ = timed("vlp", phase_vlp, torch, np, smi, tmp)
+        vlp_train_launches, _, vlp_specs, vlp_val = timed("vlp", phase_vlp, torch, np,
+                                                          smi, tmp)
         log(f"[main path] VLP training launches: {vlp_train_launches}")
+        dist_launches, nccl1_launches, _ = timed("dist", phase_dist, torch, np, smi, tmp,
+                                                 vlp_specs, vlp_val)
+        log(f"[main path] VLP training across processes (two gloo ranks on the card, "
+            f"summed) launches: {dist_launches}; NCCL gang of one: {nccl1_launches}")
         md_train_launches, md_infer_launches, _ = timed("md", phase_md, torch, np, smi,
                                                         tmp, corpus)
         log(f"[main path] Moment-DETR training launches: {md_train_launches}; "
@@ -4207,6 +4687,8 @@ def main() -> int:
                             "qfvs_training": qfvs_train_launches,
                             "qfvs_inference": qfvs_infer_launches,
                             "vlp_training": vlp_train_launches,
+                            "vlp_dist_training": dist_launches,
+                            "vlp_nccl1_training": nccl1_launches,
                             "md_training": md_train_launches,
                             "md_inference": md_infer_launches,
                             "ground": ground_launches,

@@ -4,11 +4,13 @@ train log, opt.json and the checkpoint they write; the checkpoint read back
 by ``restore_params``, ``restore_checkpoint`` (resume_all) and the serving
 pipeline; ``length_buckets`` padding each batch to its rung of the ladder;
 the profiler trace, TensorBoard events and code.zip of ``profile_dir`` and
-``tensorboard_dir="auto"``; the options this slice does not run raising with
-ROADMAP named. In-training evaluation is tests/test_torch_infer.py's."""
+``tensorboard_dir="auto"``; the options the port does not run raising with
+ROADMAP named, and the gang's options refused in one process. In-training evaluation is tests/test_torch_infer.py's."""
 import dataclasses
 import json
 import os
+import subprocess
+import sys
 import zipfile
 
 import numpy as np
@@ -174,10 +176,36 @@ def test_cli_defaults_to_cuda_for_train_mr():
     ("pp", 2), ("ep", 2), ("num_shards", 2),
     ("inject_fault_epoch", 0),
 ])
-def test_unported_driver_options_raise(corpus, field, value):
+def test_unported_driver_options_raise(corpus, field, value, tmp_path):
+    """tp, pp and ep > 1 are not ported (ROADMAP named); dp and num_shards
+    are the gang's world size, so a one-process run with 2 raises
+    ValueError; the fault injection is ported: rank 0 of a one-process run
+    exits with 3 after epoch 0's log line (in a subprocess here)."""
     cfg = dataclasses.replace(TrainConfig(train_data=_data(corpus)), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        train_mr(cfg, device="cpu")
+    if field in ("tp", "pp", "ep"):
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            train_mr(cfg, device="cpu")
+    elif field in ("dp", "num_shards"):
+        with pytest.raises(ValueError, match="world size"):
+            train_mr(cfg, device="cpu")
+    else:
+        run = tmp_path / "fault"
+        code = (
+            "import sys; sys.path.insert(0, %r)\n"
+            "from univtg_tpu_torch.data.mr import MRDataConfig\n"
+            "from univtg_tpu_torch.models import ModelConfig\n"
+            "from univtg_tpu_torch.train.driver_mr import TrainConfig, train_mr\n"
+            "cfg = TrainConfig(model=ModelConfig(**%r), train_data=MRDataConfig(**%r),\n"
+            "                  results_dir=%r, bsz=4, n_epoch=3, lr_warmup=1,\n"
+            "                  num_io_threads=2, inject_fault_epoch=0)\n"
+            "train_mr(cfg, device='cpu')\n"
+        ) % (os.path.dirname(os.path.dirname(os.path.abspath(__file__))), MODEL,
+             dataclasses.asdict(_data(corpus)), str(run))
+        proc = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                              text=True, timeout=120)
+        assert proc.returncode == 3, proc.stderr[-3000:]
+        assert [line["epoch"] for line in _log(run)] == [0]
+        assert not (run / "model_best.ckpt").exists()
 
 
 def test_moment_detr_needs_its_config(corpus):

@@ -237,15 +237,15 @@ def test_http_reload(server, tmp_path):
 
 
 def test_port_imports_nothing_of_jax():
-    """Nor, at import time, regex, cv2 or gradio: the card's machine has none
-    of them."""
+    """Nor, at import time, regex, cv2, gradio or matplotlib: the card's
+    machine has none of them."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import univtg_tpu_torch\n"
         "for m in pkgutil.walk_packages(univtg_tpu_torch.__path__, 'univtg_tpu_torch.'):\n"
         "    importlib.import_module(m.name)\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'flax', "
-        "'ml_dtypes', 'univtg_tpu', 'regex', 'cv2', 'gradio')]\n"
+        "'ml_dtypes', 'univtg_tpu', 'regex', 'cv2', 'gradio', 'matplotlib')]\n"
         "n = sum(m.startswith('univtg_tpu_torch.') for m in sys.modules)\n"
         "print(n, bad)\n"
         "assert not bad, bad\n"
@@ -253,7 +253,9 @@ def test_port_imports_nothing_of_jax():
         "             'data.qfvs', 'data.vlp', 'evals.qfvs_metric', 'train.driver_qfvs',\n"
         "             'train.driver_vlp', 'models.moment_detr', 'interop.flax_msgpack',\n"
         "             'extract.clip.tokenizer', 'extract.clip.model', 'extract.clip.load',\n"
-        "             'extract.pipeline', 'extract.video', 'interop.clip_ckpt', 'serve.app'):\n"
+        "             'extract.pipeline', 'extract.video', 'interop.clip_ckpt', 'serve.app',\n"
+        "             'parallel.dist', 'core.kts', 'core.windows', 'tools.codalab',\n"
+        "             'tools.teacher', 'tools.plots'):\n"
         "    assert 'univtg_tpu_torch.' + name in sys.modules, name\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

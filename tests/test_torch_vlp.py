@@ -102,10 +102,18 @@ def test_vlp_items_keep_each_corpus_clip_length(corpora):
 
 
 def test_init_distributed_is_one_process():
+    """One process joins no gang; a gang needs its coordinator and a rank
+    inside it (gangs themselves: tests/test_torch_dist.py)."""
+    from univtg_tpu_torch.parallel import dist
+
     assert init_distributed() == (0, 1)
     assert init_distributed(num_processes=1) == (0, 1)
-    with pytest.raises(NotImplementedError, match="queue 1 item 7"):
-        init_distributed("localhost:1234", num_processes=2, process_id=0)
+    assert dist.active() is None and not torch.distributed.is_initialized()
+    with pytest.raises(ValueError, match="coordinator_address"):
+        init_distributed(num_processes=2, process_id=0, device="cpu")
+    with pytest.raises(ValueError, match="not in a gang of 2"):
+        init_distributed("localhost:1234", num_processes=2, process_id=2, device="cpu")
+    assert dist.active() is None and not torch.distributed.is_initialized()
 
 
 def test_a_curve_only_batch_gives_finite_grads_and_decays_every_weight(corpora):

@@ -15,6 +15,8 @@
   python -m univtg_tpu_torch.cli train-vlp --preset vlp_pretrain [--resume ckpt] \\
       [--device cuda] [key=value ...]
   python -m univtg_tpu_torch.cli eval --submission preds.jsonl --gt val.jsonl
+  python -m univtg_tpu_torch.cli plot --submission preds.jsonl [--gt val.jsonl] \
+      --out-dir figs [--paper] [--baseline b.jsonl] [--video-dir D] [--max-queries 20]
   python -m univtg_tpu_torch.cli quantize --preset qvhighlights_mr \\
       --resume model_best.ckpt --out model_int8.ckpt [key=value ...]
   python -m univtg_tpu_torch.cli serve --resume model_best.ckpt \\
@@ -41,8 +43,12 @@ the ``model_{domain}_best.ckpt`` files of ``--ckpt-dir``; ``train-qfvs``
 trains a model per leave-one-out split and prints each split's best F/R/P
 and AVG_F; ``infer-qfvs`` scores the ``model_V{n}_best.ckpt`` files of
 ``--ckpt-dir``; ``train-vlp`` pretrains on the preset's corpora with the
-per-sample loss gates, in one process; ``eval`` scores a
-submission file against ground truth; ``quantize`` writes an int8 serving
+per-sample loss gates, in one process (across processes, each process
+calls ``train/driver_vlp.init_distributed`` and then ``train_vlp``);
+``eval`` scores a submission file against ground truth; ``plot`` draws
+per-query figures of a submission ({qid}.png, or with ``--paper`` the
+paper's figure sets: a directory per query with 1_mr.jpg, 2_hl.jpg and
+combined.jpg), with matplotlib, imported only there; ``quantize`` writes an int8 serving
 checkpoint. ``serve --resume`` takes an upstream-format torch checkpoint
 ({'model': state_dict}), such as the ``model_best.ckpt`` that train-mr
 writes, or an int8 checkpoint from ``quantize`` (told apart by its keys);
@@ -200,6 +206,28 @@ def cmd_eval(args):
     if args.out:
         with open(args.out, "w") as f:
             json.dump(metrics, f, indent=2)
+
+
+def cmd_plot(args):
+    """Per-query figures of a submission (tools/plots.py; matplotlib)."""
+    if args.paper:
+        if not args.gt:
+            raise SystemExit("--paper requires --gt (the comparison needs GT rows)")
+        from univtg_tpu_torch.tools.plots import plot_comparison_set
+
+        made = plot_comparison_set(
+            args.submission, args.gt, args.out_dir,
+            baseline_jsonl=args.baseline, video_dir=args.video_dir,
+            max_queries=args.max_queries, template_path=args.template,
+        )
+        print(f"wrote {len(made)} figure sets to {args.out_dir}")
+        return
+    from univtg_tpu_torch.tools.plots import plot_submission
+
+    n = plot_submission(
+        args.submission, args.gt, args.out_dir, args.max_queries, baseline_jsonl=args.baseline
+    )
+    print(f"wrote {n} figures to {args.out_dir}")
 
 
 def cmd_quantize(args):
@@ -371,6 +399,20 @@ def build_parser():
     sp.add_argument("--submission", required=True)
     sp.add_argument("--gt", required=True)
     sp.add_argument("--out", default=None)
+    sp = sub.add_parser("plot")
+    sp.set_defaults(fn=cmd_plot)
+    sp.add_argument("--submission", required=True)
+    sp.add_argument("--gt", default=None)
+    sp.add_argument("--baseline", default=None)
+    sp.add_argument("--out-dir", required=True)
+    sp.add_argument("--max-queries", type=int, default=20)
+    sp.add_argument("--paper", action="store_true",
+                    help="paper-style per-query comparison figure sets")
+    sp.add_argument("--video-dir", default=None,
+                    help="dir of {vid}.mp4 files for the frame strips")
+    sp.add_argument("--template", default=None,
+                    help="RGBA template PNG composited over each frame "
+                         "(the reference's film-strip border)")
     sp = sub.add_parser("quantize")
     sp.set_defaults(fn=cmd_quantize)
     sp.add_argument("--preset", required=True)

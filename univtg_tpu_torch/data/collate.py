@@ -1,6 +1,6 @@
 """Batch assembly into static shapes; a copy of
-``univtg_tpu/data/collate.py``'s ``collate_mr``, without the pad target
-(``pad_v_to``) that the multi-process bucket plan hands it, and of its
+``univtg_tpu/data/collate.py``'s ``collate_mr`` (with the pad target
+``pad_v_to`` that the multi-process bucket plan hands it) and of its
 ``quantize_for_transfer``, the int8 host-to-device transfer.
 
 Batches are padded to (max_q_l, max_v_l), or to a bucket of a length ladder
@@ -8,6 +8,7 @@ for long-video pretraining, so the device sees a few fixed shapes.
 """
 from __future__ import annotations
 
+import warnings
 from typing import Optional, Sequence
 
 import numpy as np
@@ -22,12 +23,19 @@ def collate_mr(
     pad_batch_to: Optional[int] = None,
     max_windows: int = 5,
     v_buckets: Optional[Sequence[int]] = None,
+    pad_v_to: Optional[int] = None,
 ):
     """Items (from MRDataset) -> {'model_inputs', 'targets', 'meta'}.
 
     If pad_batch_to is given, the batch dim is padded with repeats of the
     last item and `batch_mask` marks real rows (keeps shapes static for the
     final partial batch of an epoch).
+
+    pad_v_to: explicit video pad target (the multi-process bucket plan:
+    every rank is told the same target, so the ranks' shapes stay equal).
+    A batch longer than it is cut to it, with a warning, and its clip-index
+    labels clamped into range, as the JAX package does: raising would stop
+    one rank of a gang and leave the others waiting in a collective.
 
     v_buckets: optional video-length bucket ladder. The batch pads to the
     smallest bucket >= the batch's max clip count (capped at max_v_l)
@@ -43,7 +51,20 @@ def collate_mr(
     if pad_batch_to is not None and n_real < pad_batch_to:
         items = list(items) + [items[-1]] * (pad_batch_to - n_real)
 
-    if v_buckets:
+    clamp_labels = False
+    if pad_v_to is not None:
+        pad_v = min(int(pad_v_to), max_v_l)
+        batch_max = max(len(it["video_feat"]) for it in items)
+        if batch_max > pad_v:
+            # the plan's length estimates under-shot a feature file
+            warnings.warn(
+                f"bucket plan under-shoot: batch max clip count {batch_max}"
+                f" > planned pad target {pad_v}; truncating (metadata "
+                f"durations disagree with feature files?)",
+                stacklevel=2,
+            )
+            clamp_labels = True
+    elif v_buckets:
         batch_max = max(len(it["video_feat"]) for it in items)
         # max_v_l acts as the implicit top bucket: a ladder whose largest
         # rung is below the batch max must NOT truncate (pad_stack would
@@ -86,6 +107,9 @@ def collate_mr(
             w = np.asarray(it["span_labels"], np.float32).reshape(-1, 2)[:wmax]
             span_labels[i, : len(w)] = w
             n_windows[i] = len(w)
+        if clamp_labels:
+            # ce-format integer clip indices; l1 floats are <=~1, unaffected
+            span_labels = np.minimum(span_labels, pad_v - 1)
         targets["span_labels"] = span_labels
         targets["n_windows"] = n_windows
     if "saliency_scores" in items[0]:
@@ -93,6 +117,9 @@ def collate_mr(
         targets["saliency_scores"] = sal.astype(np.float32)
         pos = np.stack([it["saliency_pos_labels"] for it in items]).astype(np.int32)
         neg = np.stack([it["saliency_neg_labels"] for it in items]).astype(np.int32)
+        if clamp_labels:
+            pos = np.minimum(pos, pad_v - 1)
+            neg = np.minimum(neg, pad_v - 1)
         targets["saliency_pos_labels"] = pos
         targets["saliency_neg_labels"] = neg
     if "gates" in items[0]:

@@ -32,6 +32,7 @@ from univtg_tpu_torch.evals.hl_domain import evaluate_tvsum, evaluate_youtube
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.models.univtg import UniVTG
+from univtg_tpu_torch.parallel import dist
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.epoch_runner import StepProfiler, run_train_epoch
 from univtg_tpu_torch.train.schedule import build_schedule
@@ -81,7 +82,8 @@ class HLTrainConfig:
 
 
 def _refuse_unported(cfg: HLTrainConfig):
-    named = [k for k, on in (("dp > 1", (cfg.dp or 1) > 1), ("tp > 1", cfg.tp > 1)) if on]
+    named = [k for k, on in (("dp > 1", (cfg.dp or 1) > 1), ("tp > 1", cfg.tp > 1),
+                             ("a gang of processes", dist.world() > 1)) if on]
     if named:
         raise NotImplementedError(
             f"the HL driver of univtg_tpu_torch does not run {', '.join(named)} "

@@ -13,11 +13,22 @@ full metrics to ``metrics_eNNNN.json``, the config to ``opt.json``
 ``tensorboard_dir`` ("auto": ``results_dir/tb``), and a torch.profiler
 trace of the first ``profile_steps`` steps into ``profile_dir``.
 Checkpoints are torch files in the upstream container (train/checkpoint.py).
-``TrainConfig`` has the JAX package's fields and JSON. What this slice does
-not run raises ``NotImplementedError`` naming ROADMAP.md: more than one
-device or process (``dp``/``tp``/``pp``/``ep``,
-``num_shards``, and with them ``sharded_eval``) and the fault injection of
-their elastic restarts. Checkpoints are written synchronously, whatever
+``TrainConfig`` has the JAX package's fields and JSON.
+
+Across processes (a gang of parallel/dist.py, one rank per device): each
+rank reads its shard of the data (``num_shards`` = the world size,
+``shard_index`` = the rank; with ``length_buckets`` the Loader's global
+bucket plan), every step is the global batch's (train/steps.py), and only
+rank 0 evaluates, checkpoints, writes TensorBoard, profiles and snapshots
+the code; its early-stop and final-save decisions are broadcast. Every rank
+writes its own ``train_log.jsonl`` and ``opt.json`` into its results_dir,
+as in the JAX package. ``sharded_eval`` spreads the evaluation over the
+ranks (stride shards, submissions all-gathered, rank 0 merging);
+``inject_fault_epoch``/``inject_fault_rank`` make one rank exit hard after
+an epoch, and the gang restarts with ``resume`` = rank 0's
+``model_latest.ckpt`` and ``resume_all``. ``dp`` is the world size (None
+means it); ``tp``/``pp``/``ep`` > 1 raise ``NotImplementedError`` naming
+ROADMAP.md. Checkpoints are written synchronously, whatever
 ``async_checkpoint`` says. ``scan_steps = K > 1`` stacks K batches of one
 video-length bucket into one call of ``make_scan_train_step`` (on a card,
 one CUDA-graph replay); a ragged remainder, or a bucket change, goes
@@ -42,11 +53,11 @@ from univtg_tpu_torch.data.features import save_jsonl
 from univtg_tpu_torch.data.loader import Loader
 from univtg_tpu_torch.data.mr import MRDataConfig, MRDataset
 from univtg_tpu_torch.data.prefetch import device_prefetch, to_device, to_pinned
-from univtg_tpu_torch.device import resolve_device
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.models.moment_detr import MomentDETR, MomentDETRConfig
 from univtg_tpu_torch.models.univtg import UniVTG
+from univtg_tpu_torch.parallel import dist
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.config_io import snapshot_code, to_json
 from univtg_tpu_torch.train.epoch_runner import StepProfiler, run_train_epoch, strip_meta
@@ -143,12 +154,9 @@ class TrainConfig:
 
 def _refuse_unported(cfg: TrainConfig):
     unported = {
-        "dp > 1": (cfg.dp or 1) > 1,
         "tp > 1": cfg.tp > 1,
         "pp > 1": cfg.pp > 1,
         "ep > 1": cfg.ep > 1,
-        "num_shards > 1": cfg.num_shards > 1,
-        "inject_fault_epoch": cfg.inject_fault_epoch >= 0,
     }
     named = [k for k, on in unported.items() if on]
     if named:
@@ -162,6 +170,25 @@ def _refuse_unported(cfg: TrainConfig):
         raise ValueError(
             f"model_id='moment_detr' needs cfg.model to be a MomentDETRConfig, "
             f"not a {type(cfg.model).__name__}")
+
+
+def _place_in_gang(cfg: TrainConfig) -> TrainConfig:
+    """cfg with the gang's data shard: ``dp`` must be the world size (None
+    means it: one rank per device), and ``num_shards``/``shard_index``
+    the world size and the rank (left at 1/0 they are filled in)."""
+    world, rank = dist.world(), dist.rank()
+    if cfg.dp is not None and cfg.dp != world:
+        raise ValueError(
+            f"dp={cfg.dp}: univtg_tpu_torch runs one rank per device, so dp is the "
+            f"world size ({world}); leave it None")
+    if (cfg.num_shards, cfg.shard_index) == (1, 0):
+        cfg = dataclasses.replace(cfg, num_shards=world, shard_index=rank)
+    if (cfg.num_shards, cfg.shard_index) != (world, rank):
+        raise ValueError(
+            f"shard {cfg.shard_index} of {cfg.num_shards}: univtg_tpu_torch reads "
+            f"one data shard per rank, so num_shards/shard_index must be the world "
+            f"size and the rank ({world}/{rank}); train_vlp sets them")
+    return cfg
 
 
 def build_model(cfg: TrainConfig, device="cuda", seed: int = 0):
@@ -181,9 +208,12 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     only; ``resume_all`` also restores the optimizer and continues after the
     saved epoch; resume='auto' picks up results_dir/model_latest.ckpt with
     resume_all semantics. ``device`` defaults to CUDA and raises without a
-    card; pass device='cpu' to train on the CPU."""
+    card; pass device='cpu' to train on the CPU. In a gang every rank calls
+    it (the rank's own device, of ``device``'s type)."""
     _refuse_unported(cfg)
-    dev = resolve_device(device)
+    cfg = _place_in_gang(cfg)
+    dev = dist.rank_device(device)
+    is_main = cfg.shard_index == 0
     os.makedirs(cfg.results_dir, exist_ok=True)
     train_ds = train_dataset if train_dataset is not None else MRDataset(cfg.train_data)
     eval_ds = MRDataset(cfg.eval_data) if cfg.eval_data else None
@@ -194,16 +224,27 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     lengths = None
     if v_buckets and hasattr(train_ds, "feature_lengths"):
         lengths = train_ds.feature_lengths()
+    if v_buckets and cfg.num_shards > 1 and lengths is None:
+        # each rank would bucket from its own shard's batch max, and the
+        # ranks' shapes would diverge
+        raise ValueError(
+            "length_buckets with num_shards > 1 needs a dataset exposing "
+            "feature_lengths(), so every rank computes the same bucket plan")
     train_loader = Loader(
         train_ds,
         cfg.bsz,
-        lambda items, pad_batch_to: collate_mr(
+        lambda items, pad_batch_to, pad_v_to=None: collate_mr(
             items, train_max_q, train_max_v, pad_batch_to, v_buckets=v_buckets,
+            pad_v_to=pad_v_to,
         ),
         shuffle=True,
         seed=cfg.seed,
         num_threads=cfg.num_io_threads,
+        shard_index=cfg.shard_index,
+        num_shards=cfg.num_shards,
         lengths=lengths,
+        plan_shards=bool(v_buckets),
+        plan_buckets=v_buckets,
     )
     steps_per_epoch = len(train_loader)
     model = build_model(cfg, dev, cfg.seed)
@@ -223,6 +264,7 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
         else:  # weights only
             model.load_state_dict(
                 ckpt.restore_params(resume, model.state_dict(), cfg.model), strict=True)
+    dist.check_replicated(model, state.optimizer, state.step)
 
     scan_step = None
     if cfg.model_id == "moment_detr":
@@ -243,10 +285,12 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     cfg_json = to_json(cfg)
     with open(os.path.join(cfg.results_dir, "opt.json"), "w") as f:
         f.write(cfg_json)
-    snapshot_code(cfg.results_dir)
+    if is_main:
+        snapshot_code(cfg.results_dir)
     tb_dir = cfg.tensorboard_dir
     if tb_dir == "auto":
         tb_dir = os.path.join(cfg.results_dir, "tb")
+    gang = dist.world() > 1
 
     best_score, best_metrics, es_cnt = -np.inf, None, 0
     best_path = os.path.join(cfg.results_dir, "model_best.ckpt")
@@ -256,8 +300,8 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
         start_epoch = resume_epoch + 1
     with open(os.path.join(cfg.results_dir, "train_log.jsonl"), "a") as train_log, \
             open(os.path.join(cfg.results_dir, "eval_log.jsonl"), "a") as eval_log, \
-            TBWriter(tb_dir) as tb, \
-            StepProfiler(cfg.profile_dir, cfg.profile_steps) as profiler:
+            TBWriter(tb_dir if is_main else "") as tb, \
+            StepProfiler(cfg.profile_dir, cfg.profile_steps, enabled=is_main) as profiler:
         for epoch in range(start_epoch, cfg.n_epoch):
             if epoch > -1:
                 if epoch == max(start_epoch, 0):
@@ -268,33 +312,51 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                                         state, seed, dev, train_log, profiler)
                 profiler.stop()  # short epoch: close the trace at epoch end
                 tb.scalars(line, epoch, prefix="train/")
+                if (epoch == cfg.inject_fault_epoch
+                        and cfg.shard_index == cfg.inject_fault_rank):
+                    # a simulated crash: no cleanup, no checkpoint, as a
+                    # killed member of a gang looks to its peers
+                    logger.warning(f"inject_fault: hard exit at epoch {epoch}")
+                    os._exit(3)
+            stop = False
             if eval_ds is not None and (epoch + 1) % cfg.eval_epoch == 0:
-                metrics = _eval_once(cfg, model, eval_ds, eval_step, epoch)
-                eval_log.write(json.dumps({"epoch": epoch, **metrics["brief"]}) + "\n")
-                eval_log.flush()
-                tb.scalars(metrics["brief"], epoch, prefix="eval/")
-                score = metrics["brief"].get(f"{cfg.main_metric}-key")
-                if score is None:
-                    score = metrics["brief"].get(cfg.main_metric)
-                ckpt.save_checkpoint(latest_path, state, epoch, cfg_json)
-                if score is not None and score > best_score:
-                    best_score, best_metrics, es_cnt = score, metrics, 0
-                    ckpt.save_checkpoint(best_path, state, epoch, cfg_json)
-                else:
-                    es_cnt += 1
-                    if 0 <= cfg.max_es_cnt <= es_cnt:
-                        logger.info("early stop")
-                        break
-            if cfg.save_interval > 0 and epoch > 0 and epoch % cfg.save_interval == 0:
+                metrics = None
+                if cfg.sharded_eval and gang:
+                    # every rank scores its shard; rank 0 merges
+                    metrics = _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch)
+                if is_main:
+                    if metrics is None:
+                        metrics = _eval_once(cfg, model, eval_ds, eval_step, epoch)
+                    eval_log.write(json.dumps({"epoch": epoch, **metrics["brief"]}) + "\n")
+                    eval_log.flush()
+                    tb.scalars(metrics["brief"], epoch, prefix="eval/")
+                    score = metrics["brief"].get(f"{cfg.main_metric}-key")
+                    if score is None:
+                        score = metrics["brief"].get(cfg.main_metric)
+                    ckpt.save_checkpoint(latest_path, state, epoch, cfg_json)
+                    if score is not None and score > best_score:
+                        best_score, best_metrics, es_cnt = score, metrics, 0
+                        ckpt.save_checkpoint(best_path, state, epoch, cfg_json)
+                    else:
+                        es_cnt += 1
+                        stop = 0 <= cfg.max_es_cnt <= es_cnt
+                # rank 0's decision reaches every rank: a rank that left the
+                # loop alone would leave the others waiting in the next step
+                stop = dist.broadcast_flag(stop)
+            if stop:
+                logger.info("early stop")
+                break
+            if (is_main and cfg.save_interval > 0 and epoch > 0
+                    and epoch % cfg.save_interval == 0):
                 ckpt.save_checkpoint(
                     os.path.join(cfg.results_dir, f"model_e{epoch:04d}.ckpt"),
                     state, epoch, cfg_json)
 
-    if best_metrics is None:
-        # no evaluation picked a best checkpoint: the final state is the best
+    # no evaluation picked a best checkpoint: the final state is the best.
+    # best_metrics is rank 0's to know, so its decision is broadcast
+    if dist.broadcast_flag(best_metrics is None) and is_main:
         ckpt.save_checkpoint(best_path, state, cfg.n_epoch - 1, cfg_json)
-        best_metrics = {}
-    return best_metrics, best_path
+    return best_metrics or {}, best_path
 
 
 def _train_one_epoch(cfg, epoch, train_loader, train_step, scan_step, state, seed,
@@ -389,9 +451,27 @@ def _eval_loader(cfg, eval_ds):
     )
 
 
-def _run_eval_shard(cfg, model, eval_ds, eval_step):
-    """Inference over the whole eval set on the model's device (the JAX
-    driver's single-shard case; its stride shards need num_shards > 1)."""
+class _EvalShard:
+    """Stride-slice view of a dataset: items shard_index, shard_index + S,
+    ... including the remainder (the training shards drop it so every rank
+    takes as many steps; evaluation must score every item once)."""
+
+    def __init__(self, ds, shard_index: int, num_shards: int):
+        self.ds = ds
+        self.idx = list(range(shard_index, len(ds), num_shards))
+
+    def __len__(self):
+        return len(self.idx)
+
+    def __getitem__(self, i):
+        return self.ds[self.idx[i]]
+
+
+def _run_eval_shard(cfg, model, eval_ds, eval_step, shard_index=0, num_shards=1):
+    """Inference over one stride shard of the eval set (by default the
+    whole set) on the model's device."""
+    if num_shards > 1:
+        eval_ds = _EvalShard(eval_ds, shard_index, num_shards)
     return run_inference(
         model,
         _eval_loader(cfg, eval_ds),
@@ -422,4 +502,32 @@ def _finish_eval(cfg, submission, eval_ds, epoch):
 
 def _eval_once(cfg, model, eval_ds, eval_step, epoch):
     submission = _run_eval_shard(cfg, model, eval_ds, eval_step)
+    return _finish_eval(cfg, submission, eval_ds, epoch)
+
+
+def _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch):
+    """Evaluation spread over a gang: every rank scores its stride shard on
+    its own device, the submissions are all-gathered, and rank 0 merges
+    them back into dataset order and scores them (the JAX driver's
+    ``_eval_once_sharded``). A collective: every rank calls it; the metrics
+    on rank 0, None elsewhere. Every rank checks the merge, so a shard that
+    went missing raises on all of them, not on rank 0 alone."""
+    sub_local = _run_eval_shard(cfg, model, eval_ds, eval_step,
+                                cfg.shard_index, cfg.num_shards)
+    by_qid = {}
+    for blob in dist.all_gather_bytes(json.dumps(sub_local).encode()):
+        for row in json.loads(blob):
+            by_qid[row["qid"]] = row
+    submission = [by_qid[m["qid"]] for m in eval_ds.data if m["qid"] in by_qid]
+    if len(submission) != len(eval_ds.data):
+        missing = {m["qid"] for m in eval_ds.data} - set(by_qid)
+        raise RuntimeError(
+            f"sharded eval covered {len(submission)}/{len(eval_ds.data)} "
+            f"queries; {len(missing)} missing (e.g. {sorted(missing)[:5]}): a "
+            f"rank dropped part of its shard")
+    if len(submission) != len(by_qid):
+        raise RuntimeError("sharded eval gathered qids that are not in the eval "
+                           "metadata: the ranks' shard views are out of step")
+    if cfg.shard_index != 0:
+        return None
     return _finish_eval(cfg, submission, eval_ds, epoch)

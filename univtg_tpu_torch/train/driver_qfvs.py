@@ -35,6 +35,7 @@ from univtg_tpu_torch.evals.qfvs_metric import load_videos_tag, semantic_matchin
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights, compact_to_grid, qfvs_losses
 from univtg_tpu_torch.models.univtg import UniVTG
+from univtg_tpu_torch.parallel import dist
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.epoch_runner import StepProfiler
 from univtg_tpu_torch.train.schedule import build_schedule
@@ -226,6 +227,10 @@ def train_qfvs(cfg: QFVSTrainConfig, videos_tag=None, device="cuda") -> dict:
     "AVG_F"} and writes it to ``qfvs_metrics.json``. videos_tag: per-video
     (num_shots, num_concepts) tag matrices, read from ``cfg.tags_mat_path``
     (eval/Tags.mat) when not given."""
+    if dist.world() > 1:
+        raise NotImplementedError(
+            "the QFVS driver of univtg_tpu_torch runs in one process "
+            "(ROADMAP.md, queue 1 item 7)")
     dev = resolve_device(device)
     os.makedirs(cfg.results_dir, exist_ok=True)
     if videos_tag is None:

@@ -67,12 +67,13 @@ class StepProfiler:
     trace holds the kernels of those steps; stop() closes it at epoch end
     for short epochs, as does leaving its ``with`` block. One window per run;
     the trace is a Chrome trace json in profile_dir
-    (utils/profiling.trace_profiler)."""
+    (utils/profiling.trace_profiler). ``enabled=False`` turns it off (the
+    ranks of a gang but rank 0)."""
 
-    def __init__(self, profile_dir: str, profile_steps: int = 5):
+    def __init__(self, profile_dir: str, profile_steps: int = 5, enabled: bool = True):
         self.profile_dir = profile_dir
         self.profile_steps = profile_steps
-        self.enabled = bool(profile_dir) and profile_steps > 0
+        self.enabled = enabled and bool(profile_dir) and profile_steps > 0
         self._prof = None
 
     def start(self):

@@ -23,6 +23,7 @@ import torch
 
 from univtg_tpu_torch.core.spans import cxw_to_xx
 from univtg_tpu_torch.models.losses import LossWeights, compute_losses
+from univtg_tpu_torch.parallel import dist
 from univtg_tpu_torch.train.epoch_runner import strip_meta
 
 
@@ -126,18 +127,21 @@ class TrainState:
     step: int = 0
 
 
-def step_seed(seed: int, step: int) -> int:
-    """The 63-bit generator seed of (seed, step)."""
-    state = np.random.SeedSequence([int(seed), int(step)]).generate_state(2)
+def step_seed(seed: int, step: int, rank: int = 0) -> int:
+    """The 63-bit generator seed of (seed, step), and of the rank in a gang
+    (rank 0 keeps the one-process seed)."""
+    entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
+    state = np.random.SeedSequence(entropy).generate_state(2)
     return (int(state[0]) << 32 | int(state[1])) & 0x7FFFFFFFFFFFFFFF
 
 
-def step_generator(seed: int, step: int, device) -> torch.Generator:
+def step_generator(seed: int, step: int, device, rank: int = 0) -> torch.Generator:
     """The step's dropout/droppath generator, on ``device``, seeded from
-    (seed, step): a resumed run draws the same masks. Counterpart of
-    ``step_dropout_rngs`` (its bits differ: torch's generator is not the
-    TPU's)."""
-    return torch.Generator(device=device).manual_seed(step_seed(seed, step))
+    (seed, step, rank): a resumed run draws the same masks, and no two ranks
+    of a gang draw the same. Counterpart of ``step_dropout_rngs`` (its bits
+    differ: torch's generator is not the TPU's, and JAX draws the global
+    batch's masks from one key)."""
+    return torch.Generator(device=device).manual_seed(step_seed(seed, step, rank))
 
 
 def dequantize_inputs(model_inputs):
@@ -180,14 +184,31 @@ def _train_body(state: TrainState, model_inputs, targets, generator, update,
                 loss_fn, static_inputs=None):
     """Forward in train mode, ``loss_fn(outputs, targets)`` (a dict holding
     loss_overall), backward and ``update()`` (the optimizer step, returning
-    the global norm); returns the metrics."""
+    the global norm); returns the metrics.
+
+    In a gang (parallel/dist.py) the loss is the global batch's, as in the
+    JAX package's SPMD step: the outputs and targets of every rank are
+    gathered in rank order, this rank's own slice live
+    (``dist.gather_batch``), so each rank's backward gives the global loss's
+    gradient through its own samples; their sum over the ranks
+    (``dist.all_reduce_grads``) is the global gradient, and the clip and
+    AdamW that follow come out the same on every rank. Any ``loss_fn``
+    (dense, gated, Moment-DETR) is exact this way: the InfoNCE over the
+    batch, the batch-wide normalisers and ``has_signal`` all see the
+    global batch."""
     if static_inputs:
         model_inputs = {**model_inputs, **static_inputs}
     state.model.train()
     outputs = forward(state.model, model_inputs, train=True, generator=generator)
+    if dist.active() is not None:
+        B = model_inputs["src_vid_mask"].shape[0]
+        outputs = dist.gather_batch(
+            outputs, B, replicated=("cls_mem_proj",) if static_inputs else ())
+        targets = dist.gather_batch(targets, B)
     loss_dict = loss_fn(outputs, targets)
     state.optimizer.zero_grad()
     loss_dict["loss_overall"].backward()
+    dist.all_reduce_grads(state.model.parameters())
     metrics = {k: v.detach() for k, v in loss_dict.items()}
     metrics["grad_norm"] = update()
     return metrics
@@ -214,8 +235,11 @@ def _single_step(loss_fn, static_inputs=None):
 
     def step(state: TrainState, model_inputs, targets, seed: int):
         device = next(state.model.parameters()).device
+        dist.check_same(dist.shape_signature(model_inputs, targets),
+                        "the shapes of the step's batch")
         metrics = _train_body(
-            state, model_inputs, targets, step_generator(seed, state.step, device),
+            state, model_inputs, targets,
+            step_generator(seed, state.step, device, dist.rank()),
             lambda: state.optimizer.step(state.step), loss_fn, static_inputs)
         state.step += 1
         return state, metrics
@@ -291,7 +315,11 @@ class ScanTrainStep:
     dispatch counters count once per replay what the capture counted. A
     graph holds the addresses of the parameters, gradients and AdamW state
     of the state it captured, so one ScanTrainStep serves one TrainState,
-    loaded before the first call. Under an active ring it raises.
+    loaded before the first call. Under an active ring it raises. In a gang
+    (parallel/dist.py) each step is the global-batch step of
+    ``_train_body``: on the CPU the K steps run in order; on a card under
+    NCCL the graph captures their all-gathers and all-reduces with them;
+    under gloo on a card it raises (``dist.check_capturable``).
     """
 
     def __init__(self, weights, losses, use_gates):
@@ -310,6 +338,9 @@ class ScanTrainStep:
                 "events are not captured in a CUDA graph yet (ROADMAP.md, queue 1)")
         K = int(next(iter(stacked_mi.values())).shape[0])
         device = next(state.model.parameters()).device
+        dist.check_capturable(device)
+        dist.check_same(dist.shape_signature(stacked_mi, stacked_tg),
+                        "the shapes of the scan step's batches")
         if device.type != "cuda":
             per_step = []
             for i in range(K):
@@ -350,7 +381,7 @@ class ScanTrainStep:
         group.lr.copy_(rates.pin_memory(), non_blocking=True)
         current = torch.cuda.current_stream(device)
         if first:
-            self.generator.manual_seed(step_seed(seed, state.step))
+            self.generator.manual_seed(step_seed(seed, state.step, dist.rank()))
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
                 metrics = self._steps(state, group, K)
@@ -358,7 +389,7 @@ class ScanTrainStep:
         else:
             if group.graph is None:
                 self._capture(state, group, K)
-            self.generator.manual_seed(step_seed(seed, state.step))
+            self.generator.manual_seed(step_seed(seed, state.step, dist.rank()))
             group.graph.replay()
             for counts, made in zip(_replay_counters(), group.counts):
                 for name, n in made.items():
