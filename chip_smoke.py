@@ -117,7 +117,8 @@ printing its seconds:
                  held against the numpy twin's (AP_TOL), whose scoring is
                  timed too; one pass on the native npz reader, its features
                  held against numpy's on every file (FEAT_TOL) with none
-                 rejected; the loader's own ms per batch on either reader;
+                 rejected; the loader's own ms per batch on either reader (once:
+                 it reads the same files for both dtypes);
                  where h5py is importable, cli pack-h5 and one pass on the
                  h5 cache with lazy metadata (else printed and not run);
                  and one inference under torch.profiler (the eval cells).
@@ -237,6 +238,31 @@ printing its seconds:
                  encode_images with the uint8 copy inside it, txt2clip,
                  ground_features; the copy also alone); one ground_video
                  under torch.profiler.
+  7q. tf32   -- phases 4's, 7's and 7j's f32 comparisons again with TF32
+                 as phase 1 found it (cudnn.allow_tf32 True), "pallas" vs
+                 "xla" and TF32 as found vs off, at those phases' limits:
+                 the port holds its f32 convolutions to f32 itself
+                 (device.exact_f32).
+  7l. resume  -- resume_all from the JAX package's checkpoint of a small
+                 UniVTG (RESUME_FIXTURE, written by
+                 tests/torch_golden/make_jax_resume.py): AdamW's step on the
+                 card, 2 f32 "pallas" steps against JAX's recorded metrics
+                 at TRAIN_TOL.
+  7m. async ckpt -- `cli train-mr` (bf16, "pallas", ASYNC_EPOCHS epochs,
+                 evaluated and checkpointed each) with async_checkpoint on
+                 and off, cuDNN deterministic: the checkpoints bit-equal;
+                 the host ms each save blocks the loop, and the writer's.
+  7o. hl gang -- train_hl in a gang of two gloo ranks sharing the card
+                 (`--dist-worker` processes) on 7f's corpus, HL_GANG_BSZ
+                 items a rank a step, f32, "pallas", dropouts 0: each step
+                 against one process on the assembled batches at
+                 TRAIN_TOL, the ranks equal; per rank step ms, collective
+                 host ms, idle share.
+  7p. learning -- tools/validate_synthetic.py's planted-signal check at
+                 hidden LEARN_HIDDEN, LEARN_HEADS heads, "pallas", the
+                 script's dropouts, LEARN_EPOCHS epochs, f32 and bf16:
+                 R1@0.5 > 50 and mIoU > 50, the metrics beside the JAX
+                 package's (JAX_LEARNING).
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -246,6 +272,11 @@ printing its seconds:
                  inside use_ring(RingGroup(4)): 3 f32 steps held against
                  "xla" at phase 7's limits, then bf16 ms per step and peak
                  memory beside phase 8's.
+  9c. ring scan -- make_scan_train_step, K = RING_SCAN_K, under
+                 use_ring(RingGroup(4)) at 8 x (2048 + 32), "ring_pallas",
+                 bf16 and f32, dropouts 0: RING_SCAN_GROUPS groups (eager,
+                 captured, replayed) against eager ring steps bit for bit by
+                 7e's rule; ms per step captured and eager.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving is phases 4-5, training phase 7's train-mr
@@ -263,7 +294,12 @@ included) and Moment-DETR inference its reloaded checkpoint's evaluation,
 where no kernel may run, raw-video grounding phase 7j's `cli ground`, `cli
 extract-text` and demo-app runs (4 flash_fwd per grounding dispatch, none
 from the CLIP towers or extract-text) and the grounding server its raw-video
-PUT and text POSTs (4 flash_fwd per batch); the smoke's own
+PUT and text POSTs (4 flash_fwd per batch), the resumed training phase
+7l's two steps, the writer's training phase 7m's train-mr run with
+async_checkpoint on, HL training across processes phase 7o's gloo gang's
+train_hl runs (each rank counts its own; summed), the learning check phase
+7p's f32 train_mr run, ring training on CUDA graphs phase 9c's bf16 scan
+and eager ring steps; the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
 of the other paths must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
@@ -555,6 +591,32 @@ GROUND_SHAPE = {"ground_160": (1, 128 + 32, 8, 128)}
 # the residual stream in f32 as JAX promotes them)
 GROUND_TEXT_TOL = 1e-5
 CLIP_DEVICE_TOL = 1e-4
+# torch's TF32 switches as the process found them (phase_device turns both
+# off for the comparison phases; phase_tf32 runs its comparisons with these)
+TF32_AS_FOUND = {}
+# phase 7n: scan_steps = RING_SCAN_K under use_ring(RingGroup(RING_P)) at
+# 8 x (2048 + 32), RING_SCAN_GROUPS groups (eager, captured, replayed) against
+# as many eager ring steps; RING_SCAN_TIMED groups timed a dtype
+RING_SCAN_K, RING_SCAN_GROUPS, RING_SCAN_TIMED = 2, 3, 4
+# phase 7l: the JAX package's checkpoint of a small UniVTG after 2 steps, the
+# next 2 batches and JAX's metrics of them (tests/torch_golden/make_jax_resume.py)
+RESUME_FIXTURE = os.path.join("tests", "torch_golden", "jax_resume")
+# phase 7m: `cli train-mr` with the background checkpoint writer on and off
+ASYNC_EPOCHS = 2
+# phase 7o: HL in a gang of two gloo ranks sharing the card, per-rank bsz
+HL_GANG_BSZ = 2
+# phase 7p: the planted-signal learning check (tools/validate_synthetic.py) at
+# the flagship's width and heads, LEARN_EPOCHS epochs (the script's default),
+# f32 and bf16; beside it the JAX package's readings (docs/PERF.md,
+# "End-to-end learning validation": hidden 1024 at 20 and 50 epochs)
+LEARN_EPOCHS, LEARN_HIDDEN, LEARN_HEADS = 30, 1024, 8
+JAX_LEARNING = {
+    "cpu, hidden 96, 25 epochs": {"R1@0.5": 78.1, "mIoU": 58.8, "mAP": 43.2,
+                                  "HL-VeryGood-mAP": 62.2},
+    "tpu, hidden 1024, 20 epochs": {"mIoU": 72.0, "mAP": 58.8, "HL-VeryGood-mAP": 66.2},
+    "tpu, hidden 1024, 50 epochs": {"R1@0.5": 93.8, "R1@0.7": 60.9, "mIoU": 74.4,
+                                    "mAP": 63.0, "HL-VeryGood-mAP": 66.7},
+}
 CLIP_U8_TOL = 1e-4
 CLIP_BF16_TOL = 2.5e-2
 
@@ -648,6 +710,8 @@ def phase_device(torch):
     log(f"[device] TF32 as found: matmul={torch.backends.cuda.matmul.allow_tf32} "
         f"cudnn={torch.backends.cudnn.allow_tf32}; both set to False for the "
         f"comparison phases")
+    TF32_AS_FOUND.update(matmul=torch.backends.cuda.matmul.allow_tf32,
+                         cudnn=torch.backends.cudnn.allow_tf32)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     return smi
@@ -2226,8 +2290,9 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
                   "load_ms_per_batch": _load_ms(driver_mr, cfg, h5_ds, n_batches)}
             if len(h5_sub) != N_VAL_FULL:
                 raise AssertionError(f"the h5 pass scored {len(h5_sub)} rows")
-        load_ms = _load_ms(driver_mr, cfg, eval_ds, n_batches)
-        load_native_ms = _load_ms(driver_mr, cfg, native_ds, n_batches)
+        if not timings:  # the loader reads the same files whatever the dtype
+            load_ms = _load_ms(driver_mr, cfg, eval_ds, n_batches)
+            load_native_ms = _load_ms(driver_mr, cfg, native_ds, n_batches)
         cell = f"eval_qvhighlights_{'bf16' if dtype == 'bfloat16' else 'f32'}"
         kernels, wall_us = _profile_window(
             torch, lambda: driver_mr._run_eval_shard(cfg, model, eval_ds, step), 1)
@@ -2252,10 +2317,10 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     return timings
 
 
-def _long_batch(torch, np, B=8, Lv=2048, Lt=32, d_vid=2818, d_txt=512):
+def _long_batch(torch, np, B=8, Lv=2048, Lt=32, d_vid=2818, d_txt=512, seed=5):
     """One random B x (Lv clips + Lt tokens) batch on the card, with the
     dense targets the losses read."""
-    rng = np.random.default_rng(5)
+    rng = np.random.default_rng(seed)
     ts = ((np.arange(Lv, dtype=np.float32) + 1.0) / Lv)[None, :, None].repeat(2, -1)
     ts = np.broadcast_to(ts, (B, Lv, 2)).copy()
     window = np.zeros((B, Lv), np.float32)
@@ -3444,7 +3509,7 @@ def _timed_collectives(torch, dist):
     return spent, lambda: [setattr(dist, n, f) for n, f in orig.items()]
 
 
-def _gang_step_stats(torch, np, cfg, batches, seed):
+def _gang_step_stats(torch, np, cfg, batches, seed, use_gates=True):
     """The global-batch step of this rank at cfg's width on its own
     ``batches``: ms per step by CUDA events over DIST_TIMED_STEPS steps,
     the host seconds inside the collectives per step, and one profiled
@@ -3455,7 +3520,7 @@ def _gang_step_stats(torch, np, cfg, batches, seed):
 
     sd = UniVTG(cfg.model, device="cpu", seed=cfg.seed).state_dict()
     state = _scan_state(torch, cfg.model, sd)
-    step = make_train_step(cfg.weights, tuple(cfg.losses), use_gates=True)
+    step = make_train_step(cfg.weights, tuple(cfg.losses), use_gates=use_gates)
     it = iter(range(10 ** 6))
 
     def one():
@@ -3523,6 +3588,12 @@ def dist_worker(job_path, rank, world, port) -> int:
     assert init_distributed(f"127.0.0.1:{port}", world, rank) == (rank, world)
     gang = dist.active()
     base = job["results"]
+    if job["mode"] == "hl":
+        out = hl_gang_worker(job, rank, world, torch, np)
+        with open(os.path.join(base, f"r{rank}.json"), "w") as f:
+            json.dump(out, f)
+        dist.shutdown()
+        return 0
     cfg = _dist_cfg(job, os.path.join(base, f"p{rank}"))
     built = []
     build_model = driver_mr.build_model
@@ -4499,6 +4570,582 @@ def _ground_checks(torch, np, s):
         "towers": towers, "ground_video_ms": whole, "split": split, **s.server_stats}
 
 
+def phase_resume(torch, np, card):
+    """7l: resume_all from the JAX package's checkpoint (RESUME_FIXTURE) on
+    the card: train/checkpoint.restore_checkpoint maps its params, optax
+    state and step onto a fresh "pallas" model, AdamW's step lands on the
+    card (capturable), and 2 f32 steps on the fixture's batches meet JAX's
+    recorded metrics at TRAIN_TOL. Returns (the path's launches, readings)."""
+    from univtg_tpu_torch.models import ModelConfig, UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.train import checkpoint as ckpt
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), RESUME_FIXTURE)
+    with open(os.path.join(root, "expected.json")) as f:
+        want = json.load(f)
+    model = UniVTG(ModelConfig(**want["model"], attention_impl="pallas"), device="cuda",
+                   seed=1)
+    state = TrainState(model, make_optimizer(model.parameters(),
+                                             build_schedule(*want["schedule"]), want["wd"],
+                                             want["grad_clip"]))
+    with np.load(os.path.join(root, "batches.npz")) as z:
+        arrays = {k: z[k] for k in z.files}
+    _reset_launches()  # the resumed training path starts here
+    state, epoch = ckpt.restore_checkpoint(os.path.join(root, "model_latest.ckpt"), state)
+    steps_at = {(str(s["step"].device), float(s["step"]))
+                for s in state.optimizer.adamw.state.values()}
+    step = make_train_step(LossWeights(**want["weights"]))
+    rel = []
+    for i, w in enumerate(want["metrics"]):
+        mi, tg = ({k.split("/")[2]: torch.from_numpy(v).cuda() for k, v in arrays.items()
+                   if k.startswith(f"{i}/{part}/")} for part in ("model_inputs", "targets"))
+        state, m = step(state, mi, tg, 1)
+        rel.append({k: abs(float(m[k]) - w[k]) / max(abs(w[k]), 1e-12)
+                    for k in ("loss_overall", "grad_norm")})
+    torch.cuda.synchronize()
+    launches = _launches()  # ... and ends here
+    log(f"[resume] {RESUME_FIXTURE}: epoch {epoch}, step {state.step - 2} restored, AdamW "
+        f"step {sorted(steps_at)}; 2 f32 pallas steps vs JAX's recorded: rel {rel} (limits "
+        f"{TRAIN_TOL}); launches {launches} ({card})")
+    n_layers = want["model"]["num_layers"]
+    if (epoch, state.step) != (want["epoch"], want["step"] + 2) or steps_at != {
+            (f"cuda:{torch.cuda.current_device()}", float(want["step"]))}:
+        raise AssertionError(f"resume_all restored epoch {epoch}, step {state.step - 2}, "
+                             f"AdamW steps {steps_at}")
+    if any(r["loss_overall"] > TRAIN_TOL["loss"] or r["grad_norm"] > TRAIN_TOL["grad_norm"]
+           for r in rel):
+        raise AssertionError(f"the resumed steps leave JAX's trajectory: {rel}")
+    if {k: launches[k] for k in FLASH_KERNELS} != {k: 2 * n_layers for k in FLASH_KERNELS}:
+        raise AssertionError(f"resumed steps launched {launches}")
+    return launches, rel
+
+
+def _blob_equal(torch, a, b):
+    """Two checkpoint dicts equal, tensors bit for bit ("opt" aside)."""
+    if isinstance(b, dict):
+        return a.keys() == b.keys() and all(
+            k == "opt" or _blob_equal(torch, a[k], b[k]) for k in b)
+    if isinstance(b, torch.Tensor):
+        return torch.equal(a, b)
+    return a == b
+
+
+def phase_async_ckpt(torch, np, card, tmp, corpus):
+    """7m: `cli train-mr` at full width, bf16, "pallas", ASYNC_EPOCHS epochs
+    each evaluated and checkpointed (latest and best), with
+    async_checkpoint on (the default: train/checkpoint.AsyncCheckpointer)
+    and off, cuDNN held deterministic: model_best.ckpt and
+    model_latest.ckpt equal bit for bit; the host ms that each save blocks
+    the loop (with the writer: the copy to the host; without: the whole
+    write) and the writer's background ms. Returns (the writer run's
+    launches, stats)."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.interop import read_checkpoint
+    from univtg_tpu_torch.train import checkpoint as ckpt
+
+    spent = {"save_blocking_ms": [], "write_ms": []}
+    orig = {"async": ckpt.AsyncCheckpointer.save, "sync": ckpt.save_checkpoint,
+            "write": ckpt._write_blob}
+
+    def timing(fn, key):
+        def timed_fn(*a, **k):
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            spent[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return timed_fn
+
+    runs, stats = {}, {}
+    torch.backends.cudnn.deterministic = True
+    try:
+        for on in (True, False):
+            run_dir = os.path.join(tmp, f"async_{on}")
+            for v in spent.values():
+                v.clear()
+            ckpt.AsyncCheckpointer.save = timing(orig["async"], "save_blocking_ms")
+            ckpt.save_checkpoint = timing(orig["sync"], "save_blocking_ms")
+            ckpt._write_blob = timing(orig["write"], "write_ms")
+            if on:
+                _reset_launches()  # the writer's training path starts here
+            t0 = time.perf_counter()
+            try:
+                cli.main(["train-mr", "--preset", "qvhighlights_mr",
+                          f"train_data.data_path={corpus['train_path']}",
+                          f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
+                          f"train_data.q_feat_dir={corpus['q_feat_dir']}",
+                          "train_data.v_feat_dim=2816", *_eval_overrides(corpus),
+                          "eval_epoch=1", f"n_epoch={ASYNC_EPOCHS}", "bsz=32", "eval_bsz=32",
+                          "model.attention_impl=pallas", "model.compute_dtype=bfloat16",
+                          f"async_checkpoint={on}", f"results_dir={run_dir}"])
+            finally:
+                ckpt.AsyncCheckpointer.save = orig["async"]
+                ckpt.save_checkpoint = orig["sync"]
+                ckpt._write_blob = orig["write"]
+            torch.cuda.synchronize()
+            if on:
+                launches = _launches()  # ... and ends here
+            stats[f"async_{on}"] = {"wall_s": time.perf_counter() - t0,
+                                    **{k: list(v) for k, v in spent.items()}}
+            runs[on] = {n: read_checkpoint(os.path.join(run_dir, n))
+                        for n in ("model_best.ckpt", "model_latest.ckpt")}
+    finally:
+        torch.backends.cudnn.deterministic = False
+    equal = {n: _blob_equal(torch, runs[True][n], runs[False][n]) for n in runs[True]}
+    opts = {on: runs[on]["model_latest.ckpt"]["opt"]["async_checkpoint"] for on in runs}
+    log(f"[async ckpt] cli train-mr {ASYNC_EPOCHS} epochs, bf16 pallas, async_checkpoint "
+        f"on/off: checkpoints equal {equal}, opt.json async_checkpoint {opts}; host ms a save "
+        f"blocks the loop, with the writer {stats['async_True']['save_blocking_ms']} "
+        f"(its background writes {stats['async_True']['write_ms']}), without "
+        f"{stats['async_False']['save_blocking_ms']}; wall s "
+        f"{stats['async_True']['wall_s']:.2f} / {stats['async_False']['wall_s']:.2f}; "
+        f"launches {launches} ({card})")
+    if not all(equal.values()) or opts != {True: True, False: False}:
+        raise AssertionError("the background writer's checkpoints differ from the "
+                             "synchronous writer's")
+    if any(launches[k] == 0 for k in FLASH_KERNELS):
+        raise AssertionError(f"train-mr with the writer skipped a kernel: {launches}")
+    return launches, stats
+
+
+def _hl_gang_cfg(job, results_dir):
+    """The tvsum_hl run of phase 7o: the job's corpus overrides, HL_GANG_BSZ
+    items a rank a step, HL_EPOCHS epochs each evaluated, "pallas", f32,
+    dropouts 0."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.presets import PRESETS
+
+    return cli.apply_overrides(PRESETS["tvsum_hl"](), [
+        *job["overrides"], "model.attention_impl=pallas", "model.dropout=0.0",
+        "model.droppath=0.0", "model.input_dropout=0.0", f"n_epoch={HL_EPOCHS}",
+        "eval_epoch=1", f"bsz={HL_GANG_BSZ}", f"results_dir={results_dir}"])
+
+
+def _hl_rank_loaders(cfg, domain, ranks, world):
+    """(the domain's training set, the Loader of each rank of ``ranks``)."""
+    import dataclasses
+
+    from univtg_tpu_torch.data.hl import HLDataset, collate_hl
+    from univtg_tpu_torch.data.loader import Loader
+
+    ds = HLDataset(dataclasses.replace(cfg.data, domain=domain))
+    ds.set_state("train")
+    return ds, [Loader(ds, cfg.bsz, lambda items, pad_batch_to: collate_hl(
+        items, cfg.data.max_q_l, cfg.data.max_v_l, pad_batch_to), shuffle=True,
+        seed=cfg.seed, shard_index=r, num_shards=world) for r in ranks]
+
+
+def hl_gang_worker(job, rank, world, torch, np):
+    """One rank of phase 7o (``chip_smoke.py --dist-worker`` with mode
+    "hl"): train_hl in the gang with every step's metrics recorded, its
+    launches, scores and the final parameters' digest; then its step ms,
+    collective host ms and idle share on its own shard's batches."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.parallel import dist
+    from univtg_tpu_torch.train import driver_hl
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+
+    base = job["results"]
+    cfg = _hl_gang_cfg(job, os.path.join(base, f"p{rank}"))
+    built, steps = [], []
+    make_model, make_step = driver_hl.UniVTG, driver_hl.make_train_step
+
+    def recording(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(state, mi, tg, seed):
+            state, metrics = step(state, mi, tg, seed)
+            steps.append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+
+        return run
+
+    driver_hl.UniVTG = lambda *a, **k: built.append(make_model(*a, **k)) or built[-1]
+    driver_hl.make_train_step = recording
+    _reset_launches()  # this rank's share of the HL gang's path starts here
+    t0 = time.perf_counter()
+    scores = driver_hl.train_hl(cfg)
+    torch.cuda.synchronize()
+    out = {"rank": rank, "train_hl_s": time.perf_counter() - t0, "launches": _launches(),
+           "scores": scores, "steps": steps,
+           "digest": dist.tensor_digest(built[-1].state_dict().values())}
+    driver_hl.UniVTG, driver_hl.make_train_step = make_model, make_step
+    _, (loader,) = _hl_rank_loaders(cfg, job["domains"][0], [rank], world)
+    batches = [tuple(to_device(t, "cuda") for t in strip_meta(b)) for b in loader]
+    out["step"] = _gang_step_stats(torch, np, cfg, batches, cfg.seed + 1, use_gates=False)
+    return out
+
+
+def phase_hl_gang(torch, np, card, tmp):
+    """7o: train_hl in a gang of two gloo ranks sharing the card (each a
+    ``chip_smoke.py --dist-worker`` process) on phase 7f's TVSum-shaped
+    corpus at full width, HL_GANG_BSZ items a rank a step, f32, "pallas",
+    dropouts 0, cuDNN deterministic: every step's loss and grad norm
+    against one process's make_train_step on the two shards' batches
+    concatenated, from the same init, at TRAIN_TOL; the ranks' curves,
+    parameters and scores equal; each rank's step ms, collective host ms
+    and idle share. Returns (the launches of both ranks summed, stats)."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    corpus, splits_path, domains = _hl_corpus(tmp)
+    job = {"mode": "hl", "overrides": _hl_overrides(corpus, splits_path), "domains": domains}
+    base = os.path.join(tmp, "hl_gang")
+    outs = _wait_gang(_gang(job, base))
+    ranks = []
+    for r in range(2):
+        with open(os.path.join(base, f"r{r}.json")) as f:
+            ranks.append(json.load(f))
+    cfg = _hl_gang_cfg(job, os.path.join(tmp, "hl_one"))
+    # the one-process run on the batches the gang assembles
+    first = _hl_rank_loaders(cfg, domains[0], (0, 1), 2)[1][0]
+    schedule = build_schedule(cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma,
+                              max(1, len(first)))
+    step = make_train_step(cfg.weights, tuple(cfg.losses))
+    want = []
+    torch.backends.cudnn.deterministic = True
+    try:
+        for domain in domains:
+            _, loaders = _hl_rank_loaders(cfg, domain, (0, 1), 2)
+            sd = UniVTG(cfg.model, device="cpu", seed=cfg.seed).state_dict()
+            state = _scan_state(torch, cfg.model, sd, schedule)
+            for epoch in range(cfg.n_epoch):
+                for ld in loaders:
+                    ld.set_epoch(epoch)
+                for b0, b1 in zip(*loaders):
+                    mi, tg = strip_meta({part: {k: np.concatenate([b0[part][k], b1[part][k]])
+                                                for k in b0[part]}
+                                         for part in ("model_inputs", "targets")})
+                    want.append({k: float(v) for k, v in step(
+                        state, to_device(mi, "cuda"), to_device(tg, "cuda"),
+                        cfg.seed + 1)[1].items()})
+    finally:
+        torch.backends.cudnn.deterministic = False
+    got = ranks[0]["steps"]
+    rel = [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in ("loss_overall", "grad_norm")}
+           for g, w in zip(got, want)]
+    launches = {k: ranks[0]["launches"][k] + ranks[1]["launches"][k]
+                for k in ranks[0]["launches"]}
+    stats = {f"rank{r['rank']}": {"train_hl_s": r["train_hl_s"], **r["step"]} for r in ranks}
+    log(f"[hl gang] two gloo ranks sharing the card, train_hl on {domains}, "
+        f"{len(got)} steps a rank at {HL_GANG_BSZ} x 2 items: ranks' curves equal "
+        f"{ranks[0]['steps'] == ranks[1]['steps']}, digests equal "
+        f"{ranks[0]['digest'] == ranks[1]['digest']}, scores {ranks[0]['scores']} / "
+        f"{ranks[1]['scores']}; vs one process on the assembled batches, rel per step "
+        f"{rel} (limits {TRAIN_TOL}); launches of both ranks {launches}")
+    log(f"[hl gang] per rank ({card}): {json.dumps(stats)}")
+    if len(got) != len(want) or not want or any(
+            r["loss_overall"] > TRAIN_TOL["loss"] or r["grad_norm"] > TRAIN_TOL["grad_norm"]
+            for r in rel):
+        raise AssertionError(f"the HL gang leaves the one-process curve: {rel}\n"
+                             f"{outs[0][-2000:]}")
+    if (ranks[0]["steps"] != ranks[1]["steps"] or ranks[0]["digest"] != ranks[1]["digest"]
+            or ranks[0]["scores"] != ranks[1]["scores"]
+            or set(ranks[0]["scores"]) != {*domains, "AVG"}):
+        raise AssertionError("the HL gang's ranks disagree")
+    if any(ranks[r]["launches"][k] == 0 for r in (0, 1) for k in FLASH_KERNELS):
+        raise AssertionError(f"an HL rank skipped a kernel: {ranks}")
+    return launches, stats
+
+
+def phase_learning(torch, np, card, tmp):
+    """7p: the planted-signal learning check (tools/validate_synthetic.py)
+    at hidden LEARN_HIDDEN with the flagship's LEARN_HEADS heads, "pallas",
+    the script's dropouts, corpus, optimizer and bar, LEARN_EPOCHS epochs,
+    f32 and bf16, through train_mr: R1@0.5, R1@0.7, mIoU, MR mAP and HL mAP
+    beside the JAX package's readings; each run must clear R1@0.5 > 50 and
+    mIoU > 50. Returns (the f32 run's launches, readings)."""
+    from univtg_tpu_torch.tools import validate_synthetic as vs
+    from univtg_tpu_torch.train.driver_mr import train_mr
+
+    readings, launches = {}, None
+    for dname in ("float32", "bfloat16"):
+        _, cfg = vs.build(os.path.join(tmp, f"learn_{dname}"), epochs=LEARN_EPOCHS,
+                          hidden=LEARN_HIDDEN, num_heads=LEARN_HEADS,
+                          attention_impl="pallas", compute_dtype=dname)
+        if launches is None:
+            _reset_launches()  # the learning check's training path starts here
+        t0 = time.perf_counter()
+        line = vs.summarize(*train_mr(cfg))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        if launches is None:
+            launches = _launches()  # ... and ends here (f32)
+        line.pop("best_ckpt")
+        train_s = sum(e["time"] for e in _train_log(cfg.results_dir))
+        readings[dname] = {**line, "wall_s": wall, "train_epochs_s": train_s,
+                           "passed": vs.passed(line)}
+        log(f"[learning] {dname} hidden {LEARN_HIDDEN}, {LEARN_HEADS} heads, {LEARN_EPOCHS} "
+            f"epochs, pallas: {json.dumps(line)} in {wall:.1f} s, {train_s:.1f} s of it in "
+            f"the training epochs ({card}); "
+            f"{'PASSED' if vs.passed(line) else 'WEAK'} (bar {vs.BAR}); the JAX package's "
+            f"readings {json.dumps(JAX_LEARNING)}")
+    if not all(r["passed"] for r in readings.values()):
+        raise AssertionError(f"the learning check is below its bar: {readings}")
+    if any(launches[k] == 0 for k in FLASH_KERNELS):
+        raise AssertionError(f"the learning check skipped a kernel: {launches}")
+    return launches, readings
+
+
+def _tf32(torch, on):
+    """Both TF32 switches as phase_device found them (on) or off."""
+    torch.backends.cuda.matmul.allow_tf32 = on and TF32_AS_FOUND["matmul"]
+    torch.backends.cudnn.allow_tf32 = on and TF32_AS_FOUND["cudnn"]
+
+
+def phase_tf32(torch, np, card, corpus, sd):
+    """7q: the f32 comparisons of phases 4 (serving, B=2, 128 + 32), 7 (3
+    train steps) and 7j (the CLIP towers on the card against the CPU,
+    grounding) once more with TF32 as phase_device found it (torch's
+    default: cudnn.allow_tf32 True): "pallas" against "xla" at their
+    phases' limits, and each f32 result against the same run with TF32 off
+    (what the switch still moves), at the same limits. Before the port held
+    its f32 convolutions to f32 (device.exact_f32), serving, grounding and
+    the CLIP image tower left their limits here. Returns the readings;
+    fails where one leaves its limit."""
+    import dataclasses
+
+    from univtg_tpu_torch.extract.clip.model import CLIP, vit_b32
+    from univtg_tpu_torch.extract.pipeline import ClipEncoder
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.serve import GroundingPipeline
+
+    readings, failed = {}, []
+    log(f"[tf32] as found: {TF32_AS_FOUND}")
+
+    def serve_errs(got_all, want_all):
+        pairs = [(np.asarray(g["topk_windows"]), np.asarray(w["topk_windows"]))
+                 for g, w in zip(got_all, want_all)]
+        sal = max(float(np.abs(np.asarray(g["saliency"]) - w["saliency"]).max())
+                  for g, w in zip(got_all, want_all))
+        ok = all(_unambiguous_ranks_agree(np, g, w, PIPE_TOL["float32"]["scores"],
+                                          PIPE_TOL["float32"]["windows"])
+                 for g, w in zip(got_all, want_all))
+        return {"saliency": sal,
+                "scores": max(float(np.abs(g[:, 2] - w[:, 2]).max()) for g, w in pairs),
+                "windows_ties_included": max(float(np.abs(g[:, :2] - w[:, :2]).max())
+                                             for g, w in pairs),
+                "ranks_agree": ok, "ok": ok and sal <= PIPE_TOL["float32"]["saliency"]}
+
+    # phase 4's f32 dispatch
+    rng = np.random.default_rng(11)
+    cfg = flagship_model(attention_impl="pallas")
+    vids = [rng.standard_normal((75, cfg.vid_dim - 2)).astype(np.float32) for _ in range(2)]
+    qs = [rng.standard_normal((int(rng.integers(4, 33)), cfg.txt_dim)).astype(np.float32)
+          for _ in range(2)]
+    res = {}
+    for impl in ("pallas", "xla"):
+        pipe = GroundingPipeline(flagship_model(attention_impl=impl), sd, eval_mode="add",
+                                 device="cuda")
+        items = [(pipe.prepare_video(v), q) for v, q in zip(vids, qs)]
+        for on in (False, True):
+            _tf32(torch, on)
+            res[impl, on] = pipe.ground_prepared_many(items, top_k=10)
+        _tf32(torch, False)
+        del pipe
+    readings["serving_pallas_vs_xla"] = serve_errs(res["pallas", True], res["xla", True])
+    readings["serving_tf32_vs_off"] = serve_errs(res["pallas", True], res["pallas", False])
+
+    # phase 7's three f32 train steps
+    batches = _train_batches(np, corpus, 3)
+    quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
+    runs = {}
+    for impl, on in (("pallas", True), ("xla", True), ("pallas", False)):
+        _tf32(torch, on)
+        try:
+            runs[impl, on] = _run_steps(torch, flagship_model(attention_impl=impl, **quiet),
+                                        sd, batches)[1]
+        finally:
+            _tf32(torch, False)
+
+    def train_errs(got, want):
+        rel = {k: max(abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for g, w in zip(got, want))
+               for k in ("loss_overall", "grad_norm")}
+        return {**rel, "ok": rel["loss_overall"] <= TRAIN_TOL["loss"]
+                and rel["grad_norm"] <= TRAIN_TOL["grad_norm"]}
+
+    readings["train_pallas_vs_xla"] = train_errs(runs["pallas", True], runs["xla", True])
+    readings["train_tf32_vs_off"] = train_errs(runs["pallas", True], runs["pallas", False])
+
+    # 7j: the CLIP towers on the card against the CPU, and grounding
+    clip_cfg = vit_b32()
+    clip_sd = CLIP(clip_cfg, device="cpu", seed=0).state_dict()
+    frames = np.random.default_rng(7).integers(0, 256, (8, 224, 224, 3), dtype=np.uint8)
+    texts = _ground_queries(np, 8)
+    cpu = ClipEncoder(clip_sd, clip_cfg, image_batch=8, text_batch=8, device="cpu")
+    want_img, (want_h, want_p) = cpu.encode_images(frames), cpu.encode_texts(texts)
+    del cpu
+    enc = ClipEncoder(clip_sd, clip_cfg, device="cuda")
+    towers = {}
+    for on in (False, True):
+        _tf32(torch, on)
+        try:
+            h, pooled = enc.encode_texts(texts)
+            towers[on] = {"image": _rel(np, enc.encode_images(frames), want_img),
+                          "text": max(_rel(np, pooled, want_p),
+                                      max(_rel(np, a, b) for a, b in zip(h, want_h)))}
+        finally:
+            _tf32(torch, False)
+    readings["clip_card_vs_cpu"] = {
+        **{f"{k}_tf32": v for k, v in towers[True].items()},
+        **{f"{k}_off": v for k, v in towers[False].items()},
+        "ok": max(towers[True].values()) <= CLIP_DEVICE_TOL}
+    gcfg = dataclasses.replace(flagship_model(attention_impl="pallas"), vid_dim=514,
+                               txt_dim=512)
+    from univtg_tpu_torch.models import UniVTG
+
+    gsd = UniVTG(gcfg, device="cpu", seed=0).state_dict()
+    feats = np.random.default_rng(8).standard_normal((75, 512)).astype(np.float32)
+    txts = [np.random.default_rng(9 + i).standard_normal((12, 512)).astype(np.float32)
+            for i in range(4)]
+    gres = {}
+    for impl in ("pallas", "xla"):
+        pipe = GroundingPipeline(dataclasses.replace(gcfg, attention_impl=impl), gsd,
+                                 device="cuda")
+        for on in (False, True):
+            _tf32(torch, on)
+            try:
+                gres[impl, on] = [pipe.ground_features(feats, t) for t in txts]
+            finally:
+                _tf32(torch, False)
+        del pipe
+    readings["ground_pallas_vs_xla"] = serve_errs(gres["pallas", True], gres["xla", True])
+    readings["ground_tf32_vs_off"] = serve_errs(gres["pallas", True], gres["pallas", False])
+    for name, r in readings.items():
+        log(f"[tf32] {name}: {json.dumps(r)}")
+        if not r["ok"]:
+            failed.append(name)
+    log(f"[tf32] ({card}) limits: serving and grounding {PIPE_TOL['float32']}, training "
+        f"{TRAIN_TOL}, CLIP card vs CPU {CLIP_DEVICE_TOL}; outside: {failed or 'none'}")
+    if failed:
+        raise AssertionError(f"with TF32 as found, {failed} leave their limits")
+    return readings
+
+
+def _ring_pairs(torch, np, n):
+    """n distinct long batches (8 x 2048 clips + 32 tokens) on the card."""
+    return [_long_batch(torch, np, seed=5 + i) for i in range(n)]
+
+
+def _stack_pairs(torch, pairs):
+    return tuple({k: torch.stack([p[part][k] for p in pairs]) for k in pairs[0][part]}
+                 for part in (0, 1))
+
+
+def _ring_scan_runs(torch, cfg, sd, pairs, ring):
+    """RING_SCAN_GROUPS groups of RING_SCAN_K (eager, captured, replayed)
+    under the ring, from one state, against as many eager single ring steps
+    from another and from a third (is the eager step deterministic?):
+    _compare_runs of each pair."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.parallel import use_ring
+    from univtg_tpu_torch.train.steps import make_scan_train_step, make_train_step
+
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    a, b, c = (_scan_state(torch, cfg, sd) for _ in range(3))
+    scan, single = make_scan_train_step(weights), make_train_step(weights)
+    got, want, again = [], [], []
+    K = RING_SCAN_K
+    with use_ring(ring):
+        for g in range(RING_SCAN_GROUPS):
+            group = [pairs[(g * K + i) % len(pairs)] for i in range(K)]
+            got.append(scan(a, *_stack_pairs(torch, group), 0)[1])
+            for mi, tg in group:
+                want.append(single(b, mi, tg, 0)[1])
+                again.append(single(c, mi, tg, 0)[1])
+    return _compare_runs(torch, got, want, a, b), _compare_runs(torch, again, want, c, b)
+
+
+def phase_ring_scan(torch, np, sd, card):
+    """7n: scan_steps = RING_SCAN_K under use_ring(RingGroup(RING_P)) at
+    8 x (2048 + 32), "ring_pallas", dropouts 0, bf16 and f32: the groups
+    (eager, captured, replayed) against eager single ring steps, bit for
+    bit by phase 7e's rule (within TRAIN_TOL and bit-equal again under
+    cudnn.deterministic where the eager step does not equal itself); then ms
+    per step of the captured ring step against the eager one. Returns (the
+    path's launches, stats)."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.ops import attention as attn
+    from univtg_tpu_torch.parallel import RingGroup, use_ring
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.steps import make_scan_train_step, make_train_step
+
+    ring = RingGroup(RING_P)
+    pairs = _ring_pairs(torch, np, RING_SCAN_K)
+    quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
+    stats = {}
+    launches = None
+    for dname in ("bfloat16", "float32"):
+        cfg = flagship_model(attention_impl="ring_pallas", compute_dtype=dname,
+                             max_v_l=2048, **quiet)
+        if launches is None:
+            _reset_launches()  # the captured ring training path starts here
+        diff, repeat = _ring_scan_runs(torch, cfg, sd, pairs, ring)
+        if launches is None:
+            torch.cuda.synchronize()
+            launches = _launches()  # ... and ends here (bf16: scan and eager steps)
+            ran = dict(attn.dispatches)
+            steps = 2 * RING_SCAN_K * RING_SCAN_GROUPS + RING_SCAN_K * RING_SCAN_GROUPS
+            want = {"ring_block": steps * 4 * RING_P * RING_P,
+                    "ring_finish": steps * 4 * RING_P}
+            log(f"[ring scan] bf16: launches {launches}, dispatches {ran}")
+            # the capture counts nothing; each replay counts what it captured
+            if {n: launches[n] for n in want} != want or ran["xla"]:
+                raise AssertionError(f"ring scan: launches {launches}, dispatches {ran}, "
+                                     f"expected {want} and no xla fallback")
+        log(f"[ring scan] {dname} P={RING_P} K={RING_SCAN_K}, {RING_SCAN_GROUPS} groups "
+            f"(eager, captured, replayed) vs eager ring steps: "
+            f"{'bit-equal' if diff['equal'] else 'NOT bit-equal'} {diff}; eager twice: "
+            f"{'bit-equal' if repeat['equal'] else 'NOT bit-equal'} {repeat}")
+        if not diff["equal"] and (repeat["equal"]
+                                  or diff["loss_overall_rel"] > TRAIN_TOL["loss"]
+                                  or diff["grad_norm_rel"] > TRAIN_TOL["grad_norm"]):
+            raise AssertionError(f"{dname} ring graph replay disagrees with eager ring "
+                                 f"steps: {diff}")
+        if not diff["equal"]:
+            torch.backends.cudnn.deterministic = True
+            try:
+                diff, repeat = _ring_scan_runs(torch, cfg, sd, pairs, ring)
+            finally:
+                torch.backends.cudnn.deterministic = False
+            log(f"[ring scan] {dname} again with cudnn.deterministic: replay vs eager "
+                f"{'bit-equal' if diff['equal'] else 'NOT bit-equal'} {diff}; eager twice "
+                f"{'bit-equal' if repeat['equal'] else 'NOT bit-equal'}")
+            if repeat["equal"] and not diff["equal"]:
+                raise AssertionError(f"{dname} ring graph replay disagrees with "
+                                     f"deterministic eager ring steps: {diff}")
+        torch.cuda.empty_cache()
+
+        # ms per step: the captured ring step against the eager ring step
+        weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+        timed_cfg = flagship_model(attention_impl="ring_pallas", compute_dtype=dname,
+                                   max_v_l=2048)
+        rec = {}
+        with use_ring(ring):
+            state = _scan_state(torch, timed_cfg, sd)
+            scan = make_scan_train_step(weights)
+            stacked = _stack_pairs(torch, pairs)
+            rec["captured_ms"] = cuda_ms(lambda: scan(state, *stacked, 0),
+                                         RING_SCAN_TIMED) / RING_SCAN_K
+            del state, scan
+            torch.cuda.empty_cache()
+            state = _scan_state(torch, timed_cfg, sd)
+            single = make_train_step(weights)
+            mi, tg = pairs[0]
+            rec["eager_ms"] = cuda_ms(lambda: single(state, mi, tg, 0), 2 * RING_SCAN_TIMED)
+            del state
+        torch.cuda.empty_cache()
+        stats[dname] = {**rec, "replay_equal": diff["equal"]}
+        log(f"[ring scan] {dname} B=8 L=2048+32 P={RING_P}, dropouts at the flagship's: "
+            f"captured {rec['captured_ms']:.2f} ms a step, eager {rec['eager_ms']:.2f} ms "
+            f"a step, CUDA events ({card})")
+    return launches, stats
+
+
 def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
                  sass):
     """One entry per kernel for the final JSON line: times of the headline
@@ -4633,7 +5280,8 @@ def main() -> int:
             "quantize", phase_quantize, torch, np, tmp, corpus, run_dir, f32_brief)
         log(f"[main path] int8 tier (quantize, serve, infer-mr) launches: "
             f"{quantize_launches}; the smoke's int8_matmul call: {call_launches}")
-        timed("evalsize", phase_eval_size, torch, np, fa, smi, tmp, run_dir)
+        # one pass (two until PR 15): the new phases of PR 16 need the time
+        timed("evalsize", phase_eval_size, torch, np, fa, smi, tmp, run_dir, 1)
         scan_launches = timed("scan", phase_scan_train, torch, np, tmp, corpus)
         log(f"[main path] scan training launches: {scan_launches}")
         timed("scan", phase_scan, torch, np, fa, smi, corpus, sd)
@@ -4660,6 +5308,18 @@ def main() -> int:
                                                            np, smi, tmp)
         log(f"[main path] raw-video grounding launches: {ground_launches}; grounding "
             f"server launches: {ground_server_launches}")
+        timed("tf32", phase_tf32, torch, np, smi, corpus, sd)
+        resume_launches, _ = timed("resume", phase_resume, torch, np, smi)
+        log(f"[main path] training resumed from a JAX checkpoint launches: "
+            f"{resume_launches}")
+        async_launches, _ = timed("async ckpt", phase_async_ckpt, torch, np, smi, tmp,
+                                  corpus)
+        log(f"[main path] train-mr with the background writer launches: {async_launches}")
+        hl_gang_launches, _ = timed("hl gang", phase_hl_gang, torch, np, smi, tmp)
+        log(f"[main path] HL training across processes (two gloo ranks on the card, "
+            f"summed) launches: {hl_gang_launches}")
+        learn_launches, _ = timed("learning", phase_learning, torch, np, smi, tmp)
+        log(f"[main path] the learning check (f32) launches: {learn_launches}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -4669,6 +5329,9 @@ def main() -> int:
     ring_train_launches = timed("ring train", phase_ring_train, torch, np, sd, smi,
                                 long_stats)
     log(f"[main path] ring training launches: {ring_train_launches}")
+    ring_scan_launches, _ = timed("ring scan", phase_ring_scan, torch, np, sd, smi)
+    log(f"[main path] ring training on CUDA graphs (scan_steps=2) launches: "
+        f"{ring_scan_launches}")
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "univtg_tpu")]
     if bad:
@@ -4692,7 +5355,12 @@ def main() -> int:
                             "md_training": md_train_launches,
                             "md_inference": md_infer_launches,
                             "ground": ground_launches,
-                            "ground_server": ground_server_launches}, sass)
+                            "ground_server": ground_server_launches,
+                            "resume_training": resume_launches,
+                            "async_ckpt_training": async_launches,
+                            "ring_scan_training": ring_scan_launches,
+                            "hl_dist_training": hl_gang_launches,
+                            "learning_check": learn_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

@@ -11,7 +11,9 @@ rtol 1e-4, parameters at 2e-5, the ranks bit-equal; (c) the Loader's shards,
 its bucket plan (``plan_shards``) and collate's ``pad_v_to`` against JAX's;
 (d) ``sharded_eval`` against the full evaluation; (e) the elastic restart
 after ``inject_fault_epoch``; (f) the broadcast early stop; (g) what is
-still refused, and the backend rule.
+still refused, and the backend rule; (h) ``train_hl`` in a gang of two
+against the JAX package's HL step and one process of the port on the
+batches the gang assembles, and ``train_qfvs`` refusing the gang.
 """
 import dataclasses
 import json
@@ -443,3 +445,191 @@ def test_cuda_scan_step_under_gloo_on_a_card_raises(tmp_path, monkeypatch):
             make_scan_train_step(LossWeights())(state, {"src_vid": torch.zeros(2, 1)}, {}, 0)
     finally:
         dist.shutdown()
+
+
+# (h) ------------------------------------------------------------------------
+
+HL_LOSSES = ("labels", "saliency")
+
+
+def _hl_jax_model(hl):
+    """The JAX model of build_hl_cfg's config and its init from PRNGKey(0)."""
+    import jax
+
+    from univtg_tpu.models import ModelConfig as JModelConfig
+    from univtg_tpu.models import UniVTG as JUniVTG
+
+    cfg = worker.build_hl_cfg({"hl": hl}, "unused").model
+    jmodel = JUniVTG(_jax_twin(cfg, JModelConfig))
+    z = np.zeros
+    params = jmodel.init(jax.random.PRNGKey(0), z((2, 8, hl["q_dim"]), np.float32),
+                         np.ones((2, 8), np.float32),
+                         z((2, hl["max_clips"], hl["v_dim"] + 2), np.float32),
+                         np.ones((2, hl["max_clips"]), np.float32), train=False)["params"]
+    return jmodel, params, cfg
+
+
+@pytest.fixture(scope="module")
+def hl_gang(meta, tmp_path_factory):
+    """The two ranks' train_hl from the JAX init; returns the directory,
+    the corpus and each rank's hl.json."""
+    def make(base):
+        import jax
+
+        from univtg_tpu.interop.torch_ckpt import params_from_torch_state_dict  # noqa: F401
+        from univtg_tpu_torch.data.synthetic import create_synthetic_hl_corpus
+        from univtg_tpu_torch.interop import state_dict_from_jax_params
+
+        hl = create_synthetic_hl_corpus(os.path.join(base, "hl"), n_train=8, n_val=3,
+                                        v_dim=24, q_dim=16, max_clips=20, seed=5)
+        _, params, cfg = _hl_jax_model(hl)
+        init = os.path.join(base, "hl_init.pt")
+        torch.save(state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params),
+                                              cfg), init)
+        _wait(_launch({**meta, "hl": hl}, base, "hl", init=init))
+        return {"base": base, "hl": hl, "init": init}
+
+    made = _once(tmp_path_factory, "hl", make)
+    made["ranks"] = []
+    for r in range(2):
+        with open(os.path.join(made["base"], f"p{r}", "hl.json")) as f:
+            made["ranks"].append(json.load(f))
+    return made
+
+
+def _hl_global_batches(cfg, hl_cfg_data):
+    """Each epoch's global batches as the gang assembles them: the two
+    ranks' shards (Loader shard 0 and 1 of 2), rank order, concatenated."""
+    from univtg_tpu_torch.data.hl import HLDataset, collate_hl
+
+    ds = HLDataset(hl_cfg_data)
+    ds.set_state("train")
+    loaders = [Loader(ds, cfg.bsz, lambda items, pad_batch_to: collate_hl(
+        items, cfg.data.max_q_l, cfg.data.max_v_l, pad_batch_to), shuffle=True,
+        seed=cfg.seed, shard_index=r, num_shards=2) for r in range(2)]
+    epochs = []
+    for epoch in range(cfg.n_epoch):
+        for ld in loaders:
+            ld.set_epoch(epoch)
+        epochs.append([tuple({k: np.concatenate([b0[part][k], b1[part][k]])
+                              for k in b0[part]} for part in ("model_inputs", "targets"))
+                       for b0, b1 in zip(*loaders)])
+    return epochs, len(loaders[0])
+
+
+def _knife_edge(sal):
+    """Whether a batch's saliency sums to zero only by rounding: it holds
+    saliency, but its exact (f64) sum is below 1e-6 of its absolute sum.
+    TVSum's scores are centered per video, so every batch's sum is ~0 and
+    the f32 sum that decides ``has_signal`` (upstream's ``saliency.sum() ==
+    0``) lands on either side of zero with the summation order."""
+    sal = np.asarray(sal, np.float64)
+    return np.abs(sal).sum() > 0 and abs(sal.sum()) <= 1e-6 * np.abs(sal).sum()
+
+
+def test_hl_gang_follows_the_jax_global_batch_step(hl_gang):
+    """2 ranks x bsz 2, 2 epochs, dropouts 0, from the JAX init, against
+    JAX's HL step (labels + saliency) on the assembled global batch: every
+    step's losses and grad norm at rtol 1e-4 and the parameters after it at
+    2e-5 (the k-slice of each in_proj_bias at 2 lr per step, as
+    tests/test_torch_train.py), the ranks' steps and parameters bit-equal.
+    A batch at the knife-edge of ``has_signal`` (ROADMAP.md queue 3: XLA's
+    f32 sum of the centered scores reads 0 where torch's does not) ends the
+    comparison there: it is checked to be one (JAX's saliency terms 0, the
+    port's not, loss_f equal), and the trajectories part from it."""
+    import jax
+
+    from univtg_tpu.models.losses import LossWeights as JLossWeights
+    from univtg_tpu.train import schedule as jschedule
+    from univtg_tpu.train import steps as jsteps
+    from univtg_tpu_torch.interop import state_dict_from_jax_params
+
+    cfg = worker.build_hl_cfg({"hl": hl_gang["hl"]}, "unused")
+    jmodel, params, tcfg = _hl_jax_model(hl_gang["hl"])
+    epochs, per_epoch = _hl_global_batches(cfg, cfg.data)
+    tx = jsteps.make_optimizer(jschedule.build_schedule(
+        cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma, per_epoch), cfg.wd, cfg.grad_clip)
+    jstate = jsteps.TrainState(params=params, opt_state=tx.init(params), step=np.int32(0))
+    jstep = jsteps.make_train_step(jmodel, tx, _jax_twin(cfg.weights, JLossWeights),
+                                   HL_LOSSES, donate=False)
+    r0, r1 = hl_gang["ranks"]
+    assert r0["steps"] == r1["steps"] and len(r0["steps"]) == 4
+    snaps = [torch.load(os.path.join(hl_gang["base"], f"p{r}", "steps.pt")) for r in range(2)]
+    D = tcfg.hidden_dim
+    batches = [b for e in epochs for b in e]
+    compared = 0
+    for i, ((mi, tg), got) in enumerate(zip(batches, r0["steps"], strict=True)):
+        jstate, m = jstep(jstate, mi, tg, jax.random.PRNGKey(1))
+        want = {k: float(v) for k, v in m.items()}
+        assert set(got) == set(want)
+        if want["loss_s_inter"] == 0.0 and _knife_edge(tg["saliency_scores"]):
+            assert got["loss_s_inter"] != 0.0 and got["loss_s_intra"] != 0.0
+            np.testing.assert_allclose(got["loss_f"], want["loss_f"], rtol=1e-4)
+            break
+        for k in want:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-4, atol=1e-7,
+                                       err_msg=f"{k} at step {i}")
+        jsd = state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, jstate.params),
+                                         tcfg)
+        for k, w in jsd.items():
+            assert torch.equal(snaps[0][i][k], snaps[1][i][k]), k
+            g = snaps[0][i][k]
+            if k.endswith("self_attn.in_proj_bias"):
+                np.testing.assert_allclose(g[D:2 * D].numpy(), w[D:2 * D].numpy(),
+                                           atol=2 * cfg.lr * (i + 1), err_msg=k)
+                g, w = torch.cat([g[:D], g[2 * D:]]), torch.cat([w[:D], w[2 * D:]])
+            np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5,
+                                       err_msg=f"{k} after step {i}")
+        compared += 1
+    assert compared >= 3
+    finals = [torch.load(os.path.join(hl_gang["base"], f"p{r}", "final.pt")) for r in range(2)]
+    for k, v in finals[0].items():
+        assert torch.equal(v, finals[1][k]) and torch.equal(v, snaps[0][-1][k]), k
+
+
+def test_hl_gang_scores_equal_one_process(hl_gang):
+    """The port in one process on the assembled batches, evaluated after each
+    epoch as rank 0 does: the same per-domain best mAP as the gang's (both
+    ranks return rank 0's), losses at rtol 1e-4, parameters at 2e-5; only
+    rank 0 wrote the scores and the checkpoint."""
+    from univtg_tpu_torch.data.hl import HLDataset
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.train import driver_hl
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    cfg = worker.build_hl_cfg({"hl": hl_gang["hl"]}, "unused")
+    epochs, per_epoch = _hl_global_batches(cfg, cfg.data)
+    model = UniVTG(cfg.model, device="cpu")
+    model.load_state_dict(torch.load(hl_gang["init"]))
+    state = TrainState(model, make_optimizer(model.parameters(), build_schedule(
+        cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma, per_epoch), cfg.wd, cfg.grad_clip))
+    step = make_train_step(cfg.weights, HL_LOSSES)
+    dataset = HLDataset(cfg.data)
+    got, best = [], 0.0
+    for batches in epochs:
+        for mi, tg in batches:
+            state, m = step(state, {k: torch.from_numpy(v) for k, v in mi.items()},
+                            {k: torch.from_numpy(v) for k, v in tg.items()}, cfg.seed + 1)
+            got.append({k: float(v) for k, v in m.items()})
+        best = max(best, driver_hl.eval_domain(cfg, model, dataset))
+    r0, r1 = hl_gang["ranks"]
+    assert r0["scores"] == r1["scores"] == {"SYN": best, "AVG": best}
+    for g, w in zip(got, r0["steps"], strict=True):
+        for k in w:
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-4, atol=1e-7, err_msg=k)
+    final = torch.load(os.path.join(hl_gang["base"], "p0", "final.pt"))
+    for k, v in model.state_dict().items():
+        np.testing.assert_allclose(v.numpy(), final[k].numpy(), atol=2e-5, err_msg=k)
+    base = hl_gang["base"]
+    assert os.path.exists(os.path.join(base, "p0", "best_tvsum_metrics.json"))
+    assert os.path.exists(os.path.join(base, "p0", "model_SYN_best.ckpt"))
+    assert not os.path.exists(os.path.join(base, "p1", "best_tvsum_metrics.json"))
+    assert not os.path.exists(os.path.join(base, "p1", "model_SYN_best.ckpt"))
+
+
+def test_qfvs_refuses_a_gang_and_says_why(hl_gang):
+    """The JAX QFVS driver shards nothing, so the port's runs in one process
+    and refuses a gang on every rank."""
+    for rank in hl_gang["ranks"]:
+        assert rank["qfvs"] and "runs in one process, as the JAX package's does" in rank["qfvs"]

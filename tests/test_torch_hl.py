@@ -149,12 +149,18 @@ def test_hl_driver_runtime_knobs(corpus, tmp_path):
     assert os.path.isdir(profile_dir) and os.listdir(profile_dir)
 
 
-@pytest.mark.parametrize("field,value", [("dp", 2), ("tp", 2)])
-def test_hl_multi_device_options_raise(corpus, tmp_path, field, value):
+@pytest.mark.parametrize("field,value,error,match", [
+    ("dp", 2, ValueError, r"dp=2: .* dp is the world size \(1\)"),
+    ("tp", 2, NotImplementedError, "tp > 1 yet .ROADMAP.md, queue 1 item 11"),
+])
+def test_hl_multi_device_options_raise(corpus, tmp_path, field, value, error, match):
+    """dp is the world size (a gang of dp ranks runs HL, see
+    tests/test_torch_dist.py), so dp=2 in one process is refused; tp is
+    not ported."""
     cfg = dataclasses.replace(_hl_cfg(corpus, tmp_path / "x"), **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, queue 1 item 7"):
+    with pytest.raises(error, match=match):
         train_hl(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         infer_hl(cfg, str(tmp_path), device="cpu")
 
 

@@ -557,14 +557,20 @@ def test_a_jax_checkpoint_loads_into_the_port(model_name, tmp_path):
     for k in ("pred_logits", "pred_spans", "saliency_scores"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=0,
                                    atol=1e-5, err_msg=k)
-    # the serving loader reads it too; the full restore refuses it
+    # the serving loader reads it too, and the full restore: the weights,
+    # the fresh optax state's count 0 (the file's step 7 seeds only JAX's
+    # dropout) and the epoch
     sd = load_torch_checkpoint(str(path), cfg)
     assert all(torch.equal(sd[k], v) for k, v in model.state_dict().items())
     with pytest.raises(ValueError, match="cfg="):
         ckpt.restore_params(str(path), model.state_dict())
-    state = TrainState(model, make_optimizer(model.parameters(), lambda _: 1e-4))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        ckpt.restore_checkpoint(str(path), state)
+    fresh = model_cls(cfg, device="cpu", seed=2)
+    state = TrainState(fresh, make_optimizer(fresh.parameters(), lambda _: 1e-4))
+    state, epoch = ckpt.restore_checkpoint(str(path), state)
+    assert (epoch, state.step) == (3, 0)
+    assert all(torch.equal(v, sd[k]) for k, v in fresh.state_dict().items())
+    assert all(float(s["step"]) == 0 and not s["exp_avg"].any()
+               for s in state.optimizer.adamw.state.values())
 
 
 def test_train_mr_resumes_weights_from_a_jax_checkpoint(corpus, tmp_path):

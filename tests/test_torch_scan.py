@@ -8,7 +8,8 @@ dropouts 0, clipped AdamW: losses rtol 1e-4, params 2e-5); ``train_mr`` with
 ``scan_steps=2`` on 40 items at bsz 16 (one group and a remainder, as JAX's
 ``tests/test_scan_driver.py``) bit-equal to ``scan_steps=1``; a bucket change
 flushing the group; ``resume_all`` mid-run equal to the uninterrupted run;
-scan under an active ring raising. The ``cuda`` tests (they skip without a
+scan under a ring on the CPU equal to eager ring steps bit for bit and to
+JAX's scan under ``jax.set_mesh``; a ring across two cards raising. The ``cuda`` tests (they skip without a
 card, with the reason named) hold a CUDA-graph replay against eager single
 steps at dropout 0, fresh attention-dropout masks per replay, and counters
 that count replays.
@@ -299,14 +300,91 @@ def test_optimizer_files_resume_on_another_device():
 
 
 @pytest.mark.parametrize("impl", ["ring", "ring_pallas"])
-def test_scan_under_an_active_ring_raises(batches, impl):
+def test_scan_under_an_active_ring_raises(batches, impl, monkeypatch):
+    """A ring whose ranks sit on two cards cannot be one CUDA graph: the
+    scan step raises with the reason before it touches a card (two cards
+    are pretended here; nothing runs on them)."""
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 2)
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    ring = RingGroup(2, devices=["cuda:0", "cuda:1"])
     model = UniVTG(ModelConfig(**{**SMALL, "attention_impl": impl}), device="cpu")
     state = TrainState(model, make_optimizer(model.parameters(), lambda s: 1e-3))
     smi, stg = stack_batches(batches[:2])
-    with use_ring(RingGroup(2, devices=["cpu"] * 2)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with use_ring(ring):
+        with pytest.raises(NotImplementedError, match=r"spans the cards \[0, 1\]"):
             make_scan_train_step(LossWeights())(state, smi, stg, 0)
     assert state.step == 0
+
+
+def _ring_pair(impl):
+    model = UniVTG(ModelConfig(**{**SMALL, "attention_impl": impl}), device="cpu", seed=3)
+    twin = UniVTG(ModelConfig(**{**SMALL, "attention_impl": impl}), device="cpu", seed=3)
+    return [TrainState(m, make_optimizer(m.parameters(), build_schedule(*SCHED), 1e-4, 0.1))
+            for m in (model, twin)]
+
+
+@pytest.mark.parametrize("impl", ["ring", "ring_pallas"])
+def test_scan_under_a_ring_equals_eager_ring_steps(batches, impl):
+    """K = 2 under use_ring(RingGroup(2) on the CPU) is two eager ring steps
+    bit for bit (the K single steps in order), every step dispatched to the
+    ring."""
+    a, b = _ring_pair(impl)
+    smi, stg = stack_batches(batches[:2])
+    before = dict(attn.dispatches)
+    with use_ring(RingGroup(2, devices=["cpu"] * 2)):
+        a, got = make_scan_train_step(LossWeights())(a, smi, stg, 1)
+        step = make_train_step(LossWeights())
+        want = [step(b, *strip_meta(batch), 1)[1] for batch in batches[:2]]
+    assert a.step == b.step == 2
+    assert attn.dispatches[impl] - before[impl] == 2 * 2 * SMALL["num_layers"]
+    assert attn.dispatches["xla"] == before["xla"]
+    for k in want[0]:
+        assert torch.equal(got[k], torch.stack([m[k] for m in want])), k
+    for (name, p), q in zip(a.model.named_parameters(), b.model.parameters()):
+        assert torch.equal(p, q), name
+
+
+def test_scan_under_a_ring_follows_jax_scan_under_a_mesh(batches):
+    """K = 2 "ring_pallas" steps under use_ring(RingGroup(2) on the CPU)
+    against JAX's lax.scan step with "ring" under
+    jax.set_mesh(make_mesh(dp=1, tp=2)), from the same weights: losses and
+    grad norms at rtol 1e-4, the params at 2e-5 (the k-slice of each
+    in_proj_bias at 2 lr per step, as test_scan_step_matches_jax_scan)."""
+    import jax
+
+    from univtg_tpu.models.losses import LossWeights as JaxWeights
+    from univtg_tpu.parallel import make_mesh
+    from univtg_tpu.train import schedule as jschedule
+    from univtg_tpu.train import steps as jsteps
+    from univtg_tpu_torch.interop import state_dict_from_jax_params
+
+    jmodel, params, _, _ = _models("ring")
+    _, _, model, tcfg = _models("ring_pallas")
+    tx = jsteps.make_optimizer(jschedule.build_schedule(*SCHED), 1e-4, 0.1)
+    jstate = jsteps.TrainState(params=params, opt_state=tx.init(params),
+                               step=np.int32(0))
+    jscan = jsteps.make_scan_train_step(jmodel, tx, JaxWeights())
+    with jax.set_mesh(make_mesh(dp=1, tp=2)):
+        jstate, jm = jscan(jstate, *jsteps.stack_batches(batches[:2]),
+                           jax.random.PRNGKey(1))
+    state = TrainState(model, make_optimizer(model.parameters(),
+                                             build_schedule(*SCHED), 1e-4, 0.1))
+    with use_ring(RingGroup(2, devices=["cpu"] * 2)):
+        state, m = make_scan_train_step(LossWeights())(state, *stack_batches(batches[:2]), 1)
+    for k in jm:
+        np.testing.assert_allclose(m[k].numpy(), np.asarray(jm[k]), rtol=1e-4,
+                                   atol=1e-7, err_msg=k)
+    want = state_dict_from_jax_params(
+        jax.tree_util.tree_map(np.asarray, jstate.params), tcfg)
+    got = state.model.state_dict()
+    D = tcfg.hidden_dim
+    for k, w in want.items():
+        g = got[k].detach()
+        if k.endswith("self_attn.in_proj_bias"):
+            np.testing.assert_allclose(g[D:2 * D].numpy(), w[D:2 * D].numpy(),
+                                       atol=2 * LR * 2, err_msg=k)
+            g, w = torch.cat([g[:D], g[2 * D:]]), torch.cat([w[:D], w[2 * D:]])
+        np.testing.assert_allclose(g.numpy(), w.numpy(), atol=2e-5, err_msg=k)
 
 
 # ---------------------------------------------------------------- on a card

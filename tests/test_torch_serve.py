@@ -255,7 +255,8 @@ def test_port_imports_nothing_of_jax():
         "             'extract.clip.tokenizer', 'extract.clip.model', 'extract.clip.load',\n"
         "             'extract.pipeline', 'extract.video', 'interop.clip_ckpt', 'serve.app',\n"
         "             'parallel.dist', 'core.kts', 'core.windows', 'tools.codalab',\n"
-        "             'tools.teacher', 'tools.plots'):\n"
+        "             'tools.teacher', 'tools.plots', 'tools.validate_synthetic',\n"
+        "             'train.checkpoint', 'interop.jax_params', 'parallel.ring'):\n"
         "    assert 'univtg_tpu_torch.' + name in sys.modules, name\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

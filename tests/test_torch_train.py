@@ -171,6 +171,66 @@ def test_dropout_keep_rate_scale_and_seeding(kind):
         assert torch.all(a == a[:, :1, :1])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_f32_paths_run_cudnn_without_tf32(dtype, monkeypatch):
+    """torch starts with cudnn.allow_tf32 = True, which on a card rounds a
+    convolution's f32 inputs to TF32. The f32 paths turn it off for
+    themselves: UniVTG's conv heads in the train step's forward and
+    backward, and CLIP's image convolutions; bf16 runs as found. The
+    switch, set True here, reads as each convolution sees it and is True
+    again after."""
+    from univtg_tpu_torch.extract.clip.model import CLIP, CLIPConfig
+
+    seen = []
+
+    def watch(module, tag):
+        module.register_forward_pre_hook(
+            lambda *_: seen.append((tag, "fwd", torch.backends.cudnn.allow_tf32)))
+        module.register_full_backward_hook(
+            lambda *_: seen.append((tag, "bwd", torch.backends.cudnn.allow_tf32)))
+
+    cfg = ModelConfig(**{**SMALL, "compute_dtype": dtype})
+    model = UniVTG(cfg, device="cpu")
+    for conv in model.class_embed.layers:
+        watch(conv, "head")
+    clip = CLIP(CLIPConfig(embed_dim=32, image_resolution=64, vision_layers=1,
+                           vision_width=64, vision_patch_size=32, context_length=16,
+                           vocab_size=100, transformer_width=32, transformer_heads=2,
+                           transformer_layers=1, compute_dtype=dtype), device="cpu")
+    conv2d = torch.nn.functional.conv2d
+
+    def clip_conv(*args, **kw):  # the ViT's patch embedding calls F.conv2d
+        seen.append(("clip", "fwd", torch.backends.cudnn.allow_tf32))
+        return conv2d(*args, **kw)
+
+    monkeypatch.setattr(torch.nn.functional, "conv2d", clip_conv)
+    rng = np.random.default_rng(0)
+    B, Lt, Lv = 2, 8, 16
+    mi = {"src_txt": rng.standard_normal((B, Lt, 24)), "src_txt_mask": np.ones((B, Lt)),
+          "src_vid": rng.standard_normal((B, Lv, 40)), "src_vid_mask": np.ones((B, Lv))}
+    ts = np.tile(((np.arange(Lv) + 1.0) / Lv)[None, :, None], (B, 1, 2))
+    tg = {"timestamp": ts, "timestamp_mask": np.ones((B, Lv)),
+          "timestamp_window": (np.arange(Lv) < 4)[None].repeat(B, 0),
+          "span_labels_nn": ts, "saliency_scores": rng.uniform(0, 1, (B, Lv)),
+          "saliency_pos_labels": np.full((B, 1), 2)}
+    as_t = lambda d: {k: torch.as_tensor(np.asarray(v, np.float32)  # noqa: E731
+                                         if k != "saliency_pos_labels" else v) for k, v in d.items()}
+    state = TrainState(model, make_optimizer(model.parameters(), lambda c: 1e-3))
+    was = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        make_train_step(LossWeights())(state, as_t(mi), as_t(tg), 0)
+        with torch.no_grad():
+            clip.encode_image(torch.zeros(1, 64, 64, 3))
+        after = torch.backends.cudnn.allow_tf32
+    finally:
+        torch.backends.cudnn.allow_tf32 = was
+    assert after is True
+    assert {(tag, way) for tag, way, _ in seen} == {("head", "fwd"), ("head", "bwd"),
+                                                    ("clip", "fwd")}
+    assert all(flag is (dtype != "float32") for _, _, flag in seen), seen
+
+
 def test_dropouts_reach_the_model_in_train_mode_only():
     cfg = ModelConfig(**{**SMALL, "dropout": 0.1, "droppath": 0.1,
                          "input_dropout": 0.5}, attention_impl="pallas")

@@ -10,7 +10,12 @@ tests/test_torch_dist.py; the port's counterpart of tests/mp_worker.py.
     losses to ``results_base/grads_r{rank}.pt``;
   * train, evalstop, elastic, resume, full4 -- ``train_vlp`` on
     ``build_cfg(meta, results_base/p{rank}, mode)``; the rank's final
-    parameters go to ``p{rank}/final.pt``.
+    parameters go to ``p{rank}/final.pt``;
+  * hl -- ``train_hl`` on ``build_hl_cfg(meta, results_base/p{rank})`` from
+    the weights at ``meta["init"]``; every step's metrics, the scores it
+    returned and the message of ``train_qfvs``'s refusal go to
+    ``p{rank}/hl.json``, the final parameters to ``p{rank}/final.pt`` and
+    the parameters after each step to ``p{rank}/steps.pt``.
 """
 import json
 import os
@@ -66,6 +71,68 @@ def build_cfg(meta, results_dir, mode="train"):
         bsz=4,  # per rank; the global batch is 4 * world
         eval_bsz=4, lr=3e-4, lr_warmup=1, lr_drop=100, save_interval=-1,
         num_io_threads=2, prefetch_depth=0, seed=7, inject_fault_rank=1, **kw)
+
+
+def build_hl_cfg(meta, results_dir):
+    """The HL run of mode "hl": one domain of ``meta["hl"]``'s corpus, 2
+    items a rank a step, 2 epochs, each evaluated, dropouts 0."""
+    from univtg_tpu_torch.data.hl import HLDataConfig
+    from univtg_tpu_torch.models.config import ModelConfig
+    from univtg_tpu_torch.train.driver_hl import HLTrainConfig
+
+    c = meta["hl"]
+    data = HLDataConfig(dset_name="tvsum", domain="SYN", anno_path=c["anno_path"],
+                        splits_path=c["splits_path"], v_feat_dirs=tuple(c["v_feat_dirs"]),
+                        q_feat_dir=c["q_feat_dir"], q_feat_dim=c["q_dim"],
+                        max_v_l=c["max_clips"], max_q_l=8)
+    model = ModelConfig(vid_dim=c["v_dim"] + 2, txt_dim=c["q_dim"], max_v_l=c["max_clips"],
+                        max_q_l=8, **HIDDEN)
+    return HLTrainConfig(model=model, data=data, domains=["SYN"], results_dir=results_dir,
+                         bsz=2,  # per rank; the global batch is 2 * world
+                         eval_bsz=4, n_epoch=2, eval_epoch=1, lr=3e-4, lr_warmup=1,
+                         prefetch_depth=0)
+
+
+def run_hl(meta, base, rank):
+    """Mode "hl": train_hl with the model built from meta["init"] and every
+    step's metrics recorded; then train_qfvs, which must refuse the gang."""
+    import torch
+
+    from univtg_tpu_torch.train import driver_hl
+    from univtg_tpu_torch.train.driver_qfvs import QFVSTrainConfig, train_qfvs
+
+    init = torch.load(meta["init"])
+    built, steps, params = [], [], []
+    make_model, make_step = driver_hl.UniVTG, driver_hl.make_train_step
+
+    def from_init(cfg, device, seed):
+        built.append(make_model(cfg, device=device, seed=seed))
+        built[-1].load_state_dict(init)
+        return built[-1]
+
+    def recording(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(state, mi, tg, seed):
+            state, metrics = step(state, mi, tg, seed)
+            steps.append({k: float(v) for k, v in metrics.items()})
+            params.append({k: v.detach().clone() for k, v in state.model.state_dict().items()})
+            return state, metrics
+
+        return run
+
+    driver_hl.UniVTG, driver_hl.make_train_step = from_init, recording
+    out = os.path.join(base, f"p{rank}")
+    scores = driver_hl.train_hl(build_hl_cfg(meta, out), device="cpu")
+    try:
+        train_qfvs(QFVSTrainConfig(), videos_tag={}, device="cpu")
+        refused = None
+    except NotImplementedError as e:
+        refused = str(e)
+    with open(os.path.join(out, "hl.json"), "w") as f:
+        json.dump({"scores": scores, "steps": steps, "qfvs": refused}, f)
+    torch.save(built[-1].state_dict(), os.path.join(out, "final.pt"))
+    torch.save(params, os.path.join(out, "steps.pt"))
 
 
 def case_batch(name, corpus, bsz, seed=3):
@@ -152,6 +219,8 @@ def main():
         out = {name: grads_of(name, meta["corpora"][0], meta["bsz"], rank, world)
                for name in GRAD_CASES}
         torch.save(out, os.path.join(base, f"grads_r{rank}.pt"))
+    elif mode == "hl":
+        run_hl(meta, base, rank)
     else:
         built = []
         build_model = driver_mr.build_model

@@ -34,7 +34,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from univtg_tpu_torch.device import resolve_device
+from univtg_tpu_torch.device import exact_f32, resolve_device
 from univtg_tpu_torch.models.layers import LN_EPS, Linear
 
 
@@ -409,7 +409,8 @@ class CLIP(nn.Module):
     def encode_image(self, images):
         """images: (B, H, W, 3) normalized pixels -> (B, embed_dim)."""
         x = images.to(self.cfg.dtype).permute(0, 3, 1, 2)
-        return self.visual(x)
+        with exact_f32(self.cfg.dtype):  # the patch or ResNet convs in f32
+            return self.visual(x)
 
     def encode_text(self, tokens):
         """tokens: (B, L) integer ids -> {last_hidden_state (B, L, width),

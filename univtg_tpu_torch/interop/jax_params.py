@@ -14,7 +14,9 @@ transposes read backwards:
 
 ``load_torch_checkpoint`` reads an upstream container ``{'model':
 state_dict}`` (a released ``.ckpt``), or the JAX package's flax msgpack
-checkpoint, into the port's key set.
+checkpoint, into the port's key set. ``train_state_from_jax`` maps a whole
+JAX checkpoint (params, optax state, step) onto the port's model and
+``ClippedAdamW`` state, for ``resume_all``.
 """
 from __future__ import annotations
 
@@ -29,14 +31,56 @@ def _tensor(a) -> torch.Tensor:
     return torch.from_numpy(np.array(a, copy=True, order="C"))
 
 
-class _Writer:
-    """The state_dict under construction and the layout rules that fill it."""
+class JaxTreeMismatch(ValueError):
+    """A JAX tree that does not hold what the model's config asks for."""
 
-    def __init__(self):
+
+class _Tracked(dict):
+    """A JAX param (sub)tree that remembers which of its leaves the writer
+    read, so a missing leaf raises with its path and the writer can name
+    the path each tensor came from."""
+
+    def __init__(self, tree, path="", log=None):
+        super().__init__(tree)
+        self.path = path
+        self.log = [] if log is None else log  # the leaf paths read, in order
+
+    def __getitem__(self, key):
+        path = f"{self.path}/{key}"
+        if key not in self:
+            raise JaxTreeMismatch(f"the JAX tree has no {path}")
+        value = super().__getitem__(key)
+        if isinstance(value, dict):
+            return _Tracked(value, path, self.log)
+        self.log.append(path)
+        return value
+
+    def get(self, key, default=None):
+        return self[key] if key in self else default
+
+
+def _leaves(tree, path=""):
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from _leaves(v, f"{path}/{k}")
+    else:
+        yield path
+
+
+class _Writer:
+    """The state_dict under construction and the layout rules that fill it;
+    ``source`` maps each key to the JAX leaf path it was read from, where
+    the tree was ``_Tracked``."""
+
+    def __init__(self, read=None):
         self.sd = {}
+        self.source = {}
+        self.read = read
 
     def tensor(self, key, a):
         self.sd[key] = _tensor(a)
+        if self.read:
+            self.source[key] = self.read[-1]
 
     def dense(self, prefix, d):
         self.tensor(f"{prefix}.weight", np.asarray(d["kernel"]).T)
@@ -69,10 +113,10 @@ class _Writer:
         self.norm("txt_position_embed.LayerNorm", p["txt_pos"]["norm"])
 
 
-def state_dict_from_jax_params(params, cfg) -> dict:
+def state_dict_from_jax_params(params, cfg, writer=None) -> dict:
     """UniVTG param tree ({'params': ...} or the inner dict) -> state_dict."""
     p = params.get("params", params)
-    w = _Writer()
+    w = writer or _Writer()
     w.input_projs(p, cfg)
     w.tensor("token_type_embeddings.weight", p["token_type_embedding"])
     for i in range(cfg.num_layers):
@@ -94,13 +138,13 @@ def state_dict_from_jax_params(params, cfg) -> dict:
     return w.sd
 
 
-def md_state_dict_from_jax_params(params, cfg) -> dict:
+def md_state_dict_from_jax_params(params, cfg, writer=None) -> dict:
     """Moment-DETR param tree ({'params': ...} or the inner dict) ->
     state_dict: the exact inverse of
     ``univtg_tpu/interop/torch_ckpt.py:md_params_from_torch_state_dict``
     (JAX's ``cross_attn`` is upstream's ``multihead_attn``)."""
     p = params.get("params", params)
-    w = _Writer()
+    w = writer or _Writer()
     w.input_projs(p, cfg)
     w.tensor("query_embed.weight", p["query_embed"])
     w.dense("class_embed", p["class_embed"])
@@ -143,6 +187,91 @@ def state_dict_from_jax(params, cfg) -> dict:
     if is_moment_detr(cfg):
         return md_state_dict_from_jax_params(params, cfg)
     return state_dict_from_jax_params(params, cfg)
+
+
+def checked_state_dict_from_jax(params, cfg, want: dict, what="params") -> dict:
+    """``state_dict_from_jax`` of a tree that must match the model exactly:
+    every leaf read, each tensor of ``want``'s shape, no key of ``want``
+    missing. Raises ``JaxTreeMismatch`` naming the first JAX path that
+    differs (``what`` prefixes it: params, opt_state/.../mu, ...)."""
+    if not isinstance(params, dict):
+        raise JaxTreeMismatch(f"{what} is not a tree of arrays")
+    tree = _Tracked(params, what)
+    w = _Writer(tree.log)
+    convert = (md_state_dict_from_jax_params if is_moment_detr(cfg)
+               else state_dict_from_jax_params)
+    convert(tree, cfg, w)
+    unread = sorted(set(_leaves(params, what)) - set(tree.log))
+    if unread:
+        raise JaxTreeMismatch(f"the JAX tree holds {unread[0]}, which the model of "
+                              f"this config does not have ({len(unread)} such leaves)")
+    for key, t in w.sd.items():
+        if key in want and tuple(t.shape) != tuple(want[key].shape):
+            raise JaxTreeMismatch(
+                f"{w.source[key]} has the shape of {tuple(t.shape)} as {key}, "
+                f"the model's is {tuple(want[key].shape)}")
+    missing = [k for k in want if k not in w.sd]
+    if missing:
+        raise JaxTreeMismatch(f"the JAX tree gives no {missing[0]}")
+    return w.sd
+
+
+def _adam_link(opt_state, grad_clip: float):
+    """(adam's {count, mu, nu}, the schedule's count) out of the optax
+    state of ``chain([clip_by_global_norm,] adamw(schedule))`` as flax's
+    state dict holds it: {"0": {}, "1": {"0": adam, "1": {}, "2": {count}}}
+    with a clip, {"0": {"0": adam, "1": {}, "2": {count}}} without."""
+    links = ("0", "1") if grad_clip > 0 else ("0",)
+    what = "clip_by_global_norm, adamw" if grad_clip > 0 else "adamw alone"
+    if not isinstance(opt_state, dict) or tuple(sorted(opt_state)) != links:
+        raise JaxTreeMismatch(
+            f"opt_state has the links {sorted(opt_state) if isinstance(opt_state, dict) else opt_state!r}; "
+            f"grad_clip={grad_clip} makes the chain ({what}): {list(links)}")
+    if grad_clip > 0 and opt_state["0"] != {}:
+        raise JaxTreeMismatch("opt_state/0 is not clip_by_global_norm's empty state")
+    adamw, base = opt_state[links[-1]], f"opt_state/{links[-1]}"
+    for key, fields in (("0", ("count", "mu", "nu")), ("1", ()), ("2", ("count",))):
+        got = adamw.get(key) if isinstance(adamw, dict) else None
+        if not isinstance(got, dict) or tuple(sorted(got)) != fields:
+            raise JaxTreeMismatch(
+                f"{base}/{key} holds {sorted(got) if isinstance(got, dict) else got!r}, "
+                f"not adamw's {list(fields)}")
+    return adamw["0"], adamw["2"]["count"], base
+
+
+def train_state_from_jax(blob, model, optimizer_state: dict, grad_clip: float):
+    """A JAX checkpoint (read_checkpoint's dict of params, opt_state, step,
+    epoch) mapped onto the port: (model state_dict, ClippedAdamW state_dict,
+    step, epoch).
+
+    ``mu`` and ``nu`` have the params' tree, and the converter is a rename,
+    transpose and concat of elementwise arrays, so each passes through it
+    to ``exp_avg`` / ``exp_avg_sq`` under the port's names (the fused
+    ``in_proj_weight`` too). Adam's count and the schedule's must agree; it
+    becomes AdamW's ``step`` (torch counts finished steps, as optax does)
+    and the train state's step, which the port's schedule reads (the JAX
+    state's own ``step`` seeds only its dropout, and is not read).
+    ``optimizer_state`` is the port optimizer's
+    own ``state_dict()``: its param groups are kept. A tree that does not
+    match the model raises ``JaxTreeMismatch`` with the first path that
+    differs."""
+    cfg = model.cfg
+    params = dict(model.named_parameters())
+    want = {k: v for k, v in model.state_dict().items()}
+    sd = checked_state_dict_from_jax(blob["params"], cfg, want, "params")
+    adam, sched_count, base = _adam_link(blob.get("opt_state"), grad_clip)
+    count, sched = int(np.asarray(adam["count"])), int(np.asarray(sched_count))
+    if count != sched:
+        raise JaxTreeMismatch(
+            f"{base}/0/count is {count} but the schedule's {base}/2/count is {sched}")
+    moments = {name: checked_state_dict_from_jax(adam[name], cfg, params,
+                                                 f"{base}/0/{name}")
+               for name in ("mu", "nu")}
+    trained = [n for n, p in model.named_parameters() if p.requires_grad]
+    state = {i: {"step": torch.tensor(float(count), dtype=torch.float32),
+                 "exp_avg": moments["mu"][n], "exp_avg_sq": moments["nu"][n]}
+             for i, n in enumerate(trained)}
+    return sd, {**optimizer_state, "state": state}, count, int(np.asarray(blob["epoch"]))
 
 
 def is_jax_blob(blob) -> bool:

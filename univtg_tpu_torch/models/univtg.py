@@ -23,7 +23,7 @@ from __future__ import annotations
 import torch
 from torch import nn
 
-from univtg_tpu_torch.device import resolve_device
+from univtg_tpu_torch.device import exact_f32, resolve_device
 from univtg_tpu_torch.models.config import ModelConfig, check_supported
 from univtg_tpu_torch.models.encoder import Encoder, SelfAttention, Transformer
 from univtg_tpu_torch.models.layers import (
@@ -178,10 +178,11 @@ class UniVTG(nn.Module):
                 "train=True draws dropout masks: pass generator= (the train "
                 "step's torch.Generator), or set every dropout rate to 0"
             )
-        src, mask, pos, vid, txt, cls_tok = self.pre(
-            src_txt, src_txt_mask, src_vid, src_vid_mask, src_cls,
-            src_cls_mask, generator,
-        )
-        memory = self.encoder(src, mask, pos, generator)
-        return self.heads(memory, vid, txt, src_vid_mask, src_txt_mask,
-                          cls_tok, src_cls_mask)
+        with exact_f32(cfg.dtype):  # the conv heads in f32, not TF32
+            src, mask, pos, vid, txt, cls_tok = self.pre(
+                src_txt, src_txt_mask, src_vid, src_vid_mask, src_cls,
+                src_cls_mask, generator,
+            )
+            memory = self.encoder(src, mask, pos, generator)
+            return self.heads(memory, vid, txt, src_vid_mask, src_txt_mask,
+                              cls_tok, src_cls_mask)

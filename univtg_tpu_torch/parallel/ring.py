@@ -13,8 +13,9 @@ copy K/V peer to peer. Ranks on ``"cpu"`` run the plain twins.
 ``attention_impl="ring"`` or ``"ring_pallas"`` reads ``active_ring()`` and
 falls back to plain attention when there is none.
 
-The Megatron parameter-sharding rules of ``mesh.py`` and ``seq_shard`` are
-not part of this module (ROADMAP.md, queue 1 item 13).
+The Megatron parameter-sharding rules of ``mesh.py``, ``seq_shard`` and a
+ring across processes are not part of this module (ROADMAP.md, queue 1
+item 11).
 """
 from __future__ import annotations
 
@@ -76,13 +77,28 @@ class RingGroup:
         self.devices = tuple(devices)
         self._streams = None
 
-    def streams(self, rank: int):
-        """Rank ``rank``'s (compute, copy) CUDA streams on its card, made at
-        first use and kept for the group's life."""
+    def make_streams(self):
+        """Every rank's (compute, copy) CUDA streams on its card, made once
+        and kept for the group's life."""
         if self._streams is None:
             self._streams = [(torch.cuda.Stream(device=d), torch.cuda.Stream(device=d))
                              for d in self.devices]
-        return self._streams[rank]
+        return self._streams
+
+    def streams(self, rank: int):
+        """Rank ``rank``'s (compute, copy) CUDA streams, made at first use."""
+        return self.make_streams()[rank]
+
+    def check_capturable(self):
+        """Raise unless a CUDA graph can hold this ring: its ranks on one
+        card (or on the CPU, where nothing is captured)."""
+        cards = sorted({d.index for d in self.devices if d.type == "cuda"})
+        if len(cards) > 1:
+            raise NotImplementedError(
+                f"{self} spans the cards {cards}: a CUDA graph is captured on "
+                f"one card's streams, and the ring's peer copies and the events "
+                f"that order them across cards cannot join that capture; run "
+                f"scan_steps=1 with this ring, or a ring on one card")
 
     @property
     def device_type(self) -> str:

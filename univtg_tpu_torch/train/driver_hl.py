@@ -10,7 +10,15 @@ decays it, as optax does (train/steps.ClippedAdamW). The hot loop is the MR
 driver's (train/epoch_runner.run_train_epoch: ``transfer_dtype``,
 ``prefetch_depth``, and the ``profile_dir`` window over the first
 ``profile_steps`` steps of the first domain). Runs on CUDA unless
-``device='cpu'`` is asked for; ``dp``/``tp`` > 1 raise
+``device='cpu'`` is asked for.
+
+In a gang of processes (parallel/dist.py, one rank per device; the
+counterpart of the JAX driver's batch sharded over ``make_mesh(dp, tp)``):
+each rank reads its shard of each domain's training items (``bsz`` per
+rank), every step is the global batch's (train/steps.py gathers the
+outputs and sums the gradients), and rank 0 evaluates, checkpoints and
+writes the scores, which it broadcasts: every rank returns them. ``dp``
+must be None or the world size (``ValueError``); ``tp`` > 1 raises
 ``NotImplementedError`` naming ROADMAP.md.
 """
 from __future__ import annotations
@@ -82,13 +90,14 @@ class HLTrainConfig:
 
 
 def _refuse_unported(cfg: HLTrainConfig):
-    named = [k for k, on in (("dp > 1", (cfg.dp or 1) > 1), ("tp > 1", cfg.tp > 1),
-                             ("a gang of processes", dist.world() > 1)) if on]
-    if named:
+    if cfg.tp > 1:
         raise NotImplementedError(
-            f"the HL driver of univtg_tpu_torch does not run {', '.join(named)} "
-            f"yet (ROADMAP.md, queue 1 item 7)"
-        )
+            "the HL driver of univtg_tpu_torch does not run tp > 1 yet "
+            "(ROADMAP.md, queue 1 item 11)")
+    if cfg.dp is not None and cfg.dp != dist.world():
+        raise ValueError(
+            f"dp={cfg.dp}: univtg_tpu_torch runs one rank per device, so dp is the "
+            f"world size ({dist.world()}); leave it None")
 
 
 def _domains(cfg: HLTrainConfig):
@@ -109,6 +118,8 @@ def _pred_scores(cfg: HLTrainConfig, outputs):
 
 
 def _loader(cfg: HLTrainConfig, dataset, train: bool):
+    """The training loader reads this rank's shard (all of it outside a
+    gang); the evaluation loader the whole split."""
     return Loader(
         dataset,
         cfg.bsz if train else cfg.eval_bsz,
@@ -117,6 +128,8 @@ def _loader(cfg: HLTrainConfig, dataset, train: bool):
         ),
         shuffle=train,
         seed=cfg.seed,
+        shard_index=dist.rank() if train else 0,
+        num_shards=dist.world() if train else 1,
     )
 
 
@@ -175,9 +188,11 @@ def infer_hl(cfg: HLTrainConfig, ckpt_dir: str, device="cuda") -> dict:
 
 def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
     """Trains one fresh model per domain; returns {domain: best mAP, "AVG":
-    mean} and writes it to best_{dset}_metrics.json."""
+    mean} and writes it to best_{dset}_metrics.json. In a gang every rank
+    calls it (the rank's own device, of ``device``'s type)."""
     _refuse_unported(cfg)
-    dev = resolve_device(device)
+    dev = dist.rank_device(device)
+    is_main = dist.rank() == 0
     os.makedirs(cfg.results_dir, exist_ok=True)
     domains = _domains(cfg)
 
@@ -194,13 +209,14 @@ def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
     train_step = make_train_step(cfg.weights, tuple(cfg.losses))
     seed = cfg.seed + 1  # the JAX driver's PRNGKey(seed + 1)
     scores = {}
-    with StepProfiler(cfg.profile_dir, cfg.profile_steps) as profiler:
+    with StepProfiler(cfg.profile_dir, cfg.profile_steps, enabled=is_main) as profiler:
         for di, domain in enumerate(domains):
             dataset, loader = first if di == 0 else make_loader(domain)
             # fresh model per domain (train_hl.py:193-209)
             model = UniVTG(cfg.model, device=dev, seed=cfg.seed)
             state = TrainState(model, make_optimizer(model.parameters(), schedule,
                                                      cfg.wd, cfg.grad_clip))
+            dist.check_replicated(model, state.optimizer, state.step)
             best = 0.0
             for epoch in range(cfg.n_epoch):
                 dataset.set_state("train")
@@ -217,7 +233,7 @@ def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
                                 transfer_dtype=cfg.transfer_dtype,
                                 prefetch_depth=cfg.prefetch_depth, record=record)
                 profiler.stop()
-                if (epoch + 1) % cfg.eval_epoch == 0:
+                if is_main and (epoch + 1) % cfg.eval_epoch == 0:
                     mAP = eval_domain(cfg, model, dataset)
                     if mAP > best:
                         best = mAP
@@ -227,7 +243,10 @@ def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
             scores[domain] = best
             logger.info(f"domain {domain}: best mAP {best}")
     scores["AVG"] = sum(scores.values()) / len(scores)
-    with open(os.path.join(cfg.results_dir,
-                           f"best_{cfg.data.dset_name}_metrics.json"), "w") as f:
-        json.dump(scores, f, indent=1)
+    # rank 0's scores are the run's, on every rank
+    scores = json.loads(dist.all_gather_bytes(json.dumps(scores).encode())[0])
+    if is_main:
+        with open(os.path.join(cfg.results_dir,
+                               f"best_{cfg.data.dset_name}_metrics.json"), "w") as f:
+            json.dump(scores, f, indent=1)
     return scores

@@ -28,9 +28,12 @@ ranks (stride shards, submissions all-gathered, rank 0 merging);
 an epoch, and the gang restarts with ``resume`` = rank 0's
 ``model_latest.ckpt`` and ``resume_all``. ``dp`` is the world size (None
 means it); ``tp``/``pp``/``ep`` > 1 raise ``NotImplementedError`` naming
-ROADMAP.md. Checkpoints are written synchronously, whatever
-``async_checkpoint`` says. ``scan_steps = K > 1`` stacks K batches of one
-video-length bucket into one call of ``make_scan_train_step`` (on a card,
+ROADMAP.md. With ``async_checkpoint`` (the default) the checkpoints are
+written by train/checkpoint.AsyncCheckpointer: the state is copied to the
+host at each save and the file written in the background, one write in
+flight; the driver waits for it before an early stop, a hard exit of
+``inject_fault_epoch``, and before it returns. ``scan_steps = K > 1``
+stacks K batches of one video-length bucket into one call of ``make_scan_train_step`` (on a card,
 one CUDA-graph replay); a ragged remainder, or a bucket change, goes
 through the single step. ``model_id="moment_detr"`` trains MomentDETR
 (cfg.model a MomentDETRConfig) through the Moment-DETR steps, step by step
@@ -145,7 +148,8 @@ class TrainConfig:
     # fault injection for elastic multi-process restarts (-1: off)
     inject_fault_epoch: int = -1
     inject_fault_rank: int = 0
-    # read for the JSON only: the port writes checkpoints synchronously
+    # checkpoint writes in a background thread (checkpoint.AsyncCheckpointer);
+    # the copy to the host stays synchronous
     async_checkpoint: bool = True
     profile_dir: str = ""
     profile_steps: int = 5
@@ -207,7 +211,8 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     resume semantics follow the reference: ``resume`` alone loads weights
     only; ``resume_all`` also restores the optimizer and continues after the
     saved epoch; resume='auto' picks up results_dir/model_latest.ckpt with
-    resume_all semantics. ``device`` defaults to CUDA and raises without a
+    resume_all semantics; a JAX package checkpoint resumes too (its params,
+    optax state and step). ``device`` defaults to CUDA and raises without a
     card; pass device='cpu' to train on the CPU. In a gang every rank calls
     it (the rank's own device, of ``device``'s type)."""
     _refuse_unported(cfg)
@@ -298,7 +303,9 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     start_epoch = -1 if cfg.eval_init else 0
     if resume_epoch is not None:
         start_epoch = resume_epoch + 1
-    with open(os.path.join(cfg.results_dir, "train_log.jsonl"), "a") as train_log, \
+    # every write has landed when the block is left (a writer's error raises)
+    with ckpt.checkpoint_writer(cfg.async_checkpoint) as saver, \
+            open(os.path.join(cfg.results_dir, "train_log.jsonl"), "a") as train_log, \
             open(os.path.join(cfg.results_dir, "eval_log.jsonl"), "a") as eval_log, \
             TBWriter(tb_dir if is_main else "") as tb, \
             StepProfiler(cfg.profile_dir, cfg.profile_steps, enabled=is_main) as profiler:
@@ -315,7 +322,9 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                 if (epoch == cfg.inject_fault_epoch
                         and cfg.shard_index == cfg.inject_fault_rank):
                     # a simulated crash: no cleanup, no checkpoint, as a
-                    # killed member of a gang looks to its peers
+                    # killed member of a gang looks to its peers; the write
+                    # in flight lands first, for the restart to read
+                    saver.wait()
                     logger.warning(f"inject_fault: hard exit at epoch {epoch}")
                     os._exit(3)
             stop = False
@@ -333,10 +342,10 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                     score = metrics["brief"].get(f"{cfg.main_metric}-key")
                     if score is None:
                         score = metrics["brief"].get(cfg.main_metric)
-                    ckpt.save_checkpoint(latest_path, state, epoch, cfg_json)
+                    saver.save(latest_path, state, epoch, cfg_json)
                     if score is not None and score > best_score:
                         best_score, best_metrics, es_cnt = score, metrics, 0
-                        ckpt.save_checkpoint(best_path, state, epoch, cfg_json)
+                        saver.save(best_path, state, epoch, cfg_json)
                     else:
                         es_cnt += 1
                         stop = 0 <= cfg.max_es_cnt <= es_cnt
@@ -344,18 +353,18 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                 # loop alone would leave the others waiting in the next step
                 stop = dist.broadcast_flag(stop)
             if stop:
+                saver.wait()
                 logger.info("early stop")
                 break
             if (is_main and cfg.save_interval > 0 and epoch > 0
                     and epoch % cfg.save_interval == 0):
-                ckpt.save_checkpoint(
-                    os.path.join(cfg.results_dir, f"model_e{epoch:04d}.ckpt"),
-                    state, epoch, cfg_json)
+                saver.save(os.path.join(cfg.results_dir, f"model_e{epoch:04d}.ckpt"),
+                           state, epoch, cfg_json)
 
-    # no evaluation picked a best checkpoint: the final state is the best.
-    # best_metrics is rank 0's to know, so its decision is broadcast
-    if dist.broadcast_flag(best_metrics is None) and is_main:
-        ckpt.save_checkpoint(best_path, state, cfg.n_epoch - 1, cfg_json)
+        # no evaluation picked a best checkpoint: the final state is the best.
+        # best_metrics is rank 0's to know, so its decision is broadcast
+        if dist.broadcast_flag(best_metrics is None) and is_main:
+            saver.save(best_path, state, cfg.n_epoch - 1, cfg_json)
     return best_metrics or {}, best_path
 
 

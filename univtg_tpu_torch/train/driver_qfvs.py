@@ -30,7 +30,7 @@ import torch
 from univtg_tpu_torch.data import qfvs as qfvs_data
 from univtg_tpu_torch.data.qfvs import QFVSDataConfig
 from univtg_tpu_torch.data.prefetch import device_prefetch, to_device
-from univtg_tpu_torch.device import resolve_device
+from univtg_tpu_torch.device import exact_f32, resolve_device
 from univtg_tpu_torch.evals.qfvs_metric import load_videos_tag, semantic_matching
 from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights, compact_to_grid, qfvs_losses
@@ -105,7 +105,8 @@ def make_qfvs_train_step(weights: LossWeights):
             weighted = sum(v * wd[k] for k, v in ld.items() if k in wd)
             total = weighted if total is None else total + weighted
             metrics.update({f"{tag}_{k}": v.detach() for k, v in ld.items()})
-        total.backward()
+        with exact_f32(state.model.cfg.dtype):  # the conv heads' backward in f32
+            total.backward()
         metrics["loss_overall"] = total.detach()
         metrics["grad_norm"] = state.optimizer.step(state.step)
         state.step += 1
@@ -229,8 +230,8 @@ def train_qfvs(cfg: QFVSTrainConfig, videos_tag=None, device="cuda") -> dict:
     (eval/Tags.mat) when not given."""
     if dist.world() > 1:
         raise NotImplementedError(
-            "the QFVS driver of univtg_tpu_torch runs in one process "
-            "(ROADMAP.md, queue 1 item 7)")
+            "the QFVS driver runs in one process, as the JAX package's does: "
+            "it shards nothing over devices or processes")
     dev = resolve_device(device)
     os.makedirs(cfg.results_dir, exist_ok=True)
     if videos_tag is None:

@@ -22,6 +22,7 @@ import numpy as np
 import torch
 
 from univtg_tpu_torch.core.spans import cxw_to_xx
+from univtg_tpu_torch.device import exact_f32
 from univtg_tpu_torch.models.losses import LossWeights, compute_losses
 from univtg_tpu_torch.parallel import dist
 from univtg_tpu_torch.train.epoch_runner import strip_meta
@@ -207,7 +208,8 @@ def _train_body(state: TrainState, model_inputs, targets, generator, update,
         targets = dist.gather_batch(targets, B)
     loss_dict = loss_fn(outputs, targets)
     state.optimizer.zero_grad()
-    loss_dict["loss_overall"].backward()
+    with exact_f32(state.model.cfg.dtype):  # the conv heads' backward in f32
+        loss_dict["loss_overall"].backward()
     dist.all_reduce_grads(state.model.parameters())
     metrics = {k: v.detach() for k, v in loss_dict.items()}
     metrics["grad_norm"] = update()
@@ -315,7 +317,13 @@ class ScanTrainStep:
     dispatch counters count once per replay what the capture counted. A
     graph holds the addresses of the parameters, gradients and AdamW state
     of the state it captured, so one ScanTrainStep serves one TrainState,
-    loaded before the first call. Under an active ring it raises. In a gang
+    loaded before the first call. Under an active ring (``"ring"``,
+    ``"ring_pallas"``) whose ranks share one card the graph holds the ring
+    too: the ranks' streams are made before the capture, and each ring call
+    forks them from the capture stream and joins them back through events
+    (ops/ring_attention_pallas.py), so its launches, hops and the plain
+    ring's backward are captured with the step; the ring's size is part of
+    the key. A ring across cards raises (``RingGroup.check_capturable``). In a gang
     (parallel/dist.py) each step is the global-batch step of
     ``_train_body``: on the CPU the K steps run in order; on a card under
     NCCL the graph captures their all-gathers and all-reduces with them;
@@ -332,10 +340,9 @@ class ScanTrainStep:
         from univtg_tpu_torch.parallel.ring import active_ring
 
         impl = state.model.cfg.attention_impl
-        if impl in ("ring", "ring_pallas") and active_ring() is not None:
-            raise NotImplementedError(
-                "scan_steps > 1 under an active ring: the ring's streams and "
-                "events are not captured in a CUDA graph yet (ROADMAP.md, queue 1)")
+        ring = active_ring() if impl in ("ring", "ring_pallas") else None
+        if ring is not None:
+            ring.check_capturable()
         K = int(next(iter(stacked_mi.values())).shape[0])
         device = next(state.model.parameters()).device
         dist.check_capturable(device)
@@ -348,7 +355,8 @@ class ScanTrainStep:
                                        {k: v[i] for k, v in stacked_tg.items()}, seed)
                 per_step.append(m)
             return state, {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
-        return state, self._on_card(state, stacked_mi, stacked_tg, seed, K, impl, device)
+        return state, self._on_card(state, stacked_mi, stacked_tg, seed, K, impl, ring,
+                                    device)
 
     def _steps(self, state, group, K):
         """The K steps over the group's buffers (eager, or under capture)."""
@@ -361,12 +369,17 @@ class ScanTrainStep:
                 lambda: state.optimizer.step_with_lr(lr), self.loss_fn))
         return {k: torch.stack([m[k] for m in per_step]) for k in per_step[0]}
 
-    def _on_card(self, state, stacked_mi, stacked_tg, seed, K, impl, device):
+    def _on_card(self, state, stacked_mi, stacked_tg, seed, K, impl, ring, device):
         if self.stream is None:
             self.stream = torch.cuda.Stream(device)
             self.pool = torch.cuda.graph_pool_handle()
             self.generator = torch.Generator(device=device)
-        key = (K, impl, _shapes(stacked_mi), _shapes(stacked_tg))
+        if ring is not None:
+            # the ranks' streams exist before any capture: a graph forks them
+            # from the capture stream and joins them back, call by call
+            ring.make_streams()
+        key = (K, impl, ring and (ring.size, ring.devices), _shapes(stacked_mi),
+               _shapes(stacked_tg))
         group = self.groups.get(key)
         first = group is None
         if first:
