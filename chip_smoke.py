@@ -263,6 +263,30 @@ printing its seconds:
                  script's dropouts, LEARN_EPOCHS epochs, f32 and bf16:
                  R1@0.5 > 50 and mIoU > 50, the metrics beside the JAX
                  package's (JAX_LEARNING).
+  7r. moe     -- the flagship with the JAX package's MoE configuration
+                 (MOE_OVERRIDES: 4 experts, top-2, scan_layers) on
+                 "pallas": `cli train-mr` on phase 7's corpus, bf16 and
+                 f32, MOE_EPOCHS epochs each evaluated (4 launches of each
+                 kernel per step, 4 flash_fwd per eval batch; loss_moe_aux
+                 finite and in (0, E]); `cli infer-mr`, `cli quantize` and
+                 `cli serve --config` from the int8 file answering
+                 MOE_SERVE_QUERIES concurrent requests; 3 f32 steps at
+                 dropouts 0, "pallas" vs "xla" at TRAIN_TOL, tokens routed
+                 otherwise counted and allowed only within MOE_TIE_REL;
+                 scan_steps=2 replays against eager steps by 7e's rule; ms
+                 per step eager and captured, bf16 and f32, and the peak
+                 memory, beside the dense flagship's.
+  7s. remat   -- make_train_step at 8 x (2048 + 32), bf16 and f32,
+                 dropouts at the flagship's defaults, remat on against off
+                 from one generator seed: loss, grad norm and params after
+                 2 steps bit-equal (cuDNN deterministic); ms per step, peak
+                 memory and flash launches a step (8 flash_fwd under
+                 remat: the recompute); the remat step's scan_steps=2
+                 replays against its eager steps by 7e's rule.
+  7t. resume moe -- phase 7l on MOE_FIXTURE (the JAX package's small MoE
+                 model in the scan layout, tests/torch_golden/make_jax_moe.py):
+                 resume_all, then 2 f32 "pallas" steps against every
+                 metric JAX recorded (loss_moe_aux among them) at TRAIN_TOL.
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -298,8 +322,11 @@ PUT and text POSTs (4 flash_fwd per batch), the resumed training phase
 7l's two steps, the writer's training phase 7m's train-mr run with
 async_checkpoint on, HL training across processes phase 7o's gloo gang's
 train_hl runs (each rank counts its own; summed), the learning check phase
-7p's f32 train_mr run, ring training on CUDA graphs phase 9c's bf16 scan
-and eager ring steps; the smoke's own
+7p's f32 train_mr run, MoE training phase 7r's two train-mr runs
+(evaluations included), MoE inference its infer-mr and quantize runs (its
+`cli serve` counts in its own process), remat training phase 7s's remat
+steps, MoE training resumed from JAX phase 7t's two steps, ring training on
+CUDA graphs phase 9c's bf16 scan and eager ring steps; the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
 of the other paths must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
@@ -619,6 +646,20 @@ JAX_LEARNING = {
 }
 CLIP_U8_TOL = 1e-4
 CLIP_BF16_TOL = 2.5e-2
+# phase 7r: the flagship with the JAX package's MoE configuration (4 experts,
+# top-2, the scan layout: tests/test_moe.py's _moe_cfg), `cli train-mr`
+# MOE_EPOCHS epochs a dtype; make_scan_train_step timed over MOE_TIMED_STEPS
+MOE_OVERRIDES = ("model.moe_experts=4", "model.moe_top_k=2", "model.scan_layers=true")
+MOE_EPOCHS, MOE_TIMED_STEPS, MOE_SERVE_QUERIES = 2, 8, 8
+# a token whose top-2 choice differs between the f32 "pallas" and "xla" steps
+# is allowed only where the "xla" run's probabilities of the two experts
+# differ by at most this share of the larger: near-ties, as MATCH_TIE_REL for
+# the matcher (the two runs' router inputs differ by the flash kernel's f32
+# summation order, ~1e-6 rel, and after the first step by their params')
+MOE_TIE_REL = 1e-4
+# phase 7t: the JAX package's checkpoint of a small MoE model in the scan
+# layout after 2 steps (tests/torch_golden/make_jax_moe.py)
+MOE_FIXTURE = os.path.join("tests", "torch_golden", "jax_moe")
 
 
 def log(msg: str) -> None:
@@ -1696,9 +1737,10 @@ def _train_batches(np, corpus, n, bsz=32):
     return out
 
 
-def _run_steps(torch, cfg, state_dict, cpu_batches, seed=0):
-    """A fresh model holding state_dict, stepped over the batches by
-    make_train_step; returns (state, per-step metrics as floats)."""
+def _run_steps(torch, cfg, state_dict, cpu_batches, seed=0, on_model=None):
+    """A fresh model holding state_dict (handed to ``on_model`` first, where
+    given), stepped over the batches by make_train_step; returns (state,
+    per-step metrics as floats)."""
     from univtg_tpu_torch.data.prefetch import to_device
     from univtg_tpu_torch.models import UniVTG
     from univtg_tpu_torch.models.losses import LossWeights
@@ -1708,6 +1750,8 @@ def _run_steps(torch, cfg, state_dict, cpu_batches, seed=0):
 
     model = UniVTG(cfg, device="meta")
     model.load_state_dict({k: v.cuda() for k, v in state_dict.items()}, assign=True)
+    if on_model is not None:
+        on_model(model)
     state = TrainState(model, make_optimizer(
         model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 3), 1e-4, 0.1))
     step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
@@ -1970,17 +2014,20 @@ def phase_eval(torch, np, tmp, corpus, run_dir):
     return path_launches, f32
 
 
-def _serve_once(np, ckpt, tmp):
-    """`cli serve --resume ckpt` in a subprocess on the card: one video, one
-    /ground request, then SIGTERM; returns the answer."""
+def _serve_once(np, ckpt, tmp, config=None, queries=1):
+    """`cli serve --resume ckpt` (with ``--config``, a ModelConfig JSON, when
+    given) in a subprocess on the card: one video, ``queries`` concurrent
+    /ground requests, then SIGTERM; returns the answer, or the list of
+    answers when queries > 1."""
     import io
     import select
     import signal
 
     err_log = open(os.path.join(tmp, "serve.err"), "w")
+    extra = ["--config", config] if config else []
     proc = subprocess.Popen(
         [sys.executable, "-m", "univtg_tpu_torch.cli", "serve", "--resume", ckpt,
-         "--port", "0"], stdout=subprocess.PIPE, stderr=err_log, text=True,
+         "--port", "0", *extra], stdout=subprocess.PIPE, stderr=err_log, text=True,
         env={**os.environ, "PYTHONUNBUFFERED": "1"})
     try:
         ready, _, _ = select.select([proc.stdout], [], [], 300)  # model build
@@ -1994,15 +2041,20 @@ def _serve_once(np, ckpt, tmp):
         req = urllib.request.Request(f"{base}/videos/v", data=buf.getvalue(), method="PUT")
         with urllib.request.urlopen(req, timeout=120) as r:
             r.read()
-        body = json.dumps({"video": "v", "query_feats":
-                           rng.standard_normal((9, 512)).astype(np.float32).tolist()})
-        req = urllib.request.Request(f"{base}/ground", data=body.encode(), method="POST")
-        with urllib.request.urlopen(req, timeout=120) as r:
-            answer = json.loads(r.read())
+        bodies = [json.dumps({"video": "v", "query_feats": rng.standard_normal(
+            (9, 512)).astype(np.float32).tolist()}).encode() for _ in range(queries)]
+
+        def ask(body):
+            req = urllib.request.Request(f"{base}/ground", data=body, method="POST")
+            with urllib.request.urlopen(req, timeout=120) as r:
+                return json.loads(r.read())
+
+        with concurrent.futures.ThreadPoolExecutor(queries) as pool:
+            answers = list(pool.map(ask, bodies))
         proc.send_signal(signal.SIGTERM)
         if proc.wait(timeout=60) != 0:
             raise AssertionError("cli serve did not drain and exit 0 on SIGTERM")
-        return answer
+        return answers[0] if queries == 1 else answers
     finally:
         if proc.poll() is None:
             proc.kill()
@@ -2724,11 +2776,11 @@ def _scan_groups(batches, K, n):
     return [[batches[(g * K + i) % len(batches)] for i in range(K)] for g in range(n)]
 
 
-def _time_scan(torch, cfg, sd, batches, K):
+def _time_scan(torch, cfg, sd, batches, K, timed_steps=SCAN_TIMED_STEPS):
     """ms per step of K = 1 (the eager make_train_step) or of
     make_scan_train_step at K, each call's inputs cast (K = 1), or stacked
     (K > 1), and pinned ahead, as the driver's prefetch thread hands them
-    over; over SCAN_TIMED_STEPS steps after the warm-up (two steps, or two
+    over; over ``timed_steps`` steps after the warm-up (two steps, or two
     groups: eager, then captured): wall and CUDA-event ms, peak GiB, and
     one call for the profiler."""
     from univtg_tpu_torch.data.prefetch import to_pinned
@@ -2744,7 +2796,7 @@ def _time_scan(torch, cfg, sd, batches, K):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     state = _scan_state(torch, cfg, sd)
-    n = SCAN_TIMED_STEPS // K
+    n = timed_steps // K
     # the groups repeat with the period of the batches: pin each once
     groups = _scan_groups(batches, K, len(batches))
     if K == 1:
@@ -2827,6 +2879,38 @@ def _replay_vs_eager(torch, cfg, sd, batches):
     return _compare_runs(torch, got, want, a, b), _compare_runs(torch, again, want, c, b)
 
 
+def _hold_replay(torch, label, cfg, sd, batches):
+    """_replay_vs_eager of cfg (dropouts 0) held by 7e's rule: the replay
+    equals the eager step bit for bit, unless the eager step does not equal
+    itself: then within phase 7's limits, and again with cuDNN held to its
+    deterministic algorithms, bit for bit. Returns the last diff."""
+    dname = cfg.compute_dtype
+    diff, repeat = _replay_vs_eager(torch, cfg, sd, batches)
+    log(f"[{label}] {dname} dropouts 0, 3 groups of 2 (eager, captured, replayed) vs 6 "
+        f"eager single steps: {'bit-equal' if diff['equal'] else 'NOT bit-equal'} "
+        f"{diff}; the eager steps run twice: "
+        f"{'bit-equal' if repeat['equal'] else 'NOT bit-equal'} {repeat}")
+    if not diff["equal"] and (repeat["equal"]
+                              or diff["loss_overall_rel"] > TRAIN_TOL["loss"]
+                              or diff["grad_norm_rel"] > TRAIN_TOL["grad_norm"]):
+        raise AssertionError(f"{label} {dname} graph replay disagrees with eager steps: "
+                             f"{diff}")
+    if not diff["equal"]:
+        was = torch.backends.cudnn.deterministic
+        torch.backends.cudnn.deterministic = True
+        try:
+            diff, repeat = _replay_vs_eager(torch, cfg, sd, batches)
+        finally:
+            torch.backends.cudnn.deterministic = was
+        log(f"[{label}] {dname} again with torch.backends.cudnn.deterministic: replay vs "
+            f"eager {'bit-equal' if diff['equal'] else 'NOT bit-equal'} {diff}; eager "
+            f"twice {'bit-equal' if repeat['equal'] else 'NOT bit-equal'}")
+        if repeat["equal"] and not diff["equal"]:
+            raise AssertionError(f"{label} {dname} graph replay disagrees with "
+                                 f"deterministic eager steps: {diff}")
+    return diff
+
+
 def _keep_rate(torch, fa, seeds, B, L, H, dh, rate):
     """The flash_fwd kernel's keep share at the step's shape for each
     recorded dropout seed: q = k = 0 (every probability 1/L) and V = one-hot
@@ -2887,32 +2971,8 @@ def phase_scan(torch, np, fa, card, corpus, sd):
 
     quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
     for dname in ("float32", "bfloat16"):
-        diff, repeat = _replay_vs_eager(torch, flagship_model(
+        _hold_replay(torch, "scan", flagship_model(
             attention_impl="pallas", compute_dtype=dname, **quiet), sd, batches)
-        log(f"[scan] {dname} dropouts 0, 3 groups of 2 (eager, captured, replayed) vs 6 "
-            f"eager single steps: {'bit-equal' if diff['equal'] else 'NOT bit-equal'} "
-            f"{diff}; the eager steps run twice: "
-            f"{'bit-equal' if repeat['equal'] else 'NOT bit-equal'} {repeat}")
-        # the replay must equal the eager step bit for bit, unless the eager
-        # step does not equal itself: then within phase 7's limits, and again
-        # with cuDNN held to its deterministic algorithms, bit for bit
-        if not diff["equal"] and (repeat["equal"]
-                                  or diff["loss_overall_rel"] > TRAIN_TOL["loss"]
-                                  or diff["grad_norm_rel"] > TRAIN_TOL["grad_norm"]):
-            raise AssertionError(f"{dname} graph replay disagrees with eager steps: {diff}")
-        if not diff["equal"]:
-            torch.backends.cudnn.deterministic = True
-            try:
-                diff, repeat = _replay_vs_eager(torch, flagship_model(
-                    attention_impl="pallas", compute_dtype=dname, **quiet), sd, batches)
-            finally:
-                torch.backends.cudnn.deterministic = False
-            log(f"[scan] {dname} again with torch.backends.cudnn.deterministic: replay vs "
-                f"eager {'bit-equal' if diff['equal'] else 'NOT bit-equal'} {diff}; eager "
-                f"twice {'bit-equal' if repeat['equal'] else 'NOT bit-equal'}")
-            if repeat["equal"] and not diff["equal"]:
-                raise AssertionError(f"{dname} graph replay disagrees with deterministic "
-                                     f"eager steps: {diff}")
         torch.cuda.empty_cache()
 
     # attention dropout 0.1 at rate 0: the losses move only with the masks
@@ -4570,19 +4630,20 @@ def _ground_checks(torch, np, s):
         "towers": towers, "ground_video_ms": whole, "split": split, **s.server_stats}
 
 
-def phase_resume(torch, np, card):
-    """7l: resume_all from the JAX package's checkpoint (RESUME_FIXTURE) on
-    the card: train/checkpoint.restore_checkpoint maps its params, optax
-    state and step onto a fresh "pallas" model, AdamW's step lands on the
-    card (capturable), and 2 f32 steps on the fixture's batches meet JAX's
-    recorded metrics at TRAIN_TOL. Returns (the path's launches, readings)."""
+def phase_resume(torch, np, card, fixture=RESUME_FIXTURE, label="resume"):
+    """7l (7t with MOE_FIXTURE): resume_all from the JAX package's
+    checkpoint (``fixture``) on the card: train/checkpoint.restore_checkpoint
+    maps its params (either layout), optax state and step onto a fresh
+    "pallas" model, AdamW's step lands on the card (capturable), and 2 f32
+    steps on the fixture's batches meet JAX's recorded metrics at TRAIN_TOL,
+    every metric it recorded. Returns (the path's launches, readings)."""
     from univtg_tpu_torch.models import ModelConfig, UniVTG
     from univtg_tpu_torch.models.losses import LossWeights
     from univtg_tpu_torch.train import checkpoint as ckpt
     from univtg_tpu_torch.train.schedule import build_schedule
     from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
 
-    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), RESUME_FIXTURE)
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), fixture)
     with open(os.path.join(root, "expected.json")) as f:
         want = json.load(f)
     model = UniVTG(ModelConfig(**want["model"], attention_impl="pallas"), device="cuda",
@@ -4602,20 +4663,21 @@ def phase_resume(torch, np, card):
         mi, tg = ({k.split("/")[2]: torch.from_numpy(v).cuda() for k, v in arrays.items()
                    if k.startswith(f"{i}/{part}/")} for part in ("model_inputs", "targets"))
         state, m = step(state, mi, tg, 1)
-        rel.append({k: abs(float(m[k]) - w[k]) / max(abs(w[k]), 1e-12)
-                    for k in ("loss_overall", "grad_norm")})
+        if set(m) != set(w):
+            raise AssertionError(f"the step's metrics {sorted(m)} are not JAX's {sorted(w)}")
+        rel.append({k: abs(float(m[k]) - w[k]) / max(abs(w[k]), 1e-12) for k in w})
     torch.cuda.synchronize()
     launches = _launches()  # ... and ends here
-    log(f"[resume] {RESUME_FIXTURE}: epoch {epoch}, step {state.step - 2} restored, AdamW "
+    log(f"[{label}] {fixture}: epoch {epoch}, step {state.step - 2} restored, AdamW "
         f"step {sorted(steps_at)}; 2 f32 pallas steps vs JAX's recorded: rel {rel} (limits "
-        f"{TRAIN_TOL}); launches {launches} ({card})")
+        f"{TRAIN_TOL}, loss's for every loss term); launches {launches} ({card})")
     n_layers = want["model"]["num_layers"]
     if (epoch, state.step) != (want["epoch"], want["step"] + 2) or steps_at != {
             (f"cuda:{torch.cuda.current_device()}", float(want["step"]))}:
         raise AssertionError(f"resume_all restored epoch {epoch}, step {state.step - 2}, "
                              f"AdamW steps {steps_at}")
-    if any(r["loss_overall"] > TRAIN_TOL["loss"] or r["grad_norm"] > TRAIN_TOL["grad_norm"]
-           for r in rel):
+    if any(v > TRAIN_TOL["grad_norm" if k == "grad_norm" else "loss"]
+           for r in rel for k, v in r.items()):
         raise AssertionError(f"the resumed steps leave JAX's trajectory: {rel}")
     if {k: launches[k] for k in FLASH_KERNELS} != {k: 2 * n_layers for k in FLASH_KERNELS}:
         raise AssertionError(f"resumed steps launched {launches}")
@@ -5146,6 +5208,281 @@ def phase_ring_scan(torch, np, sd, card):
     return launches, stats
 
 
+def _moe_model(**kw):
+    """The flagship with MOE_OVERRIDES' options."""
+    from univtg_tpu_torch.presets import flagship_model
+
+    return flagship_model(moe_experts=4, moe_top_k=2, scan_layers=True, **kw)
+
+
+def _record_routing(torch, records):
+    """on_model for _run_steps: forward hooks on each MoE layer appending
+    the routing it takes, (top-k experts (k, N), masked router
+    probabilities (N, E)) on the host, to ``records``."""
+    from univtg_tpu_torch.ops import moe
+
+    def hook(mod, inputs, _):
+        h, mask = inputs[0], inputs[1].reshape(-1)
+        n, e = mask.shape[0], mod.router.shape[1]
+        with torch.no_grad():
+            probs = torch.softmax(h.reshape(n, -1).float() @ mod.router.float(), -1)
+            cap = moe.moe_capacity(n, e, mod.top_k, mod.capacity_factor)
+            r = moe.moe_routing(probs, e, mod.top_k, cap, mask, aux=False)
+            records.append((r.expert.cpu(), (probs * mask.float()[:, None]).cpu()))
+
+    def on_model(model):
+        for layer in model.transformer.encoder.layers:
+            layer.moe.register_forward_hook(hook)
+
+    return on_model
+
+
+def _routing_ties(torch, got, want):
+    """Between two runs' routing records: (the tokens whose top-k choice
+    differs, the largest of their near-tie gaps: |p_a - p_b| / max(p_a, p_b)
+    of the two experts in ``want``'s probabilities)."""
+    tokens, worst = 0, 0.0
+    for (e_got, _), (e_want, p) in zip(got, want, strict=True):
+        differ = e_got != e_want
+        tokens += int(differ.any(0).sum())
+        for k in range(differ.shape[0]):
+            idx = differ[k].nonzero()[:, 0]
+            if len(idx):
+                a, b = p[idx, e_got[k, idx]], p[idx, e_want[k, idx]]
+                worst = max(worst, ((a - b).abs() / torch.maximum(a, b)).max().item())
+    return tokens, worst
+
+
+def phase_moe(torch, np, card, tmp, corpus, sd):
+    """7r: the MoE model at the flagship's width (MOE_OVERRIDES: 4
+    experts, top-2, the scan layout) through its entry points on the flash
+    kernels. `cli train-mr` on phase 7's corpus, bf16 then f32, MOE_EPOCHS
+    epochs each evaluated: 4 launches of each kernel per step and 4 flash_fwd
+    per eval batch, loss_moe_aux finite and in (0, E]. Then `cli infer-mr`
+    (f32) on the f32 run's model_best.ckpt, `cli quantize` of it and `cli
+    serve` from the int8 file (a subprocess, --config the MoE JSON)
+    answering MOE_SERVE_QUERIES concurrent requests. Held: 3 f32 steps at
+    dropouts 0, "pallas" vs "xla" at TRAIN_TOL (loss_moe_aux at the loss's
+    limit), a token whose top-2 choice differs between them allowed only
+    within MOE_TIE_REL, counted; make_scan_train_step K = 2 replays against
+    eager steps by 7e's rule, f32 and bf16. Timed: ms per step, K = 1
+    (eager) and 2 (captured), bf16 and f32, and the peak memory, MoE beside
+    the dense flagship (phase 7's weights), dropouts at the defaults.
+    Returns (the training path's launches, the inference path's, readings)."""
+    import contextlib
+    import io
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.presets import flagship_model
+
+    eval_batches = -(-N_VAL // 32)
+    runs = {}
+    _reset_launches()  # the MoE training path starts here
+    for dname in ("bfloat16", "float32"):
+        run_dir = os.path.join(tmp, f"moe_run_{dname}")
+        t0 = time.perf_counter()
+        cli.main(["train-mr", "--preset", "qvhighlights_mr",
+                  f"train_data.data_path={corpus['train_path']}",
+                  f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
+                  f"train_data.q_feat_dir={corpus['q_feat_dir']}",
+                  "train_data.v_feat_dim=2816", *_eval_overrides(corpus), "eval_epoch=1",
+                  f"n_epoch={MOE_EPOCHS}", "bsz=32", "eval_bsz=32",
+                  "model.attention_impl=pallas", f"model.compute_dtype={dname}",
+                  *MOE_OVERRIDES, f"results_dir={run_dir}"])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        lines = _jsonl(os.path.join(run_dir, "train_log.jsonl"))
+        evals = _jsonl(os.path.join(run_dir, "eval_log.jsonl"))
+        steps = sum(line["steps"] for line in lines)
+        aux = [line["loss_moe_aux"] for line in lines]
+        log(f"[moe] cli train-mr {dname} {' '.join(MOE_OVERRIDES)}: {steps} steps in "
+            f"{len(lines)} epochs, epoch 0 {lines[0]['time']:.2f} s, {wall:.2f} s with model "
+            f"build and {len(evals)} evaluations ({card}); losses "
+            f"{[round(x['loss_overall'], 4) for x in lines]}, loss_moe_aux {aux}, MR-full-mAP "
+            f"{[e['MR-full-mAP-key'] for e in evals]}")
+        if (steps != 3 * MOE_EPOCHS or len(evals) != MOE_EPOCHS
+                or not all(np.isfinite(x["loss_overall"]) for x in lines)):
+            raise AssertionError(f"MoE train-mr {dname} did not take 3 finite steps an "
+                                 f"epoch with an evaluation each: {lines}")
+        if not all(np.isfinite(a) and 0 < a <= 4 for a in aux):
+            raise AssertionError(f"loss_moe_aux outside (0, E]: {aux}")
+        runs[dname] = run_dir
+    launches = _launches()  # ... and ends here
+    steps = 3 * MOE_EPOCHS * len(runs)
+    want = {name: 4 * steps for name in FLASH_KERNELS}
+    want["flash_fwd"] += 4 * eval_batches * MOE_EPOCHS * len(runs)
+    log(f"[moe] training path launches {launches}")
+    if {k: launches[k] for k in FLASH_KERNELS} != want:
+        raise AssertionError(f"expected 4 launches of each kernel per step and 4 flash_fwd "
+                             f"per eval batch: {launches}, not {want}")
+
+    best = os.path.join(runs["float32"], "model_best.ckpt")
+    _reset_launches()  # the MoE inference and int8 path starts here
+    brief, _, infer_launches, wall = _infer_mr(torch, np, tmp, best, corpus, "moe_f32",
+                                               "pallas", "float32", *MOE_OVERRIDES)
+    int8_path = os.path.join(tmp, "moe_int8.ckpt")
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli.main(["quantize", "--preset", "qvhighlights_mr", "--resume", best,
+                  "--out", int8_path, *MOE_OVERRIDES])
+    config = os.path.join(tmp, "moe_model.json")
+    with open(config, "w") as f:
+        f.write(_moe_model(attention_impl="pallas").to_json())
+    t0 = time.perf_counter()
+    answers = _serve_once(np, int8_path, tmp, config=config, queries=MOE_SERVE_QUERIES)
+    serve_s = time.perf_counter() - t0
+    for answer in answers:
+        _check_result(np, answer, 75)
+    infer_path = _launches()  # ... and ends here (cli serve ran in its own process)
+    log(f"[moe] cli infer-mr f32: {infer_launches} flash_fwd launches, {wall:.2f} s with "
+        f"model build; {printed.getvalue().strip()}; cli serve --config on the int8 file: "
+        f"{len(answers)} concurrent answers, top-1 windows "
+        f"{[a['top1_window'] for a in answers]} ({serve_s:.1f} s with start-up); path "
+        f"launches {infer_path}")
+    if infer_launches != 4 * eval_batches:
+        raise AssertionError(f"MoE infer-mr made {infer_launches} flash_fwd launches")
+
+    # f32 "pallas" vs "xla", 3 steps at dropouts 0, the routing recorded
+    moe_sd = UniVTG(_moe_model(), device="cpu", seed=0).state_dict()
+    batches = _train_batches(np, corpus, 3)
+    quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
+    routes, hist = {}, {}
+    for impl in ("pallas", "xla"):
+        routes[impl] = []
+        hist[impl] = _run_steps(torch, _moe_model(attention_impl=impl, **quiet), moe_sd,
+                                batches, on_model=_record_routing(torch, routes[impl]))[1]
+    ties, worst = _routing_ties(torch, routes["pallas"], routes["xla"])
+    n_routed = sum(int((p.sum(-1) > 0).sum()) for _, p in routes["xla"])
+    for i, (got, w) in enumerate(zip(hist["pallas"], hist["xla"], strict=True)):
+        rel = {k: abs(got[k] - w[k]) / max(abs(w[k]), 1e-12)
+               for k in ("loss_overall", "loss_moe_aux", "grad_norm")}
+        log(f"[moe] f32 step {i}: pallas loss {got['loss_overall']:.6f} aux "
+            f"{got['loss_moe_aux']:.6f} grad norm {got['grad_norm']:.6f}; rel err vs xla "
+            f"{rel} (limits {TRAIN_TOL})")
+        if (max(rel["loss_overall"], rel["loss_moe_aux"]) > TRAIN_TOL["loss"]
+                or rel["grad_norm"] > TRAIN_TOL["grad_norm"]):
+            raise AssertionError(f"f32 MoE pallas step {i} disagrees with xla: {rel}")
+    log(f"[moe] routing, pallas vs xla over 3 steps x 4 layers: {ties} of {n_routed} "
+        f"routed tokens chose otherwise, the largest near-tie gap among them {worst:.3g} "
+        f"(limit MOE_TIE_REL {MOE_TIE_REL})")
+    if worst > MOE_TIE_REL:
+        raise AssertionError(f"a token's top-2 choice differs beyond a near-tie: {worst}")
+    for dname in ("float32", "bfloat16"):
+        _hold_replay(torch, "moe", _moe_model(attention_impl="pallas", compute_dtype=dname,
+                                              **quiet), moe_sd, batches)
+        torch.cuda.empty_cache()
+
+    stats = {}
+    for dname in ("bfloat16", "float32"):
+        for name, cfg, weights in (
+                ("dense", flagship_model(attention_impl="pallas", compute_dtype=dname), sd),
+                ("moe", _moe_model(attention_impl="pallas", compute_dtype=dname), moe_sd)):
+            for K in (1, 2):
+                rec, one_call = _time_scan(torch, cfg, weights, batches, K, MOE_TIMED_STEPS)
+                top = ""
+                if K == 1:  # where the eager step's device time goes
+                    us, _, wall_us = _profile_counts(torch, one_call)
+                    rec.update(profiled_host_ms=wall_us / 1e3,
+                               profiled_busy_ms=sum(us.values()) / 1e3)
+                    items = sorted(us.items(), key=lambda kv: -kv[1])[:6]
+                    top = (f"; one step profiled: host {wall_us / 1e3:.2f} ms, busy "
+                           f"{rec['profiled_busy_ms']:.2f} ms, the largest items "
+                           f"{[(k[:60], round(v / 1e3, 3)) for k, v in items]}")
+                stats[f"{name}_{dname}_K{K}"] = rec
+                log(f"[moe] {name} {dname} K={K}: {rec['cuda_ms']:.2f} ms per step by CUDA "
+                    f"events ({rec['wall_ms']:.2f} wall) over {rec['steps']} steps, peak "
+                    f"{rec['peak_gib']:.2f} GiB ({card}){top}")
+                torch.cuda.empty_cache()
+    log(f"[moe] ({card}) {json.dumps(stats)}")
+    return launches, infer_path, stats
+
+
+def phase_remat_long(torch, np, fa, card, corpus, sd):
+    """7s: make_train_step at 8 x (2048 + 32) (phase 8's batch), bf16 and
+    f32, "pallas", dropouts at the flagship's defaults, one generator seed,
+    remat on against off, cuDNN deterministic (as 9c): loss, grad norm and
+    params after 2 steps held bit-equal, the largest differences printed;
+    then 3 steps timed by CUDA events, and the peak memory over the 5. The
+    remat runs are the remat training path: 8 flash_fwd (the forward and its
+    recompute), 4 dQ and 4 dK/dV launches a step. Then make_scan_train_step
+    K = 2 of the remat step (dropouts 0) against its eager steps by 7e's
+    rule, on phase 7's batches. Returns (the path's launches, readings)."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    batch = _long_batch(torch, np)
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    dtypes = ("bfloat16", "float32")
+
+    def run(dname, remat):
+        cfg = flagship_model(attention_impl="pallas", compute_dtype=dname, max_v_l=2048,
+                             remat=remat)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        holder = {"state": _scan_state(torch, cfg, sd,
+                                       schedule=build_schedule(1e-4, 10, 200, 0.1, 100))}
+        step = make_train_step(weights)
+        before = dict(fa.launches)
+        metrics = [step(holder["state"], *batch, 0)[1] for _ in range(2)]
+        torch.cuda.synchronize()
+        made = {n: (fa.launches[n] - before[n]) / 2 for n in before}
+        held = ({k: torch.stack([m[k] for m in metrics]) for k in ("loss_overall",
+                                                                    "grad_norm")},
+                [p.detach().clone() for p in holder["state"].model.parameters()])
+
+        def one():
+            step(holder["state"], *batch, 0)
+
+        ms = cuda_ms(one, iters=3, warmup=0)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del holder
+        return held, {"ms": ms, "peak_gib": peak, "launches_per_step": made}
+
+    was = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        plain = {d: run(d, False) for d in dtypes}
+        _reset_launches()  # the remat training path starts here
+        remat = {d: run(d, True) for d in dtypes}
+        launches = _launches()  # ... and ends here
+    finally:
+        torch.cuda.synchronize()
+        torch.backends.cudnn.deterministic = was
+    stats = {}
+    for d in dtypes:
+        (pm, pp), prec = plain[d]
+        (rm, rp), rrec = remat[d]
+        diff = {k: (rm[k] - pm[k]).abs().max().item() for k in pm}
+        diff["params"] = max((a - b).abs().max().item() for a, b in zip(rp, pp))
+        equal = all(torch.equal(rm[k], pm[k]) for k in pm) and all(
+            torch.equal(a, b) for a, b in zip(rp, pp))
+        stats[d] = {"remat": rrec, "plain": prec, "max_diff": diff, "bit_equal": equal}
+        log(f"[remat] {d} 8 x (2048 + 32), dropouts at the defaults, 2 steps remat on vs "
+            f"off: {'bit-equal' if equal else 'NOT bit-equal'}, largest differences {diff}; "
+            f"ms per step {rrec['ms']:.2f} on, {prec['ms']:.2f} off; peak "
+            f"{rrec['peak_gib']:.2f} GiB on, {prec['peak_gib']:.2f} off; flash launches a "
+            f"step {rrec['launches_per_step']} on, {prec['launches_per_step']} off ({card})")
+        if not equal:
+            raise AssertionError(f"{d} remat changed the step: {diff}")
+        if (rrec["launches_per_step"] != {"flash_fwd": 8, "flash_bwd_dq": 4, "flash_bwd_dkv": 4}
+                or prec["launches_per_step"] != {n: 4 for n in FLASH_KERNELS}):
+            raise AssertionError(f"{d} flash launches a step: {rrec['launches_per_step']} "
+                                 f"with remat, {prec['launches_per_step']} without")
+    del plain, remat
+    torch.cuda.empty_cache()
+    batches = _train_batches(np, corpus, 3)
+    quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
+    for d in ("float32", "bfloat16"):
+        _hold_replay(torch, "remat", flagship_model(attention_impl="pallas", compute_dtype=d,
+                                                    remat=True, **quiet), sd, batches)
+        torch.cuda.empty_cache()
+    log(f"[remat] ({card}) {json.dumps(stats)}")
+    return launches, stats
+
+
 def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
                  sass):
     """One entry per kernel for the final JSON line: times of the headline
@@ -5320,6 +5657,19 @@ def main() -> int:
             f"summed) launches: {hl_gang_launches}")
         learn_launches, _ = timed("learning", phase_learning, torch, np, smi, tmp)
         log(f"[main path] the learning check (f32) launches: {learn_launches}")
+        moe_train_launches, moe_infer_launches, _ = timed("moe", phase_moe, torch, np, smi,
+                                                          tmp, corpus, sd)
+        log(f"[main path] MoE training (train-mr bf16 and f32) launches: "
+            f"{moe_train_launches}; MoE inference and int8 tier (infer-mr, quantize; cli "
+            f"serve counts in its own process): {moe_infer_launches}")
+        remat_launches, _ = timed("remat long", phase_remat_long, torch, np, fa, smi,
+                                  corpus, sd)
+        log(f"[main path] remat training (8 x 2080, bf16 and f32) launches: "
+            f"{remat_launches}")
+        moe_resume_launches, _ = timed("resume moe", phase_resume, torch, np, smi,
+                                       MOE_FIXTURE, "resume moe")
+        log(f"[main path] MoE training resumed from a JAX scan-layout checkpoint "
+            f"launches: {moe_resume_launches}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -5360,7 +5710,11 @@ def main() -> int:
                             "async_ckpt_training": async_launches,
                             "ring_scan_training": ring_scan_launches,
                             "hl_dist_training": hl_gang_launches,
-                            "learning_check": learn_launches}, sass)
+                            "learning_check": learn_launches,
+                            "moe_training": moe_train_launches,
+                            "moe_inference": moe_infer_launches,
+                            "remat_training": remat_launches,
+                            "moe_resume_training": moe_resume_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

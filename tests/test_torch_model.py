@@ -211,8 +211,7 @@ def test_config_json_is_shared_with_the_jax_package():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("scan_layers", True), ("remat", True), ("pipeline_stages", 2),
-    ("moe_experts", 4), ("seq_shard", True), ("attention_impl", "splash"),
+    ("pipeline_stages", 2), ("seq_shard", True), ("attention_impl", "splash"),
 ])
 def test_unported_config_values_raise(field, value):
     cfg = ModelConfig(**SMALL, **{field: value})
@@ -220,6 +219,28 @@ def test_unported_config_values_raise(field, value):
         check_supported(cfg)
     with pytest.raises(NotImplementedError):
         UniVTG(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("field,value", [
+    ("scan_layers", True), ("remat", True), ("moe_experts", 4),
+])
+def test_one_process_model_options_build_and_run(field, value):
+    """The options once refused (tests/test_torch_moe.py and
+    tests/test_torch_remat.py hold them against JAX): they pass
+    check_supported, build, and run a finite train-mode forward and
+    backward; only a MoE model returns aux_moe, in training."""
+    cfg = ModelConfig(**SMALL, **{field: value})
+    check_supported(cfg)
+    model = UniVTG(cfg, device="cpu")
+    args = [torch.from_numpy(a) for a in _inputs(5)]
+    out = model(*args, train=True, generator=torch.Generator().manual_seed(0))
+    assert ("aux_moe" in out) == (field == "moe_experts")
+    loss = out["saliency_scores"].nan_to_num(neginf=0.0).sum() + out.get("aux_moe", 0.0)
+    loss.backward()
+    grads = [p.grad for p in model.parameters() if p.grad is not None]
+    assert grads and all(torch.isfinite(g).all() for g in grads)
+    with torch.inference_mode():
+        assert "aux_moe" not in model(*args)
 
 
 @pytest.mark.parametrize("impl", ["ring", "ring_pallas"])

@@ -89,7 +89,9 @@ def flagship_config(**kw) -> ModelConfig:
 
 
 def apply_overrides(cfg, pairs):
-    """Apply dotted ``key=value`` overrides to a TrainConfig."""
+    """Apply dotted ``key=value`` overrides to a TrainConfig. A value is a
+    Python literal (``4``, ``1.25``, ``True``, ``('a',)``), ``true`` /
+    ``false`` in any case, or else the string as written."""
     from univtg_tpu_torch.presets import _replace
 
     for pair in pairs:
@@ -99,7 +101,7 @@ def apply_overrides(cfg, pairs):
         try:
             value = ast.literal_eval(raw)
         except (ValueError, SyntaxError):
-            value = raw
+            value = {"true": True, "false": False}.get(raw.lower(), raw)
         cfg = _replace(cfg, key, value)
     return cfg
 

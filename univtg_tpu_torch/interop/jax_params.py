@@ -11,6 +11,12 @@ transposes read backwards:
   conv kernel (k, in, out)    -> torch Conv1d weight (out, in, k) [perm 2,1,0]
   in_proj_kernel (D, 3D)      -> MHA in_proj_weight (3D, D)      [transpose]
   LayerNorm scale/bias        -> weight/bias                     [as-is]
+  moe_router, moe_{w1,b1,w2,b2} -> moe.router, moe.{w1,b1,w2,b2} [as-is]
+
+The encoder's layers come in either of the JAX package's layouts:
+``encoder/layers_{i}/...`` (unrolled) or, from a model with
+``scan_layers=True``, ``encoder/layers/layer/...`` with a leading layer
+axis; both give the port's per-layer ``transformer.encoder.layers.{i}``.
 
 ``load_torch_checkpoint`` reads an upstream container ``{'model':
 state_dict}`` (a released ``.ckpt``), or the JAX package's flax msgpack
@@ -57,6 +63,35 @@ class _Tracked(dict):
 
     def get(self, key, default=None):
         return self[key] if key in self else default
+
+
+class _LayerSlice:
+    """Layer ``i`` of the scan layout's stacked tree: each leaf read is its
+    i-th slice, and a leaf that does not stack ``n`` layers raises."""
+
+    def __init__(self, tree, i: int, n: int, path: str):
+        self.tree, self.i, self.n, self.path = tree, i, n, path
+
+    def __getitem__(self, key):
+        value = self.tree[key]
+        path = f"{self.path}/{key}"
+        if isinstance(value, dict):
+            return _LayerSlice(value, self.i, self.n, path)
+        a = np.asarray(value)
+        if a.ndim == 0 or a.shape[0] != self.n:
+            raise JaxTreeMismatch(
+                f"{path} stacks {a.shape[0] if a.ndim else 0} layers, the config "
+                f"has {self.n}")
+        return a[self.i]
+
+
+def encoder_layers(enc, num_layers: int) -> list:
+    """The per-layer trees of a JAX encoder tree, in either layout."""
+    if "layers" in enc:
+        stacked = enc["layers"]["layer"]
+        where = getattr(stacked, "path", "encoder/layers/layer")
+        return [_LayerSlice(stacked, i, num_layers, where) for i in range(num_layers)]
+    return [enc[f"layers_{i}"] for i in range(num_layers)]
 
 
 def _leaves(tree, path=""):
@@ -107,6 +142,11 @@ class _Writer:
                 self.norm(f"{name}.{i}.LayerNorm", layer["norm"])
                 self.dense(f"{name}.{i}.net.1", layer["dense"])
 
+    def moe(self, prefix, d):
+        self.tensor(f"{prefix}.router", d["moe_router"])
+        for name in ("w1", "b1", "w2", "b2"):
+            self.tensor(f"{prefix}.{name}", d[f"moe_{name}"])
+
     def txt_pos(self, p):
         self.tensor("txt_position_embed.position_embeddings.weight",
                     p["txt_pos"]["embedding"])
@@ -119,12 +159,14 @@ def state_dict_from_jax_params(params, cfg, writer=None) -> dict:
     w = writer or _Writer()
     w.input_projs(p, cfg)
     w.tensor("token_type_embeddings.weight", p["token_type_embedding"])
-    for i in range(cfg.num_layers):
-        enc = p["encoder"][f"layers_{i}"]
+    for i, enc in enumerate(encoder_layers(p["encoder"], cfg.num_layers)):
         prefix = f"transformer.encoder.layers.{i}"
         w.mha(f"{prefix}.self_attn", enc)
-        w.dense(f"{prefix}.linear1", enc["linear1"])
-        w.dense(f"{prefix}.linear2", enc["linear2"])
+        if cfg.moe_experts > 1:
+            w.moe(f"{prefix}.moe", enc)
+        else:
+            w.dense(f"{prefix}.linear1", enc["linear1"])
+            w.dense(f"{prefix}.linear2", enc["linear2"])
         w.norm(f"{prefix}.norm1", enc["norm1"])
         w.norm(f"{prefix}.norm2", enc["norm2"])
     if cfg.pre_norm:

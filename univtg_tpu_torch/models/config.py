@@ -1,9 +1,9 @@
 """Typed model configuration: the same fields, defaults and JSON as
 ``univtg_tpu/models/config.py``, so one config file drives both packages.
 
-This slice of the port runs the dense encoder in eval mode. Fields of
-features that arrive in later slices still parse; ``check_supported`` names
-the ones a model built from this config cannot run yet.
+Fields of features that arrive in later slices still parse;
+``check_supported`` names the ones a model built from this config cannot run
+yet.
 """
 from __future__ import annotations
 
@@ -50,14 +50,21 @@ class ModelConfig:
     #   Both ring impls run "xla" when no ring is active or the sequence does
     #   not tile over it; "ring_pallas" runs "ring" under attention dropout.
     attention_impl: str = "xla"
-    # features of the JAX package that later slices port; they parse here
+    # seq_shard and the pipeline_* fields: features of the JAX package that
+    # later slices port; they parse here (the field order is the JAX JSON's)
     seq_shard: bool = False
+    # recompute each encoder layer in the backward (torch.utils.checkpoint)
     remat: bool = False
+    # the JAX package runs the layers as one lax.scan over stacked params;
+    # here it changes only the layout read from a JAX tree (interop)
     scan_layers: bool = False
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
     pipeline_interleave: int = 1
     pipeline_pre_permuted: bool = False
+    # Mixture-of-Experts FFN (ops/moe.py): moe_experts > 1 puts a top-k
+    # routed bank of moe_experts experts in each layer's FFN; its
+    # load-balance loss reaches the objective through LossWeights.moe_aux
     moe_experts: int = 0
     moe_top_k: int = 1
     moe_capacity_factor: float = 1.25
@@ -85,10 +92,7 @@ class ModelConfig:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the config values this slice of the port cannot run."""
     unsupported = {
-        "scan_layers": cfg.scan_layers,
-        "remat": cfg.remat,
         "pipeline_stages>0": cfg.pipeline_stages > 0,
-        "moe_experts>1": cfg.moe_experts > 1,
         "seq_shard": cfg.seq_shard,
     }
     named = [k for k, on in unsupported.items() if on]
@@ -97,6 +101,9 @@ def check_supported(cfg: ModelConfig) -> None:
             f"the PyTorch port does not run {', '.join(named)} yet "
             f"(ROADMAP.md, queue 1)"
         )
+    if cfg.moe_experts > 1 and cfg.moe_top_k > cfg.moe_experts:
+        raise ValueError(f"moe_top_k={cfg.moe_top_k} must be <= "
+                         f"moe_experts={cfg.moe_experts}")
     if cfg.attention_impl not in ATTENTION_IMPLS:
         raise NotImplementedError(
             f"attention_impl={cfg.attention_impl!r}: the PyTorch port runs "

@@ -37,15 +37,18 @@ def mask_log(mask):
     )
 
 
-def dropout(x, rate: float, generator=None):
+def dropout(x, rate: float, generator=None, noise=None):
     """flax ``nn.Dropout``: keep each element with probability 1 - rate and
-    scale the kept ones by 1 / (1 - rate). Identity without a generator."""
-    if generator is None or rate <= 0.0:
+    scale the kept ones by 1 / (1 - rate). The f32 uniforms of the keep mask
+    come from ``generator``, or drawn ahead as ``noise`` (x's shape).
+    Identity without either."""
+    if rate <= 0.0 or (generator is None and noise is None):
         return x
     keep_prob = 1.0 - rate
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < keep_prob
-    return torch.where(keep, x / keep_prob, torch.zeros((), dtype=x.dtype,
-                                                        device=x.device))
+    if noise is None:
+        noise = torch.rand(x.shape, generator=generator, device=x.device)
+    return torch.where(noise < keep_prob, x / keep_prob,
+                       torch.zeros((), dtype=x.dtype, device=x.device))
 
 
 class Dropout(nn.Module):

@@ -25,7 +25,12 @@ from torch import nn
 
 from univtg_tpu_torch.device import exact_f32, resolve_device
 from univtg_tpu_torch.models.config import ModelConfig, check_supported
-from univtg_tpu_torch.models.encoder import Encoder, SelfAttention, Transformer
+from univtg_tpu_torch.models.encoder import (
+    Encoder,
+    MoEFFN,
+    SelfAttention,
+    Transformer,
+)
 from univtg_tpu_torch.models.layers import (
     ConvHead,
     InputProj,
@@ -62,7 +67,8 @@ class UniVTG(nn.Module):
                 )
             self.transformer = Transformer(Encoder(
                 D, cfg.num_layers, cfg.num_heads, cfg.ffn_dim, cfg.dropout,
-                cfg.droppath, cfg.pre_norm, cfg.attention_impl,
+                cfg.droppath, cfg.pre_norm, cfg.attention_impl, cfg.moe_experts,
+                cfg.moe_top_k, cfg.moe_capacity_factor, cfg.remat,
             ))
             span_pred_dim = 2 if cfg.span_loss_type == "l1" else cfg.max_v_l * 2
             self.class_embed = ConvHead(D, 1, 3)
@@ -77,7 +83,8 @@ class UniVTG(nn.Module):
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator):
         """Xavier-uniform matrices, zero biases, unit LayerNorms, N(0, 0.02)
-        embeddings, all drawn from ``generator`` in module order."""
+        embeddings, all drawn from ``generator`` in module order (the MoE
+        kernels with flax's fans, ``MoEFFN.reset_parameters``)."""
         init = nn.init
         for m in self.modules():
             if isinstance(m, nn.LayerNorm):
@@ -93,6 +100,8 @@ class UniVTG(nn.Module):
                 init.zeros_(m.in_proj_bias)
             elif isinstance(m, WeightedPool):
                 init.xavier_uniform_(m.weight, generator=generator)
+            elif isinstance(m, MoEFFN):
+                m.reset_parameters(generator)
 
     def pre(self, src_txt, src_txt_mask, src_vid, src_vid_mask, src_cls=None,
             src_cls_mask=None, generator=None):
@@ -121,8 +130,8 @@ class UniVTG(nn.Module):
         pos = torch.cat([pos_vid, pos_txt], dim=1)
         return src, mask, pos, vid, txt, cls_tok
 
-    def encoder(self, src, mask, pos, generator=None):
-        return self.transformer.encoder(src, mask, pos, generator)
+    def encoder(self, src, mask, pos, generator=None, aux=None):
+        return self.transformer.encoder(src, mask, pos, generator, aux)
 
     def heads(self, memory, vid, txt, src_vid_mask, src_txt_mask, cls_tok=None,
               src_cls_mask=None):
@@ -166,7 +175,10 @@ class UniVTG(nn.Module):
                 generator=None):
         """``train`` (default ``self.training``) turns dropout and droppath
         on; they draw from ``generator``, which training then requires
-        unless every rate is 0. Eval ignores the generator."""
+        unless every rate is 0. Eval ignores the generator. A MoE model in
+        training also returns ``aux_moe``, the mean over the layers of each
+        layer's load-balance loss (JAX's ``train/steps.forward``); eval
+        returns none, as JAX's eval apply sows none."""
         if train is None:
             train = self.training
         cfg = self.cfg
@@ -183,6 +195,10 @@ class UniVTG(nn.Module):
                 src_txt, src_txt_mask, src_vid, src_vid_mask, src_cls,
                 src_cls_mask, generator,
             )
-            memory = self.encoder(src, mask, pos, generator)
-            return self.heads(memory, vid, txt, src_vid_mask, src_txt_mask,
-                              cls_tok, src_cls_mask)
+            aux = [] if train and cfg.moe_experts > 1 else None
+            memory = self.encoder(src, mask, pos, generator, aux)
+            out = self.heads(memory, vid, txt, src_vid_mask, src_txt_mask,
+                             cls_tok, src_cls_mask)
+        if aux:
+            out["aux_moe"] = torch.stack(aux).mean()
+        return out

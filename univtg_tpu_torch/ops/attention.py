@@ -25,7 +25,9 @@ fallback shows.
 Attention dropout (training) draws from the step's explicit
 ``torch.Generator``: "xla" draws a keep mask over the probabilities,
 "pallas" and "ring" draw one int32 seed per call and hash their mask from
-it, as the JAX package's flash and ring paths do.
+it, as the JAX package's flash and ring paths do. ``dropout_noise`` makes
+that draw ahead of the call; a caller that recomputes the attention (the
+encoder's remat) draws it once and passes it in as ``noise``.
 
 Semantics follow the reference encoder's use of torch MHA: positional
 embeddings go to Q and K only, and the mask marks VALID keys (1 = valid),
@@ -54,12 +56,13 @@ def attention_scores_bias(key_padding_mask):
 
 
 def sdpa(q, k, v, bias, num_heads: int, dropout_rate: float = 0.0,
-         generator=None):
+         generator=None, noise=None):
     """Scaled dot-product attention over projected (B, L, D) inputs.
 
     bias: (B, 1, 1, Lk) additive logits bias or None. The dots accumulate
     in f32; the probabilities are cast to v's dtype before the PV product
-    and dropped after the cast when a generator is given.
+    and dropped after the cast when a generator or a drawn ``noise`` (the
+    (B, H, Lq, Lk) uniforms of ``dropout_noise``) is given.
     Returns (B, Lq, D) in q's dtype.
     """
     # imported here: the models package imports this module, so a module-level
@@ -77,7 +80,7 @@ def sdpa(q, k, v, bias, num_heads: int, dropout_rate: float = 0.0,
     if bias is not None:
         scores = scores + bias
     probs = torch.softmax(scores, dim=-1).to(v.dtype)
-    probs = dropout(probs, dropout_rate, generator)
+    probs = dropout(probs, dropout_rate, generator, noise)
     out = torch.matmul(probs.float(), vh.float())
     return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
 
@@ -97,29 +100,45 @@ def resolve_impl(impl: str, seq_len: int, dropout_rate: float):
     return impl, ring
 
 
+def dropout_noise(impl: str, B: int, Lq: int, Lk: int, num_heads: int,
+                  dropout_rate: float, generator, device):
+    """The random input of one attention call's dropout, drawn from
+    ``generator`` as the call itself would draw it: one int32 seed where
+    "pallas" or "ring" runs, the (B, H, Lq, Lk) f32 uniforms of the keep mask
+    where "xla" runs; None without a generator or a rate."""
+    if generator is None or dropout_rate <= 0.0:
+        return None
+    ran, _ = resolve_impl(impl, Lq, dropout_rate)
+    if ran in ("pallas", "ring"):
+        return torch.randint(0, 2**31 - 1, (1,), generator=generator,
+                             device=device, dtype=torch.int32)
+    return torch.rand((B, num_heads, Lq, Lk), generator=generator, device=device)
+
+
 def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
                         out_weight, out_bias, num_heads: int,
                         key_padding_mask=None, impl: str = "xla",
-                        dropout_rate: float = 0.0, generator=None):
+                        dropout_rate: float = 0.0, generator=None, noise=None):
     """Full MHA with the packed torch-layout projection.
 
     q_in, k_in, v_in: (B, L, D) (q and k usually carry +pos).
     in_proj_weight: (3D, D) packed [q; k; v] rows; in_proj_bias: (3D,).
     out_weight: (D, D); out_bias: (D,). key_padding_mask: (B, Lk), 1 = valid.
-    Attention dropout applies only with a generator (None: eval).
+    Attention dropout applies only with a generator, or with the ``noise``
+    that ``dropout_noise`` drew for this call (neither: eval).
     """
     D = q_in.shape[-1]
     q = F.linear(q_in, in_proj_weight[:D], in_proj_bias[:D])
     k = F.linear(k_in, in_proj_weight[D:2 * D], in_proj_bias[D:2 * D])
     v = F.linear(v_in, in_proj_weight[2 * D:], in_proj_bias[2 * D:])
-    if generator is None:
+    if noise is None:
+        noise = dropout_noise(impl, q.shape[0], q.shape[1], k.shape[1], num_heads,
+                              dropout_rate, generator, q.device)
+    if noise is None:
         dropout_rate = 0.0
     impl, ring = resolve_impl(impl, q.shape[1], dropout_rate)
     dispatches[impl] += 1
-    seed = None
-    if dropout_rate > 0.0 and impl in ("pallas", "ring"):
-        seed = torch.randint(0, 2**31 - 1, (1,), generator=generator,
-                             device=q.device, dtype=torch.int32)
+    seed = noise if impl in ("pallas", "ring") else None
     if impl == "pallas":
         out = flash_attention(q, k, v, key_padding_mask, num_heads=num_heads,
                               dropout_rate=dropout_rate, dropout_seed=seed)
@@ -134,5 +153,5 @@ def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
         bias = None
         if key_padding_mask is not None:
             bias = attention_scores_bias(key_padding_mask)
-        out = sdpa(q, k, v, bias, num_heads, dropout_rate, generator)
+        out = sdpa(q, k, v, bias, num_heads, dropout_rate, noise=noise)
     return F.linear(out, out_weight, out_bias)

@@ -12,8 +12,10 @@ sensitivity). The tensors chosen, their int8 values and their scales are
 the JAX package's exactly: the same name rule, the same numpy arithmetic,
 and the scale taken per output channel of the JAX layout, which is dim 0 of
 a torch Linear, MHA in-projection or Conv1d weight (``interop/jax_params.py``
-transposes them) and the last axis of ``weightedpool.weight``, which the
-port keeps in JAX's (D, 1) layout.
+transposes them) and the last axis of the tensors the port keeps in JAX's
+layout: ``weightedpool.weight`` (D, 1) and a MoE layer's ``moe.router``,
+``moe.w1``, ``moe.b1``, ``moe.w2`` and ``moe.b2`` (2-D and 3-D, quantized
+as JAX quantizes ``moe_*``: its name rule skips no ``moe_b*``).
 
 ``restore_serving_params`` also reads the JAX package's int8 file (flax
 msgpack of ``{'q': param tree, 'scales': {'a/b/kernel': scale}}``): it
@@ -31,10 +33,11 @@ from univtg_tpu_torch.interop.jax_params import (
     state_dict_from_jax,
 )
 
-# state_dict tensors held in the JAX layout (interop/jax_params.py): their
-# output channel is the last axis, as in JAX; every other quantized tensor
-# has it at dim 0
-JAX_LAYOUT = frozenset({"weightedpool.weight"})
+# state_dict tensors held in the JAX layout (interop/jax_params.py), by the
+# end of their names: their output channel is the last axis, as in JAX;
+# every other quantized tensor has it at dim 0
+JAX_LAYOUT = ("weightedpool.weight", ".moe.router", ".moe.w1", ".moe.b1", ".moe.w2",
+              ".moe.b2")
 
 
 def _is_quantizable(name: str, tensor: torch.Tensor) -> bool:
@@ -45,7 +48,7 @@ def _is_quantizable(name: str, tensor: torch.Tensor) -> bool:
 
 
 def _channel_axis(name: str, ndim: int) -> int:
-    return ndim - 1 if name in JAX_LAYOUT else 0
+    return ndim - 1 if name.endswith(JAX_LAYOUT) else 0
 
 
 def quantize_state_dict(state_dict) -> tuple[dict, dict]:

@@ -181,6 +181,17 @@ def _dense_losses(weights, losses, use_gates):
     return loss_fn
 
 
+def check_gang_moe(model_cfg):
+    """Raise for a MoE model in a gang: the JAX package routes over the
+    global batch (the capacity from the global token count, the slots in the
+    global token order, the aux over every token), and a rank's forward on
+    its own shard would route otherwise."""
+    if dist.active() is not None and getattr(model_cfg, "moe_experts", 0) > 1:
+        raise NotImplementedError(
+            "a MoE model (moe_experts > 1) in a gang of processes: the port routes "
+            "each rank's shard, JAX the global batch (ROADMAP.md, queue 1)")
+
+
 def _train_body(state: TrainState, model_inputs, targets, generator, update,
                 loss_fn, static_inputs=None):
     """Forward in train mode, ``loss_fn(outputs, targets)`` (a dict holding
@@ -196,9 +207,10 @@ def _train_body(state: TrainState, model_inputs, targets, generator, update,
     AdamW that follow come out the same on every rank. Any ``loss_fn``
     (dense, gated, Moment-DETR) is exact this way: the InfoNCE over the
     batch, the batch-wide normalisers and ``has_signal`` all see the
-    global batch."""
+    global batch. A MoE model in a gang raises (``check_gang_moe``)."""
     if static_inputs:
         model_inputs = {**model_inputs, **static_inputs}
+    check_gang_moe(state.model.cfg)
     state.model.train()
     outputs = forward(state.model, model_inputs, train=True, generator=generator)
     if dist.active() is not None:
