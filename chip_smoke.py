@@ -287,6 +287,27 @@ printing its seconds:
                  model in the scan layout, tests/torch_golden/make_jax_moe.py):
                  resume_all, then 2 f32 "pallas" steps against every
                  metric JAX recorded (loss_moe_aux among them) at TRAIN_TOL.
+  7u. mesh tp -- model parallelism across processes (parallel/mesh.py) in
+                 one gang of MESH_TP gloo ranks sharing the card
+                 (`--dist-worker` mode "mesh"): train_mr at tp = 2 on phase
+                 7's corpus (full width, B = 32, f32, "pallas", dropouts 0,
+                 one epoch of 3 steps, evaluated by rank 0 over the gathered
+                 parameters), each step against one process on the same
+                 batches at TRAIN_TOL, the ranks equal, the canonical
+                 model_best.ckpt through one-process `cli infer-mr` with the
+                 gang's metrics; make_train_step at 8 x (2048 + 32),
+                 seq_shard off and on, bf16 and f32: ms, peak memory, flash
+                 launches a step (4, each over B x 4 head rows), host ms in
+                 the collectives, per rank; the same step in f32 at dropouts
+                 0, seq_shard off and on, against one process at TRAIN_TOL;
+                 the flash kernels over heads 4-7
+                 of 8 (head_span) with dropout 0.1 against the twin with the
+                 same offset.
+  7w. mesh moe -- in the same gang: the MoE flagship (MOE_OVERRIDES, f32,
+                 "pallas", dropouts 0, B = 32 global) on dp = 2 and on ep =
+                 2, 3 steps each against one process on the global batches
+                 at TRAIN_TOL, tokens routed otherwise only within
+                 MOE_TIE_REL; ms a step per rank.
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -301,6 +322,16 @@ printing its seconds:
                  bf16 and f32, dropouts 0: RING_SCAN_GROUPS groups (eager,
                  captured, replayed) against eager ring steps bit for bit by
                  7e's rule; ms per step captured and eager.
+  7v. mesh ring -- the ring across processes: MESH_RING_P gloo ranks sharing
+                 the card, their tp axis the ring (parallel/ring.ProcessRing):
+                 ring_attention_pallas at 8 x 2080, f32 and bf16, each
+                 process its block, the gathered output against the
+                 one-process RingGroup(P) (bit for bit, else the largest
+                 difference), P ring_block + 1 ring_finish a call in every
+                 process, ms a call and host ms in the hops; 2 f32 train
+                 steps at 8 x (2048 + 32) with "ring_pallas" on the tp mesh
+                 against "xla" in one process at TRAIN_TOL, 4 x (P + 1)
+                 launches a forward in every process.
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving is phases 4-5, training phase 7's train-mr
@@ -326,7 +357,10 @@ train_hl runs (each rank counts its own; summed), the learning check phase
 (evaluations included), MoE inference its infer-mr and quantize runs (its
 `cli serve` counts in its own process), remat training phase 7s's remat
 steps, MoE training resumed from JAX phase 7t's two steps, ring training on
-CUDA graphs phase 9c's bf16 scan and eager ring steps; the smoke's own
+CUDA graphs phase 9c's bf16 scan and eager ring steps, tp training across
+processes phase 7u's train_mr gang (each rank counts its own; summed), MoE
+training across processes phase 7w's dp = 2 and ep = 2 steps (summed), ring
+training across processes phase 7v's ring_pallas steps (summed); the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
 of the other paths must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
@@ -633,10 +667,11 @@ ASYNC_EPOCHS = 2
 # phase 7o: HL in a gang of two gloo ranks sharing the card, per-rank bsz
 HL_GANG_BSZ = 2
 # phase 7p: the planted-signal learning check (tools/validate_synthetic.py) at
-# the flagship's width and heads, LEARN_EPOCHS epochs (the script's default),
-# f32 and bf16; beside it the JAX package's readings (docs/PERF.md,
-# "End-to-end learning validation": hidden 1024 at 20 and 50 epochs)
-LEARN_EPOCHS, LEARN_HIDDEN, LEARN_HEADS = 30, 1024, 8
+# the flagship's width and heads, LEARN_EPOCHS epochs (below the script's
+# default 30, to pay for phases 7u-7w), f32 and bf16; beside it the JAX
+# package's readings (docs/PERF.md, "End-to-end learning validation":
+# hidden 1024 at 20 and 50 epochs)
+LEARN_EPOCHS, LEARN_HIDDEN, LEARN_HEADS = 20, 1024, 8
 JAX_LEARNING = {
     "cpu, hidden 96, 25 epochs": {"R1@0.5": 78.1, "mIoU": 58.8, "mAP": 43.2,
                                   "HL-VeryGood-mAP": 62.2},
@@ -660,6 +695,15 @@ MOE_TIE_REL = 1e-4
 # phase 7t: the JAX package's checkpoint of a small MoE model in the scan
 # layout after 2 steps (tests/torch_golden/make_jax_moe.py)
 MOE_FIXTURE = os.path.join("tests", "torch_golden", "jax_moe")
+# phases 7u-7w: model parallelism across processes, gloo ranks sharing the
+# card (parallel/mesh.py). 7u and 7w: one gang of MESH_TP ranks (tp = 2 for
+# train_mr and the long step; then the MoE flagship on dp = 2 and on ep = 2);
+# 7v: a gang of MESH_RING_P ranks whose tp axis is the ring. The long step
+# and the ring at MESH_RING_SHAPE (B, L, H, dh), MESH_TIMED_STEPS timed steps
+# or calls after one warm, MESH_RING_STEPS f32 ring steps against "xla"
+MESH_TP, MESH_RING_P = 2, 4
+MESH_TIMED_STEPS, MESH_RING_STEPS, MESH_GANG_TIMEOUT_S = 2, 2, 600
+MESH_RING_SHAPE = (8, 2048 + 32, 8, 128)
 
 
 def log(msg: str) -> None:
@@ -2301,12 +2345,18 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
 
     timings = {}
     for dtype in ("bfloat16", "float32"):
+        # the host's own measurements (numpy scoring, the native and h5
+        # readers, the loader, the profile) read the same files and the same
+        # kind of submission whatever the dtype: bf16 takes them all, f32
+        # its timed pass and scoring (to pay for phases 7u-7w)
+        full = dtype == "bfloat16"
         cfg = _eval_cfg(corpus, "model.attention_impl=pallas",
                         f"model.compute_dtype={dtype}", f"results_dir={results}")
         model = cli.restored_model(cfg, best, "cuda")
         step = make_eval_step(cfg.eval_mode)
         n_batches = len(driver_mr._eval_loader(cfg, eval_ds))
-        driver_mr._run_eval_shard(cfg, model, eval_ds, step)  # warm
+        if full:
+            driver_mr._run_eval_shard(cfg, model, eval_ds, step)  # warm
         before = fa.launches["flash_fwd"]
         infer_s, score_s = [], []
         for _ in range(passes):
@@ -2321,6 +2371,16 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
                 or not all(np.isfinite(v) for v in brief.values())):
             raise AssertionError(f"evaluation of {N_VAL_FULL} queries, {dtype}: "
                                  f"{len(sub)} rows, {launches} flash_fwd launches, {brief}")
+        cell = f"eval_qvhighlights_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+        timings[cell] = {
+            "items": N_VAL_FULL, "batches": n_batches, "passes": passes,
+            "s_per_eval": [i + s for i, s in zip(infer_s, score_s)],
+            "infer_s": infer_s, "infer_ms_per_batch": [1e3 * t / n_batches for t in infer_s],
+            "score_s": score_s, "flash_fwd_launches_per_pass": launches // passes}
+        if not full:
+            del model
+            torch.cuda.empty_cache()
+            continue
         numpy_brief, score_numpy_s, numpy_aps = _score(driver_mr, mr_metrics, cfg, sub,
                                                        eval_ds, numpy_ap)
         ap_err = max(float(np.abs(a - b).max()) for a, b in
@@ -2342,25 +2402,19 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
                   "load_ms_per_batch": _load_ms(driver_mr, cfg, h5_ds, n_batches)}
             if len(h5_sub) != N_VAL_FULL:
                 raise AssertionError(f"the h5 pass scored {len(h5_sub)} rows")
-        if not timings:  # the loader reads the same files whatever the dtype
-            load_ms = _load_ms(driver_mr, cfg, eval_ds, n_batches)
-            load_native_ms = _load_ms(driver_mr, cfg, native_ds, n_batches)
-        cell = f"eval_qvhighlights_{'bf16' if dtype == 'bfloat16' else 'f32'}"
+        load_ms = _load_ms(driver_mr, cfg, eval_ds, n_batches)
+        load_native_ms = _load_ms(driver_mr, cfg, native_ds, n_batches)
         kernels, wall_us = _profile_window(
             torch, lambda: driver_mr._run_eval_shard(cfg, model, eval_ds, step), 1)
         _profile_record(cell, card, n_batches, "batch", kernels, wall_us, ["flash_fwd"],
                         items=N_VAL_FULL, B=cfg.eval_bsz, L="75+32")
-        timings[cell] = {
-            "items": N_VAL_FULL, "batches": n_batches, "passes": passes,
-            "s_per_eval": [i + s for i, s in zip(infer_s, score_s)],
-            "infer_s": infer_s, "infer_ms_per_batch": [1e3 * t / n_batches for t in infer_s],
-            "score_s": score_s, "load_ms_per_batch": load_ms,
-            "flash_fwd_launches_per_pass": launches // passes,
+        timings[cell].update({
+            "load_ms_per_batch": load_ms,
             "score_numpy_s": score_numpy_s, "ap_max_abs_err": ap_err,
             "infer_native_reader_s": infer_native_s,
             "load_native_reader_ms_per_batch": load_native_ms,
             "s_per_eval_all_native": infer_native_s + score_s[-1],
-            "s_per_eval_all_numpy": infer_s[-1] + score_numpy_s, "h5": h5}
+            "s_per_eval_all_numpy": infer_s[-1] + score_numpy_s, "h5": h5})
         del model
         torch.cuda.empty_cache()
     if reader.rejections:
@@ -3648,8 +3702,9 @@ def dist_worker(job_path, rank, world, port) -> int:
     assert init_distributed(f"127.0.0.1:{port}", world, rank) == (rank, world)
     gang = dist.active()
     base = job["results"]
-    if job["mode"] == "hl":
-        out = hl_gang_worker(job, rank, world, torch, np)
+    if job["mode"] in ("hl", "mesh"):
+        worker = hl_gang_worker if job["mode"] == "hl" else mesh_worker
+        out = worker(job, rank, world, torch, np)
         with open(os.path.join(base, f"r{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.shutdown()
@@ -5483,6 +5538,613 @@ def phase_remat_long(torch, np, fa, card, corpus, sd):
     return launches, stats
 
 
+# ---- phases 7u, 7v, 7w: model parallelism across processes ------------------
+
+
+def _timed_mesh_collectives(torch, pm, ring_mod):
+    """Wrap the mesh's collectives (parallel/mesh.py: all-reduce, all-gather,
+    reduce-scatter) and the process ring's hop with host timers that
+    synchronize first; returns (seconds by name, undo). The step's own
+    autograd functions call them by module attribute, so the wrap sees
+    every one."""
+    spent = {}
+    orig = {name: getattr(pm, name) for name in ("all_reduce", "all_gather",
+                                                 "reduce_scatter")}
+    hop = ring_mod.ProcessRing.post_hop
+
+    def wrap(name, fn):
+        def timed_fn(*a, **k):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn(*a, **k)
+            torch.cuda.synchronize()
+            spent[name] = spent.get(name, 0.0) + time.perf_counter() - t0
+            return out
+        return timed_fn
+
+    def timed_hop(self, *a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        wait = hop(self, *a, **k)
+        spent["hop_post"] = spent.get("hop_post", 0.0) + time.perf_counter() - t0
+
+        def timed_wait():
+            t1 = time.perf_counter()
+            out = wait()
+            spent["hop_wait"] = spent.get("hop_wait", 0.0) + time.perf_counter() - t1
+            return out
+        return timed_wait
+
+    for name, fn in orig.items():
+        setattr(pm, name, wrap(name, fn))
+    ring_mod.ProcessRing.post_hop = timed_hop
+
+    def undo():
+        for n, f in orig.items():
+            setattr(pm, n, f)
+        ring_mod.ProcessRing.post_hop = hop
+    return spent, undo
+
+
+def _mesh_step_state(torch, cfg, mesh, lr_steps=100):
+    """A seeded model (seed 0, built whole on the card, then put on the mesh)
+    and its optimizer, as _long_step builds them."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer
+
+    model = pm.shard_model(UniVTG(cfg, device="cuda", seed=0), mesh)
+    return TrainState(model, make_optimizer(
+        model.parameters(), build_schedule(1e-4, 10, 200, 0.1, lr_steps), 1e-4, 0.1))
+
+
+def _mesh_train_mr(job, rank, torch, np):
+    """7u(i): train_mr in the tp gang on phase 7's corpus, every step's
+    metrics recorded, the launches of this rank's share of the path."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.train import driver_mr
+
+    steps = []
+    make_step = driver_mr.make_train_step
+
+    def recording(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(state, mi, tg, seed):
+            state, metrics = step(state, mi, tg, seed)
+            steps.append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+        return run
+
+    cfg = cli.apply_overrides(_mesh_mr_cfg(job), [f"results_dir={job['results']}/p{rank}"])
+    driver_mr.make_train_step = recording
+    try:
+        _reset_launches()  # this rank's share of the tp training path starts here
+        t0 = time.perf_counter()
+        driver_mr.train_mr(cfg)
+        torch.cuda.synchronize()
+        launches = _launches()  # ... and ends here
+    finally:
+        driver_mr.make_train_step = make_step
+    evals = _jsonl(os.path.join(cfg.results_dir, "eval_log.jsonl")) if rank == 0 else []
+    return {"train_mr_s": time.perf_counter() - t0, "steps": steps, "launches": launches,
+            "evals": evals}
+
+
+def _mesh_mr_cfg(job):
+    """The qvhighlights_mr run of 7u(i): phase 7's corpus, B = 32, one epoch
+    evaluated, f32, "pallas", dropouts 0, tp = job's."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.presets import PRESETS
+
+    corpus = job["corpus"]
+    return cli.apply_overrides(PRESETS["qvhighlights_mr"](), [
+        f"train_data.data_path={corpus['train_path']}",
+        f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
+        f"train_data.q_feat_dir={corpus['q_feat_dir']}", "train_data.v_feat_dim=2816",
+        *_eval_overrides(corpus), "eval_epoch=1", "n_epoch=1", "bsz=32", "eval_bsz=32",
+        "model.attention_impl=pallas", "model.compute_dtype=float32", "model.dropout=0.0",
+        "model.droppath=0.0", "model.input_dropout=0.0", f"tp={job['tp']}",
+        "async_checkpoint=False"])
+
+
+def _mesh_long_steps(job, rank, torch, np):
+    """7u(ii): make_train_step at 8 x (2048 + 32) on the tp mesh, seq_shard
+    off and on, bf16 and f32, dropouts at the flagship's defaults: ms per
+    step by CUDA events, peak memory, flash launches a step, host ms inside
+    the collectives a step, the loss ("timed"); then one f32 step at dropouts
+    0 each, seq_shard off and on, its loss and grad norm ("exact")."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.ops import flash_attention as fa
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel import ring as ring_mod
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    mesh = pm.make_mesh(1, job["tp"], 1)
+    mi, tg = _long_batch(torch, np)
+    step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        for seq in (False, True):
+            cfg = flagship_model(attention_impl="pallas", compute_dtype=dname,
+                                 max_v_l=2048, seq_shard=seq)
+            holder = {"state": _mesh_step_state(torch, cfg, mesh)}
+
+            def one():
+                holder["state"], holder["m"] = step(holder["state"], mi, tg, 0)
+
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            before = dict(fa.launches)
+            spent, undo = _timed_mesh_collectives(torch, pm, ring_mod)
+            try:
+                one()  # the warm step, its collectives timed
+            finally:
+                undo()
+            ms = cuda_ms(one, iters=MESH_TIMED_STEPS, warmup=0)
+            made = {k: (fa.launches[k] - before[k]) / (MESH_TIMED_STEPS + 1) for k in before}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            out[f"{dname}_seq{int(seq)}"] = {
+                "ms": ms, "peak_gib": peak, "launches_a_step": made,
+                "collective_host_ms": {k: v * 1e3 for k, v in spent.items()},
+                "loss": float(holder["m"]["loss_overall"])}
+            del holder
+    # the same step in f32 with every dropout 0, seq_shard off and on: one
+    # step from the seed, held against one process in the parent
+    exact = {}
+    for seq in (False, True):
+        state = _mesh_step_state(torch, _exact_long_cfg(seq), mesh)
+        _, m = step(state, mi, tg, 0)
+        exact[f"seq{int(seq)}"] = {k: float(m[k]) for k in ("loss_overall", "grad_norm")}
+        del state
+    return {"timed": out, "exact": exact}
+
+
+def _exact_long_cfg(seq_shard):
+    """The flagship at 8 x (2048 + 32), f32, "pallas", every dropout 0."""
+    from univtg_tpu_torch.presets import flagship_model
+
+    return flagship_model(attention_impl="pallas", compute_dtype="float32", max_v_l=2048,
+                          seq_shard=seq_shard, dropout=0.0, droppath=0.0, input_dropout=0.0)
+
+
+def _routing_recorder(torch, records):
+    """Wrap ops/moe.moe_routing to record each call's top-k experts and
+    masked probabilities on the host (in a gang each rank routes the
+    global batch, so its records are the global routing); returns undo."""
+    from univtg_tpu_torch.ops import moe
+
+    orig = moe.moe_routing
+
+    def recording(probs, n_experts, top_k, capacity, token_mask=None, aux=True):
+        r = orig(probs, n_experts, top_k, capacity, token_mask=token_mask, aux=aux)
+        mask = torch.ones(probs.shape[0], device=probs.device) if token_mask is None \
+            else token_mask.float()
+        records.append((r.expert.detach().cpu(),
+                        (probs.detach() * mask[:, None]).cpu()))
+        return r
+
+    moe.moe_routing = recording
+    return lambda: setattr(moe, "moe_routing", orig)
+
+
+def _mesh_moe(job, case, rank, torch, np):
+    """7w: the MoE flagship on a (dp, tp, ep) mesh, f32, "pallas", dropouts 0,
+    the steps of _run_steps on the global batches at job["moe_batches"]
+    (each dp row its half), from job["moe_init"]; every step's metrics and
+    the global routing records; then this rank's ms per step."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    mesh = pm.make_mesh(*case["mesh"])
+    model = UniVTG(_moe_model(attention_impl="pallas", dropout=0.0, droppath=0.0,
+                              input_dropout=0.0), device="meta")
+    model.load_state_dict({k: v.cuda() for k, v in torch.load(job["moe_init"]).items()},
+                          assign=True)
+    pm.shard_model(model, mesh)
+    state = TrainState(model, make_optimizer(
+        model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 3), 1e-4, 0.1))
+    step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    batches = []
+    for batch in torch.load(job["moe_batches"], weights_only=False):
+        mi, tg = (to_device(t, "cuda") for t in strip_meta(batch))
+        n = mi["src_vid"].shape[0] // mesh.dp.size
+        rows = slice(mesh.dp.index * n, (mesh.dp.index + 1) * n)
+        batches.append(({k: v[rows] for k, v in mi.items()},
+                        {k: v[rows] for k, v in tg.items()}))
+    records, history = [], []
+    undo = _routing_recorder(torch, records)
+    _reset_launches()  # this rank's share of the MoE gang's path starts here
+    try:
+        for mi, tg in batches:
+            state, m = step(state, mi, tg, 0)
+            history.append({k: float(v) for k, v in m.items()})
+    finally:
+        undo()
+    torch.cuda.synchronize()
+    launches = _launches()  # ... and ends here
+    it = iter(range(10 ** 6))
+
+    def one():
+        step(state, *batches[next(it) % len(batches)], 0)
+
+    ms = cuda_ms(one, iters=MESH_TIMED_STEPS, warmup=1)
+    if rank == 0:
+        torch.save(records, os.path.join(job["results"], f"{case['name']}_routing.pt"))
+    return {"steps": history, "launches": launches, "ms": ms}
+
+
+def _mesh_ring_ops(job, rank, torch, np):
+    """7v(i): ring_attention_pallas over the tp axis as a ProcessRing at
+    8 x 2080 (8 heads of 128), f32 and bf16: each process its 1/P of the
+    seeded q, k, v and mask; the launches, ms a call (CUDA events) and the
+    host ms in the hops a call; rank 0 gathers the output and holds it
+    against the one-process RingGroup(P) on the same inputs."""
+    from univtg_tpu_torch.ops import ring_attention_pallas as rap
+    from univtg_tpu_torch.parallel import RingGroup
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel import ring as ring_mod
+
+    mesh = pm.make_mesh(1, job["ring_p"], 1)
+    ring = ring_mod.ProcessRing(mesh.tp, mesh.tp_ranks())
+    B, L, H, dh = MESH_RING_SHAPE
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, mask = _attention_inputs(torch, B, L, H, dh, dtype, seed=3)
+        mask[-1] = 0
+        blk = [t.chunk(ring.size, dim=1)[ring.rank].contiguous() for t in (q, k, v, mask)]
+        before = dict(rap.launches)
+        got = rap.ring_attention_pallas(*blk, num_heads=H, ring=ring)
+        torch.cuda.synchronize()
+        made = {n: rap.launches[n] - before[n] for n in before}
+        ms = cuda_ms(lambda: rap.ring_attention_pallas(*blk, num_heads=H, ring=ring),
+                     iters=MESH_TIMED_STEPS, warmup=1)
+        spent, undo = _timed_mesh_collectives(torch, pm, ring_mod)
+        try:
+            rap.ring_attention_pallas(*blk, num_heads=H, ring=ring)
+        finally:
+            undo()
+        whole = pm.all_gather(got, mesh.tp, 1)
+        rec = {"launches": made, "ms": ms,
+               "hop_host_ms": {k: v * 1e3 for k, v in spent.items()}}
+        if rank == 0:
+            one = rap.ring_attention_pallas(q, k, v, mask, num_heads=H,
+                                            ring=RingGroup(ring.size))
+            torch.cuda.synchronize()
+            rec["max_abs_diff"] = (whole.float() - one.float()).abs().max().item()
+            rec["bit_equal"] = bool(torch.equal(whole, one))
+        out[str(dtype)[6:]] = rec
+    return out
+
+
+def _long_ring_steps(torch, np, impl, mesh):
+    """MESH_RING_STEPS f32 make_train_steps on the long batch from the
+    flagship's seed-0 weights (dropouts 0) on ``mesh`` (None: one process);
+    every step's metrics."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.presets import flagship_model
+    from univtg_tpu_torch.train.steps import make_train_step
+
+    mi, tg = _long_batch(torch, np)
+    step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    cfg = flagship_model(attention_impl=impl, compute_dtype="float32", max_v_l=2048,
+                         dropout=0.0, droppath=0.0, input_dropout=0.0)
+    state = _mesh_step_state(torch, cfg, mesh)
+    history = []
+    for _ in range(MESH_RING_STEPS):
+        state, m = step(state, mi, tg, 0)
+        history.append({k: float(v) for k, v in m.items()})
+    return history
+
+
+def _mesh_ring_train(job, rank, torch, np):
+    """7v(ii): the f32 train steps at 8 x (2048 + 32) with "ring_pallas" on
+    the tp mesh (the tp ranks are the ring), the ring launches of this
+    process (the parent runs the "xla" reference alone)."""
+    from univtg_tpu_torch.ops import attention as attn
+    from univtg_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(1, job["ring_p"], 1)
+    _reset_launches()  # this process's share of the ring training path starts here
+    t0 = time.perf_counter()
+    got = _long_ring_steps(torch, np, "ring_pallas", mesh)
+    torch.cuda.synchronize()
+    launches = _launches()  # ... and ends here
+    return {"steps": got, "launches": launches, "dispatches": dict(attn.dispatches),
+            "s": time.perf_counter() - t0}
+
+
+def mesh_worker(job, rank, world, torch, np):
+    """One rank of a phase-7u/7v/7w gang (``chip_smoke.py --dist-worker``
+    with mode "mesh"): the job's cases in order, each on its own mesh."""
+    out = {"rank": rank}
+    for case in job["cases"]:
+        kind = case["kind"]
+        t0 = time.perf_counter()
+        if kind == "train_mr":
+            out[case["name"]] = _mesh_train_mr(job, rank, torch, np)
+        elif kind == "long":
+            out[case["name"]] = _mesh_long_steps(job, rank, torch, np)
+        elif kind == "moe":
+            out[case["name"]] = _mesh_moe(job, case, rank, torch, np)
+        elif kind == "ring_ops":
+            out[case["name"]] = _mesh_ring_ops(job, rank, torch, np)
+        elif kind == "ring_train":
+            out[case["name"]] = _mesh_ring_train(job, rank, torch, np)
+        out[case["name"]]["case_s"] = time.perf_counter() - t0
+    return out
+
+
+def _read_ranks(base, world):
+    ranks = []
+    for r in range(world):
+        with open(os.path.join(base, f"r{r}.json")) as f:
+            ranks.append(json.load(f))
+    return ranks
+
+
+def _rel_steps(got, want, keys=("loss_overall", "grad_norm")):
+    return [{k: abs(g[k] - w[k]) / max(abs(w[k]), 1e-12) for k in keys}
+            for g, w in zip(got, want, strict=True)]
+
+
+def _within_train_tol(rel):
+    return all(r["loss_overall"] <= TRAIN_TOL["loss"] and r["grad_norm"] <= TRAIN_TOL["grad_norm"]
+               for r in rel)
+
+
+def _flash_head_offset(torch, fa):
+    """7u(iii): the flash kernels over a tp rank's heads (4 of 8, from head
+    4: head_span (8, 4)) with attention dropout 0.1, forward and backward,
+    f32 and bf16 at 8 x 2080, against the twin with the same offset; and
+    the offset changes the kernels' mask (the global head is hashed)."""
+    B, L, H, dh = MESH_RING_SHAPE
+    Hl, off = H // 2, H // 2
+    out = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        q, k, v, mask = _attention_inputs(torch, B, L, Hl, dh, dtype, seed=9)
+        dout = torch.randn_like(q)
+        seed = torch.tensor([77], dtype=torch.int32, device="cuda")
+        got, lse = fa._forward(q, k, v, mask, Hl, None, 0.1, seed, (H, off))
+        grads = fa._backward(q, k, v, mask, got, lse, dout, Hl, None, 0.1, seed, (H, off))
+        own, _ = fa._forward(q, k, v, mask, Hl, None, 0.1, seed)
+        split = lambda t: fa._split(t, B, Hl, dh)  # noqa: E731
+        want, want_lse = fa.flash_attention_reference(
+            split(q), split(k), split(v), mask.repeat_interleave(Hl, dim=0),
+            sm_scale=dh**-0.5, dropout_rate=0.1, seed=seed, heads=(H, off, Hl))
+        want_g = fa.flash_attention_backward_reference(
+            split(q), split(k), split(v), mask.repeat_interleave(Hl, dim=0),
+            split(got), lse, split(dout), sm_scale=dh**-0.5, dropout_rate=0.1, seed=seed,
+            heads=(H, off, Hl))
+        torch.cuda.synchronize()
+        dname = str(dtype)[6:]
+        err = (got.float() - fa._merge(want, B, Hl, dh).float()).abs().max().item()
+        rels = [((g.float() - fa._merge(w, B, Hl, dh).float()).abs().max()
+                 / fa._merge(w, B, Hl, dh).float().abs().max()).item()
+                for g, w in zip(grads, want_g)]
+        moved = not torch.equal(got, own)
+        out[dname] = {"out_err": err, "bwd_rel": rels, "offset_moves_mask": moved}
+        if err > TOL[dname]["out"] or max(rels) > BWD_TOL[dname]["rel"] or not moved:
+            raise AssertionError(f"flash kernels with a head offset, {dname}: out err {err}, "
+                                 f"backward rel {rels}, the offset moved the mask {moved}")
+    return out
+
+
+def phase_mesh_tp(torch, np, card, tmp, corpus):
+    """7u and 7w, in one gang of MESH_TP gloo ranks sharing the card
+    (``chip_smoke.py --dist-worker`` mode "mesh"): (i) train_mr at tp =
+    MESH_TP on phase 7's corpus (full width, B = 32, f32, "pallas", dropouts
+    0, one epoch of 3 steps, evaluated on rank 0 over the gathered
+    parameters): every step against one process on the same batches at
+    TRAIN_TOL, the ranks equal, the canonical checkpoint read by one-process
+    `cli infer-mr` with the metrics of the gang's evaluation; (ii) the long
+    step at 8 x (2048 + 32), seq_shard off and on, bf16 and f32 (ms, peak
+    memory, launches, collective host ms per rank), and in f32 at dropouts 0
+    with seq_shard off and on against one process at TRAIN_TOL; (iii) the
+    flash kernels
+    with a head offset against the twin (in this process); 7w: the MoE
+    flagship (MOE_OVERRIDES, f32, "pallas", B = 32 global) on dp = 2 and on
+    ep = 2, each 3 steps against one process on the global batches at
+    TRAIN_TOL, tokens routed otherwise only within MOE_TIE_REL. Returns
+    ({path: launches summed over the ranks}, stats)."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.ops import flash_attention as fa
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    base = os.path.join(tmp, "mesh_tp")
+    os.makedirs(base, exist_ok=True)
+    moe_batches = _train_batches(np, corpus, 3)
+    moe_init = os.path.join(base, "moe_init.pt")
+    moe_sd = UniVTG(_moe_model(attention_impl="pallas", dropout=0.0, droppath=0.0,
+                               input_dropout=0.0), device="cpu", seed=0).state_dict()
+    torch.save(moe_sd, moe_init)
+    torch.save(moe_batches, os.path.join(base, "moe_batches.pt"))
+    job = {"mode": "mesh", "corpus": corpus, "tp": MESH_TP, "moe_init": moe_init,
+           "moe_batches": os.path.join(base, "moe_batches.pt"),
+           "cases": [{"kind": "train_mr", "name": "tp_train_mr"},
+                     {"kind": "long", "name": "tp_long"},
+                     {"kind": "moe", "name": "moe_dp2", "mesh": [2, 1, 1]},
+                     {"kind": "moe", "name": "moe_ep2", "mesh": [1, 1, 2]}]}
+    t0 = time.perf_counter()
+    outs = _wait_gang(_gang(job, base, MESH_TP), timeout=MESH_GANG_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    ranks = _read_ranks(base, MESH_TP)
+
+    # (i) against one process on the same batches, from the same seed
+    cfg = _mesh_mr_cfg(job)
+    model = UniVTG(cfg.model, device="cuda", seed=cfg.seed)
+    state = TrainState(model, make_optimizer(model.parameters(), build_schedule(
+        cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma, 3), cfg.wd, cfg.grad_clip))
+    step = make_train_step(cfg.weights, tuple(cfg.losses))
+    want = []
+    for batch in _train_batches(np, corpus, 3):
+        mi, tg = (to_device(t, "cuda") for t in strip_meta(batch, cfg.transfer_dtype))
+        want.append({k: float(v) for k, v in step(state, mi, tg, cfg.seed + 1)[1].items()})
+    got = ranks[0]["tp_train_mr"]["steps"]
+    tp_rel = rel = _rel_steps(got, want)
+    same = all(r["tp_train_mr"]["steps"] == got for r in ranks)
+    gang_eval = ranks[0]["tp_train_mr"]["evals"][-1]
+    ckpt = os.path.join(base, "p0", "model_best.ckpt")
+    torch.backends.cudnn.deterministic = True  # as in the gang's ranks
+    try:
+        brief, _, _, _ = _infer_mr(torch, np, tmp, ckpt, corpus, "tp_gang_ckpt", "pallas",
+                                   "float32")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    mismatch = {k: (v, brief.get(k)) for k, v in gang_eval.items()
+                if k != "epoch" and brief.get(k) != v}
+    tp_launches = {k: sum(r["tp_train_mr"]["launches"][k] for r in ranks)
+                   for k in ranks[0]["tp_train_mr"]["launches"]}
+    log(f"[mesh tp] {MESH_TP} gloo ranks sharing the card, train_mr tp={MESH_TP} "
+        f"({len(got)} steps, f32, pallas): ranks equal {same}; vs one process rel per "
+        f"step {rel} (limits {TRAIN_TOL}); its checkpoint through one-process infer-mr: "
+        f"metrics equal to the gang's evaluation {not mismatch}; launches (ranks summed) "
+        f"{tp_launches}; gang {gang_s:.1f} s")
+    if not got or not same or not _within_train_tol(rel):
+        raise AssertionError(f"the tp gang leaves the one-process curve: {rel}\n"
+                             f"{outs[0][-3000:]}")
+    if mismatch:
+        raise AssertionError(f"infer-mr on the gang's checkpoint: {mismatch}")
+    if any(r["tp_train_mr"]["launches"][k] == 0 for r in ranks for k in FLASH_KERNELS):
+        raise AssertionError(f"a tp rank skipped a kernel: {tp_launches}")
+
+    # (ii) the long step, seq_shard off and on
+    long = {f"rank{r['rank']}": r["tp_long"] for r in ranks}
+    configs = ranks[0]["tp_long"]["timed"]
+    for name, rec in configs.items():
+        log(f"[mesh tp] long step 8 x (2048 + 32), tp={MESH_TP}, {name} ({card}): "
+            f"{rec['ms']:.1f} ms, peak {rec['peak_gib']:.2f} GiB a rank, launches a step "
+            f"{rec['launches_a_step']}, host ms in collectives a step "
+            f"{ {k: round(v, 1) for k, v in rec['collective_host_ms'].items()} }, loss "
+            f"{rec['loss']:.5f}")
+    log(f"[mesh tp] long step per rank: {json.dumps(long)}")
+    for rec in configs.values():
+        if not np.isfinite(rec["loss"]) or any(
+                rec["launches_a_step"][k] != 4 for k in FLASH_KERNELS):
+            raise AssertionError(f"the tp long step: {rec}")
+    # ... and at dropouts 0 against one process on the same batch
+    from univtg_tpu_torch.models.losses import LossWeights
+
+    mi, tg = _long_batch(torch, np)
+    state = _mesh_step_state(torch, _exact_long_cfg(False), None)
+    one = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
+    m = one(state, mi, tg, 0)[1]
+    del state
+    want = {k: float(m[k]) for k in ("loss_overall", "grad_norm")}
+    exact = {name: _rel_steps([rec], [want])[0]
+             for name, rec in ranks[0]["tp_long"]["exact"].items()}
+    same = all(r["tp_long"]["exact"] == ranks[0]["tp_long"]["exact"] for r in ranks)
+    log(f"[mesh tp] long step 8 x (2048 + 32), tp={MESH_TP}, f32, dropouts 0 ({card}): "
+        f"ranks equal {same}; vs one process (loss {want['loss_overall']:.6f}, grad norm "
+        f"{want['grad_norm']:.6f}) rel {exact} (limits {TRAIN_TOL})")
+    if not same or not _within_train_tol(list(exact.values())):
+        raise AssertionError(f"the tp long step at dropouts 0 leaves one process: {exact}")
+
+    # (iii) the flash kernels over a rank's heads
+    offset = _flash_head_offset(torch, fa)
+    log(f"[mesh tp] flash kernels over heads 4-7 of 8 (head_span (8, 4)), dropout 0.1, "
+        f"8 x 2080, against the twin with the same offset: {offset}")
+
+    # 7w: the MoE gangs against one process on the global batches
+    moe_stats, moe_launches = {}, {}
+    for name in ("moe_dp2", "moe_ep2"):
+        records = []
+        undo = _routing_recorder(torch, records)
+        try:
+            _, want = _run_steps(torch, _moe_model(attention_impl="pallas", dropout=0.0,
+                                                   droppath=0.0, input_dropout=0.0),
+                                 moe_sd, moe_batches)
+        finally:
+            undo()
+        mine = torch.load(os.path.join(base, f"{name}_routing.pt"))
+        routed, worst = _routing_ties(torch, mine, records)
+        got = ranks[0][name]["steps"]
+        rel = _rel_steps(got, want, ("loss_overall", "grad_norm", "loss_moe_aux"))
+        same = all(r[name]["steps"] == got for r in ranks)
+        moe_launches[name] = {k: sum(r[name]["launches"][k] for r in ranks)
+                              for k in ranks[0][name]["launches"]}
+        moe_stats[name] = {"rel": rel, "tokens_routed_otherwise": routed,
+                           "worst_tie": worst,
+                           "ms_per_rank": [r[name]["ms"] for r in ranks]}
+        log(f"[mesh moe] {name} ({card}): ranks equal {same}; vs one process on the "
+            f"global batch, rel per step {rel}; tokens routed otherwise {routed} (largest "
+            f"tie gap {worst:.2e}, limit {MOE_TIE_REL}); ms a step per rank "
+            f"{moe_stats[name]['ms_per_rank']}; launches (ranks summed) "
+            f"{moe_launches[name]}")
+        if not got or not same or not all(
+                r["loss_overall"] <= TRAIN_TOL["loss"]
+                and r["grad_norm"] <= TRAIN_TOL["grad_norm"] for r in rel) \
+                or worst > MOE_TIE_REL:
+            raise AssertionError(f"{name} leaves the one-process curve: "
+                                 f"{moe_stats[name]}\n{outs[0][-3000:]}")
+        if any(r[name]["launches"][k] == 0 for r in ranks for k in FLASH_KERNELS):
+            raise AssertionError(f"a {name} rank skipped a kernel: {moe_launches[name]}")
+    moe_total = {k: sum(v[k] for v in moe_launches.values()) for k in tp_launches}
+    return ({"tp_training": tp_launches, "moe_dist_training": moe_total},
+            {"tp": {"rel": tp_rel, "long": long, "long_exact_rel": exact,
+                    "head_offset": offset, "gang_s": gang_s},
+             "moe": moe_stats})
+
+
+def phase_mesh_ring(torch, np, card, tmp):
+    """7v: the ring across processes, MESH_RING_P gloo ranks sharing the card,
+    the tp axis their ring: (i) ring_attention_pallas at 8 x 2080, f32 and
+    bf16, each process its block, the gathered output against the
+    one-process RingGroup(P) on the same inputs (bit for bit, or the
+    largest difference recorded), P ring_block + 1 ring_finish a call in
+    every process, ms a call and host ms in the hops; (ii) 2 f32 train
+    steps at 8 x (2048 + 32) with "ring_pallas" on the tp mesh against
+    "xla" in one process at TRAIN_TOL, 4 x (P + 1) launches a forward in
+    every process. Returns (the training path's launches summed over the
+    processes, stats)."""
+    base = os.path.join(tmp, "mesh_ring")
+    job = {"mode": "mesh", "ring_p": MESH_RING_P,
+           "cases": [{"kind": "ring_ops", "name": "ring_ops"},
+                     {"kind": "ring_train", "name": "ring_train"}]}
+    t0 = time.perf_counter()
+    outs = _wait_gang(_gang(job, base, MESH_RING_P), timeout=MESH_GANG_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    ranks = _read_ranks(base, MESH_RING_P)
+    P = MESH_RING_P
+    ops = {k: v for k, v in ranks[0]["ring_ops"].items() if k != "case_s"}
+    for dname, rec in ops.items():
+        log(f"[mesh ring] ring_attention_pallas over {P} processes at 8 x 2080, {dname} "
+            f"({card}): vs one-process RingGroup({P}) bit-equal {rec['bit_equal']}, max "
+            f"|d| {rec['max_abs_diff']:.3e}; {rec['ms']:.2f} ms a call, host ms in the "
+            f"hops a call {rec['hop_host_ms']}; launches per process "
+            f"{[r['ring_ops'][dname]['launches'] for r in ranks]}")
+        if any(r["ring_ops"][dname]["launches"] != {"ring_block": P, "ring_finish": 1}
+               for r in ranks):
+            raise AssertionError(f"the process ring's launches: {ranks}")
+        if rec["max_abs_diff"] > RING_TOL[dname]["abs"]:
+            raise AssertionError(f"the process ring leaves the one-process ring: {rec}")
+    train = ranks[0]["ring_train"]
+    rel = _rel_steps(train["steps"], _long_ring_steps(torch, np, "xla", None))
+    per_forward = {"ring_block": 4 * P, "ring_finish": 4}
+    want = {k: v * MESH_RING_STEPS for k, v in per_forward.items()}
+    launches = {k: sum(r["ring_train"]["launches"][k] for r in ranks)
+                for k in ranks[0]["ring_train"]["launches"]}
+    log(f"[mesh ring] 2 f32 train steps, ring_pallas on tp={P} processes vs xla in one "
+        f"({card}): rel per step {rel} (limits {TRAIN_TOL}); launches per process "
+        f"{[{k: r['ring_train']['launches'][k] for k in want} for r in ranks]} (want {want}), "
+        f"dispatches {train['dispatches']}; steps {train['s']:.1f} s; gang {gang_s:.1f} s")
+    if not _within_train_tol(rel) or any(
+            {k: r["ring_train"]["launches"][k] for k in want} != want for r in ranks):
+        raise AssertionError(f"the process ring's training: {rel}\n{outs[0][-3000:]}")
+    return launches, {"ops": {f"rank{r['rank']}": r["ring_ops"] for r in ranks},
+                      "train_rel": rel, "gang_s": gang_s}
+
+
 def _kernel_line(records_serving, records_train, records_int8, records_ring, by_path,
                  sass):
     """One entry per kernel for the final JSON line: times of the headline
@@ -5670,6 +6332,10 @@ def main() -> int:
                                        MOE_FIXTURE, "resume moe")
         log(f"[main path] MoE training resumed from a JAX scan-layout checkpoint "
             f"launches: {moe_resume_launches}")
+        mesh_launches, _ = timed("mesh tp", phase_mesh_tp, torch, np, smi, tmp, corpus)
+        log(f"[main path] tp training across processes ({MESH_TP} gloo ranks on the card, "
+            f"summed) launches: {mesh_launches['tp_training']}; MoE training across "
+            f"processes (dp = 2 and ep = 2, summed): {mesh_launches['moe_dist_training']}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -5682,6 +6348,10 @@ def main() -> int:
     ring_scan_launches, _ = timed("ring scan", phase_ring_scan, torch, np, sd, smi)
     log(f"[main path] ring training on CUDA graphs (scan_steps=2) launches: "
         f"{ring_scan_launches}")
+    with tempfile.TemporaryDirectory(prefix="univtg_chip_ring_gang_") as tmp:
+        ring_dist_launches, _ = timed("mesh ring", phase_mesh_ring, torch, np, smi, tmp)
+    log(f"[main path] ring training across processes ({MESH_RING_P} gloo ranks on the "
+        f"card, summed) launches: {ring_dist_launches}")
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "univtg_tpu")]
     if bad:
@@ -5714,7 +6384,10 @@ def main() -> int:
                             "moe_training": moe_train_launches,
                             "moe_inference": moe_infer_launches,
                             "remat_training": remat_launches,
-                            "moe_resume_training": moe_resume_launches}, sass)
+                            "moe_resume_training": moe_resume_launches,
+                            "tp_training": mesh_launches["tp_training"],
+                            "moe_dist_training": mesh_launches["moe_dist_training"],
+                            "ring_dist_training": ring_dist_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

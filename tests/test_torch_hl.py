@@ -151,17 +151,19 @@ def test_hl_driver_runtime_knobs(corpus, tmp_path):
 
 @pytest.mark.parametrize("field,value,error,match", [
     ("dp", 2, ValueError, r"dp=2: .* dp is the world size \(1\)"),
-    ("tp", 2, NotImplementedError, "tp > 1 yet .ROADMAP.md, queue 1 item 11"),
+    ("tp", 2, ValueError, r"mesh needs dp\*pp\*ep\*tp = 1\*1\*1\*2 = 2 devices"),
 ])
 def test_hl_multi_device_options_raise(corpus, tmp_path, field, value, error, match):
-    """dp is the world size (a gang of dp ranks runs HL, see
-    tests/test_torch_dist.py), so dp=2 in one process is refused; tp is
-    not ported."""
+    """dp * tp is the world size (a gang of dp * tp ranks runs HL, see
+    tests/test_torch_dist.py and tests/test_torch_tp.py), so dp=2 or tp=2
+    in one process is refused by train_hl; infer_hl runs in one process
+    and refuses a dp of more ranks than there are."""
     cfg = dataclasses.replace(_hl_cfg(corpus, tmp_path / "x"), **{field: value})
     with pytest.raises(error, match=match):
         train_hl(cfg, device="cpu")
-    with pytest.raises(error, match=match):
-        infer_hl(cfg, str(tmp_path), device="cpu")
+    if field == "dp":
+        with pytest.raises(error, match=match):
+            infer_hl(cfg, str(tmp_path), device="cpu")
 
 
 def test_cli_train_hl_and_infer_hl_on_the_cpu(corpus, tmp_path, capsys):

@@ -211,7 +211,7 @@ def test_config_json_is_shared_with_the_jax_package():
 
 
 @pytest.mark.parametrize("field,value", [
-    ("pipeline_stages", 2), ("seq_shard", True), ("attention_impl", "splash"),
+    ("pipeline_stages", 2), ("attention_impl", "splash"),
 ])
 def test_unported_config_values_raise(field, value):
     cfg = ModelConfig(**SMALL, **{field: value})
@@ -219,6 +219,26 @@ def test_unported_config_values_raise(field, value):
         check_supported(cfg)
     with pytest.raises(NotImplementedError):
         UniVTG(cfg, device="cpu")
+
+
+@pytest.mark.parametrize("impl", ["xla", "pallas"])
+def test_seq_shard_without_a_mesh_changes_nothing(impl):
+    """seq_shard runs (parallel/mesh.py; a tp gang in tests/test_torch_tp.py);
+    without a mesh it is a no-op, as JAX's seq_constraint is: the same
+    outputs bit for bit, in eval and in a training forward."""
+    outs = []
+    for seq in (False, True):
+        cfg = ModelConfig(**SMALL, seq_shard=seq, attention_impl=impl)
+        check_supported(cfg)
+        model = UniVTG(cfg, device="cpu", seed=5)
+        args = [torch.from_numpy(x) for x in _inputs(1)]
+        with torch.no_grad():
+            outs.append([model(*args, train=train,
+                               generator=torch.Generator().manual_seed(3))
+                         for train in (False, True)])
+    for a, b in zip(*outs):
+        for k in ("pred_logits", "pred_spans", "saliency_scores"):
+            assert torch.equal(a[k], b[k]), k
 
 
 @pytest.mark.parametrize("field,value", [

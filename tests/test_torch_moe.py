@@ -238,25 +238,36 @@ def test_top_k_above_experts_raises(monkeypatch):
 
 
 def test_moe_in_a_gang_and_ep_raise(tmp_path):
-    """A gang routes per rank where JAX routes the global batch: refused,
-    naming ROADMAP; so is the expert bank over ranks (ep > 1)."""
+    """A MoE model in a gang routes the global batch (tests/test_torch_ep.py
+    holds gangs of 2, 4 and 8 against JAX): in a gang of one its step is the
+    one-process step bit for bit. ep > 1 raises JAX's ValueErrors for a
+    dense model, for top_k > E and for E that does not tile over ep."""
     from univtg_tpu_torch.train.driver_mr import TrainConfig, train_mr
 
     cfg = ModelConfig(**G.MOE_MODEL)
-    model = UniVTG(cfg, device="cpu")
-    state = TrainState(model, make_optimizer(model.parameters(),
-                                             build_schedule(*G.SCHEDULE)))
     mi, tg = _t(G.batch(0))
-    dist.init_gang(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
-    try:
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            make_train_step(LossWeights(**G.WEIGHTS))(state, mi, tg, 0)
-    finally:
-        dist.shutdown()
-    assert state.step == 0
-    make_train_step(LossWeights(**G.WEIGHTS))(state, mi, tg, 0)  # one process runs
-    with pytest.raises(NotImplementedError, match="ep > 1.*ROADMAP"):
-        train_mr(TrainConfig(model=cfg, ep=2), device="cpu")
+    metrics = []
+    for gang in (True, False):
+        model = UniVTG(cfg, device="cpu")
+        state = TrainState(model, make_optimizer(model.parameters(),
+                                                 build_schedule(*G.SCHEDULE)))
+        if gang:
+            dist.init_gang(f"file://{tmp_path / 'store'}", 1, 0, device="cpu")
+        try:
+            metrics.append(make_train_step(LossWeights(**G.WEIGHTS))(state, mi, tg, 0)[1])
+        finally:
+            dist.shutdown()
+        assert state.step == 1
+    for k in metrics[0]:
+        assert torch.equal(metrics[0][k], metrics[1][k]), k
+    dense = {k: v for k, v in G.MOE_MODEL.items() if not k.startswith("moe_")}
+    for model_kw, ep, match in (
+            (dense, 2, "ep=2 needs a MoE model"),
+            ({**G.MOE_MODEL, "moe_experts": 3, "moe_top_k": 1}, 2,
+             "moe_experts=3 must tile over ep=2"),
+            ({**G.MOE_MODEL, "moe_experts": 2, "moe_top_k": 3}, 2, "moe_top_k=3 must be <=")):
+        with pytest.raises(ValueError, match=match):
+            train_mr(TrainConfig(model=ModelConfig(**model_kw), ep=ep), device="cpu")
 
 
 # --------------------------------------------------------------- the model

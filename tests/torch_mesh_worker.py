@@ -1,0 +1,267 @@
+"""One rank of a model-parallel gang of the port on the CPU (gloo), for
+tests/test_torch_tp.py and tests/test_torch_ep.py, and the helpers that
+launch such gangs.
+
+    python torch_mesh_worker.py <rank> <world> <init_method> <job.json>
+
+``job.json`` holds ``cases``, run in order by every rank, each on its own
+mesh ``[dp, tp, ep]`` (dp * tp * ep = world; the groups of a grid are made
+once). Kinds:
+  * steps -- the model of ``cfg`` (Moment-DETR with ``md``, replicated)
+    from the canonical state dict at
+    ``init`` (or ``resume``d with ``resume_all`` from a checkpoint, the JAX
+    package's too), put on the mesh, stepped by ``make_train_step`` over
+    the global batches at ``batches`` (each dp row its slice); writes every
+    step's metrics, the canonical parameters after the last step (gathered
+    by every rank), the warnings and the attention dispatches to
+    ``<out>/<name>.pt`` (rank 0) and each rank's metrics to
+    ``<out>/<name>_r<rank>.json``; with ``ckpt``, rank 0 saves the gathered
+    checkpoint there;
+  * ring -- ``process_ring_attention`` and ``ring_attention_pallas`` (the
+    CPU twin) over the tp axis as a ``ProcessRing`` on the (B, L, D) q, k,
+    v and mask at ``inputs``, each rank on its block: the outputs and the
+    gradients of ``sum(out * w)`` all-gathered, and the dropout output at
+    ``rate``/``seed``, to ``<out>/<name>.pt`` (rank 0);
+  * hl -- ``train_hl`` through ``torch_dist_worker.run_hl`` with ``tp`` set
+    (dp = world / tp), into ``<out>/p<rank>``;
+  * train_mr -- ``train_mr`` (the config of ``mr_cfg``) from the weights
+    at ``init`` (weights only, loaded whole before the model is put on
+    the mesh), every step's metrics to ``<out>/<name>/steps_r<rank>.json``;
+    its logs and checkpoints in ``<out>/<name>/p<rank>``.
+"""
+import json
+import os
+import subprocess
+import sys
+import warnings
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+REPO = os.path.dirname(HERE)
+sys.path.insert(0, REPO)
+sys.path.insert(0, HERE)
+
+GANG_TIMEOUT = 240
+
+
+def launch(job: dict, base: str, world: int):
+    """Start a gang of ``world`` ranks on ``job``, written to base/job.json;
+    returns the processes."""
+    os.makedirs(base, exist_ok=True)
+    path = os.path.join(base, "job.json")
+    with open(path, "w") as f:
+        json.dump(job, f)
+    store = os.path.join(base, "store")
+    if os.path.exists(store):  # a FileStore left by a gang that failed
+        os.remove(store)
+    env = {**os.environ, "OMP_NUM_THREADS": "1"}
+    return [subprocess.Popen(
+        [sys.executable, os.path.abspath(__file__), str(r), str(world),
+         "file://" + store, path],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
+        for r in range(world)]
+
+
+def wait(procs):
+    """Wait for the gang (GANG_TIMEOUT each), kill what is left, and check
+    every rank exited 0; returns the outputs."""
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=GANG_TIMEOUT)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, out) in enumerate(zip(procs, outs)):
+        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-6000:]}"
+    return outs
+
+
+def once(tmp_path_factory, name, make):
+    """``make(dir)`` run once per test session, whichever xdist worker asks
+    first (the others wait on a lock and reuse the directory); returns what
+    ``make`` returned, as JSON."""
+    import fcntl
+
+    base = tmp_path_factory.getbasetemp()
+    if os.environ.get("PYTEST_XDIST_WORKER"):
+        base = base.parent
+    root = base / "torch_mesh"
+    root.mkdir(exist_ok=True)
+    with open(root / f"{name}.lock", "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        done = root / name / "done.json"
+        if not done.exists():
+            (root / name).mkdir(exist_ok=True)
+            done.write_text(json.dumps(make(str(root / name))))
+        return json.loads(done.read_text())
+
+
+def dp_slice(tree, mesh):
+    """This dp row's rows of a global batch (a dict of tensors)."""
+    if mesh is None or not mesh.dp.on:
+        return tree
+    n = next(iter(tree.values())).shape[0] // mesh.dp.size
+    return {k: v[mesh.dp.index * n:(mesh.dp.index + 1) * n] for k, v in tree.items()}
+
+
+def run_steps(case, rank, out):
+    import torch
+
+    from univtg_tpu_torch.models import ModelConfig, UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.ops import attention
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.train import checkpoint as ckpt
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    mesh = pm.make_mesh(*case["mesh"])
+    model, step = md_model_and_step(case) if case.get("md") else (
+        UniVTG(ModelConfig(**case["cfg"]), device="cpu", seed=0),
+        make_train_step(LossWeights(**case.get("weights", {}))))
+    if case.get("init"):
+        model.load_state_dict(torch.load(case["init"]))
+    (pm.replicate_model if case.get("md") else pm.shard_model)(model, mesh)
+    state = TrainState(model, make_optimizer(model.parameters(),
+                                             build_schedule(*case["sched"]),
+                                             case["wd"], case["clip"]))
+    if case.get("resume"):
+        ckpt.restore_checkpoint(case["resume"], state)
+    before = dict(attention.dispatches)
+    metrics = []
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        for mi, tg in torch.load(case["batches"]):
+            state, m = step(state, dp_slice(mi, mesh), dp_slice(tg, mesh), case["seed"])
+            metrics.append({k: float(v) for k, v in m.items()})
+    blob = ckpt.host_blob(state, 0, None)
+    if case.get("ckpt") and rank == 0:
+        ckpt.save_checkpoint(case["ckpt"], state, 0, blob=blob)
+    with open(os.path.join(out, f"{case['name']}_r{rank}.json"), "w") as f:
+        json.dump(metrics, f)
+    if rank == 0:
+        torch.save({"metrics": metrics, "params": blob["model"],
+                    "warnings": [str(w.message) for w in caught],
+                    "dispatches": {k: attention.dispatches[k] - before[k] for k in before}},
+                   os.path.join(out, f"{case['name']}.pt"))
+
+
+def md_model_and_step(case):
+    """A Moment-DETR case's model (seed 0) and its train step."""
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.models.moment_detr import MomentDETR, MomentDETRConfig
+    from univtg_tpu_torch.train.steps import make_md_train_step
+
+    return (MomentDETR(MomentDETRConfig(**case["cfg"]), device="cpu", seed=0),
+            make_md_train_step(LossWeights(**case.get("weights", {}))))
+
+
+def run_ring(case, rank, out):
+    import torch
+
+    from univtg_tpu_torch.ops import ring_attention_pallas as rap
+    from univtg_tpu_torch.ops.ring_attention import process_ring_attention
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel.ring import ProcessRing
+
+    mesh = pm.make_mesh(*case["mesh"])
+    ring = ProcessRing(mesh.tp, mesh.tp_ranks())
+    full = torch.load(case["inputs"])
+    q, k, v, mask, w = (full[n].chunk(ring.size, dim=1)[ring.rank] for n in "qkvmw")
+    H = case["heads"]
+    res = {}
+    for name, fn in (("ring", process_ring_attention), ("ring_pallas", rap.ring_attention_pallas)):
+        xs = [t.clone().requires_grad_() for t in (q, k, v)]
+        o = fn(*xs, mask, num_heads=H, ring=ring)
+        grads = torch.autograd.grad((o * w).sum(), xs)
+        res[name] = [pm.all_gather(t.detach(), mesh.tp, 1) for t in (o, *grads)]
+    seed = torch.tensor([case["seed"]], dtype=torch.int32)
+    o = process_ring_attention(q, k, v, mask, num_heads=H, ring=ring,
+                               dropout_rate=case["rate"], dropout_seed=seed)
+    res["dropout"] = pm.all_gather(o, mesh.tp, 1)
+    if rank == 0:
+        torch.save(res, os.path.join(out, f"{case['name']}.pt"))
+
+
+def mr_cfg(case, results_dir):
+    """The TrainConfig of a train_mr case: the case's model on its corpus
+    (``corpus``: create_synthetic_mr_corpus's dict), bsz 4 a dp row, 2
+    epochs each evaluated, lr 1e-3."""
+    from univtg_tpu_torch.data.mr import MRDataConfig
+    from univtg_tpu_torch.models import ModelConfig
+    from univtg_tpu_torch.train.driver_mr import TrainConfig
+
+    c = case["corpus"]
+
+    def data(path):
+        return MRDataConfig(data_path=path, v_feat_dirs=tuple(c["v_feat_dirs"]),
+                            q_feat_dir=c["q_feat_dir"], v_feat_dim=c["v_dim"],
+                            q_feat_dim=c["q_dim"], max_q_l=case["cfg"]["max_q_l"],
+                            max_v_l=case["cfg"]["max_v_l"])
+
+    return TrainConfig(model=ModelConfig(**case["cfg"]), train_data=data(c["train_path"]),
+                       eval_data=data(c["val_path"]), results_dir=results_dir, bsz=4,
+                       eval_bsz=4, n_epoch=2, eval_epoch=1, lr=1e-3, lr_warmup=1,
+                       lr_drop=100, num_io_threads=2, prefetch_depth=0, seed=7,
+                       tp=case["mesh"][1], ep=case["mesh"][2],
+                       sharded_eval=case.get("sharded_eval", False))
+
+
+def run_train_mr(case, rank, out):
+    from univtg_tpu_torch.train import driver_mr
+
+    steps = []
+    make_step = driver_mr.make_train_step
+
+    def recording(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(state, mi, tg, seed):
+            state, metrics = step(state, mi, tg, seed)
+            steps.append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+        return run
+
+    base = os.path.join(out, case["name"])
+    driver_mr.make_train_step = recording
+    try:
+        driver_mr.train_mr(mr_cfg(case, os.path.join(base, f"p{rank}")),
+                           resume=case["init"], device="cpu")
+    finally:
+        driver_mr.make_train_step = make_step
+    with open(os.path.join(base, f"steps_r{rank}.json"), "w") as f:
+        json.dump(steps, f)
+
+
+def run_hl_case(case, rank, out):
+    import dataclasses
+
+    import torch_dist_worker as dw
+
+    build = dw.build_hl_cfg
+    dw.build_hl_cfg = lambda meta, d: dataclasses.replace(build(meta, d), tp=case["tp"])
+    dw.run_hl({"hl": case["hl"], "init": case["init"]}, out, rank)
+
+
+def main():
+    import torch
+
+    torch.set_num_threads(1)
+    rank, world, init = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3]
+    with open(sys.argv[4]) as f:
+        job = json.load(f)
+    from univtg_tpu_torch.parallel import dist
+
+    dist.init_gang(init, world, rank, device="cpu")
+    kinds = {"steps": run_steps, "ring": run_ring, "hl": run_hl_case,
+             "train_mr": run_train_mr}
+    for case in job["cases"]:
+        kinds[case["kind"]](case, rank, job["out"])
+    dist.shutdown()
+    print(f"worker {rank} done", flush=True)
+
+
+if __name__ == "__main__":
+    main()

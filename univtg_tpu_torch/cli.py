@@ -44,7 +44,9 @@ trains a model per leave-one-out split and prints each split's best F/R/P
 and AVG_F; ``infer-qfvs`` scores the ``model_V{n}_best.ckpt`` files of
 ``--ckpt-dir``; ``train-vlp`` pretrains on the preset's corpora with the
 per-sample loss gates, in one process (across processes, each process
-calls ``train/driver_vlp.init_distributed`` and then ``train_vlp``);
+calls ``train/driver_vlp.init_distributed`` and then ``train_vlp``; the
+``tp=``, ``ep=`` and ``model.seq_shard=`` overrides lay a world of dp * tp
+* ep ranks out as parallel/mesh.py says);
 ``eval`` scores a submission file against ground truth; ``plot`` draws
 per-query figures of a submission ({qid}.png, or with ``--paper`` the
 paper's figure sets: a directory per query with 1_mr.jpg, 2_hl.jpg and

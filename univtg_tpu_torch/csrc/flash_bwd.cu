@@ -212,7 +212,7 @@ flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* vp = v + b * kl.sb + h * kl.sh;
   const float* mp = mask + (long long)b * Lk;
   const unsigned int seed_bh =
-      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+      drop.seed ? flash::dropout_seed_bh(drop, bh, H) : 0u;
 
   copy_rows<DH>(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
   copy_rows<DH>(dOs, dout + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
@@ -367,7 +367,7 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const float* lp = lse + (long long)bh * Lq;
   const float* dlp = delta + (long long)bh * Lq;
   const unsigned int seed_bh =
-      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+      drop.seed ? flash::dropout_seed_bh(drop, bh, H) : 0u;
 
   copy_rows<DH>(Ks, k + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
   copy_rows<DH>(Vs, v + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
@@ -552,7 +552,7 @@ flash_bwd_dq_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * kl.sb + h * kl.sh;
   const float* mp = mask + (long long)b * Lk;
   const unsigned int seed_bh =
-      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+      drop.seed ? flash::dropout_seed_bh(drop, bh, H) : 0u;
 
   load_tile<DH>(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
   load_tile<DH>(dOs, dout + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
@@ -683,7 +683,7 @@ flash_bwd_dkv_kernel_sm90(const bf16* __restrict__ q,
   const float* lp = lse + (long long)bh * Lq;
   const float* dlp = delta + (long long)bh * Lq;
   const unsigned int seed_bh =
-      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+      drop.seed ? flash::dropout_seed_bh(drop, bh, H) : 0u;
 
   load_tile<DH>(Ks, k + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
   load_tile<DH>(Vs, v + b * kl.sb + h * kl.sh, kl.sl, k0, Lk, dh);
@@ -898,8 +898,9 @@ extern "C" {
 // call returns cudaErrorMisalignedAddress, and the dropout grid is in
 // multiples of 64. seed: null for no
 // dropout, else one int32 on the device; thresh, drop_scale and the dropout
-// grid (drop_bq, drop_bk) as flash_common.cuh says, the same values the
-// forward was given.
+// grid (drop_bq, drop_bk) and the hash's global heads (drop_heads,
+// drop_head_off) as flash_common.cuh says, the same values the forward was
+// given.
 // Each returns a cudaError_t; 0 on success. Launches on `stream`, allocates
 // nothing and does not synchronise.
 int univtg_flash_bwd_dq(const void* q, const void* k, const void* v,
@@ -909,7 +910,8 @@ int univtg_flash_bwd_dq(const void* q, const void* k, const void* v,
                         long long q_sl, long long k_sb, long long k_sh,
                         long long k_sl, float sm_scale, const void* seed,
                         unsigned int thresh, float drop_scale, int drop_bq,
-                        int drop_bk, void* stream) {
+                        int drop_bk, int drop_heads,
+                        int drop_head_off, void* stream) {
   if (bad_shape(BH, H, Lq, Lk, dh, seed, drop_bq, drop_bk))
     return (int)cudaErrorInvalidValue;
   const Args a{q, k, v, dout, static_cast<const float*>(mask),
@@ -917,7 +919,7 @@ int univtg_flash_bwd_dq(const void* q, const void* k, const void* v,
                BH, H, Lq, Lk, dh, Layout{q_sb, q_sh, q_sl},
                Layout{k_sb, k_sh, k_sl}, sm_scale,
                Dropout{static_cast<const int*>(seed), thresh, drop_scale,
-                       drop_bq, drop_bk},
+                       drop_bq, drop_bk, drop_heads, drop_head_off},
                static_cast<cudaStream_t>(stream)};
   const void* ptrs[] = {q, k, v, dout, dq};
   // the f32 kernels, too, take a 64-row tile's dropout hash input from one
@@ -945,6 +947,7 @@ int univtg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                          long long k_sh, long long k_sl, float sm_scale,
                          const void* seed, unsigned int thresh,
                          float drop_scale, int drop_bq, int drop_bk,
+                         int drop_heads, int drop_head_off,
                          void* stream) {
   if (bad_shape(BH, H, Lq, Lk, dh, seed, drop_bq, drop_bk))
     return (int)cudaErrorInvalidValue;
@@ -953,7 +956,7 @@ int univtg_flash_bwd_dkv(const void* q, const void* k, const void* v,
                BH, H, Lq, Lk, dh, Layout{q_sb, q_sh, q_sl},
                Layout{k_sb, k_sh, k_sl}, sm_scale,
                Dropout{static_cast<const int*>(seed), thresh, drop_scale,
-                       drop_bq, drop_bk},
+                       drop_bq, drop_bk, drop_heads, drop_head_off},
                static_cast<cudaStream_t>(stream)};
   const void* ptrs[] = {q, k, v, dout, dk, dv};
   // the f32 kernels, too, take a 64-row tile's dropout hash input from one

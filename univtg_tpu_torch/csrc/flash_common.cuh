@@ -42,17 +42,25 @@ struct Layout {
 // Attention dropout: off when seed is null. thresh = min(rate * 2^32,
 // 2^32 - 1) and scale = 1 / (1 - rate) in f32, both computed by the wrapper
 // as the reference computes them; (bq, bk) is the reference's dropout grid.
+// heads and head_off place a launch over some of a layer's heads (a tensor-
+// parallel rank's): the hash takes the global (batch * heads + head_off + h)
+// row; heads = 0 hashes the launch's own bh.
 struct Dropout {
   const int* seed;
   unsigned int thresh;
   float scale;
   int bq, bk;
+  int heads, head_off;
 };
 
-// The seed mixed with the (batch*head) index: the part of the hash that is
-// constant over one block's (bh).
+// The seed mixed with the (batch*head) index of launch row bh of H heads:
+// the part of the hash that is constant over one block's (bh).
 __device__ __forceinline__ unsigned int dropout_seed_bh(const Dropout& d,
-                                                        int bh) {
+                                                        int bh, int H) {
+  if (d.heads > 0) {
+    const int b = bh / H;
+    bh = b * d.heads + d.head_off + (bh - b * H);
+  }
   return static_cast<unsigned int>(d.seed[0]) ^
          (static_cast<unsigned int>(bh) * 0x9E3779B1u);
 }

@@ -285,7 +285,7 @@ __device__ __forceinline__ void attend(const AttendArgs& a, int bh, int q0) {
   const float* vp = a.v + b * a.kl.sb + h * a.kl.sh;
   const float* mp = a.mask + b * a.mask_sb;
   const bool drop = !RING && a.drop.seed;
-  const unsigned int seed_bh = drop ? flash::dropout_seed_bh(a.drop, bh) : 0u;
+  const unsigned int seed_bh = drop ? flash::dropout_seed_bh(a.drop, bh, a.H) : 0u;
 
   copy_rows<DH, NR>(Qs, qp, a.ql.sl, q0, Lq, dh);
   copy_rows<DH>(Ks, kp, a.kl.sl, 0, Lk, dh);

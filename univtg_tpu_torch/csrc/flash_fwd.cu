@@ -136,7 +136,7 @@ flash_fwd_kernel_sm90(const bf16* __restrict__ q, const bf16* __restrict__ k,
   const bf16* vp = v + b * kl.sb + h * kl.sh;
   const float* mp = mask + (long long)b * Lk;
   const unsigned int seed_bh =
-      drop.seed ? flash::dropout_seed_bh(drop, bh) : 0u;
+      drop.seed ? flash::dropout_seed_bh(drop, bh, H) : 0u;
 
   load_tile<DH>(Qs, q + b * ql.sb + h * ql.sh, ql.sl, q0, Lq, dh);
   load_tile<DH>(Ks, kp, kl.sl, 0, Lk, dh);
@@ -293,7 +293,8 @@ extern "C" {
 // or the call returns cudaErrorMisalignedAddress or cudaErrorInvalidValue.
 // seed: null for no dropout, else one int32 on the device (read by the
 // kernel, so the wrapper never waits for it); thresh, drop_scale and the
-// dropout grid (drop_bq, drop_bk) as flash_common.cuh says.
+// dropout grid (drop_bq, drop_bk) and the hash's global heads (drop_heads,
+// drop_head_off; 0, 0: the launch's own) as flash_common.cuh says.
 // Returns a cudaError_t; 0 on success. Launches on `stream`, allocates
 // nothing and does not synchronise.
 int univtg_flash_fwd(const void* q, const void* k, const void* v,
@@ -302,7 +303,8 @@ int univtg_flash_fwd(const void* q, const void* k, const void* v,
                      long long q_sh, long long q_sl, long long k_sb,
                      long long k_sh, long long k_sl, float sm_scale,
                      const void* seed, unsigned int thresh, float drop_scale,
-                     int drop_bq, int drop_bk, void* stream) {
+                     int drop_bq, int drop_bk, int drop_heads,
+                     int drop_head_off, void* stream) {
   if (dh <= 0 || dh > f32::MAX_DH || dh % 8 != 0 || Lq <= 0 || Lk <= 0 ||
       BH <= 0 || H <= 0 || BH % H != 0 || BH > 65535 ||
       (seed && (drop_bq <= 0 || drop_bk <= 0)))
@@ -311,7 +313,7 @@ int univtg_flash_fwd(const void* q, const void* k, const void* v,
                static_cast<float*>(lse), BH, H, Lq, Lk, dh,
                Layout{q_sb, q_sh, q_sl}, Layout{k_sb, k_sh, k_sl}, sm_scale,
                Dropout{static_cast<const int*>(seed), thresh, drop_scale,
-                       drop_bq, drop_bk},
+                       drop_bq, drop_bk, drop_heads, drop_head_off},
                static_cast<cudaStream_t>(stream)};
   const void* ptrs[] = {q, k, v, out};
   // both kernels take a 64-key tile's dropout hash input from one block of

@@ -284,7 +284,7 @@ cudaError_t launch_block_f32_tiles(const BlockArgs& a) {
       static_cast<const float*>(a.q), static_cast<const float*>(a.k),
       static_cast<const float*>(a.v), a.mask, nullptr, nullptr, a.m, a.l,
       a.acc, a.H, a.Lq, a.Lk, a.dh, a.ql, a.kl, a.mask_sb, a.scale,
-      flash::Dropout{nullptr, 0u, 1.f, 0, 0}, a.first};
+      flash::Dropout{nullptr, 0u, 1.f, 0, 0, 0, 0}, a.first};
   const dim3 grid = f32::attend_grid(a.BH, a.Lq);
   ring_block_kernel<DH, TAILS><<<grid, f32::THREADS, smem, a.stream>>>(args);
   return cudaGetLastError();

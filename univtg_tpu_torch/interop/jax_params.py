@@ -231,6 +231,15 @@ def state_dict_from_jax(params, cfg) -> dict:
     return state_dict_from_jax_params(params, cfg)
 
 
+def shard_state_dict_from_jax(params, cfg, coords: dict, sizes: dict) -> dict:
+    """The shards of the JAX tree's state_dict that the rank at ``coords``
+    (its dp, ep and tp indices) holds on a mesh of ``sizes``, by the rules
+    of ``parallel/mesh.py``."""
+    from univtg_tpu_torch.parallel.mesh import shard_state_dict
+
+    return shard_state_dict(state_dict_from_jax(params, cfg), coords, sizes)
+
+
 def checked_state_dict_from_jax(params, cfg, want: dict, what="params") -> dict:
     """``state_dict_from_jax`` of a tree that must match the model exactly:
     every leaf read, each tensor of ``want``'s shape, no key of ``want``

@@ -50,14 +50,17 @@ class ModelConfig:
     #   Both ring impls run "xla" when no ring is active or the sequence does
     #   not tile over it; "ring_pallas" runs "ring" under attention dropout.
     attention_impl: str = "xla"
-    # seq_shard and the pipeline_* fields: features of the JAX package that
-    # later slices port; they parse here (the field order is the JAX JSON's)
+    # shard the token axis of the activations between the encoder's matrices
+    # over tp (Megatron sequence parallelism; parallel/mesh.py), where L
+    # tiles over it; a no-op without a mesh with tp > 1
     seq_shard: bool = False
     # recompute each encoder layer in the backward (torch.utils.checkpoint)
     remat: bool = False
     # the JAX package runs the layers as one lax.scan over stacked params;
     # here it changes only the layout read from a JAX tree (interop)
     scan_layers: bool = False
+    # the pipeline_* fields: a feature of the JAX package that a later slice
+    # ports; they parse here (the field order is the JAX JSON's)
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
     pipeline_interleave: int = 1
@@ -91,16 +94,9 @@ class ModelConfig:
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for the config values this slice of the port cannot run."""
-    unsupported = {
-        "pipeline_stages>0": cfg.pipeline_stages > 0,
-        "seq_shard": cfg.seq_shard,
-    }
-    named = [k for k, on in unsupported.items() if on]
-    if named:
+    if cfg.pipeline_stages > 0:
         raise NotImplementedError(
-            f"the PyTorch port does not run {', '.join(named)} yet "
-            f"(ROADMAP.md, queue 1)"
-        )
+            "the PyTorch port does not run pipeline_stages>0 yet (ROADMAP.md, queue 1)")
     if cfg.moe_experts > 1 and cfg.moe_top_k > cfg.moe_experts:
         raise ValueError(f"moe_top_k={cfg.moe_top_k} must be <= "
                          f"moe_experts={cfg.moe_experts}")

@@ -19,6 +19,24 @@ its activations recomputed in the backward -- recomputes with the same bits
 and consumes the generator as the plain layer does. ``scan_layers`` changes
 no arithmetic here: it names the layout of the JAX package's parameters
 (``interop/jax_params.py`` reads both).
+
+On a mesh (parallel/mesh.shard_model, with tp or ep > 1, or a MoE model in
+a gang; without one the layers run on ``mesh.SOLO``, whose collectives are
+all identities) each layer is Megatron tensor parallel: rank t holding
+heads [t H/tp, (t+1) H/tp) and F/tp FFN columns, the row-parallel outputs
+all-reduced over tp and their biases added once after the reduce (without
+tp, inside the product); the MoE bank through ``ops/moe.moe_ffn``. Under
+``seq_shard`` (where L tiles over tp) the layers run on token blocks
+between the matrices
+(Megatron sequence parallelism: all-gather before the column-parallel
+matrices, reduce-scatter after the row-parallel ones), and the replicated
+parameters used on a block (the LayerNorms, the two output biases) have
+their gradients summed over tp. With a ring impl and tp > 1 the tp ranks
+are the ring (parallel/ring.ProcessRing), as JAX's "tp" axis is: each rank
+projects its own L/tp tokens with the whole in_proj and out_proj,
+all-gathered from their shards (their gradients reduce-scattered back).
+The drawn noise is the whole layer's: the "xla" keep uniforms of every
+head, sliced to the rank's, and the flash kernels' hash of the global head.
 """
 from __future__ import annotations
 
@@ -32,6 +50,10 @@ from torch.utils.checkpoint import checkpoint
 from univtg_tpu_torch.models.layers import LayerNorm, Linear
 from univtg_tpu_torch.ops.attention import dropout_noise, multihead_attention
 from univtg_tpu_torch.ops.moe import moe_ffn
+from univtg_tpu_torch.parallel import mesh as pm
+from univtg_tpu_torch.parallel.ring import ProcessRing
+
+RING_IMPLS = ("ring", "ring_pallas")
 
 
 def drop_path_noise(x, generator):
@@ -61,28 +83,75 @@ class SelfAttention(nn.Module):
         self.in_proj_weight = nn.Parameter(torch.empty(3 * dim, dim))
         self.in_proj_bias = nn.Parameter(torch.empty(3 * dim))
         self.out_proj = Linear(dim, dim)
+        self.mesh, self.ring = pm.SOLO, None
+        self.heads_local, self.head_off = num_heads, 0
 
-    def noise(self, x, generator):
-        """This module's dropout draw for a (B, L, D) input (or None)."""
-        B, L = x.shape[:2]
+    def place(self, mesh):
+        """This rank's heads on the mesh, and its process ring (the tp
+        axis) under a ring impl."""
+        self.mesh = mesh
+        self.heads_local = self.num_heads // mesh.tp.size
+        self.head_off = mesh.tp.index * self.heads_local
+        if self.impl in RING_IMPLS and mesh.tp.on:
+            self.ring = ProcessRing(mesh.tp, mesh.tp_ranks())
+
+    def ring_for(self, length: int):
+        """The process ring a sequence of ``length`` runs over, or None
+        (no ring, or a length that does not tile over it: plain attention,
+        as JAX falls back)."""
+        if self.ring is None or length % self.ring.size:
+            return None
+        return self.ring
+
+    def noise(self, x, generator, length=None):
+        """This module's dropout draw for a (B, L, D) input (or None); on a
+        mesh, the whole layer's for a sequence of ``length``."""
+        B, L = x.shape[0], length or x.shape[1]
         return dropout_noise(self.impl, B, L, L, self.num_heads, self.dropout,
-                             generator, x.device)
+                             generator, x.device, self.ring_for(L))
 
-    def forward(self, qk, v, key_padding_mask, noise=None):
-        dt = v.dtype
+    def forward(self, qk, v, key_padding_mask, noise, out_bias, seq=False):
+        """This rank's heads over the whole sequence: (B, L, D) replicated
+        inputs, or under ``seq`` token blocks all-gathered (one collective
+        for both); the row-parallel output reduced over tp (under seq:
+        reduce-scattered into blocks), then ``out_bias`` added once."""
+        tp, dt, D = self.mesh.tp, v.dtype, v.shape[-1]
+        if seq:
+            qk, v = pm.gather_tokens(torch.cat([qk, v], dim=-1), tp).split(D, dim=-1)
+        else:
+            qk, v = pm.copy_to(tp, qk, v)
+        if noise is not None and noise.dim() == 4:  # the "xla" keep uniforms
+            noise = noise[:, self.head_off:self.head_off + self.heads_local]
+        out = multihead_attention(
+            qk, qk, v, in_proj_weight=self.in_proj_weight.to(dt),
+            in_proj_bias=self.in_proj_bias.to(dt), out_weight=self.out_proj.weight.to(dt),
+            # without tp nothing is reduced: the bias goes into the product
+            out_bias=None if tp.on else out_bias.to(dt),
+            num_heads=self.heads_local, key_padding_mask=key_padding_mask,
+            # a ring impl whose tp ranks cannot hold the sequence: plain
+            # attention, as JAX falls back (without tp, use_ring's ring)
+            impl="xla" if self.impl in RING_IMPLS and tp.on else self.impl,
+            dropout_rate=self.dropout, noise=noise,
+            head_span=(self.num_heads, self.head_off))
+        if not tp.on:
+            return out
+        out = pm.scatter_tokens(out, tp) if seq else pm.reduce_from(out, tp)
+        return out + out_bias.to(out.dtype)
+
+    def forward_ring(self, qk, v, key_padding_mask, noise, out_bias):
+        """Attention over the process ring on this rank's token blocks, the
+        projections whole (all-gathered from their tp shards)."""
+        m, dt = self.mesh, v.dtype
+        ring = self.ring
+        mask = key_padding_mask.chunk(ring.size, dim=1)[ring.rank]
         return multihead_attention(
             qk, qk, v,
-            in_proj_weight=self.in_proj_weight.to(dt),
-            in_proj_bias=self.in_proj_bias.to(dt),
-            out_weight=self.out_proj.weight.to(dt),
-            out_bias=self.out_proj.bias.to(dt),
-            num_heads=self.num_heads,
-            key_padding_mask=key_padding_mask,
-            impl=self.impl,
-            dropout_rate=self.dropout,
-            noise=noise,
-        )
-
+            in_proj_weight=pm.gather_param(self.in_proj_weight, pm.IN_PROJ_SPEC, m).to(dt),
+            in_proj_bias=pm.gather_param(self.in_proj_bias, pm.IN_PROJ_SPEC, m).to(dt),
+            out_weight=pm.gather_param(self.out_proj.weight, pm.OUT_PROJ_SPEC, m).to(dt),
+            out_bias=out_bias.to(dt), num_heads=self.num_heads,
+            key_padding_mask=mask, impl=self.impl, dropout_rate=self.dropout,
+            noise=noise, ring=ring)
 
 class MoEFFN(nn.Module):
     """The expert bank of one layer (ops/moe.py), its stacked weights in the
@@ -98,6 +167,8 @@ class MoEFFN(nn.Module):
         self.b1 = nn.Parameter(torch.empty(n_experts, ffn_dim))
         self.w2 = nn.Parameter(torch.empty(n_experts, ffn_dim, dim))
         self.b2 = nn.Parameter(torch.empty(n_experts, dim))
+        self.n_experts = n_experts
+        self.mesh = None
 
     @torch.no_grad()
     def reset_parameters(self, generator):
@@ -113,12 +184,12 @@ class MoEFFN(nn.Module):
         nn.init.zeros_(self.b1)
         nn.init.zeros_(self.b2)
 
-    def forward(self, h, token_mask, aux: bool):
+    def forward(self, h, token_mask, aux: bool, seq: bool = False):
         dt = h.dtype
         return moe_ffn(h, self.router, self.w1.to(dt), self.b1.to(dt), self.w2.to(dt),
                        self.b2.to(dt), top_k=self.top_k,
                        capacity_factor=self.capacity_factor, token_mask=token_mask,
-                       aux=aux)
+                       aux=aux, mesh=self.mesh, seq=seq)
 
 
 class EncoderLayer(nn.Module):
@@ -139,55 +210,96 @@ class EncoderLayer(nn.Module):
             self.linear2 = Linear(ffn_dim, dim)
         self.norm1 = LayerNorm(dim)
         self.norm2 = LayerNorm(dim)
+        self.mesh = pm.SOLO
 
-    def noise(self, x, generator):
+    def place(self, mesh):
+        self.mesh = mesh
+        self.self_attn.place(mesh)
+        if self.moe is not None:
+            self.moe.mesh = mesh
+
+    def noise(self, x, generator, length=None):
         """The layer's random inputs in the order the layer uses them: the
         attention dropout's draw, then each residual's drop_path uniforms;
-        None in eval."""
+        None in eval. ``length``: the whole sequence's, where x is a token
+        block."""
         if generator is None:
             return None
-        attn = self.self_attn.noise(x, generator)
+        attn = self.self_attn.noise(x, generator, length)
         paths = [drop_path_noise(x, generator) if self.droppath > 0 else None
                  for _ in range(2)]
         return attn, *paths
-
-    def _ffn(self, h, key_padding_mask, aux: bool):
-        if self.moe is not None:
-            return self.moe(h, key_padding_mask, aux)
-        return self.linear2(F.gelu(self.linear1(h), approximate="none")), None
 
     def _residual(self, h, branch_out, noise):
         if noise is not None:
             branch_out = drop_path(branch_out, self.droppath, noise=noise)
         return h + branch_out
 
-    def body(self, x, key_padding_mask, pos, noise, aux: bool = False):
+    def body(self, x, key_padding_mask, pos, noise, aux: bool = False, seq: bool = False):
         """The layer on drawn ``noise`` (``noise()``'s, or None): (x, the
-        MoE layer's aux or None)."""
+        MoE layer's aux or None). On the mesh (the module's docstring) x and
+        pos are (B, L, D), or under ``seq`` this rank's (B, L/tp, D) token
+        blocks."""
         n_attn, n_path1, n_path2 = noise or (None, None, None)
+        tp = self.mesh.tp
+        ring = self.self_attn.ring_for(key_padding_mask.shape[1])
+        n1, n2 = self.norm1, self.norm2
+        norms = [n1.weight, n1.bias, n2.weight, n2.bias]
+        out_b = self.self_attn.out_proj.bias
+        b2 = None if self.moe is not None else self.linear2.bias
+        if seq:  # used on token blocks: their gradients summed over tp
+            used = pm.copy_to(tp, *norms, out_b, *([b2] if b2 is not None else []))
+            norms, out_b, b2 = list(used[:4]), used[4], used[5] if b2 is not None else None
+        elif ring is not None:  # the output bias alone meets a token block
+            out_b = pm.copy_to(tp, out_b)
+
+        def norm(i, t):
+            mod = (n1, n2)[i]
+            return F.layer_norm(t, mod.normalized_shape, norms[2 * i].to(t.dtype),
+                                norms[2 * i + 1].to(t.dtype), mod.eps)
 
         def attn(h):
-            return self.self_attn(h if pos is None else h + pos, h, key_padding_mask,
-                                  noise=n_attn)
+            qk = h if pos is None else h + pos
+            if ring is None:
+                return self.self_attn(qk, h, key_padding_mask, n_attn, out_b, seq)
+            if not seq:
+                qk, h = pm.split_tokens(qk, tp), pm.split_tokens(h, tp)
+            out = self.self_attn.forward_ring(qk, h, key_padding_mask, n_attn, out_b)
+            return out if seq else pm.gather_replicated(out, tp)
+
+        def ffn(h):
+            if self.moe is not None:
+                return self.moe(h, key_padding_mask, aux, seq)
+            dt = h.dtype
+            hh = pm.gather_tokens(h, tp) if seq else pm.copy_to(tp, h)
+            # without tp nothing is reduced: the bias goes into the product
+            y = F.linear(F.gelu(self.linear1(hh), approximate="none"),
+                         self.linear2.weight.to(dt), None if tp.on else b2.to(dt))
+            if not tp.on:
+                return y, None
+            y = pm.scatter_tokens(y, tp) if seq else pm.reduce_from(y, tp)
+            return y + b2.to(dt), None
 
         if self.pre_norm:
-            x = self._residual(x, attn(self.norm1(x)), n_path1)
-            y, layer_aux = self._ffn(self.norm2(x), key_padding_mask, aux)
+            x = self._residual(x, attn(norm(0, x)), n_path1)
+            y, layer_aux = ffn(norm(1, x))
             return self._residual(x, y, n_path2), layer_aux
-        x = self.norm1(self._residual(x, attn(x), n_path1))
-        y, layer_aux = self._ffn(x, key_padding_mask, aux)
-        return self.norm2(self._residual(x, y, n_path2)), layer_aux
+        x = norm(0, self._residual(x, attn(x), n_path1))
+        y, layer_aux = ffn(x)
+        return norm(1, self._residual(x, y, n_path2)), layer_aux
 
     def forward(self, x, key_padding_mask, pos, generator=None, aux: bool = False,
-                remat: bool = False):
+                remat: bool = False, seq: bool = False):
         """(x, aux or None). ``remat`` recomputes the layer in the backward
         (non-reentrant checkpoint, on the noise drawn here: no RNG state is
-        saved or restored, which a CUDA graph capture would refuse)."""
-        noise = self.noise(x, generator)
+        saved or restored, which a CUDA graph capture would refuse); on
+        token blocks under ``seq``."""
+        noise = self.noise(x, generator, key_padding_mask.shape[1])
+        args = (x, key_padding_mask, pos, noise, aux, seq)
         if remat and torch.is_grad_enabled():
-            return checkpoint(self.body, x, key_padding_mask, pos, noise, aux,
-                              use_reentrant=False, preserve_rng_state=False)
-        return self.body(x, key_padding_mask, pos, noise, aux)
+            return checkpoint(self.body, *args, use_reentrant=False,
+                              preserve_rng_state=False)
+        return self.body(*args)
 
 
 class Encoder(nn.Module):
@@ -207,17 +319,40 @@ class Encoder(nn.Module):
             for _ in range(num_layers)
         )
         self.norm = LayerNorm(dim) if pre_norm else None
+        self.mesh = None
+        self.seq_shard = False
+
+    def place(self, mesh, cfg):
+        """Run the layers on ``mesh`` (``shard_model``), with ``seq_shard``
+        as cfg says."""
+        self.mesh, self.seq_shard = mesh, cfg.seq_shard
+        for layer in self.layers:
+            layer.place(mesh)
 
     def forward(self, x, key_padding_mask, pos, generator=None, aux=None):
         """aux: None, or a list that each MoE layer appends its load-balance
-        loss to (training)."""
+        loss to (training). Under ``seq_shard`` on a mesh the layers run on
+        this rank's token block, the output all-gathered back (JAX's
+        ``seq_constraint`` after each layer)."""
+        seq = pm.seq_active(self.seq_shard, x.shape[1], self.mesh)
+        if seq:
+            tp = self.mesh.tp
+            x = pm.split_tokens(x, tp)
+            pos = None if pos is None else pm.split_tokens(pos, tp)
         for layer in self.layers:
             x, layer_aux = layer(x, key_padding_mask, pos, generator,
-                                 aux is not None, self.remat)
+                                 aux is not None, self.remat, seq)
             if layer_aux is not None:
                 aux.append(layer_aux)
         if self.norm is not None:
-            x = self.norm(x)
+            if seq:
+                w, b = pm.copy_to(self.mesh.tp, self.norm.weight, self.norm.bias)
+                x = F.layer_norm(x, self.norm.normalized_shape, w.to(x.dtype),
+                                 b.to(x.dtype), self.norm.eps)
+            else:
+                x = self.norm(x)
+        if seq:
+            x = pm.gather_replicated(x, self.mesh.tp)
         return x
 
 

@@ -40,9 +40,9 @@ import torch
 import torch.nn.functional as F
 
 from univtg_tpu_torch.ops.flash_attention import flash_attention
-from univtg_tpu_torch.ops.ring_attention import ring_attention
+from univtg_tpu_torch.ops.ring_attention import process_ring_attention, ring_attention
 from univtg_tpu_torch.ops.ring_attention_pallas import ring_attention_pallas
-from univtg_tpu_torch.parallel.ring import active_ring
+from univtg_tpu_torch.parallel.ring import ProcessRing, active_ring
 
 NEG_INF = -1e30
 
@@ -85,30 +85,34 @@ def sdpa(q, k, v, bias, num_heads: int, dropout_rate: float = 0.0,
     return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
 
 
-def resolve_impl(impl: str, seq_len: int, dropout_rate: float):
+def resolve_impl(impl: str, seq_len: int, dropout_rate: float, ring=None):
     """(the impl that runs, the active ring or None) for a configured impl,
-    by the JAX package's fallback rules."""
+    by the JAX package's fallback rules. A ``ring`` given (a process ring,
+    whose caller checked that the sequence tiles) stands for the active
+    one."""
     if impl not in dispatches:
         raise ValueError(f"unknown attention impl {impl!r}")
     if impl not in ("ring", "ring_pallas"):
         return impl, None
-    ring = active_ring()
-    if ring is None or seq_len % ring.size:
-        return "xla", None
+    if ring is None:
+        ring = active_ring()
+        if ring is None or seq_len % ring.size:
+            return "xla", None
     if impl == "ring_pallas" and dropout_rate > 0.0:
         return "ring", ring
     return impl, ring
 
 
 def dropout_noise(impl: str, B: int, Lq: int, Lk: int, num_heads: int,
-                  dropout_rate: float, generator, device):
+                  dropout_rate: float, generator, device, ring=None):
     """The random input of one attention call's dropout, drawn from
     ``generator`` as the call itself would draw it: one int32 seed where
     "pallas" or "ring" runs, the (B, H, Lq, Lk) f32 uniforms of the keep mask
-    where "xla" runs; None without a generator or a rate."""
+    where "xla" runs; None without a generator or a rate. ``ring``: as
+    ``resolve_impl``'s."""
     if generator is None or dropout_rate <= 0.0:
         return None
-    ran, _ = resolve_impl(impl, Lq, dropout_rate)
+    ran, _ = resolve_impl(impl, Lq, dropout_rate, ring)
     if ran in ("pallas", "ring"):
         return torch.randint(0, 2**31 - 1, (1,), generator=generator,
                              device=device, dtype=torch.int32)
@@ -118,37 +122,44 @@ def dropout_noise(impl: str, B: int, Lq: int, Lk: int, num_heads: int,
 def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
                         out_weight, out_bias, num_heads: int,
                         key_padding_mask=None, impl: str = "xla",
-                        dropout_rate: float = 0.0, generator=None, noise=None):
+                        dropout_rate: float = 0.0, generator=None, noise=None,
+                        head_span=(0, 0), ring=None):
     """Full MHA with the packed torch-layout projection.
 
     q_in, k_in, v_in: (B, L, D) (q and k usually carry +pos).
-    in_proj_weight: (3D, D) packed [q; k; v] rows; in_proj_bias: (3D,).
-    out_weight: (D, D); out_bias: (D,). key_padding_mask: (B, Lk), 1 = valid.
-    Attention dropout applies only with a generator, or with the ``noise``
-    that ``dropout_noise`` drew for this call (neither: eval).
+    in_proj_weight: (3E, D) packed [q; k; v] rows of num_heads heads (E = D
+    but on a tensor-parallel rank, which holds E = D/tp); in_proj_bias:
+    (3E,). out_weight: (D, E); out_bias: (D,) or None (a row-parallel
+    output, whose bias comes after the reduce). key_padding_mask: (B, Lk),
+    1 = valid. Attention dropout applies only with a generator, or with the
+    ``noise`` that ``dropout_noise`` drew for this call (neither: eval);
+    ``head_span`` (the layer's heads, the first of them here) places a
+    rank's heads in the flash kernels' dropout hash. ``ring``: a process
+    ring (parallel/ring.ProcessRing) whose blocks q_in, k_in and v_in are.
     """
-    D = q_in.shape[-1]
-    q = F.linear(q_in, in_proj_weight[:D], in_proj_bias[:D])
-    k = F.linear(k_in, in_proj_weight[D:2 * D], in_proj_bias[D:2 * D])
-    v = F.linear(v_in, in_proj_weight[2 * D:], in_proj_bias[2 * D:])
+    E = in_proj_weight.shape[0] // 3
+    q = F.linear(q_in, in_proj_weight[:E], in_proj_bias[:E])
+    k = F.linear(k_in, in_proj_weight[E:2 * E], in_proj_bias[E:2 * E])
+    v = F.linear(v_in, in_proj_weight[2 * E:], in_proj_bias[2 * E:])
     if noise is None:
         noise = dropout_noise(impl, q.shape[0], q.shape[1], k.shape[1], num_heads,
-                              dropout_rate, generator, q.device)
+                              dropout_rate, generator, q.device, ring)
     if noise is None:
         dropout_rate = 0.0
-    impl, ring = resolve_impl(impl, q.shape[1], dropout_rate)
+    impl, ring = resolve_impl(impl, q.shape[1], dropout_rate, ring)
     dispatches[impl] += 1
     seed = noise if impl in ("pallas", "ring") else None
     if impl == "pallas":
         out = flash_attention(q, k, v, key_padding_mask, num_heads=num_heads,
-                              dropout_rate=dropout_rate, dropout_seed=seed)
+                              dropout_rate=dropout_rate, dropout_seed=seed,
+                              head_span=head_span)
     elif impl == "ring_pallas":
         out = ring_attention_pallas(q, k, v, key_padding_mask,
                                     num_heads=num_heads, ring=ring)
     elif impl == "ring":
-        out = ring_attention(q, k, v, key_padding_mask, num_heads=num_heads,
-                             ring=ring, dropout_rate=dropout_rate,
-                             dropout_seed=seed)
+        plain = process_ring_attention if isinstance(ring, ProcessRing) else ring_attention
+        out = plain(q, k, v, key_padding_mask, num_heads=num_heads, ring=ring,
+                    dropout_rate=dropout_rate, dropout_seed=seed)
     else:
         bias = None
         if key_padding_mask is not None:

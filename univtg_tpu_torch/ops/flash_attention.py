@@ -67,15 +67,21 @@ def _mul32(a, c: int):
     return (a * (c & 0xFFFF) + (((a * (c >> 16)) & 0xFFFF) << 16)) & _M32
 
 
-def dropout_keep_reference(seed, rate: float, BH: int, Lq: int, Lk: int):
+def dropout_keep_reference(seed, rate: float, BH: int, Lq: int, Lk: int,
+                           heads: int = 0, head_off: int = 0, H: int = 1):
     """(BH, Lq, Lk) float32 multiplier, 0 or ``dropout_scale(rate)``: the
     reference's ``_dropout_keep`` for every (bh, query row, key) over the
-    reference's tiles. ``seed``: a one-element int32 tensor."""
+    reference's tiles. ``seed``: a one-element int32 tensor. A launch over
+    H of a layer's ``heads`` heads, from head ``head_off`` on (a tensor-
+    parallel rank's), hashes the global row b * heads + head_off + h of its
+    row bh = b * H + h; heads = 0 hashes bh itself."""
     bq, bk = dropout_grid(Lq, Lk)
     dev = seed.device
     i = torch.arange(Lq, device=dev, dtype=torch.int64)[None, :, None]
     j = torch.arange(Lk, device=dev, dtype=torch.int64)[None, None, :]
     bh = torch.arange(BH, device=dev, dtype=torch.int64)[:, None, None]
+    if heads > 0:
+        bh = bh // H * heads + head_off + bh % H
     mixed = ((seed.reshape(()).to(torch.int64) & _M32)
              ^ _mul32(bh, 0x9E3779B1)
              ^ _mul32(i // bq, 0x85EBCA6B)
@@ -96,14 +102,16 @@ def _scores(qh, kh, maskh, sm_scale):
 
 
 def flash_attention_reference(qh, kh, vh, maskh, *, sm_scale: float,
-                              dropout_rate: float = 0.0, seed=None):
+                              dropout_rate: float = 0.0, seed=None, heads=(0, 0, 1)):
     """Plain-torch twin of the forward kernel on head-split tensors.
 
     qh (BH, Lq, dh), kh/vh (BH, Lk, dh), maskh (BH, Lk) with 1 = valid.
     Returns (out (BH, Lq, dh) in the input dtype, lse (BH, Lq) f32). The
     dots accumulate in f32, the scale comes after q.k, masked keys get the
     finite -1e30, l is clamped at 1e-30 and sums the undropped p, while
-    p * keep is cast to the input dtype before the PV product.
+    p * keep is cast to the input dtype before the PV product. ``heads``:
+    the (global heads, first head, heads of the launch) of the dropout
+    hash (``dropout_keep_reference``).
     """
     dtype = qh.dtype
     s = _scores(qh, kh, maskh, sm_scale)
@@ -111,7 +119,7 @@ def flash_attention_reference(qh, kh, vh, maskh, *, sm_scale: float,
     p = torch.exp(s - m)
     l_safe = p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
     if dropout_rate > 0.0:
-        p = p * dropout_keep_reference(seed, dropout_rate, *s.shape)
+        p = p * dropout_keep_reference(seed, dropout_rate, *s.shape, *heads)
     acc = torch.matmul(p.to(dtype).float(), vh.float())
     out = (acc / l_safe).to(dtype)
     lse = (m + torch.log(l_safe))[..., 0]
@@ -119,7 +127,7 @@ def flash_attention_reference(qh, kh, vh, maskh, *, sm_scale: float,
 
 
 def _backward_terms(qh, kh, vh, maskh, out, lse, dout, sm_scale,
-                    dropout_rate, seed):
+                    dropout_rate, seed, heads=(0, 0, 1)):
     """The recompute both backward kernels start from: (p * keep cast to
     the input dtype, ds cast to the input dtype), both f32 (BH, Lq, Lk).
 
@@ -133,7 +141,7 @@ def _backward_terms(qh, kh, vh, maskh, out, lse, dout, sm_scale,
     dp = torch.matmul(dout.float(), vh.float().transpose(1, 2))
     p_drop = p
     if dropout_rate > 0.0:
-        keep = dropout_keep_reference(seed, dropout_rate, *s.shape)
+        keep = dropout_keep_reference(seed, dropout_rate, *s.shape, *heads)
         p_drop = p * keep
         dp = dp * keep
     ds = (p * (dp - delta)).to(dtype).float()
@@ -142,20 +150,20 @@ def _backward_terms(qh, kh, vh, maskh, out, lse, dout, sm_scale,
 
 def flash_bwd_dq_reference(qh, kh, vh, maskh, out, lse, dout, *,
                            sm_scale: float, dropout_rate: float = 0.0,
-                           seed=None):
+                           seed=None, heads=(0, 0, 1)):
     """Plain-torch twin of the dQ kernel: dq = sm_scale * cast(ds) . k."""
     _, ds = _backward_terms(qh, kh, vh, maskh, out, lse, dout, sm_scale,
-                            dropout_rate, seed)
+                            dropout_rate, seed, heads)
     return (torch.matmul(ds, kh.float()) * sm_scale).to(qh.dtype)
 
 
 def flash_bwd_dkv_reference(qh, kh, vh, maskh, out, lse, dout, *,
                             sm_scale: float, dropout_rate: float = 0.0,
-                            seed=None):
+                            seed=None, heads=(0, 0, 1)):
     """Plain-torch twin of the dK/dV kernel: dk = sm_scale * cast(ds)^T . q,
     dv = cast(p * keep)^T . dout."""
     p_drop, ds = _backward_terms(qh, kh, vh, maskh, out, lse, dout, sm_scale,
-                                 dropout_rate, seed)
+                                 dropout_rate, seed, heads)
     dk = torch.matmul(ds.transpose(1, 2), qh.float()) * sm_scale
     dv = torch.matmul(p_drop.transpose(1, 2), dout.float())
     return dk.to(qh.dtype), dv.to(qh.dtype)
@@ -163,7 +171,8 @@ def flash_bwd_dkv_reference(qh, kh, vh, maskh, out, lse, dout, *,
 
 def flash_attention_backward_reference(qh, kh, vh, maskh, out, lse, dout, *,
                                        sm_scale: float,
-                                       dropout_rate: float = 0.0, seed=None):
+                                       dropout_rate: float = 0.0, seed=None,
+                                       heads=(0, 0, 1)):
     """Plain-torch twin of the two backward kernels on head-split tensors:
     the recompute backward written out formula by formula (not autograd of
     the forward twin), each kernel's twin recomputing p and ds as its
@@ -174,7 +183,7 @@ def flash_attention_backward_reference(qh, kh, vh, maskh, out, lse, dout, *,
     a row's gradient is not its forward's. UniVTG never builds one.
     """
     args = (qh, kh, vh, maskh, out, lse, dout)
-    kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate, seed=seed)
+    kw = dict(sm_scale=sm_scale, dropout_rate=dropout_rate, seed=seed, heads=heads)
     return (flash_bwd_dq_reference(*args, **kw),
             *flash_bwd_dkv_reference(*args, **kw))
 
@@ -187,7 +196,7 @@ def _library(name: str):
     p, i, ll, u, f = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                       ctypes.c_uint, ctypes.c_float)
     strides = [ll] * 6
-    dropout = [p, u, f, i, i]  # seed, thresh, scale, grid (bq, bk)
+    dropout = [p, u, f, i, i, i, i]  # seed, thresh, scale, grid (bq, bk), heads, off
     if name == "flash_fwd":
         lib.univtg_flash_fwd.argtypes = (
             [p] * 6 + [i] * 6 + strides + [f] + dropout + [p])
@@ -262,17 +271,19 @@ def _merge(x, B, H, dh):
     return x.reshape(B, H, -1, dh).transpose(1, 2).reshape(B, -1, H * dh)
 
 
-def _launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed):
+def _launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed, head_span=(0, 0)):
     """The trailing C arguments shared by the three kernels: shape, the
-    (batch, head, row) element strides of q and of k, scale, dropout."""
+    (batch, head, row) element strides of q and of k, scale, dropout
+    (``head_span``: the hash's global heads and first head, (0, 0) for the
+    launch's own)."""
     B, Lq, D = q.shape
     Lk = k.shape[1]
     if dropout_rate > 0.0:
         bq, bk = dropout_grid(Lq, Lk)
         drop = [seed.data_ptr(), dropout_threshold(dropout_rate),
-                dropout_scale(dropout_rate), bq, bk]
+                dropout_scale(dropout_rate), bq, bk, *head_span]
     else:
-        drop = [None, 0, 1.0, 0, 0]
+        drop = [None, 0, 1.0, 0, 0, 0, 0]
     return [_DTYPE_CODES[q.dtype], B * heads, heads, Lq, Lk, dh,
             Lq * D, dh, D, Lk * D, dh, D, float(sm_scale), *drop]
 
@@ -292,8 +303,9 @@ def _raise_on(lib, err, kernel):
         )
 
 
-def _forward(q, k, v, mask, heads, sm_scale, dropout_rate, seed):
-    """(out (B, Lq, D), lse (B*heads, Lq) f32) of (B, L, D) operands."""
+def _forward(q, k, v, mask, heads, sm_scale, dropout_rate, seed, head_span=(0, 0)):
+    """(out (B, Lq, D), lse (B*heads, Lq) f32) of (B, L, D) operands;
+    ``head_span`` places the heads in the layer's for the dropout hash."""
     B, Lq, Lk, dh = _check(q, k, v, mask, heads, dropout_rate, seed)
     if sm_scale is None:
         sm_scale = dh**-0.5
@@ -302,6 +314,7 @@ def _forward(q, k, v, mask, heads, sm_scale, dropout_rate, seed):
             _split(q, B, heads, dh), _split(k, B, heads, dh),
             _split(v, B, heads, dh), mask.repeat_interleave(heads, dim=0),
             sm_scale=sm_scale, dropout_rate=dropout_rate, seed=seed,
+            heads=(*head_span, heads),
         )
         return _merge(out, B, heads, dh), lse
 
@@ -315,7 +328,7 @@ def _forward(q, k, v, mask, heads, sm_scale, dropout_rate, seed):
         err = lib.univtg_flash_fwd(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(),
             out.data_ptr(), lse.data_ptr(),
-            *_launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed),
+            *_launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed, head_span),
             stream,
         )
     _raise_on(lib, err, "flash_fwd")
@@ -324,7 +337,7 @@ def _forward(q, k, v, mask, heads, sm_scale, dropout_rate, seed):
 
 
 def _backward(q, k, v, mask, out, lse, dout, heads, sm_scale, dropout_rate,
-              seed):
+              seed, head_span=(0, 0)):
     """(dq, dk, dv) of (B, L, D) operands, given the forward's out and lse."""
     B, Lq, Lk, dh = _check(q, k, v, mask, heads, dropout_rate, seed)
     if sm_scale is None:
@@ -336,6 +349,7 @@ def _backward(q, k, v, mask, out, lse, dout, heads, sm_scale, dropout_rate,
             _split(v, B, heads, dh), mask.repeat_interleave(heads, dim=0),
             _split(out, B, heads, dh), lse, _split(dout, B, heads, dh),
             sm_scale=sm_scale, dropout_rate=dropout_rate, seed=seed,
+            heads=(*head_span, heads),
         )
         return tuple(_merge(g, B, heads, dh) for g in grads)
 
@@ -347,7 +361,7 @@ def _backward(q, k, v, mask, out, lse, dout, heads, sm_scale, dropout_rate,
     delta = delta.transpose(1, 2).reshape(B * heads, Lq).contiguous()
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     lib = _library("flash_bwd")
-    args = _launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed)
+    args = _launch_args(q, k, heads, dh, sm_scale, dropout_rate, seed, head_span)
     common = [q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
               mask.data_ptr(), lse.data_ptr(), delta.data_ptr()]
     with torch.cuda.device(q.device):
@@ -367,18 +381,18 @@ class _FlashAttention(torch.autograd.Function):
     and lse, the backward recomputes p from them (O(L) residuals per row)."""
 
     @staticmethod
-    def forward(ctx, q, k, v, mask, seed, heads, dropout_rate):
-        out, lse = _forward(q, k, v, mask, heads, None, dropout_rate, seed)
+    def forward(ctx, q, k, v, mask, seed, heads, dropout_rate, head_span):
+        out, lse = _forward(q, k, v, mask, heads, None, dropout_rate, seed, head_span)
         ctx.save_for_backward(q, k, v, mask, seed, out, lse)
-        ctx.heads, ctx.dropout_rate = heads, dropout_rate
+        ctx.heads, ctx.dropout_rate, ctx.head_span = heads, dropout_rate, head_span
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mask, seed, out, lse = ctx.saved_tensors
         dq, dk, dv = _backward(q, k, v, mask, out, lse, dout, ctx.heads, None,
-                               ctx.dropout_rate, seed)
-        return dq, dk, dv, None, None, None, None
+                               ctx.dropout_rate, seed, ctx.head_span)
+        return dq, dk, dv, None, None, None, None, None
 
 
 def _as_seed(seed, device):
@@ -388,7 +402,8 @@ def _as_seed(seed, device):
 
 
 def flash_attention(q, k, v, key_padding_mask=None, *, num_heads: int,
-                    dropout_rate: float = 0.0, dropout_seed=None):
+                    dropout_rate: float = 0.0, dropout_seed=None,
+                    head_span=(0, 0)):
     """Fused, differentiable attention on projected (B, L, D) tensors; mask
     (B, Lk), 1 = valid. Returns (B, Lq, D). Any Lq and Lk; D / num_heads a
     multiple of 8 up to 128.
@@ -396,14 +411,16 @@ def flash_attention(q, k, v, key_padding_mask=None, *, num_heads: int,
     dropout_rate > 0 drops attention probabilities inside the kernels
     (after normalisation, scaled by 1/(1-rate)); ``dropout_seed`` (an int or
     a one-element int32 tensor on q's device) fixes the mask, and the
-    backward regenerates it from the same seed.
+    backward regenerates it from the same seed. ``head_span`` = (the
+    layer's heads, the first of them here): a launch over a tensor-parallel
+    rank's heads hashes the layer's global heads; (0, 0) its own.
     """
     if key_padding_mask is None:
         key_padding_mask = torch.ones(k.shape[:2], dtype=torch.float32,
                                       device=q.device)
     seed = _as_seed(dropout_seed, q.device) if dropout_rate > 0.0 else None
     return _FlashAttention.apply(q, k, v, key_padding_mask, seed, num_heads,
-                                 float(dropout_rate))
+                                 float(dropout_rate), tuple(head_span))
 
 
 def flash_attention_impl(qh, kh, vh, maskh, *, sm_scale: float,

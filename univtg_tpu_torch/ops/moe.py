@@ -33,6 +33,8 @@ from typing import NamedTuple, Optional
 import torch
 import torch.nn.functional as F
 
+from univtg_tpu_torch.parallel import mesh as pm
+
 
 def moe_capacity(n_tokens: int, n_experts: int, top_k: int,
                  capacity_factor: float) -> int:
@@ -121,36 +123,86 @@ def moe_routing(probs, n_experts: int, top_k: int, capacity: int,
 
 
 def moe_ffn(x, router, w1, b1, w2, b2, *, top_k: int = 1,
-            capacity_factor: float = 1.25, token_mask=None, aux: bool = True):
+            capacity_factor: float = 1.25, token_mask=None, aux: bool = True,
+            mesh=None, seq: bool = False):
     """Sparsely-activated exact-GELU FFN: (B, L, D) -> ((B, L, D), aux).
 
     router: (D, E); w1, b1: (E, D, F), (E, F); w2, b2: (E, F, D), (E, D),
     in x's dtype (the router is taken in f32). token_mask: optional (B, L)
-    float, 1 = valid token. The aux is None unless ``aux``."""
-    b, l, d = x.shape
-    e = w1.shape[0]
-    n = b * l
-    xt = x.reshape(n, d)
-    mask = None if token_mask is None else token_mask.reshape(n)
-    probs = torch.softmax(xt.float() @ router.float(), dim=-1)
-    cap = moe_capacity(n, e, top_k, capacity_factor)
-    r = moe_routing(probs, e, top_k, cap, token_mask=mask, aux=aux)
+    float, 1 = valid token. The aux is None unless ``aux``.
 
-    spare = e * cap  # the row that dropped tokens go to
-    rows = torch.where(r.keep > 0, r.expert * cap + r.slot,
-                       torch.full_like(r.slot, spare)).reshape(-1)
+    On a ``mesh`` (parallel/mesh.py; None: one process) it is JAX's
+    global-batch routing and its ep and tp sharding of the bank. x holds
+    this rank's tokens (B, L, D), or under ``seq`` its (B, L/tp, D) token
+    block; w1, b1, w2, b2 this rank's E/ep experts, each with F/tp columns;
+    the router is whole.
+
+      * routing: the router runs on every token of the dp row (under seq
+        the blocks all-gathered, each rank's gradient kept to its block);
+        in training (``aux``) the (N, E) f32 probabilities and the token
+        mask are all-gathered over dp, this rank's rows live, and the global
+        batch is routed on every rank: C from the global N, the slots in
+        the global token order (rank-major), the aux over every token. This
+        rank keeps its rows of (expert, slot, keep, gate). Only
+        probabilities cross the wire: each token's expert output is
+        computed where the token is;
+      * experts: each rank fills and runs only its E/ep experts' (E/ep, C,
+        D) buffer over its F/tp columns; b2 is added once per token (on tp
+        rank 0, its gradient all-reduced over tp);
+      * combine: the gate-weighted rows, partial over ep and tp, are summed
+        over the dp row (under seq: all-reduced over ep, reduce-scattered
+        back into token blocks over tp). The gradients that flow back into
+        x and into the gates from the local experts are partial, and are
+        all-reduced over the dp row (``copy_to``), so the router trains on
+        its whole gradient.
+
+    Returns ((B, L or L/tp, D) in x's dtype, aux or None)."""
+    mesh = mesh or pm.SOLO
+    tp, ep, dp, row = mesh.tp, mesh.ep, mesh.dp, mesh.model
+    h = pm.gather_replicated(x, tp) if seq else x
+    b, l, d = h.shape
+    n = b * l
+    e_loc = w1.shape[0]
+    ht = h.reshape(n, d)
+    mask = None if token_mask is None else token_mask.reshape(n).to(torch.float32)
+    probs = torch.softmax(ht.float() @ router.float(), dim=-1)
+    off = 0
+    if aux and dp.on:
+        off = dp.index * n
+        probs = pm.gather_live(probs, dp)
+        mask = None if mask is None else pm.all_gather(mask, dp, 0)
+    cap = moe_capacity(probs.shape[0], e_loc * ep.size, top_k, capacity_factor)
+    r = moe_routing(probs, e_loc * ep.size, top_k, cap, token_mask=mask, aux=aux)
+    expert, slot, keep, gate = (t[:, off:off + n] for t in r[:4])
+    gate = pm.copy_to(row, gate)
+    if seq:
+        xt = pm.copy_to(ep, pm.gather_tokens(x, tp)).reshape(n, d)
+    else:  # one view of x for the router and the bank, as one process has it
+        xt = pm.copy_to(row, ht)
+
+    e0 = ep.index * e_loc
+    spare = e_loc * cap  # the row that dropped tokens (and other ranks' experts') go to
+    local = (expert >= e0) & (expert < e0 + e_loc) & (keep > 0)
+    rows = torch.where(local, (expert - e0) * cap + slot,
+                       torch.full_like(slot, spare)).reshape(-1)
     # each kept (expert, slot) row receives exactly one token: the add is a copy
     expert_in = xt.new_zeros(spare + 1, d).index_add(0, rows, xt.repeat(top_k, 1))
-    expert_in = expert_in[:spare].reshape(e, cap, d)
-    h = F.gelu(torch.bmm(expert_in, w1) + b1[:, None, :], approximate="none")
-    expert_out = torch.bmm(h, w2) + b2[:, None, :]
+    expert_in = expert_in[:spare].reshape(e_loc, cap, d)
+    hid = F.gelu(torch.bmm(expert_in, w1) + b1[:, None, :], approximate="none")
+    expert_out = torch.bmm(hid, w2)
+    once = 1.0 if tp.index == 0 else 0.0  # the other tp ranks add b2 * 0
+    expert_out = expert_out + pm.copy_to(tp, b2)[:, None, :] * once
     out_rows = torch.cat([expert_out.reshape(spare, d), expert_out.new_zeros(1, d)])
     # index_select's backward adds into the rows at once; an indexing
     # gather's sorts the rows and sums each one's duplicates in turn, which
     # serializes over the spare row's thousands
     picked = out_rows.index_select(0, rows).reshape(top_k, n, d).float()
-    y = torch.sum(r.gate.to(x.dtype).float()[..., None] * picked, dim=0)
-    return y.to(x.dtype).reshape(b, l, d), r.aux
+    y = torch.sum(gate.to(x.dtype).float()[..., None] * picked, dim=0).reshape(b, l, d)
+    if seq:
+        y = pm.scatter_tokens(pm.reduce_from(y, ep), tp)
+    else:
+        y = pm.reduce_from(y, row)
+    return y.to(x.dtype), r.aux
 
 
 def moe_routing_reference(probs, n_experts: int, top_k: int, capacity: int,

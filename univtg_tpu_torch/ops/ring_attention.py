@@ -11,6 +11,14 @@ which is how the ring kernel's backward recomputes
 Attention dropout hashes GLOBAL (b, h, q, k) coordinates
 (``dropout_keep_mask``), so the sharded result equals a single-device run
 with the same mask whatever P is. Its bits are the JAX package's exactly.
+
+Across processes (a ``parallel.ring.ProcessRing``, the tp axis of a mesh)
+each process holds only its own block of q, k, v and mask rows and passes
+its K/V block to the right neighbour after each step (``_Hop``, whose
+backward passes the gradient to the left: the backward of a send to the
+right is a receive from the right); the masks are all-gathered once. The
+dropout hash takes the global offsets ``q_off = rank * L/P`` and ``k_off =
+src * L/P``.
 """
 from __future__ import annotations
 
@@ -108,6 +116,59 @@ def _ring_attention_local(r, q_shards, k_shards, v_shards, m_shards, devices,
             dropout_seed=dropout_seed, q_off=r * Lq, k_off=src * k.shape[1])
     out = acc / torch.clamp_min(l, 1e-30)
     return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
+
+
+class _Hop(torch.autograd.Function):
+    """One hop of a process ring: send to the right, receive from the left;
+    the gradient goes the other way."""
+
+    @staticmethod
+    def forward(ctx, x, ring):
+        ctx.ring = ring
+        return ring.hop(x, to_right=True)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.ring.hop(g.contiguous(), to_right=False), None
+
+
+def process_ring_attention(q, k, v, key_padding_mask, *, num_heads: int, ring,
+                           dropout_rate: float = 0.0, dropout_seed=None):
+    """This process's output block (B, L/P, D) of attention over a
+    ``ProcessRing``: q, k, v its (B, L/P, D) block, key_padding_mask its
+    (B, L/P) rows (1 = valid). Differentiable; the same step order and f32
+    block update as the one-process ring, so the result is that ring's
+    block bit for bit."""
+    from univtg_tpu_torch.parallel.mesh import all_gather
+
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"ring attention is self-attention over (B, L, D) blocks: q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    B, Lb, D = q.shape
+    H, P, r = num_heads, ring.size, ring.rank
+    if key_padding_mask is None:
+        key_padding_mask = torch.ones((B, Lb), dtype=torch.float32, device=q.device)
+    if dropout_rate > 0.0 and dropout_seed is None:
+        raise ValueError("ring_attention(dropout_rate>0) requires dropout_seed")
+    masks = all_gather(key_padding_mask.float(), ring.axis, 1).split(Lb, dim=1)
+    dh = D // H
+    qh = _split(q, H).float() * dh**-0.5
+    m = torch.full((B, H, Lb, 1), float("-inf"), dtype=torch.float32, device=q.device)
+    l = torch.zeros((B, H, Lb, 1), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((B, H, Lb, dh), dtype=torch.float32, device=q.device)
+    kv = torch.cat([k, v], dim=-1)
+    for t in range(P):
+        src = (r - t) % P
+        kb, vb = kv.split(D, dim=-1)
+        m, l, acc = _ring_block((m, l, acc), kb, vb, masks[src], qh, H,
+                                dropout_rate=float(dropout_rate),
+                                dropout_seed=dropout_seed, q_off=r * Lb,
+                                k_off=src * Lb)
+        if t < P - 1:
+            kv = _Hop.apply(kv, ring)
+    out = acc / torch.clamp_min(l, 1e-30)
+    return out.transpose(1, 2).reshape(B, Lb, D).to(q.dtype)
 
 
 def check_ring_operands(q, k, v, mask, num_heads, ring):

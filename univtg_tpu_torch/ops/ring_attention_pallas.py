@@ -42,11 +42,24 @@ launches. The backward recomputes through the plain differentiable ring
 (``ops/ring_attention.ring_attention``), as the JAX package's custom vjp
 does; there is no backward kernel, as there was none on the TPU.
 
+Across processes (a ``parallel.ring.ProcessRing``, the tp axis of a mesh)
+each process holds its own block of q, k, v and mask rows and launches the
+same kernels: P ``ring_block`` and one ``ring_finish`` per call. The send,
+receive and credit become one ``torch.distributed`` send/receive pair per
+step on the tp group (``ProcessRing.post_hop``), posted before the step's
+block launch so that the hop overlaps it: device to device under NCCL;
+under gloo through host buffers, the block's host copy made once and the
+received host buffer sent on as it is. A receive lands in a fresh buffer,
+so no credit is needed. The twin of the process form is the plain process
+ring (``ops/ring_attention.process_ring_attention``) without autograd, and
+the backward recomputes through it.
+
 The JAX wrapper's ``MAX_BH`` (a Mosaic unroll cap) does not come across.
 """
 from __future__ import annotations
 
 import ctypes
+import types
 
 import torch
 
@@ -55,8 +68,10 @@ from univtg_tpu_torch.ops.ring_attention import (
     _ring_block,
     _split,
     check_ring_operands,
+    process_ring_attention,
     ring_attention,
 )
+from univtg_tpu_torch.parallel.ring import ProcessRing
 
 KERNEL_SOURCES = ("ring_attention",)  # csrc/<name>.cu
 MAX_HEAD_DIM = 128
@@ -294,7 +309,76 @@ def _ring_cuda(q, k, v, mask, H, ring):
     return out
 
 
+def _pack(k, v, mask):
+    """k, v and the f32 mask rows of one block in one byte buffer (one
+    message a hop), and the views of a buffer laid out so."""
+    return torch.cat([k.reshape(-1).view(torch.uint8), v.reshape(-1).view(torch.uint8),
+                      mask.reshape(-1).view(torch.uint8)])
+
+
+def _unpack(buf, shape, dtype):
+    B, Lb, D = shape
+    n = B * Lb * D * torch.empty((), dtype=dtype).element_size()
+    k = buf[:n].view(dtype).view(B, Lb, D)
+    v = buf[n:2 * n].view(dtype).view(B, Lb, D)
+    return k, v, buf[2 * n:].view(torch.float32).view(B, Lb)
+
+
+def _ring_process_cuda(q, k, v, mask, H, ring):
+    """The kernels on this process's block, the blocks passed around the
+    process ring; (B, L/P, D) out."""
+    lib = _library()
+    q = _aligned(q)
+    B, Lb, D = q.shape
+    dh = D // H
+    dev = q.device
+    staged = ring.axis.backend == "gloo"
+    slot = _pack(k.contiguous(), v.contiguous(), mask.to(torch.float32).contiguous())
+    wire = slot.cpu() if staged else slot
+    rank = types.SimpleNamespace(
+        q=q, out=torch.empty_like(q),
+        m=torch.empty((B * H, Lb), dtype=torch.float32, device=dev))
+    rank.l = torch.empty_like(rank.m)
+    rank.acc = torch.empty((B * H, Lb, dh), dtype=torch.float32, device=dev)
+    stream = torch.cuda.current_stream(dev)
+    with torch.cuda.device(dev):
+        for t in range(ring.size):
+            wait = ring.post_hop(wire) if t < ring.size - 1 else None
+            rank.slots = [_unpack(slot, (B, Lb, D), q.dtype)]
+            _block(lib, rank, 0, H, t == 0, stream)
+            if wait is not None:
+                wire = wait()
+                slot = wire.to(dev) if staged else wire
+        _finish(lib, rank, H, stream)
+    return rank.out
+
+
+def _check_process(q, k, v, mask, heads):
+    if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
+        raise ValueError(
+            f"ring attention is self-attention over (B, L, D) blocks: q "
+            f"{tuple(q.shape)}, k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if mask.shape != q.shape[:2]:
+        raise ValueError(f"mask must be {tuple(q.shape[:2])}, got {tuple(mask.shape)}")
+    if q.dtype not in _DTYPE_CODES or not q.dtype == k.dtype == v.dtype:
+        raise TypeError(
+            f"q, k, v must all be float32 or all bfloat16, got {q.dtype}, "
+            f"{k.dtype}, {v.dtype}")
+    dh = q.shape[2] // heads
+    if q.shape[2] % heads or dh % 8 or dh > MAX_HEAD_DIM:
+        raise ValueError(
+            f"head dim must be a multiple of 8 up to {MAX_HEAD_DIM}, got {dh}")
+    if q.device.type == "cuda" and q.shape[0] * heads > _MAX_BH:
+        raise ValueError(
+            f"batch*heads must be at most {_MAX_BH}, got {q.shape[0] * heads}")
+
+
 def _forward(q, k, v, mask, heads, ring):
+    if isinstance(ring, ProcessRing):
+        _check_process(q, k, v, mask, heads)
+        if q.device.type == "cpu":
+            return process_ring_attention(q, k, v, mask, num_heads=heads, ring=ring)
+        return _ring_process_cuda(q, k, v, mask, heads, ring)
     _check(q, k, v, mask, heads, ring)
     if q.device.type == "cpu":
         return ring_attention_pallas_reference(q, k, v, mask, num_heads=heads,
@@ -316,9 +400,11 @@ class _RingAttentionPallas(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, mask = ctx.saved_tensors
+        plain = (process_ring_attention if isinstance(ctx.ring, ProcessRing)
+                 else ring_attention)
         with torch.enable_grad():
             inputs = [x.detach().requires_grad_() for x in (q, k, v)]
-            out = ring_attention(*inputs, mask, num_heads=ctx.heads, ring=ctx.ring)
+            out = plain(*inputs, mask, num_heads=ctx.heads, ring=ctx.ring)
         dq, dk, dv = torch.autograd.grad(out, inputs, dout)
         return dq, dk, dv, None, None, None
 
@@ -326,7 +412,9 @@ class _RingAttentionPallas(torch.autograd.Function):
 def ring_attention_pallas(q, k, v, key_padding_mask=None, *, num_heads: int,
                           ring):
     """Context-parallel attention over ``ring`` on projected (B, L, D)
-    tensors, L a multiple of ``ring.size``; mask (B, L), 1 = valid.
+    tensors, L a multiple of ``ring.size``; mask (B, L), 1 = valid. Over a
+    ``ProcessRing`` the tensors are this process's (B, L/P, D) block and
+    the result is its block.
     Differentiable. Returns (B, L, D) in q's dtype on q's device.
     No attention dropout: callers take ``ring_attention`` for that."""
     if key_padding_mask is None:

@@ -23,7 +23,9 @@ all-gathers the rank's step outputs and targets into the global batch in
 rank order with the rank's own slice left live for autograd, and
 ``all_reduce_grads``, which sums the ranks' gradients: the sum of each
 rank's gradient of the global loss through its own samples is the
-gradient of the global loss.
+gradient of the global loss. On a mesh (parallel/mesh.py) both run over
+the dp axis alone (an ``axis`` of the mesh: the ranks that hold different
+samples of the same shards); without one, over the whole gang.
 """
 from __future__ import annotations
 
@@ -108,9 +110,20 @@ def init_gang(address: str, world: int, rank: int, device="cuda") -> Gang:
     return _GANG
 
 
+_ON_SHUTDOWN: list = []
+
+
+def on_shutdown(fn):
+    """Call ``fn()`` whenever a gang is left (the layers built over the gang
+    forget their groups with it)."""
+    _ON_SHUTDOWN.append(fn)
+
+
 def shutdown():
     """Leave the gang (a no-op outside one)."""
     global _GANG
+    for fn in _ON_SHUTDOWN:
+        fn()
     if dist.is_initialized():
         dist.destroy_process_group()
     _GANG = None
@@ -184,31 +197,63 @@ def tensor_digest(tensors) -> str:
     return h.hexdigest()
 
 
-def check_replicated(model: torch.nn.Module, optimizer, step: int):
+def check_replicated(model: torch.nn.Module, optimizer, step: int, mesh=None):
     """Raise on every rank unless the ranks hold the same parameters,
     buffers, optimizer state and step: JAX makes each host's identical
     params global (``replicate_params``); here they must already be equal,
-    from the same seed or the same checkpoint. A collective."""
+    from the same seed or the same checkpoint. On a ``mesh`` the ranks that
+    hold the same shards (one per dp index, the same (ep, tp) place) are
+    compared. A collective."""
     if _GANG is None:
         return
     tensors = list(model.state_dict().values())
     for s in optimizer.adamw.state.values():
         tensors += [v for v in s.values() if isinstance(v, torch.Tensor)]
-    check_same((step, tensor_digest(tensors)), "the starting parameters and optimizer "
-               "state (build every rank from one seed or one checkpoint)")
+    what = ("the starting parameters and optimizer state (build every rank from one "
+            "seed or one checkpoint)")
+    if mesh is None:
+        check_same((step, tensor_digest(tensors)), what)
+        return
+    place = (mesh.ep.index, mesh.tp.index)
+    blobs = [pickle.loads(b) for b in all_gather_bytes(
+        pickle.dumps((place, step, tensor_digest(tensors))))]
+    firsts = {}
+    bad = [r for r, (pl, *value) in enumerate(blobs)
+           if firsts.setdefault(pl, value) != value]
+    if bad:
+        raise ValueError(f"the ranks disagree on {what}: ranks {bad} differ from the "
+                         f"first rank of their (ep, tp) place")
 
 
-def _all_gather_rows(x: torch.Tensor) -> torch.Tensor:
-    """(B, n) on each rank -> (world * B, n), rank-major. Under gloo through
-    the host (a no-op copy on the CPU)."""
-    if _GANG.backend == "gloo":
-        parts = [torch.empty_like(x, device="cpu") for _ in range(_GANG.world)]
-        dist.all_gather(parts, x.cpu())
-        return torch.cat(parts).to(x.device)
-    out = torch.empty((_GANG.world * x.shape[0],) + tuple(x.shape[1:]), dtype=x.dtype,
-                      device=x.device)
-    dist.all_gather_into_tensor(out, x)
-    return out
+def _staged(x: torch.Tensor) -> bool:
+    """Whether ``x`` crosses to the host for a collective: a CUDA tensor
+    under gloo."""
+    return _GANG.backend == "gloo" and x.is_cuda
+
+
+def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
+    """The sum of ``x`` over the ranks of ``group`` (None: the gang), as a
+    new tensor; under gloo a CUDA tensor goes through the host."""
+    y = x.detach().contiguous()
+    y = y.cpu() if _staged(y) else y.clone()
+    dist.all_reduce(y, group=group)
+    return y.to(x.device)
+
+
+def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:
+    """The tensors of the ranks of ``group`` (None: the gang) concatenated
+    along ``dim`` in rank order; under gloo a CUDA tensor goes through the
+    host."""
+    src = x.detach().contiguous()
+    n = dist.get_world_size(group)
+    if _GANG.backend == "nccl":
+        out = src.new_empty((n * src.shape[0],) + tuple(src.shape[1:]))
+        dist.all_gather_into_tensor(out, src, group=group)
+        return out if dim == 0 else torch.cat(out.chunk(n), dim=dim)
+    src = src.cpu()
+    parts = [torch.empty_like(src) for _ in range(n)]
+    dist.all_gather(parts, src, group=group)
+    return torch.cat(parts, dim=dim).to(x.device)
 
 
 def _leaves(tree, path=()):
@@ -238,7 +283,7 @@ def shape_signature(*trees):
                  for p, t in _leaves(tree))
 
 
-def gather_batch(tree, batch_size: int, replicated=()):
+def gather_batch(tree, batch_size: int, replicated=(), axis=None):
     """The global batch of ``tree`` (a nest of dicts and lists of tensors
     with a leading batch axis of ``batch_size``): every rank's tensors
     concatenated along that axis in rank order, the other ranks' detached
@@ -248,10 +293,12 @@ def gather_batch(tree, batch_size: int, replicated=()):
     bank's ``cls_mem_proj``) stays live on rank 0 and detached elsewhere,
     so the summed gradients count it once. One all-gather per dtype; the
     ranks' shapes must be equal (``check_same`` of ``shape_signature``
-    before the step). Outside a gang the tree comes back as it is."""
-    if _GANG is None:
+    before the step). ``axis``: a mesh axis (its ranks, its index for the
+    rank) in place of the gang. Outside a gang, or on an axis of one, the
+    tree comes back as it is."""
+    if _GANG is None or (axis is not None and not axis.on):
         return tree
-    r, B = _GANG.rank, batch_size
+    r, B = (_GANG.rank if axis is None else axis.index), batch_size
     new, by_dtype = {}, {}
     for path, t in _leaves(tree):
         if path and path[0] in replicated:
@@ -263,7 +310,7 @@ def gather_batch(tree, batch_size: int, replicated=()):
         by_dtype.setdefault(t.dtype, []).append((path, t))
     for items in by_dtype.values():
         rows = torch.cat([t.detach().reshape(B, -1) for _, t in items], dim=1)
-        full = _all_gather_rows(rows)
+        full = all_gather(rows, None if axis is None else axis.group)
         off = 0
         for path, t in items:
             n = t[0].numel()
@@ -273,13 +320,15 @@ def gather_batch(tree, batch_size: int, replicated=()):
     return _rebuild(tree, new)
 
 
-def all_reduce_grads(params):
-    """Sum every parameter's gradient over the ranks, in place. A missing
-    gradient becomes zeros first (``ClippedAdamW`` would zero-fill it
-    anyway), so every rank reduces the same list; one all-reduce per
-    dtype over a flat buffer. Outside a gang nothing happens."""
-    if _GANG is None:
+def all_reduce_grads(params, axis=None):
+    """Sum every parameter's gradient over the ranks (of the gang, or of a
+    mesh ``axis``), in place. A missing gradient becomes zeros first
+    (``ClippedAdamW`` would zero-fill it anyway), so every rank reduces the
+    same list; one all-reduce per dtype over a flat buffer. Outside a gang,
+    or on an axis of one, nothing happens."""
+    if _GANG is None or (axis is not None and not axis.on):
         return
+    group = None if axis is None else axis.group
     params = [p for p in params if p.requires_grad]
     for p in params:
         if p.grad is None:
@@ -288,13 +337,7 @@ def all_reduce_grads(params):
     for p in params:
         by_dtype.setdefault(p.grad.dtype, []).append(p.grad)
     for grads in by_dtype.values():
-        flat = torch.cat([g.reshape(-1) for g in grads])
-        if _GANG.backend == "gloo":  # through the host (on the CPU: in place)
-            host = flat.cpu()
-            dist.all_reduce(host)
-            flat = host.to(flat.device)
-        else:
-            dist.all_reduce(flat)
+        flat = all_reduce(torch.cat([g.reshape(-1) for g in grads]), group)
         off = 0
         for g in grads:
             g.copy_(flat[off:off + g.numel()].view_as(g))

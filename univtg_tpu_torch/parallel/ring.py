@@ -13,9 +13,13 @@ copy K/V peer to peer. Ranks on ``"cpu"`` run the plain twins.
 ``attention_impl="ring"`` or ``"ring_pallas"`` reads ``active_ring()`` and
 falls back to plain attention when there is none.
 
-The Megatron parameter-sharding rules of ``mesh.py``, ``seq_shard`` and a
-ring across processes are not part of this module (ROADMAP.md, queue 1
-item 11).
+``ProcessRing`` is the ring across processes: the tp axis of a mesh
+(parallel/mesh.py), one rank per process, each holding only its own block of
+the sequence. A model on a mesh with tp > 1 and a ring impl runs its
+attention over it, as JAX's ring runs over the mesh's "tp" axis. Its hops
+are ``torch.distributed`` point-to-point operations on the tp group
+(``post_hop``): device to device under NCCL, through host buffers under
+gloo.
 """
 from __future__ import annotations
 
@@ -106,6 +110,55 @@ class RingGroup:
 
     def __repr__(self) -> str:
         return f"RingGroup({self.size}, devices={[str(d) for d in self.devices]})"
+
+
+class ProcessRing:
+    """The P ranks of a mesh axis (parallel/mesh.Axis) in a ring: rank i
+    holds block i of the sequence and passes blocks to rank (i + 1) mod P.
+    ``ranks`` are the gang ranks of the axis in index order."""
+
+    def __init__(self, axis, ranks: Sequence[int]):
+        self.axis = axis
+        self.size = axis.size
+        self.rank = axis.index
+        self.ranks = tuple(int(r) for r in ranks)
+        self.right = self.ranks[(self.rank + 1) % self.size]
+        self.left = self.ranks[(self.rank - 1) % self.size]
+
+    def post_hop(self, x: torch.Tensor, to_right: bool = True):
+        """Send ``x`` to the right neighbour and receive the left one's
+        tensor of the same shape and dtype (``to_right=False``: the other way
+        round), both posted at once; returns a function that waits for the
+        receive and returns it. Under gloo a CUDA tensor is copied to the
+        host before the send is posted, and the receive lands on the host;
+        a host tensor goes as it is (a caller that keeps the host copy of
+        its block sends it again without a copy)."""
+        import torch.distributed as tdist
+
+        dst, src = (self.right, self.left) if to_right else (self.left, self.right)
+        send = x.detach().contiguous()
+        if self.axis.backend == "gloo" and send.is_cuda:
+            send = send.cpu()
+        recv = torch.empty_like(send)
+        keep = [send]  # alive until the send has gone
+        works = tdist.batch_isend_irecv([
+            tdist.P2POp(tdist.isend, send, dst, self.axis.group),
+            tdist.P2POp(tdist.irecv, recv, src, self.axis.group)])
+
+        def wait():
+            for w in works:
+                w.wait()
+            keep.clear()
+            return recv
+
+        return wait
+
+    def hop(self, x: torch.Tensor, to_right: bool = True) -> torch.Tensor:
+        """``post_hop``'s receive, waited for, on x's device."""
+        return self.post_hop(x, to_right)().to(x.device)
+
+    def __repr__(self) -> str:
+        return f"ProcessRing(rank {self.rank} of {self.size}, ranks {self.ranks})"
 
 
 def active_ring() -> Optional[RingGroup]:

@@ -13,6 +13,14 @@ leaves a truncated checkpoint. ``save_checkpoint`` writes synchronously;
 ``AsyncCheckpointer`` takes the state to the host and leaves the
 ``torch.save`` and the rename to a background thread, as the JAX package's
 does.
+
+A checkpoint is canonical whatever wrote it: a model on a mesh
+(parallel/mesh.shard_model) has its parameters and both Adam moments
+gathered from their tp and ep shards into the one-process layout first
+(``host_blob``, a collective: every rank calls it, rank 0 writes; the JAX
+driver's ``_host_state``), and ``restore_checkpoint`` cuts a canonical file
+(or the JAX package's) into the shards of the model it restores into. So a
+checkpoint loads anywhere.
 """
 from __future__ import annotations
 
@@ -31,15 +39,23 @@ from univtg_tpu_torch.interop.jax_params import (
     state_dict_from_jax,
     train_state_from_jax,
 )
+from univtg_tpu_torch.parallel import mesh as pm
 
 
-def _host_blob(state, epoch: int, config_json: Optional[str]) -> dict:
+def host_blob(state, epoch: int, config_json: Optional[str]) -> dict:
     """The checkpoint's dict with every tensor copied to the host: nothing
     that the next step (or a graph replay) overwrites is read after it
-    returns (the copies synchronize with the card)."""
+    returns (the copies synchronize with the card). Canonical: a sharded
+    model's state is gathered first, a collective that every rank of the
+    gang must enter."""
+    model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
+    mesh = pm.sharded_mesh(state.model)
+    if mesh is not None:
+        model_sd = pm.gather_state_dict(model_sd, mesh)
+        opt_sd = pm.gather_optimizer_state(opt_sd, pm.canonical_names(state.model), mesh)
     return {
-        "model": _to_cpu(state.model.state_dict()),
-        "optimizer": _to_cpu(state.optimizer.state_dict()),
+        "model": _to_cpu(model_sd),
+        "optimizer": _to_cpu(opt_sd),
         "epoch": epoch,
         "step": int(state.step),
         "opt": json.loads(config_json) if config_json is not None else None,
@@ -47,9 +63,10 @@ def _host_blob(state, epoch: int, config_json: Optional[str]) -> dict:
 
 
 def save_checkpoint(path: str, state, epoch: int,
-                    config_json: Optional[str] = None):
-    """Write the state to ``path`` (and the config to opt.json beside it)."""
-    _write_blob(path, _host_blob(state, epoch, config_json), config_json)
+                    config_json: Optional[str] = None, blob: Optional[dict] = None):
+    """Write the state to ``path`` (and the config to opt.json beside it);
+    ``blob``: its ``host_blob``, taken already."""
+    _write_blob(path, blob or host_blob(state, epoch, config_json), config_json)
 
 
 def _write_blob(path: str, blob: dict, config_json: Optional[str]):
@@ -78,9 +95,10 @@ class AsyncCheckpointer:
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
 
-    def save(self, path: str, state, epoch: int, config_json: Optional[str] = None):
+    def save(self, path: str, state, epoch: int, config_json: Optional[str] = None,
+             blob: Optional[dict] = None):
         self.wait()
-        blob = _host_blob(state, epoch, config_json)
+        blob = blob or host_blob(state, epoch, config_json)
 
         def write():
             try:
@@ -104,8 +122,9 @@ class _Synchronous:
     """AsyncCheckpointer's interface, writing in ``save()`` itself."""
 
     @staticmethod
-    def save(path: str, state, epoch: int, config_json: Optional[str] = None):
-        save_checkpoint(path, state, epoch, config_json)
+    def save(path: str, state, epoch: int, config_json: Optional[str] = None,
+             blob: Optional[dict] = None):
+        save_checkpoint(path, state, epoch, config_json, blob)
 
     def wait(self):
         pass
@@ -145,22 +164,29 @@ def restore_checkpoint(path: str, state):
     checkpoint restores too: its params, its optax ``chain([clip,]
     adamw)`` state (``interop/jax_params.train_state_from_jax``) and its
     step; a tree that does not match the model raises ``JaxTreeMismatch``
-    with the first path that differs."""
+    with the first path that differs. A sharded model takes its shards of
+    the canonical state."""
     raw = read_checkpoint(path)
+    mesh = pm.sharded_mesh(state.model)
     if is_jax_blob(raw):
+        # the canonical shapes: a skeleton of the model, unsharded
+        whole = (state.model if mesh is None
+                 else type(state.model)(state.model.cfg, device="meta"))
         try:
             sd, opt, step, epoch = train_state_from_jax(
-                raw, state.model, state.optimizer.state_dict(), state.optimizer.grad_clip)
+                raw, whole, state.optimizer.state_dict(), state.optimizer.grad_clip)
         except JaxTreeMismatch as e:
             raise JaxTreeMismatch(f"{path}: {e}") from None
-        state.model.load_state_dict(sd, strict=True)
-        state.optimizer.load_state_dict(opt)
-        state.step = step
-        return state, epoch
-    state.model.load_state_dict(raw["model"], strict=True)
-    state.optimizer.load_state_dict(raw["optimizer"])
-    state.step = int(raw["step"])
-    return state, int(raw["epoch"])
+    else:
+        sd, opt = raw["model"], raw["optimizer"]
+        step, epoch = int(raw["step"]), int(raw["epoch"])
+    if mesh is not None:
+        sd = pm.shard_state_dict(sd, mesh.coords(), mesh.sizes())
+        opt = pm.shard_optimizer_state(opt, pm.canonical_names(state.model), mesh)
+    state.model.load_state_dict(sd, strict=True)
+    state.optimizer.load_state_dict(opt)
+    state.step = step
+    return state, epoch
 
 
 def restore_params(path: str, params_template: dict, cfg=None) -> dict:

@@ -14,12 +14,14 @@ driver's (train/epoch_runner.run_train_epoch: ``transfer_dtype``,
 
 In a gang of processes (parallel/dist.py, one rank per device; the
 counterpart of the JAX driver's batch sharded over ``make_mesh(dp, tp)``):
-each rank reads its shard of each domain's training items (``bsz`` per
-rank), every step is the global batch's (train/steps.py gathers the
-outputs and sums the gradients), and rank 0 evaluates, checkpoints and
-writes the scores, which it broadcasts: every rank returns them. ``dp``
-must be None or the world size (``ValueError``); ``tp`` > 1 raises
-``NotImplementedError`` naming ROADMAP.md.
+the ranks lie on ``parallel.mesh.make_mesh(dp, tp)`` (dp None: the world
+size over tp), each dp row reads its shard of each domain's training items
+(``bsz`` per dp row), the tp ranks of a row hold their shards of the
+encoder (parallel/mesh.shard_model), every step is the global batch's
+(train/steps.py gathers the outputs and sums the gradients over dp), and
+rank 0 evaluates, checkpoints (the canonical state, gathered from the
+shards by every rank) and writes the scores, which it broadcasts: every
+rank returns them. ``infer_hl`` runs in one process.
 """
 from __future__ import annotations
 
@@ -41,6 +43,7 @@ from univtg_tpu_torch.models.config import ModelConfig
 from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.models.univtg import UniVTG
 from univtg_tpu_torch.parallel import dist
+from univtg_tpu_torch.parallel import mesh as pm
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.epoch_runner import StepProfiler, run_train_epoch
 from univtg_tpu_torch.train.schedule import build_schedule
@@ -89,15 +92,11 @@ class HLTrainConfig:
     profile_steps: int = 5
 
 
-def _refuse_unported(cfg: HLTrainConfig):
-    if cfg.tp > 1:
-        raise NotImplementedError(
-            "the HL driver of univtg_tpu_torch does not run tp > 1 yet "
-            "(ROADMAP.md, queue 1 item 11)")
-    if cfg.dp is not None and cfg.dp != dist.world():
+def _check_dp(cfg: HLTrainConfig):
+    if cfg.dp is not None and cfg.dp * cfg.tp != dist.world():
         raise ValueError(
             f"dp={cfg.dp}: univtg_tpu_torch runs one rank per device, so dp is the "
-            f"world size ({dist.world()}); leave it None")
+            f"world size ({dist.world()}) over tp={cfg.tp}; leave it None")
 
 
 def _domains(cfg: HLTrainConfig):
@@ -117,9 +116,11 @@ def _pred_scores(cfg: HLTrainConfig, outputs):
     return prob
 
 
-def _loader(cfg: HLTrainConfig, dataset, train: bool):
-    """The training loader reads this rank's shard (all of it outside a
-    gang); the evaluation loader the whole split."""
+def _loader(cfg: HLTrainConfig, dataset, train: bool, mesh=None):
+    """The training loader reads the shard of this rank's dp row on
+    ``mesh`` (all of it without one); the evaluation loader the whole
+    split."""
+    num_shards, shard_index = pm.data_shard(mesh if train else None)
     return Loader(
         dataset,
         cfg.bsz if train else cfg.eval_bsz,
@@ -128,8 +129,8 @@ def _loader(cfg: HLTrainConfig, dataset, train: bool):
         ),
         shuffle=train,
         seed=cfg.seed,
-        shard_index=dist.rank() if train else 0,
-        num_shards=dist.world() if train else 1,
+        shard_index=shard_index,
+        num_shards=num_shards,
     )
 
 
@@ -173,8 +174,8 @@ def eval_domain(cfg: HLTrainConfig, model, dataset: HLDataset) -> float:
 
 def infer_hl(cfg: HLTrainConfig, ckpt_dir: str, device="cuda") -> dict:
     """Eval-only pass over the per-domain best checkpoints (the reference's
-    main/inference_hl.py): {domain: mAP, "AVG": mean}."""
-    _refuse_unported(cfg)
+    main/inference_hl.py): {domain: mAP, "AVG": mean}, in one process."""
+    _check_dp(cfg)
     model = UniVTG(cfg.model, device=resolve_device(device))
     scores = {}
     for domain in _domains(cfg):
@@ -190,7 +191,9 @@ def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
     """Trains one fresh model per domain; returns {domain: best mAP, "AVG":
     mean} and writes it to best_{dset}_metrics.json. In a gang every rank
     calls it (the rank's own device, of ``device``'s type)."""
-    _refuse_unported(cfg)
+    _check_dp(cfg)
+    mesh = pm.make_mesh(cfg.dp, cfg.tp)
+    sharded = mesh is not None and mesh.sharded
     dev = dist.rank_device(device)
     is_main = dist.rank() == 0
     os.makedirs(cfg.results_dir, exist_ok=True)
@@ -199,7 +202,7 @@ def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
     def make_loader(domain):
         dataset = HLDataset(dataclasses.replace(cfg.data, domain=domain))
         dataset.set_state("train")
-        return dataset, _loader(cfg, dataset, train=True)
+        return dataset, _loader(cfg, dataset, train=True, mesh=mesh)
 
     # one schedule for every domain, quantized to the first domain's epoch
     # length (HL domain sizes are near-equal), as the JAX driver does
@@ -213,10 +216,14 @@ def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
         for di, domain in enumerate(domains):
             dataset, loader = first if di == 0 else make_loader(domain)
             # fresh model per domain (train_hl.py:193-209)
-            model = UniVTG(cfg.model, device=dev, seed=cfg.seed)
+            model = pm.shard_model(UniVTG(cfg.model, device=dev, seed=cfg.seed), mesh)
             state = TrainState(model, make_optimizer(model.parameters(), schedule,
                                                      cfg.wd, cfg.grad_clip))
-            dist.check_replicated(model, state.optimizer, state.step)
+            dist.check_replicated(model, state.optimizer, state.step,
+                                  pm.model_mesh(model))
+            # a sharded model is evaluated on rank 0 by a whole copy of it
+            eval_model = (UniVTG(cfg.model, device=dev, seed=cfg.seed)
+                          if sharded and is_main else model)
             best = 0.0
             for epoch in range(cfg.n_epoch):
                 dataset.set_state("train")
@@ -233,13 +240,19 @@ def train_hl(cfg: HLTrainConfig, device="cuda") -> dict:
                                 transfer_dtype=cfg.transfer_dtype,
                                 prefetch_depth=cfg.prefetch_depth, record=record)
                 profiler.stop()
-                if is_main and (epoch + 1) % cfg.eval_epoch == 0:
-                    mAP = eval_domain(cfg, model, dataset)
+                if (epoch + 1) % cfg.eval_epoch != 0:
+                    continue
+                # the canonical state, gathered by every rank of a sharded gang
+                blob = ckpt.host_blob(state, epoch, None) if sharded else None
+                if is_main:
+                    if sharded:
+                        eval_model.load_state_dict(blob["model"])
+                    mAP = eval_domain(cfg, eval_model, dataset)
                     if mAP > best:
                         best = mAP
                         ckpt.save_checkpoint(
                             os.path.join(cfg.results_dir, f"model_{domain}_best.ckpt"),
-                            state, epoch)
+                            state, epoch, blob=blob)
             scores[domain] = best
             logger.info(f"domain {domain}: best mAP {best}")
     scores["AVG"] = sum(scores.values()) / len(scores)

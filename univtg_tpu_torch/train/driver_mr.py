@@ -15,19 +15,26 @@ trace of the first ``profile_steps`` steps into ``profile_dir``.
 Checkpoints are torch files in the upstream container (train/checkpoint.py).
 ``TrainConfig`` has the JAX package's fields and JSON.
 
-Across processes (a gang of parallel/dist.py, one rank per device): each
-rank reads its shard of the data (``num_shards`` = the world size,
-``shard_index`` = the rank; with ``length_buckets`` the Loader's global
-bucket plan), every step is the global batch's (train/steps.py), and only
-rank 0 evaluates, checkpoints, writes TensorBoard, profiles and snapshots
-the code; its early-stop and final-save decisions are broadcast. Every rank
-writes its own ``train_log.jsonl`` and ``opt.json`` into its results_dir,
-as in the JAX package. ``sharded_eval`` spreads the evaluation over the
-ranks (stride shards, submissions all-gathered, rank 0 merging);
-``inject_fault_epoch``/``inject_fault_rank`` make one rank exit hard after
-an epoch, and the gang restarts with ``resume`` = rank 0's
-``model_latest.ckpt`` and ``resume_all``. ``dp`` is the world size (None
-means it); ``tp``/``pp``/``ep`` > 1 raise ``NotImplementedError`` naming
+Across processes (a gang of parallel/dist.py, one rank per device): the
+ranks lie on ``parallel.mesh.make_mesh(dp, tp, ep)`` (dp None: the world
+size over tp * ep), each dp row reads its shard of the data
+(``num_shards`` = dp, ``shard_index`` = the rank's dp index; with
+``length_buckets`` the Loader's global bucket plan), the tp and ep ranks of
+a row hold their shards of the encoder (parallel/mesh.shard_model;
+``model.seq_shard`` runs its layers on token blocks), every step is the
+global batch's (train/steps.py), and only rank 0 evaluates, checkpoints,
+writes TensorBoard, profiles and snapshots the code; its early-stop and
+final-save decisions are broadcast. A sharded model's checkpoints are
+canonical (every rank gathers the state, rank 0 writes it), and rank 0
+evaluates a whole copy of the model loaded from the gathered parameters.
+Every rank writes its own ``train_log.jsonl`` and ``opt.json`` into its
+results_dir, as in the JAX package. ``sharded_eval`` spreads the
+evaluation over the dp rows (stride shards, the rows' ranks running the
+sharded model together, submissions all-gathered, rank 0 merging; a MoE
+model there routes each row's eval batch); ``inject_fault_epoch``/
+``inject_fault_rank`` make one rank exit hard after an epoch, and the gang
+restarts with ``resume`` = rank 0's ``model_latest.ckpt`` and
+``resume_all``. ``pp`` > 1 raises ``NotImplementedError`` naming
 ROADMAP.md. With ``async_checkpoint`` (the default) the checkpoints are
 written by train/checkpoint.AsyncCheckpointer: the state is copied to the
 host at each save and the file written in the background, one write in
@@ -61,6 +68,7 @@ from univtg_tpu_torch.models.losses import LossWeights
 from univtg_tpu_torch.models.moment_detr import MomentDETR, MomentDETRConfig
 from univtg_tpu_torch.models.univtg import UniVTG
 from univtg_tpu_torch.parallel import dist
+from univtg_tpu_torch.parallel import mesh as pm
 from univtg_tpu_torch.train import checkpoint as ckpt
 from univtg_tpu_torch.train.config_io import snapshot_code, to_json
 from univtg_tpu_torch.train.epoch_runner import StepProfiler, run_train_epoch, strip_meta
@@ -157,17 +165,12 @@ class TrainConfig:
 
 
 def _refuse_unported(cfg: TrainConfig):
-    unported = {
-        "tp > 1": cfg.tp > 1,
-        "pp > 1": cfg.pp > 1,
-        "ep > 1": cfg.ep > 1,
-    }
-    named = [k for k, on in unported.items() if on]
-    if named:
+    if cfg.pp > 1:
         raise NotImplementedError(
-            f"train_mr of univtg_tpu_torch does not run {', '.join(named)} "
-            f"yet (ROADMAP.md, queue 1)"
-        )
+            "train_mr of univtg_tpu_torch does not run pp > 1 yet (ROADMAP.md, "
+            "queue 1)")
+    # the JAX driver's ep checks; a Moment-DETR model is not split over tp
+    pm.check_model(cfg.model, cfg.tp if cfg.model_id == "univtg" else 1, cfg.ep)
     if cfg.model_id not in ("univtg", "moment_detr"):
         raise ValueError(f"unknown model_id {cfg.model_id!r}")
     if cfg.model_id == "moment_detr" and not isinstance(cfg.model, MomentDETRConfig):
@@ -176,23 +179,23 @@ def _refuse_unported(cfg: TrainConfig):
             f"not a {type(cfg.model).__name__}")
 
 
-def _place_in_gang(cfg: TrainConfig) -> TrainConfig:
-    """cfg with the gang's data shard: ``dp`` must be the world size (None
-    means it: one rank per device), and ``num_shards``/``shard_index``
-    the world size and the rank (left at 1/0 they are filled in)."""
-    world, rank = dist.world(), dist.rank()
-    if cfg.dp is not None and cfg.dp != world:
-        raise ValueError(
-            f"dp={cfg.dp}: univtg_tpu_torch runs one rank per device, so dp is the "
-            f"world size ({world}); leave it None")
+def _place_in_gang(cfg: TrainConfig):
+    """(cfg with the gang's data shard, the mesh or None): the ranks on
+    ``make_mesh(dp, tp, ep)``, whose dp * tp * ep must be the world size
+    (dp None means world / (tp * ep): one rank per device), and
+    ``num_shards``/``shard_index`` dp and the rank's dp index (left at 1/0
+    they are filled in)."""
+    mesh = pm.make_mesh(cfg.dp, cfg.tp, cfg.ep)
+    dp, d = pm.data_shard(mesh)
     if (cfg.num_shards, cfg.shard_index) == (1, 0):
-        cfg = dataclasses.replace(cfg, num_shards=world, shard_index=rank)
-    if (cfg.num_shards, cfg.shard_index) != (world, rank):
+        cfg = dataclasses.replace(cfg, num_shards=dp, shard_index=d)
+    if (cfg.num_shards, cfg.shard_index) != (dp, d):
         raise ValueError(
             f"shard {cfg.shard_index} of {cfg.num_shards}: univtg_tpu_torch reads "
-            f"one data shard per rank, so num_shards/shard_index must be the world "
-            f"size and the rank ({world}/{rank}); train_vlp sets them")
-    return cfg
+            f"one data shard per dp row, so num_shards/shard_index must be dp and "
+            f"the rank's dp index ({dp}/{d}; without tp or ep, the world size and "
+            f"the rank); train_vlp sets them")
+    return cfg, mesh
 
 
 def build_model(cfg: TrainConfig, device="cuda", seed: int = 0):
@@ -216,9 +219,9 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     card; pass device='cpu' to train on the CPU. In a gang every rank calls
     it (the rank's own device, of ``device``'s type)."""
     _refuse_unported(cfg)
-    cfg = _place_in_gang(cfg)
+    cfg, mesh = _place_in_gang(cfg)
     dev = dist.rank_device(device)
-    is_main = cfg.shard_index == 0
+    is_main = dist.rank() == 0
     os.makedirs(cfg.results_dir, exist_ok=True)
     train_ds = train_dataset if train_dataset is not None else MRDataset(cfg.train_data)
     eval_ds = MRDataset(cfg.eval_data) if cfg.eval_data else None
@@ -253,23 +256,34 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     )
     steps_per_epoch = len(train_loader)
     model = build_model(cfg, dev, cfg.seed)
-    schedule = build_schedule(cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma,
-                              max(steps_per_epoch, 1))
-    state = TrainState(model, make_optimizer(model.parameters(), schedule,
-                                             cfg.wd, cfg.grad_clip))
-
     resume_epoch = None
     if resume == "auto":  # elastic restart: pick up the latest checkpoint
         latest = os.path.join(cfg.results_dir, "model_latest.ckpt")
         resume = latest if os.path.exists(latest) else None
         resume_all = True
-    if resume:
-        if resume_all:
-            state, resume_epoch = ckpt.restore_checkpoint(resume, state)
-        else:  # weights only
-            model.load_state_dict(
-                ckpt.restore_params(resume, model.state_dict(), cfg.model), strict=True)
-    dist.check_replicated(model, state.optimizer, state.step)
+    if resume and not resume_all:  # weights only, into the whole model
+        model.load_state_dict(
+            ckpt.restore_params(resume, model.state_dict(), cfg.model), strict=True)
+    if cfg.model_id == "univtg":
+        model = pm.shard_model(model, mesh)
+    else:  # JAX's rules split no Moment-DETR leaf
+        model = pm.replicate_model(model, mesh)
+    sharded = pm.sharded_mesh(model) is not None
+    schedule = build_schedule(cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma,
+                              max(steps_per_epoch, 1))
+    state = TrainState(model, make_optimizer(model.parameters(), schedule,
+                                             cfg.wd, cfg.grad_clip))
+    if resume and resume_all:
+        state, resume_epoch = ckpt.restore_checkpoint(resume, state)
+    dist.check_replicated(model, state.optimizer, state.step, pm.model_mesh(model))
+    # a sharded model is evaluated on rank 0 by a whole copy, loaded from the
+    # gathered parameters at each evaluation
+    eval_model = build_model(cfg, dev, cfg.seed) if sharded and is_main else model
+
+    def gathered(epoch):
+        """The canonical host state, gathered by every rank of a sharded
+        gang (a collective); None elsewhere (the writer takes it)."""
+        return ckpt.host_blob(state, epoch, cfg_json) if sharded else None
 
     scan_step = None
     if cfg.model_id == "moment_detr":
@@ -320,7 +334,7 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                 profiler.stop()  # short epoch: close the trace at epoch end
                 tb.scalars(line, epoch, prefix="train/")
                 if (epoch == cfg.inject_fault_epoch
-                        and cfg.shard_index == cfg.inject_fault_rank):
+                        and dist.rank() == cfg.inject_fault_rank):
                     # a simulated crash: no cleanup, no checkpoint, as a
                     # killed member of a gang looks to its peers; the write
                     # in flight lands first, for the restart to read
@@ -330,22 +344,25 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
             stop = False
             if eval_ds is not None and (epoch + 1) % cfg.eval_epoch == 0:
                 metrics = None
+                blob = gathered(epoch)
                 if cfg.sharded_eval and gang:
-                    # every rank scores its shard; rank 0 merges
+                    # every dp row scores its shard; rank 0 merges
                     metrics = _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch)
                 if is_main:
                     if metrics is None:
-                        metrics = _eval_once(cfg, model, eval_ds, eval_step, epoch)
+                        if sharded:
+                            eval_model.load_state_dict(blob["model"])
+                        metrics = _eval_once(cfg, eval_model, eval_ds, eval_step, epoch)
                     eval_log.write(json.dumps({"epoch": epoch, **metrics["brief"]}) + "\n")
                     eval_log.flush()
                     tb.scalars(metrics["brief"], epoch, prefix="eval/")
                     score = metrics["brief"].get(f"{cfg.main_metric}-key")
                     if score is None:
                         score = metrics["brief"].get(cfg.main_metric)
-                    saver.save(latest_path, state, epoch, cfg_json)
+                    saver.save(latest_path, state, epoch, cfg_json, blob)
                     if score is not None and score > best_score:
                         best_score, best_metrics, es_cnt = score, metrics, 0
-                        saver.save(best_path, state, epoch, cfg_json)
+                        saver.save(best_path, state, epoch, cfg_json, blob)
                     else:
                         es_cnt += 1
                         stop = 0 <= cfg.max_es_cnt <= es_cnt
@@ -356,15 +373,18 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                 saver.wait()
                 logger.info("early stop")
                 break
-            if (is_main and cfg.save_interval > 0 and epoch > 0
-                    and epoch % cfg.save_interval == 0):
-                saver.save(os.path.join(cfg.results_dir, f"model_e{epoch:04d}.ckpt"),
-                           state, epoch, cfg_json)
+            if cfg.save_interval > 0 and epoch > 0 and epoch % cfg.save_interval == 0:
+                blob = gathered(epoch)
+                if is_main:
+                    saver.save(os.path.join(cfg.results_dir, f"model_e{epoch:04d}.ckpt"),
+                               state, epoch, cfg_json, blob)
 
         # no evaluation picked a best checkpoint: the final state is the best.
         # best_metrics is rank 0's to know, so its decision is broadcast
-        if dist.broadcast_flag(best_metrics is None) and is_main:
-            saver.save(best_path, state, cfg.n_epoch - 1, cfg_json)
+        if dist.broadcast_flag(best_metrics is None):
+            blob = gathered(cfg.n_epoch - 1)
+            if is_main:
+                saver.save(best_path, state, cfg.n_epoch - 1, cfg_json, blob)
     return best_metrics or {}, best_path
 
 
@@ -537,6 +557,6 @@ def _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch):
     if len(submission) != len(by_qid):
         raise RuntimeError("sharded eval gathered qids that are not in the eval "
                            "metadata: the ranks' shard views are out of step")
-    if cfg.shard_index != 0:
+    if dist.rank() != 0:
         return None
     return _finish_eval(cfg, submission, eval_ds, epoch)

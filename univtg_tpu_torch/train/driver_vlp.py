@@ -5,10 +5,11 @@ Differences from single-task MR training:
   * train data = the multi-corpus ``VLPDataset`` with per-sample loss gates
     (``use_gates=True``),
   * evaluation = zero-shot QVHighlights val (train_vlp_ddp.py:246-259),
-  * across processes: call ``init_distributed`` once per process; each
-    rank then reads its own data shard (the DistributedSampler's place) and
-    every step is the global batch's (train/steps.py, parallel/dist.py),
-    as the JAX package's one SPMD program across hosts computes it.
+  * across processes: call ``init_distributed`` once per process (a world
+    of dp * tp * ep ranks); each dp row then reads its own data shard (the
+    DistributedSampler's place) and every step is the global batch's
+    (train/steps.py, parallel/dist.py, parallel/mesh.py), as the JAX
+    package's one SPMD program across hosts computes it.
 """
 from __future__ import annotations
 
@@ -49,15 +50,16 @@ def train_vlp(cfg: VLPTrainConfig, resume: Optional[str] = None,
               resume_all: bool = False, device="cuda"):
     """``train_mr`` over ``VLPDataset(cfg.vlp_data)`` with the per-sample
     loss gates on; returns (best_metrics, best_ckpt_path). train_mr writes
-    opt.json (the whole VLPTrainConfig) and code.zip. The process index and
-    count come from the gang (0 and 1 outside one), as JAX reads
-    ``jax.process_index()``/``process_count()``."""
+    opt.json (the whole VLPTrainConfig) and code.zip. The data shard is the
+    rank's dp row of ``make_mesh(dp, tp, ep)`` (0 of 1 outside a gang), as
+    JAX's process index and count place a host's batch on the dp axis:
+    the shard fields are reset here, and train_mr fills them from the
+    mesh."""
     if cfg.vlp_data is None:
         raise ValueError("train_vlp needs cfg.vlp_data")
-    pid, pcount = dist.rank(), dist.world()
-    cfg = dataclasses.replace(cfg, use_gates=True, shard_index=pid, num_shards=pcount)
+    cfg = dataclasses.replace(cfg, use_gates=True, shard_index=0, num_shards=1)
     train_ds = VLPDataset(cfg.vlp_data)
     logger.info(f"VLP: {len(train_ds)} samples over {len(cfg.vlp_data.corpora)} corpora, "
-                f"process {pid}/{pcount}")
+                f"process {dist.rank()}/{dist.world()}")
     return train_mr(cfg, resume=resume, train_dataset=train_ds, resume_all=resume_all,
                     device=device)

@@ -25,6 +25,7 @@ from univtg_tpu_torch.core.spans import cxw_to_xx
 from univtg_tpu_torch.device import exact_f32
 from univtg_tpu_torch.models.losses import LossWeights, compute_losses
 from univtg_tpu_torch.parallel import dist
+from univtg_tpu_torch.parallel import mesh as pm
 from univtg_tpu_torch.train.epoch_runner import strip_meta
 
 
@@ -50,11 +51,19 @@ class ClippedAdamW:
     On a card AdamW is ``capturable`` and its rate a device tensor, so the
     step can be captured in a CUDA graph (``make_scan_train_step``);
     ``step_with_lr(lr)`` takes the rate as such a tensor.
+
+    Over the shards of a model on a mesh (parallel/mesh.shard_model: each
+    parameter carries its ``placement``) the global norm is the norm of the
+    whole unsharded gradient: each parameter's squares weighed by 1 over
+    the ranks of its dp row that hold the same shard, summed over the row.
     """
 
     def __init__(self, params, schedule: Callable[[int], float],
                  weight_decay: float = 1e-4, grad_clip: float = 0.1):
         self.params = [p for p in params if p.requires_grad]
+        placed = [getattr(p, "placement", None) for p in self.params]
+        self.row = placed[0][1] if placed and placed[0] is not None else None
+        self.norm_weights = [1.0 / pl[0] for pl in placed] if self.row else None
         self.schedule = schedule
         self.grad_clip = grad_clip
         self.capturable = bool(self.params) and self.params[0].is_cuda
@@ -86,7 +95,7 @@ class ClippedAdamW:
             if p.grad is None:
                 p.grad = torch.zeros_like(p)
         grads = [p.grad for p in self.params]
-        norm = global_norm(grads)
+        norm = self.global_norm(grads)
         if self.grad_clip > 0:
             keep = norm < self.grad_clip
             for g in grads:
@@ -95,6 +104,12 @@ class ClippedAdamW:
             group["lr"] = lr
         self.adamw.step()
         return norm
+
+    def global_norm(self, grads) -> torch.Tensor:
+        if self.row is None:
+            return global_norm(grads)
+        sq = sum(w * torch.sum(g.float() ** 2) for w, g in zip(self.norm_weights, grads))
+        return torch.sqrt(pm.all_reduce(sq, self.row))
 
     def state_dict(self):
         state = self.adamw.state_dict()
@@ -129,8 +144,10 @@ class TrainState:
 
 
 def step_seed(seed: int, step: int, rank: int = 0) -> int:
-    """The 63-bit generator seed of (seed, step), and of the rank in a gang
-    (rank 0 keeps the one-process seed)."""
+    """The 63-bit generator seed of (seed, step), and of the rank's data
+    shard in a gang (its dp index on a mesh, whose tp and ep ranks draw the
+    same bits for their replicated activations; rank 0 keeps the
+    one-process seed)."""
     entropy = [int(seed), int(step)] + ([int(rank)] if rank else [])
     state = np.random.SeedSequence(entropy).generate_state(2)
     return (int(state[0]) << 32 | int(state[1])) & 0x7FFFFFFFFFFFFFFF
@@ -181,15 +198,11 @@ def _dense_losses(weights, losses, use_gates):
     return loss_fn
 
 
-def check_gang_moe(model_cfg):
-    """Raise for a MoE model in a gang: the JAX package routes over the
-    global batch (the capacity from the global token count, the slots in the
-    global token order, the aux over every token), and a rank's forward on
-    its own shard would route otherwise."""
-    if dist.active() is not None and getattr(model_cfg, "moe_experts", 0) > 1:
-        raise NotImplementedError(
-            "a MoE model (moe_experts > 1) in a gang of processes: the port routes "
-            "each rank's shard, JAX the global batch (ROADMAP.md, queue 1)")
+def data_rank(model) -> int:
+    """The index of the rank's data shard: its dp index on a mesh, else its
+    rank in the gang."""
+    mesh = pm.model_mesh(model)
+    return dist.rank() if mesh is None else mesh.dp.index
 
 
 def _train_body(state: TrainState, model_inputs, targets, generator, update,
@@ -207,22 +220,39 @@ def _train_body(state: TrainState, model_inputs, targets, generator, update,
     AdamW that follow come out the same on every rank. Any ``loss_fn``
     (dense, gated, Moment-DETR) is exact this way: the InfoNCE over the
     batch, the batch-wide normalisers and ``has_signal`` all see the
-    global batch. A MoE model in a gang raises (``check_gang_moe``)."""
+    global batch. A MoE model routes the global batch too (its
+    probabilities all-gathered over the mesh, ``ops/moe.moe_ffn``).
+
+    On a mesh (parallel/mesh.py) the gather and the sum run over the dp
+    axis alone: the tp and ep ranks of a dp row hold the same samples, and
+    their gradients of the replicated parameters are already whole (the
+    model's own collectives made them so); a sum over the gang would count
+    them tp * ep times."""
     if static_inputs:
         model_inputs = {**model_inputs, **static_inputs}
-    check_gang_moe(state.model.cfg)
     state.model.train()
+    mesh = pm.model_mesh(state.model)
+    if mesh is None and dist.world() > 1 and getattr(state.model.cfg, "moe_experts", 0) > 1:
+        raise ValueError(
+            "a MoE model in a gang routes the global batch over its mesh: put it on "
+            "one with parallel.mesh.shard_model(model, make_mesh(...)) before the step")
+    axis = None if mesh is None else mesh.dp
     outputs = forward(state.model, model_inputs, train=True, generator=generator)
     if dist.active() is not None:
         B = model_inputs["src_vid_mask"].shape[0]
+        # the MoE aux is the global batch's already, live on every rank
+        # through this rank's own router probabilities
+        aux = outputs.pop("aux_moe", None)
         outputs = dist.gather_batch(
-            outputs, B, replicated=("cls_mem_proj",) if static_inputs else ())
-        targets = dist.gather_batch(targets, B)
+            outputs, B, replicated=("cls_mem_proj",) if static_inputs else (), axis=axis)
+        if aux is not None:
+            outputs["aux_moe"] = aux
+        targets = dist.gather_batch(targets, B, axis=axis)
     loss_dict = loss_fn(outputs, targets)
     state.optimizer.zero_grad()
     with exact_f32(state.model.cfg.dtype):  # the conv heads' backward in f32
         loss_dict["loss_overall"].backward()
-    dist.all_reduce_grads(state.model.parameters())
+    dist.all_reduce_grads(state.model.parameters(), axis)
     metrics = {k: v.detach() for k, v in loss_dict.items()}
     metrics["grad_norm"] = update()
     return metrics
@@ -253,7 +283,7 @@ def _single_step(loss_fn, static_inputs=None):
                         "the shapes of the step's batch")
         metrics = _train_body(
             state, model_inputs, targets,
-            step_generator(seed, state.step, device, dist.rank()),
+            step_generator(seed, state.step, device, data_rank(state.model)),
             lambda: state.optimizer.step(state.step), loss_fn, static_inputs)
         state.step += 1
         return state, metrics
@@ -406,7 +436,7 @@ class ScanTrainStep:
         group.lr.copy_(rates.pin_memory(), non_blocking=True)
         current = torch.cuda.current_stream(device)
         if first:
-            self.generator.manual_seed(step_seed(seed, state.step, dist.rank()))
+            self.generator.manual_seed(step_seed(seed, state.step, data_rank(state.model)))
             self.stream.wait_stream(current)
             with torch.cuda.stream(self.stream):
                 metrics = self._steps(state, group, K)
@@ -414,7 +444,7 @@ class ScanTrainStep:
         else:
             if group.graph is None:
                 self._capture(state, group, K)
-            self.generator.manual_seed(step_seed(seed, state.step, dist.rank()))
+            self.generator.manual_seed(step_seed(seed, state.step, data_rank(state.model)))
             group.graph.replay()
             for counts, made in zip(_replay_counters(), group.counts):
                 for name, n in made.items():
