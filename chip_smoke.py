@@ -109,7 +109,8 @@ printing its seconds:
                  (M = 32 x 75), held against its twin and against F.linear
                  with the weight as served.
   7d. evalsize -- evaluation at the size of QVHighlights' val split
-                 (N_VAL_FULL queries of 75 clips, synthetic), bf16 and f32,
+                 (N_VAL_FULL queries of 75 clips, synthetic), bf16 (its
+                 f32 pass cut to pay for phases 7u-7x),
                  as train-mr pays it every eval_epoch: seconds of the
                  driver's inference (_run_eval_shard) and scoring
                  (_finish_eval, on the native AP kernel, g++-built from
@@ -252,8 +253,8 @@ printing its seconds:
                  evaluated and checkpointed each) with async_checkpoint on
                  and off, cuDNN deterministic: the checkpoints bit-equal;
                  the host ms each save blocks the loop, and the writer's.
-  7o. hl gang -- train_hl in a gang of two gloo ranks sharing the card
-                 (`--dist-worker` processes) on 7f's corpus, HL_GANG_BSZ
+  7o. hl gang -- (right after 7u, a case of its gang) train_hl in a gang
+                 of two gloo ranks sharing the card on 7f's corpus, HL_GANG_BSZ
                  items a rank a step, f32, "pallas", dropouts 0: each step
                  against one process on the assembled batches at
                  TRAIN_TOL, the ranks equal; per rank step ms, collective
@@ -308,6 +309,32 @@ printing its seconds:
                  2, 3 steps each against one process on the global batches
                  at TRAIN_TOL, tokens routed otherwise only within
                  MOE_TIE_REL; ms a step per rank.
+  7x. mesh pp -- pipelines across processes (parallel/pipeline.py,
+                 parallel/pipeline_1f1b.py, train/steps_1f1b.py), right
+                 after 7w: (a) train_mr at dp = 2 x pp = 2 (GPipe, 2
+                 microbatches) on phase 7's corpus, B = 32 global, f32,
+                 "pallas", dropouts 0, one epoch of 3 steps evaluated by
+                 rank 0 on a local non-pipeline copy, each step against one
+                 process on the same global batches at TRAIN_TOL, the ranks
+                 equal, model_best.ckpt through one-process `cli infer-mr`
+                 with the gang's metrics; (b) 1F1B (PP_CASES: pp = 4 and M =
+                 8; dp = 2 x pp = 2 x interleave 2, M = 4; 7r's MoE at pp =
+                 2 x ep = 2, M = 4), each step against one process's
+                 microbatched loss (the mean of the M x dp block losses) at
+                 TRAIN_TOL, MoE tokens routed otherwise only within
+                 MOE_TIE_REL; (a) and (b) in one gang of MESH_PP gloo ranks
+                 sharing the card, several meshes in turn; in 7u's gang of
+                 two (pp = 2 at dp = 1): (c) GPipe at the flagship's
+                 dropouts against the one-process step from the same seed
+                 at TRAIN_TOL; (d) the step at 8 x (2048 + 32), pp = 2,
+                 bf16 and f32, GPipe and 1F1B at PP_LONG_MICRO
+                 microbatches: per rank ms a step, peak memory, host ms in
+                 the stage hops, idle tick share, saved inputs. Every part
+                 shows each rank's ticks, hops, the layers and parameters it
+                 holds and no fallback warning; the flash launches are held
+                 to GPipe's L M of each kernel a step and pipeline, and
+                 1F1B's (L - L / (pp v)) M + L M forwards and L M of each
+                 backward kernel.
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -322,7 +349,8 @@ printing its seconds:
                  bf16 and f32, dropouts 0: RING_SCAN_GROUPS groups (eager,
                  captured, replayed) against eager ring steps bit for bit by
                  7e's rule; ms per step captured and eager.
-  7v. mesh ring -- the ring across processes: MESH_RING_P gloo ranks sharing
+  7v. mesh ring -- (right after 7x, in its gang) the ring across processes:
+                 MESH_RING_P gloo ranks sharing
                  the card, their tp axis the ring (parallel/ring.ProcessRing):
                  ring_attention_pallas at 8 x 2080, f32 and bf16, each
                  process its block, the gathered output against the
@@ -360,7 +388,10 @@ steps, MoE training resumed from JAX phase 7t's two steps, ring training on
 CUDA graphs phase 9c's bf16 scan and eager ring steps, tp training across
 processes phase 7u's train_mr gang (each rank counts its own; summed), MoE
 training across processes phase 7w's dp = 2 and ep = 2 steps (summed), ring
-training across processes phase 7v's ring_pallas steps (summed); the smoke's own
+training across processes phase 7v's ring_pallas steps (summed), pipelined
+training phase 7x's train_mr at dp = 2 x pp = 2 (GPipe, rank 0's evaluation
+included), its 1F1B steps and its GPipe steps at the dropouts (each summed
+over the ranks); the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
 of the other paths must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
@@ -369,6 +400,7 @@ are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
 from __future__ import annotations
 
 import concurrent.futures
+import dataclasses
 import json
 import os
 import re
@@ -537,6 +569,7 @@ N_VAL = 64  # val items of the training corpus: 2 eval batches of 32
 # QVHighlights' val split (upstream data/highlight_val_release.jsonl): 1550
 # queries, 49 eval batches of 32; phase 7d evaluates one of that size
 N_VAL_FULL = 1550
+EVAL_SUBSET = 5  # 7d times its loader and profiles over every 5th query
 # the train-mr profiler window of phase 7 (profile_steps): 2 of epoch 0's 3 steps
 PROFILE_STEPS = 2
 # the native AP against its numpy twin (both f64; the same operations, in
@@ -589,7 +622,7 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # runs SCAN_EPOCHS epochs of 3 steps at K = 2, so epoch 0's group runs
 # eagerly, epoch 1's is captured and replayed, epoch 2's replayed
 SCAN_KS = (1, 2, 4, 8)
-SCAN_TIMED_STEPS = 32
+SCAN_TIMED_STEPS = 16
 SCAN_EPOCHS = 3
 KEEP_SIGMAS = 4.0  # the kernels' keep rate over a step, against 1 - rate
 # highlight detection (phase 7f): a TVSum-shaped corpus of HL_DOMAINS
@@ -597,7 +630,7 @@ KEEP_SIGMAS = 4.0  # the kernels' keep rate over a step, against 1 - rate
 # 4 + 1), trained HL_EPOCHS epochs; fused scores "pallas" vs "xla" in f32
 # at phase 4's f32 saliency limit; HL_SHAPE, its attention (B=4, 512 clips
 # + 32 tokens), joins phase 3's kernel checks
-HL_DOMAINS, HL_TRAIN, HL_VAL, HL_EPOCHS = 2, 4, 1, 3
+HL_DOMAINS, HL_TRAIN, HL_VAL, HL_EPOCHS = 2, 4, 1, 2
 HL_SCORE_TOL = 2e-3
 HL_SHAPE = {"train_hl": (4, 512 + 32, 8, 128)}
 # QFVS (phase 7g): a UT-Egocentric-shaped tree (QFVS_VIDEOS videos of 20
@@ -608,7 +641,7 @@ HL_SHAPE = {"train_hl": (4, 512 + 32, 8, 128)}
 # "pallas" vs "xla" at phase 4's f32 saliency limit. QFVS_SHAPES, its
 # attention (the segments are the batch: 20 x (200 + 3) for a concept,
 # 20 x (200 + 6) for the oracle's pair), join phase 3's kernel checks
-QFVS_VIDEOS, QFVS_SPLITS, QFVS_EPOCHS = 4, 2, 2
+QFVS_VIDEOS, QFVS_SPLITS, QFVS_EPOCHS = 4, 1, 1
 QFVS_SCORE_TOL = 2e-3
 QFVS_SHAPES = {"train_qfvs_concept": (20, 200 + 3, 8, 128),
                "train_qfvs_oracle": (20, 200 + 6, 8, 128)}
@@ -658,7 +691,7 @@ TF32_AS_FOUND = {}
 # phase 7n: scan_steps = RING_SCAN_K under use_ring(RingGroup(RING_P)) at
 # 8 x (2048 + 32), RING_SCAN_GROUPS groups (eager, captured, replayed) against
 # as many eager ring steps; RING_SCAN_TIMED groups timed a dtype
-RING_SCAN_K, RING_SCAN_GROUPS, RING_SCAN_TIMED = 2, 3, 4
+RING_SCAN_K, RING_SCAN_GROUPS, RING_SCAN_TIMED = 2, 3, 2
 # phase 7l: the JAX package's checkpoint of a small UniVTG after 2 steps, the
 # next 2 batches and JAX's metrics of them (tests/torch_golden/make_jax_resume.py)
 RESUME_FIXTURE = os.path.join("tests", "torch_golden", "jax_resume")
@@ -668,10 +701,10 @@ ASYNC_EPOCHS = 2
 HL_GANG_BSZ = 2
 # phase 7p: the planted-signal learning check (tools/validate_synthetic.py) at
 # the flagship's width and heads, LEARN_EPOCHS epochs (below the script's
-# default 30, to pay for phases 7u-7w), f32 and bf16; beside it the JAX
+# default 30, to pay for phases 7u-7x), f32 and bf16; beside it the JAX
 # package's readings (docs/PERF.md, "End-to-end learning validation":
 # hidden 1024 at 20 and 50 epochs)
-LEARN_EPOCHS, LEARN_HIDDEN, LEARN_HEADS = 20, 1024, 8
+LEARN_EPOCHS, LEARN_HIDDEN, LEARN_HEADS = 10, 1024, 8
 JAX_LEARNING = {
     "cpu, hidden 96, 25 epochs": {"R1@0.5": 78.1, "mIoU": 58.8, "mAP": 43.2,
                                   "HL-VeryGood-mAP": 62.2},
@@ -685,7 +718,7 @@ CLIP_BF16_TOL = 2.5e-2
 # top-2, the scan layout: tests/test_moe.py's _moe_cfg), `cli train-mr`
 # MOE_EPOCHS epochs a dtype; make_scan_train_step timed over MOE_TIMED_STEPS
 MOE_OVERRIDES = ("model.moe_experts=4", "model.moe_top_k=2", "model.scan_layers=true")
-MOE_EPOCHS, MOE_TIMED_STEPS, MOE_SERVE_QUERIES = 2, 8, 8
+MOE_EPOCHS, MOE_TIMED_STEPS, MOE_SERVE_QUERIES = 1, 4, 8
 # a token whose top-2 choice differs between the f32 "pallas" and "xla" steps
 # is allowed only where the "xla" run's probabilities of the two experts
 # differ by at most this share of the larger: near-ties, as MATCH_TIE_REL for
@@ -702,8 +735,21 @@ MOE_FIXTURE = os.path.join("tests", "torch_golden", "jax_moe")
 # and the ring at MESH_RING_SHAPE (B, L, H, dh), MESH_TIMED_STEPS timed steps
 # or calls after one warm, MESH_RING_STEPS f32 ring steps against "xla"
 MESH_TP, MESH_RING_P = 2, 4
-MESH_TIMED_STEPS, MESH_RING_STEPS, MESH_GANG_TIMEOUT_S = 2, 2, 600
+MESH_TIMED_STEPS, MESH_RING_STEPS, MESH_GANG_TIMEOUT_S = 1, 2, 600
 MESH_RING_SHAPE = (8, 2048 + 32, 8, 128)
+# phase 7x: pipelines across processes (parallel/pipeline.py,
+# parallel/pipeline_1f1b.py). (a) train_mr at dp = 2 x pp = 2 (GPipe) and
+# (b) the 1F1B steps in one gang of MESH_PP gloo ranks, several meshes in
+# turn; (c) GPipe at the flagship's dropouts and (d) the long shape at pp =
+# 2, dp = 1, in 7u's gang of MESH_TP ranks. PP_STEPS steps a held case; (d)
+# at PP_LONG_MICRO microbatches, PP_TIMED_STEPS timed steps after one warm
+MESH_PP = MESH_RING_P  # 7v's ring cases run in 7x's gang
+PP_STEPS, PP_TIMED_STEPS, PP_LONG_MICRO = 3, 1, (2, 4, 8)
+PP_CASES = (  # (b): (name, [dp, tp, ep, 1, pp] mesh, M, interleave, MoE)
+    ("f1b_pp4_m8", [1, 1, 1, 1, 4], 8, 1, False),
+    ("f1b_dp2pp2_v2_m4", [2, 1, 1, 1, 2], 4, 2, False),
+    ("f1b_moe_pp2ep2_m4", [1, 1, 2, 1, 2], 4, 1, True),
+)
 
 
 def log(msg: str) -> None:
@@ -2273,7 +2319,7 @@ def _load_ms(driver_mr, cfg, ds, n_batches):
 def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     """Evaluation of model_best.ckpt over a synthetic val split of
     QVHighlights' size (N_VAL_FULL queries, up to 75 clips, 2816-d video,
-    512-d text), bf16 and f32 on the flash kernels, as train-mr pays it
+    512-d text), bf16 on the flash kernels, as train-mr pays it
     every eval_epoch: after one warm pass, the seconds of the driver's
     inference (_run_eval_shard: its eval loader, the eval step, host decode)
     and of its scoring (_finish_eval: the predictions written, the
@@ -2344,19 +2390,19 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
         return ap.detection_ap_batch_numpy(gt, pred, score, thds)
 
     timings = {}
-    for dtype in ("bfloat16", "float32"):
+    for dtype in ("bfloat16",):
         # the host's own measurements (numpy scoring, the native and h5
         # readers, the loader, the profile) read the same files and the same
-        # kind of submission whatever the dtype: bf16 takes them all, f32
-        # its timed pass and scoring (to pay for phases 7u-7w)
-        full = dtype == "bfloat16"
+        # kind of submission whatever the dtype: bf16 takes them all (the
+        # f32 pass went to pay for phases 7u-7x)
+        full = True
         cfg = _eval_cfg(corpus, "model.attention_impl=pallas",
                         f"model.compute_dtype={dtype}", f"results_dir={results}")
         model = cli.restored_model(cfg, best, "cuda")
         step = make_eval_step(cfg.eval_mode)
         n_batches = len(driver_mr._eval_loader(cfg, eval_ds))
-        if full:
-            driver_mr._run_eval_shard(cfg, model, eval_ds, step)  # warm
+        # no warm pass: the kernels ran at this shape in 7b, and the files
+        # were written just before (read from the page cache)
         before = fa.launches["flash_fwd"]
         infer_s, score_s = [], []
         for _ in range(passes):
@@ -2402,12 +2448,16 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
                   "load_ms_per_batch": _load_ms(driver_mr, cfg, h5_ds, n_batches)}
             if len(h5_sub) != N_VAL_FULL:
                 raise AssertionError(f"the h5 pass scored {len(h5_sub)} rows")
-        load_ms = _load_ms(driver_mr, cfg, eval_ds, n_batches)
-        load_native_ms = _load_ms(driver_mr, cfg, native_ds, n_batches)
+        # the loader's ms and the profile over every EVAL_SUBSET-th item
+        sub_ds, sub_native = (driver_mr._EvalShard(d, 0, EVAL_SUBSET)
+                              for d in (eval_ds, native_ds))
+        n_sub = len(driver_mr._eval_loader(cfg, sub_ds))
+        load_ms = _load_ms(driver_mr, cfg, sub_ds, n_sub)
+        load_native_ms = _load_ms(driver_mr, cfg, sub_native, n_sub)
         kernels, wall_us = _profile_window(
-            torch, lambda: driver_mr._run_eval_shard(cfg, model, eval_ds, step), 1)
-        _profile_record(cell, card, n_batches, "batch", kernels, wall_us, ["flash_fwd"],
-                        items=N_VAL_FULL, B=cfg.eval_bsz, L="75+32")
+            torch, lambda: driver_mr._run_eval_shard(cfg, model, sub_ds, step), 1)
+        _profile_record(cell, card, n_sub, "batch", kernels, wall_us, ["flash_fwd"],
+                        items=len(sub_ds), B=cfg.eval_bsz, L="75+32")
         timings[cell].update({
             "load_ms_per_batch": load_ms,
             "score_numpy_s": score_numpy_s, "ap_max_abs_err": ap_err,
@@ -3702,9 +3752,8 @@ def dist_worker(job_path, rank, world, port) -> int:
     assert init_distributed(f"127.0.0.1:{port}", world, rank) == (rank, world)
     gang = dist.active()
     base = job["results"]
-    if job["mode"] in ("hl", "mesh"):
-        worker = hl_gang_worker if job["mode"] == "hl" else mesh_worker
-        out = worker(job, rank, world, torch, np)
+    if job["mode"] == "mesh":
+        out = mesh_worker(job, rank, world, torch, np)
         with open(os.path.join(base, f"r{rank}.json"), "w") as f:
             json.dump(out, f)
         dist.shutdown()
@@ -4854,8 +4903,8 @@ def _hl_rank_loaders(cfg, domain, ranks, world):
 
 
 def hl_gang_worker(job, rank, world, torch, np):
-    """One rank of phase 7o (``chip_smoke.py --dist-worker`` with mode
-    "hl"): train_hl in the gang with every step's metrics recorded, its
+    """One rank of phase 7o (a case of 7u's ``chip_smoke.py --dist-worker``
+    gang, mode "mesh"): train_hl in the gang with every step's metrics recorded, its
     launches, scores and the final parameters' digest; then its step ms,
     collective host ms and idle share on its own shard's batches."""
     from univtg_tpu_torch.data.prefetch import to_device
@@ -4864,7 +4913,7 @@ def hl_gang_worker(job, rank, world, torch, np):
     from univtg_tpu_torch.train.epoch_runner import strip_meta
 
     base = job["results"]
-    cfg = _hl_gang_cfg(job, os.path.join(base, f"p{rank}"))
+    cfg = _hl_gang_cfg(job, os.path.join(base, f"hl_p{rank}"))
     built, steps = [], []
     make_model, make_step = driver_hl.UniVTG, driver_hl.make_train_step
 
@@ -4894,9 +4943,16 @@ def hl_gang_worker(job, rank, world, torch, np):
     return out
 
 
-def phase_hl_gang(torch, np, card, tmp):
-    """7o: train_hl in a gang of two gloo ranks sharing the card (each a
-    ``chip_smoke.py --dist-worker`` process) on phase 7f's TVSum-shaped
+def _hl_gang_job(tmp):
+    """7o's part of 7u's gang job: phase 7f's corpus, its overrides and
+    domains."""
+    corpus, splits_path, domains = _hl_corpus(tmp)
+    return {"overrides": _hl_overrides(corpus, splits_path), "domains": domains}
+
+
+def phase_hl_gang(torch, np, card, tmp, job, tp_gang):
+    """7o: train_hl in a gang of two gloo ranks sharing the card (the "hl"
+    case of 7u's gang, ``tp_gang``) on phase 7f's TVSum-shaped
     corpus at full width, HL_GANG_BSZ items a rank a step, f32, "pallas",
     dropouts 0, cuDNN deterministic: every step's loss and grad norm
     against one process's make_train_step on the two shards' batches
@@ -4909,14 +4965,9 @@ def phase_hl_gang(torch, np, card, tmp):
     from univtg_tpu_torch.train.schedule import build_schedule
     from univtg_tpu_torch.train.steps import make_train_step
 
-    corpus, splits_path, domains = _hl_corpus(tmp)
-    job = {"mode": "hl", "overrides": _hl_overrides(corpus, splits_path), "domains": domains}
-    base = os.path.join(tmp, "hl_gang")
-    outs = _wait_gang(_gang(job, base))
-    ranks = []
-    for r in range(2):
-        with open(os.path.join(base, f"r{r}.json")) as f:
-            ranks.append(json.load(f))
+    domains = job["domains"]
+    ranks = [{"rank": r["rank"], **r["hl_gang"]} for r in tp_gang["ranks"]]
+    outs = tp_gang["outs"]
     cfg = _hl_gang_cfg(job, os.path.join(tmp, "hl_one"))
     # the one-process run on the batches the gang assembles
     first = _hl_rank_loaders(cfg, domains[0], (0, 1), 2)[1][0]
@@ -5710,16 +5761,20 @@ def _exact_long_cfg(seq_shard):
                           seq_shard=seq_shard, dropout=0.0, droppath=0.0, input_dropout=0.0)
 
 
-def _routing_recorder(torch, records):
+def _routing_recorder(torch, records, grad_only=False):
     """Wrap ops/moe.moe_routing to record each call's top-k experts and
     masked probabilities on the host (in a gang each rank routes the
-    global batch, so its records are the global routing); returns undo."""
+    global batch, so its records are the global routing; ``grad_only``:
+    the calls under autograd alone, a 1F1B stage's recomputes); returns
+    undo."""
     from univtg_tpu_torch.ops import moe
 
     orig = moe.moe_routing
 
     def recording(probs, n_experts, top_k, capacity, token_mask=None, aux=True):
         r = orig(probs, n_experts, top_k, capacity, token_mask=token_mask, aux=aux)
+        if grad_only and not torch.is_grad_enabled():
+            return r
         mask = torch.ones(probs.shape[0], device=probs.device) if token_mask is None \
             else token_mask.float()
         records.append((r.expert.detach().cpu(),
@@ -5861,8 +5916,205 @@ def _mesh_ring_train(job, rank, torch, np):
             "s": time.perf_counter() - t0}
 
 
+def _pp_model_cfg(case, dtype="float32", **kw):
+    """The flagship of a 7x case in the scan layout, "pallas", pipelined over
+    the case's pp stages, M microbatches and interleave; ``moe``: 7r's MoE
+    configuration; ``drop``: the flagship's dropouts, else all 0."""
+    from univtg_tpu_torch.presets import flagship_model
+
+    rates = {} if case.get("drop") else dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
+    make = _moe_model if case.get("moe") else (
+        lambda **k: flagship_model(scan_layers=True, **k))
+    return make(attention_impl="pallas", compute_dtype=dtype,
+                pipeline_stages=case["mesh"][4], pipeline_microbatches=case["M"],
+                pipeline_interleave=case.get("v", 1), **rates, **kw)
+
+
+def _pp_counters(torch, pipe, model, caught):
+    """What shows that the pipeline ran on this rank: the engines' ticks,
+    idle ticks, hops and saved inputs, the parameters and layers it holds,
+    and any fallback warning."""
+    layers = sorted({int(k.split(".")[3]) for k in model.state_dict()
+                     if k.startswith("transformer.encoder.layers.")})
+    return {"pipe": dict(pipe.stats), "n_params": sum(p.numel() for p in model.parameters()),
+            "layers": layers,
+            "fallback": [str(w.message) for w in caught if "sequential scan" in str(w.message)]}
+
+
+def _pp_train_mr(job, rank, torch, np):
+    """7x(a): train_mr at dp = 2 x pp = 2 (GPipe) on phase 7's corpus, every
+    step's metrics, this rank's launches and pipeline counters, rank 0's
+    evaluations (a local non-pipeline copy on the gathered parameters)."""
+    import warnings
+
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.parallel import pipeline as pipe
+    from univtg_tpu_torch.train import driver_mr
+
+    steps, models = [], []
+    make_step, build = driver_mr.make_train_step, driver_mr.build_model
+
+    def recording(*args, **kw):
+        step = make_step(*args, **kw)
+
+        def run(state, mi, tg, seed):
+            state, metrics = step(state, mi, tg, seed)
+            steps.append({k: float(v) for k, v in metrics.items()})
+            return state, metrics
+        return run
+
+    cfg = cli.apply_overrides(_pp_mr_cfg(job), [f"results_dir={job['results']}/p{rank}"])
+    driver_mr.make_train_step = recording
+    driver_mr.build_model = lambda *a, **k: models.append(build(*a, **k)) or models[-1]
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pipe.reset_stats()
+            _reset_launches()  # this rank's share of the GPipe training path starts here
+            t0 = time.perf_counter()
+            driver_mr.train_mr(cfg)
+            torch.cuda.synchronize()
+            launches = _launches()  # ... and ends here
+    finally:
+        driver_mr.make_train_step, driver_mr.build_model = make_step, build
+    evals = _jsonl(os.path.join(cfg.results_dir, "eval_log.jsonl")) if rank == 0 else []
+    return {"train_mr_s": time.perf_counter() - t0, "steps": steps, "launches": launches,
+            "evals": evals, **_pp_counters(torch, pipe, models[0], caught)}
+
+
+def _pp_mr_cfg(job):
+    """The qvhighlights_mr run of 7x(a): phase 7's corpus, B = 32 global (16 a
+    dp row), one epoch evaluated, f32, "pallas", dropouts 0, the flagship in
+    the scan layout on dp = 2 x pp = 2, 2 microbatches."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.presets import PRESETS
+
+    corpus = job["corpus"]
+    return cli.apply_overrides(PRESETS["qvhighlights_mr"](), [
+        f"train_data.data_path={corpus['train_path']}",
+        f"train_data.v_feat_dirs={corpus['v_feat_dirs']}",
+        f"train_data.q_feat_dir={corpus['q_feat_dir']}", "train_data.v_feat_dim=2816",
+        *_eval_overrides(corpus), "eval_epoch=1", "n_epoch=1", "bsz=16", "eval_bsz=32",
+        "model.attention_impl=pallas", "model.compute_dtype=float32", "model.dropout=0.0",
+        "model.droppath=0.0", "model.input_dropout=0.0", "model.scan_layers=true",
+        "model.pipeline_stages=2", "model.pipeline_microbatches=2", "pp=2",
+        "async_checkpoint=False"])
+
+
+def _pp_steps(job, case, rank, torch, np):
+    """7x(b) and (c): PP_STEPS steps of a pipelined flagship from the seed-0
+    weights at job["pp_init"] (7r's MoE model's at job["moe_init"]) on the
+    global batches at job["pp_batches"], each dp row its half: 1F1B
+    (make_1f1b_train_step) or, with ``drop``, GPipe (make_train_step) at the
+    flagship's dropouts. Every step's metrics, this rank's launches and
+    pipeline counters; for MoE the routing of each backward recompute (the
+    grad-enabled calls: one per block and layer, in the blocks' order)."""
+    import warnings
+
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel import pipeline as pipe
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+    from univtg_tpu_torch.train.steps_1f1b import make_1f1b_train_step
+
+    mesh = pm.make_mesh(*case["mesh"])
+    model = UniVTG(_pp_model_cfg(case), device="meta")
+    init = job["moe_init"] if case.get("moe") else job["pp_init"]
+    model.load_state_dict({k: v.cuda() for k, v in torch.load(init).items()}, assign=True)
+    pm.shard_model(model, mesh)
+    state = TrainState(model, make_optimizer(
+        model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 3), 1e-4, 0.1))
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    step = (make_train_step(weights) if case.get("drop")
+            else make_1f1b_train_step(weights, n_micro=case["M"]))
+    batches = []
+    for batch in torch.load(job["pp_batches"], weights_only=False)[:PP_STEPS]:
+        mi, tg = (to_device(t, "cuda") for t in strip_meta(batch))
+        n = mi["src_vid"].shape[0] // mesh.dp.size
+        rows = slice(mesh.dp.index * n, (mesh.dp.index + 1) * n)
+        batches.append(({k: v[rows] for k, v in mi.items()},
+                        {k: v[rows] for k, v in tg.items()}))
+    records, history = [], []
+    undo = (_routing_recorder(torch, records, grad_only=True) if case.get("moe")
+            else (lambda: None))
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            pipe.reset_stats()
+            _reset_launches()  # this rank's share of the case's path starts here
+            for mi, tg in batches:
+                state, m = step(state, mi, tg, 0)
+                history.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            launches = _launches()  # ... and ends here
+    finally:
+        undo()
+    if case.get("moe") and mesh.ep.index == 0:  # the stage's routing (ep ranks route alike)
+        torch.save(records, os.path.join(job["results"], f"{case['name']}_routing_"
+                                                          f"s{mesh.pp.index}.pt"))
+    return {"steps": history, "launches": launches,
+            **_pp_counters(torch, pipe, model, caught)}
+
+
+def _pp_long(job, rank, torch, np):
+    """7x(d): the pipelined step at 8 x (2048 + 32), pp = 2, bf16 and f32,
+    GPipe and 1F1B at PP_LONG_MICRO microbatches, the flagship's dropouts:
+    per config this rank's ms a step by CUDA events over PP_TIMED_STEPS
+    after one warm step, peak memory, host ms in the stage hops a step, the
+    share of idle ticks, flash launches a step and the loss."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.ops import flash_attention as fa
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel import pipeline as pipe
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+    from univtg_tpu_torch.train.steps_1f1b import make_1f1b_train_step
+
+    mesh = pm.make_mesh(1, 1, 1, 1, 2)
+    mi, tg = _long_batch(torch, np)
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    out = {}
+    for dname in ("bfloat16", "float32"):
+        for sched in ("gpipe", "1f1b"):
+            for M in PP_LONG_MICRO:
+                case = {"mesh": [1, 1, 1, 1, 2], "M": M, "drop": True}
+                cfg = _pp_model_cfg(case, dname, max_v_l=2048)
+                model = pm.shard_model(UniVTG(cfg, device="cuda", seed=0), mesh)
+                holder = {"state": TrainState(model, make_optimizer(
+                    model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 100), 1e-4, 0.1))}
+                step = (make_train_step(weights) if sched == "gpipe"
+                        else make_1f1b_train_step(weights, n_micro=M))
+
+                def one():
+                    holder["state"], holder["m"] = step(holder["state"], mi, tg, 0)
+
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats()
+                one()  # warm
+                before = dict(fa.launches)
+                pipe.reset_stats()
+                ms = cuda_ms(one, iters=PP_TIMED_STEPS, warmup=0)
+                st = dict(pipe.stats)
+                out[f"{dname}_{sched}_M{M}"] = {
+                    "ms": ms, "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                    "hop_host_ms_a_step": st["hop_s"] * 1e3 / PP_TIMED_STEPS,
+                    "idle_tick_share": st["idle_ticks"] / max(st["ticks"], 1),
+                    "ticks_a_step": st["ticks"] / PP_TIMED_STEPS,
+                    "saved_peak": st["saved_peak"],
+                    "launches_a_step": {k: (fa.launches[k] - before[k]) / PP_TIMED_STEPS
+                                        for k in before},
+                    "loss": float(holder["m"]["loss_overall"])}
+                del holder, model
+    return out
+
+
 def mesh_worker(job, rank, world, torch, np):
-    """One rank of a phase-7u/7v/7w gang (``chip_smoke.py --dist-worker``
+    """One rank of a phase-7u/7v/7w/7x gang (``chip_smoke.py --dist-worker``
     with mode "mesh"): the job's cases in order, each on its own mesh."""
     out = {"rank": rank}
     for case in job["cases"]:
@@ -5878,6 +6130,14 @@ def mesh_worker(job, rank, world, torch, np):
             out[case["name"]] = _mesh_ring_ops(job, rank, torch, np)
         elif kind == "ring_train":
             out[case["name"]] = _mesh_ring_train(job, rank, torch, np)
+        elif kind == "pp_train_mr":
+            out[case["name"]] = _pp_train_mr(job, rank, torch, np)
+        elif kind == "pp_steps":
+            out[case["name"]] = _pp_steps(job, case, rank, torch, np)
+        elif kind == "pp_long":
+            out[case["name"]] = _pp_long(job, rank, torch, np)
+        elif kind == "hl":
+            out[case["name"]] = hl_gang_worker(job, rank, world, torch, np)
         out[case["name"]]["case_s"] = time.perf_counter() - t0
     return out
 
@@ -5937,7 +6197,7 @@ def _flash_head_offset(torch, fa):
     return out
 
 
-def phase_mesh_tp(torch, np, card, tmp, corpus):
+def phase_mesh_tp(torch, np, card, tmp, corpus, hl_job):
     """7u and 7w, in one gang of MESH_TP gloo ranks sharing the card
     (``chip_smoke.py --dist-worker`` mode "mesh"): (i) train_mr at tp =
     MESH_TP on phase 7's corpus (full width, B = 32, f32, "pallas", dropouts
@@ -5969,12 +6229,22 @@ def phase_mesh_tp(torch, np, card, tmp, corpus):
                                input_dropout=0.0), device="cpu", seed=0).state_dict()
     torch.save(moe_sd, moe_init)
     torch.save(moe_batches, os.path.join(base, "moe_batches.pt"))
+    pp_init = os.path.join(base, "pp_init.pt")
+    torch.save(UniVTG(_pp_model_cfg({"mesh": [1, 1, 1, 1, 2], "M": 2}), device="cpu",
+                      seed=0).state_dict(), pp_init)
     job = {"mode": "mesh", "corpus": corpus, "tp": MESH_TP, "moe_init": moe_init,
-           "moe_batches": os.path.join(base, "moe_batches.pt"),
+           "moe_batches": os.path.join(base, "moe_batches.pt"), "pp_init": pp_init,
+           "pp_batches": os.path.join(base, "moe_batches.pt"),
            "cases": [{"kind": "train_mr", "name": "tp_train_mr"},
                      {"kind": "long", "name": "tp_long"},
                      {"kind": "moe", "name": "moe_dp2", "mesh": [2, 1, 1]},
-                     {"kind": "moe", "name": "moe_ep2", "mesh": [1, 1, 2]}]}
+                     {"kind": "moe", "name": "moe_ep2", "mesh": [1, 1, 2]},
+                     # 7x(c) and (d): pp = 2 at dp = 1 (phase_mesh_pp reads them)
+                     {"kind": "pp_steps", "name": "pp_drop", "mesh": [1, 1, 1, 1, 2],
+                      "M": 2, "drop": True},
+                     {"kind": "pp_long", "name": "pp_long"},
+                     # 7o (phase_hl_gang reads it)
+                     {"kind": "hl", "name": "hl_gang"}], **hl_job}
     t0 = time.perf_counter()
     outs = _wait_gang(_gang(job, base, MESH_TP), timeout=MESH_GANG_TIMEOUT_S)
     gang_s = time.perf_counter() - t0
@@ -6093,11 +6363,300 @@ def phase_mesh_tp(torch, np, card, tmp, corpus):
     return ({"tp_training": tp_launches, "moe_dist_training": moe_total},
             {"tp": {"rel": tp_rel, "long": long, "long_exact_rel": exact,
                     "head_offset": offset, "gang_s": gang_s},
-             "moe": moe_stats})
+             "moe": moe_stats},
+            {"ranks": ranks, "outs": outs, "pp_init": pp_init, "batches": moe_batches,
+             "moe_init": moe_init})
 
 
-def phase_mesh_ring(torch, np, card, tmp):
-    """7v: the ring across processes, MESH_RING_P gloo ranks sharing the card,
+def _shard_batches(np, corpus, n, bsz, dp):
+    """The first n global batches of a gang of dp rows of bsz each, as the
+    driver's Loaders give them in epoch 0 (each row its shard), the rows'
+    batches concatenated in dp order."""
+    from univtg_tpu_torch.data.collate import collate_mr
+    from univtg_tpu_torch.data.loader import Loader
+    from univtg_tpu_torch.data.mr import MRDataConfig, MRDataset
+
+    ds = MRDataset(MRDataConfig(
+        data_path=corpus["train_path"], v_feat_dirs=corpus["v_feat_dirs"],
+        q_feat_dir=corpus["q_feat_dir"], v_feat_dim=corpus["v_dim"],
+        q_feat_dim=corpus["q_dim"], max_q_l=32, max_v_l=75))
+    loaders = [Loader(ds, bsz, lambda items, pad_batch_to: collate_mr(
+        items, 32, 75, pad_batch_to), shuffle=True, seed=2018, num_threads=4,
+        shard_index=d, num_shards=dp) for d in range(dp)]
+    out = []
+    for rows in zip(*loaders):
+        out.append({part: {k: np.concatenate([np.asarray(b[part][k]) for b in rows])
+                           for k in rows[0][part]} for part in ("model_inputs", "targets")})
+        if len(out) == n:
+            break
+    return out
+
+
+def _microbatched_steps(torch, cfg, sd, cpu_batches, n_blocks, records=None):
+    """One process's reference for 1F1B: the flagship of cfg (no pipeline)
+    from state_dict sd, each step's loss the mean of compute_losses over
+    n_blocks consecutive row blocks (JAX's (microbatch x dp shard) blocks in
+    order), through plain autograd, then AdamW with the clip; every step's
+    metrics. ``records``: 7r's routing records, block by block."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.device import exact_f32
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.models.losses import LossWeights, compute_losses
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, forward, make_optimizer
+
+    model = UniVTG(cfg, device="meta")
+    model.load_state_dict({k: v.cuda() for k, v in sd.items()}, assign=True)
+    state = TrainState(model, make_optimizer(
+        model.parameters(), build_schedule(1e-4, 10, 200, 0.1, 3), 1e-4, 0.1))
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    undo = _routing_recorder(torch, records) if records is not None else (lambda: None)
+    history = []
+    try:
+        for batch in cpu_batches:
+            mi, tg = (to_device(t, "cuda") for t in strip_meta(batch))
+            bs = mi["src_vid"].shape[0] // n_blocks
+            model.train()
+            state.optimizer.zero_grad()
+            sums = {}
+            with exact_f32(cfg.dtype):
+                for i in range(n_blocks):
+                    rows = slice(i * bs, (i + 1) * bs)
+                    out = forward(model, {k: v[rows] for k, v in mi.items()}, train=True)
+                    ld = compute_losses(out, {k: v[rows] for k, v in tg.items()}, weights)
+                    for k, v in ld.items():
+                        sums[k] = sums.get(k, 0.0) + v / n_blocks
+                sums["loss_overall"].backward()
+            m = {k: float(v.detach()) for k, v in sums.items()}
+            m["grad_norm"] = float(state.optimizer.step(state.step))
+            state.step += 1
+            history.append(m)
+    finally:
+        undo()
+    return history
+
+
+def _pp_ran(ranks, name, pp, v=1, layers=4):
+    """Each rank ran the pipeline (ticks and hops), held one stage's layers
+    alone (fewer parameters than the whole model), and fell back nowhere;
+    returns {rank: (ticks, hops, idle ticks, parameters held)}."""
+    shown = {}
+    for r in ranks:
+        c = r[name]
+        stages = [_stage_layers(layers, pp, v, s) for s in range(pp)]
+        if (c["pipe"]["ticks"] == 0 or c["pipe"]["hops"] == 0 or c["fallback"]
+                or c["layers"] not in stages):
+            raise AssertionError(f"{name}: rank {r['rank']} did not run the pipeline: {c}")
+        shown[r["rank"]] = (c["pipe"]["ticks"], c["pipe"]["hops"], c["pipe"]["idle_ticks"],
+                            c["n_params"])
+    return shown
+
+
+def _stage_layers(layers, pp, v, s):
+    from univtg_tpu_torch.parallel.mesh import stage_layers
+
+    return stage_layers(layers, pp, v, s)
+
+
+def _sum_launches(ranks, name):
+    return {k: sum(r[name]["launches"][k] for r in ranks) for k in ranks[0][name]["launches"]}
+
+
+def _want_flash(L, M, steps, schedule, pp, v=1, ranks=1):
+    """The flash launches a pipelined path makes over ``steps`` steps, summed
+    over the gang: GPipe without remat L M of each kernel a step and
+    pipeline; 1F1B skips the last chunk's dead forward, so (L - L / (pp v))
+    M + L M forwards (the recomputes) and L M of each backward kernel;
+    ``ranks`` pipelines (dp rows) or ranks a stage (ep, tp) that each
+    launch them."""
+    fwd = L * M if schedule == "gpipe" else (L - L // (pp * v)) * M + L * M
+    return {"flash_fwd": fwd * steps * ranks, "flash_bwd_dq": L * M * steps * ranks,
+            "flash_bwd_dkv": L * M * steps * ranks}
+
+
+def phase_mesh_pp(torch, np, card, tmp, corpus, tp_gang):
+    """7x: pipelines across processes. (a) train_mr at dp = 2 x pp = 2
+    (GPipe, 2 microbatches) on phase 7's corpus, B = 32 global, f32,
+    "pallas", dropouts 0, one epoch of 3 steps evaluated by rank 0 on a
+    local non-pipeline copy, every step against one process on the same
+    global batches at TRAIN_TOL, the ranks equal, model_best.ckpt through
+    one-process `cli infer-mr` with the gang's metrics; (b) PP_CASES: 1F1B
+    at pp = 4 (one layer a stage), M = 8; dp = 2 x pp = 2, interleave 2, M =
+    4; 7r's MoE at pp = 2 x ep = 2, M = 4: each step against one process's
+    microbatched loss (the mean of the M dp block losses) at TRAIN_TOL, MoE
+    tokens routed otherwise only within MOE_TIE_REL; (a) and (b) in one
+    gang of MESH_PP gloo ranks sharing the card; (c) GPipe at pp = 2 at the
+    flagship's dropouts against the one-process step from the same seed at
+    TRAIN_TOL, and (d) the long shape's GPipe and 1F1B at PP_LONG_MICRO, in
+    7u's gang (``tp_gang``). Every part shows each rank's ticks, hops and
+    the parameters it holds, and no fallback; the flash launches are the
+    ones _want_flash names. Returns ({path: launches summed over the
+    ranks}, stats)."""
+    from univtg_tpu_torch.data.prefetch import to_device
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.train.epoch_runner import strip_meta
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+
+    base = os.path.join(tmp, "mesh_pp")
+    os.makedirs(base, exist_ok=True)
+    pp_batches = os.path.join(base, "pp_batches.pt")
+    torch.save(_shard_batches(np, corpus, PP_STEPS, 16, 2), pp_batches)
+    job = {"mode": "mesh", "corpus": corpus, "pp_init": tp_gang["pp_init"],
+           "moe_init": tp_gang["moe_init"], "pp_batches": pp_batches, "ring_p": MESH_RING_P,
+           "cases": [{"kind": "pp_train_mr", "name": "pp_train_mr"}] + [
+               {"kind": "pp_steps", "name": n, "mesh": mesh, "M": M, "v": v, "moe": moe}
+               for n, mesh, M, v, moe in PP_CASES]
+           # 7v's, checked by phase_mesh_ring
+           + [{"kind": "ring_ops", "name": "ring_ops"},
+              {"kind": "ring_train", "name": "ring_train"}]}
+    t0 = time.perf_counter()
+    outs = _wait_gang(_gang(job, base, MESH_PP), timeout=MESH_GANG_TIMEOUT_S)
+    gang_s = time.perf_counter() - t0
+    ranks = _read_ranks(base, MESH_PP)
+    stats, launches = {"gang_s": gang_s}, {}
+
+    # (a) the driver at dp = 2 x pp = 2 against one process, from the same seed
+    cfg = _pp_mr_cfg(job)
+    one_cfg = dataclasses.replace(cfg.model, pipeline_stages=0)
+    model = UniVTG(one_cfg, device="cuda", seed=cfg.seed)
+    state = TrainState(model, make_optimizer(model.parameters(), build_schedule(
+        cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma, PP_STEPS), cfg.wd, cfg.grad_clip))
+    step = make_train_step(cfg.weights, tuple(cfg.losses))
+    want = []
+    for batch in _shard_batches(np, corpus, PP_STEPS, 16, 2):
+        mi, tg = (to_device(t, "cuda") for t in strip_meta(batch, cfg.transfer_dtype))
+        want.append({k: float(v) for k, v in step(state, mi, tg, cfg.seed + 1)[1].items()})
+    del state, model
+    got = ranks[0]["pp_train_mr"]["steps"]
+    rel = _rel_steps(got, want)
+    same = all(r["pp_train_mr"]["steps"] == got for r in ranks)
+    gang_eval = ranks[0]["pp_train_mr"]["evals"][-1]
+    ckpt = os.path.join(base, "p0", "model_best.ckpt")
+    torch.backends.cudnn.deterministic = True  # as in the gang's ranks
+    try:
+        brief, _, _, _ = _infer_mr(torch, np, tmp, ckpt, corpus, "pp_gang_ckpt", "pallas",
+                                   "float32", "model.scan_layers=true")
+    finally:
+        torch.backends.cudnn.deterministic = False
+    mismatch = {k: (v, brief.get(k)) for k, v in gang_eval.items()
+                if k != "epoch" and brief.get(k) != v}
+    ran = _pp_ran(ranks, "pp_train_mr", 2)
+    launches["pp_gpipe_training"] = _sum_launches(ranks, "pp_train_mr")
+    wanted = _want_flash(4, 2, PP_STEPS, "gpipe", 2, ranks=2)
+    wanted["flash_fwd"] += 4 * (N_VAL // 32)  # rank 0's evaluation, 4 a batch
+    stats["a"] = {"rel": rel, "ran": ran, "launches": launches["pp_gpipe_training"]}
+    log(f"[mesh pp] (a) train_mr dp=2 x pp=2, GPipe, 2 microbatches ({len(got)} steps, "
+        f"f32, pallas; {MESH_PP} gloo ranks sharing the card, {card}): ranks equal {same}; "
+        f"vs one process rel per step {rel} (limits {TRAIN_TOL}); rank 0's evaluation on "
+        f"its local copy = one-process infer-mr of model_best.ckpt: {not mismatch}; "
+        f"(ticks, hops, idle ticks, parameters held) per rank {ran}; launches (ranks "
+        f"summed) {launches['pp_gpipe_training']} (want {wanted}); gang {gang_s:.1f} s")
+    if not got or not same or not _within_train_tol(rel):
+        raise AssertionError(f"the GPipe gang leaves the one-process curve: {rel}\n"
+                             f"{outs[0][-3000:]}")
+    if mismatch:
+        raise AssertionError(f"infer-mr on the pipelined gang's checkpoint: {mismatch}")
+    if {k: launches["pp_gpipe_training"][k] for k in wanted} != wanted:
+        raise AssertionError(f"GPipe's flash launches: {launches['pp_gpipe_training']}, "
+                             f"want {wanted}")
+
+    # (b) 1F1B against one process's microbatched loss
+    sd = torch.load(tp_gang["pp_init"])
+    moe_sd = torch.load(tp_gang["moe_init"])
+    cpu_batches = torch.load(pp_batches, weights_only=False)
+    total = {}
+    for name, mesh, M, v, moe in PP_CASES:
+        dp, pp = mesh[0], mesh[4]
+        case = {"mesh": mesh, "M": M, "v": v, "moe": moe}
+        records = [] if moe else None
+        want = _microbatched_steps(torch, dataclasses.replace(
+            _pp_model_cfg(case), pipeline_stages=0), moe_sd if moe else sd, cpu_batches,
+            M * dp, records)
+        got = ranks[0][name]["steps"]
+        keys = ("loss_overall", "grad_norm") + (("loss_moe_aux",) if moe else ())
+        rel = _rel_steps(got, want, keys)
+        same = all(r[name]["steps"] == got for r in ranks)
+        ran = _pp_ran(ranks, name, pp, v)
+        made = _sum_launches(ranks, name)
+        # every dp row runs the pipeline, and both ep ranks of a stage attend
+        wanted = _want_flash(4, M, PP_STEPS, "1f1b", pp, v, dp * mesh[2])
+        routed = worst = None
+        if moe:
+            stages = [torch.load(os.path.join(base, f"{name}_routing_s{s}.pt"))
+                      for s in range(pp)]
+            mine = [rec for b in range(len(stages[0]) // 2) for st in stages
+                    for rec in st[2 * b:2 * b + 2]]
+            routed, worst = _routing_ties(torch, mine, records)
+        stats[name] = {"rel": rel, "ran": ran, "launches": made,
+                       "tokens_routed_otherwise": routed, "worst_tie": worst}
+        for k in made:
+            total[k] = total.get(k, 0) + made[k]
+        log(f"[mesh pp] (b) {name}: 1F1B on mesh [dp, tp, ep, -, pp] {mesh}, M = {M}, "
+            f"interleave {v}{', MoE' if moe else ''} ({card}): ranks equal {same}; vs one "
+            f"process's microbatched loss rel per step {rel} (limits {TRAIN_TOL})"
+            + (f"; tokens routed otherwise {routed} (largest tie gap {worst:.2e}, limit "
+               f"{MOE_TIE_REL})" if moe else "")
+            + f"; (ticks, hops, idle ticks, parameters held) per rank {ran}; launches "
+            f"(ranks summed) {made} (want {wanted})")
+        if not got or not same or not _within_train_tol(rel) or (
+                moe and (worst > MOE_TIE_REL or not all(
+                    r["loss_moe_aux"] <= TRAIN_TOL["loss"] for r in rel))):
+            raise AssertionError(f"{name} leaves the microbatched curve: {stats[name]}\n"
+                                 f"{outs[0][-3000:]}")
+        if {k: made[k] for k in wanted} != wanted:
+            raise AssertionError(f"{name}'s flash launches: {made}, want {wanted}")
+    launches["pp_1f1b_training"] = total
+
+    # (c) GPipe at the flagship's dropouts against one process from the seed
+    tp_ranks = tp_gang["ranks"]
+    case = {"mesh": [1, 1, 1, 1, 2], "M": 2, "drop": True}
+    _, want = _run_steps(torch, dataclasses.replace(_pp_model_cfg(case), pipeline_stages=0),
+                         sd, tp_gang["batches"][:PP_STEPS])
+    got = tp_ranks[0]["pp_drop"]["steps"]
+    rel = _rel_steps(got, want)
+    same = all(r["pp_drop"]["steps"] == got for r in tp_ranks)
+    ran = _pp_ran(tp_ranks, "pp_drop", 2)
+    launches["pp_dropout_training"] = _sum_launches(tp_ranks, "pp_drop")
+    wanted = _want_flash(4, 2, PP_STEPS, "gpipe", 2)
+    stats["c"] = {"rel": rel, "ran": ran}
+    log(f"[mesh pp] (c) GPipe pp=2, M = 2, at the flagship's dropouts, f32 ({card}): ranks "
+        f"equal {same}; vs the one-process step from the same seed rel per step {rel} "
+        f"(limits {TRAIN_TOL}); (ticks, hops, idle ticks, parameters held) per rank {ran}; "
+        f"launches (ranks summed) {launches['pp_dropout_training']} (want {wanted})")
+    if not got or not same or not _within_train_tol(rel):
+        raise AssertionError(f"the dropout GPipe step leaves one process: {rel}")
+    if {k: launches["pp_dropout_training"][k] for k in wanted} != wanted:
+        raise AssertionError(f"the dropout GPipe step's launches: "
+                             f"{launches['pp_dropout_training']}, want {wanted}")
+
+    # (d) the long shape, GPipe against 1F1B
+    long = {f"rank{r['rank']}": r["pp_long"] for r in tp_ranks}
+    for key in tp_ranks[0]["pp_long"]:
+        if key == "case_s":
+            continue
+        recs = [r["pp_long"][key] for r in tp_ranks]
+        sched, M = key.split("_")[1], int(key.split("_M")[1])
+        made = {k: sum(rec["launches_a_step"][k] for rec in recs) for k in FLASH_KERNELS}
+        wanted = _want_flash(4, M, 1, sched, 2)
+        log(f"[mesh pp] (d) 8 x (2048 + 32), pp=2, {key} ({card}): ms a step per rank "
+            f"{[round(rec['ms'], 1) for rec in recs]}, peak GiB "
+            f"{[round(rec['peak_gib'], 2) for rec in recs]}, host ms in the hops a step "
+            f"{[round(rec['hop_host_ms_a_step'], 1) for rec in recs]}, idle tick share "
+            f"{[round(rec['idle_tick_share'], 3) for rec in recs]}, saved inputs "
+            f"{[rec['saved_peak'] for rec in recs]}, flash launches a step (ranks summed) "
+            f"{made} (want {wanted}), loss {recs[0]['loss']:.5f}")
+        if not all(np.isfinite(rec["loss"]) for rec in recs) or made != wanted:
+            raise AssertionError(f"the long pipelined step {key}: {recs}")
+    stats["d"] = long
+    log(f"[mesh pp] ({card}) {json.dumps(stats)}")
+    return launches, stats, {"ranks": ranks, "outs": outs, "gang_s": gang_s}
+
+
+def phase_mesh_ring(torch, np, card, gang):
+    """7v: the ring across processes, MESH_RING_P gloo ranks sharing the card
+    (7x's gang, ``gang``: its ranks' outputs),
     the tp axis their ring: (i) ring_attention_pallas at 8 x 2080, f32 and
     bf16, each process its block, the gathered output against the
     one-process RingGroup(P) on the same inputs (bit for bit, or the
@@ -6107,14 +6666,7 @@ def phase_mesh_ring(torch, np, card, tmp):
     "xla" in one process at TRAIN_TOL, 4 x (P + 1) launches a forward in
     every process. Returns (the training path's launches summed over the
     processes, stats)."""
-    base = os.path.join(tmp, "mesh_ring")
-    job = {"mode": "mesh", "ring_p": MESH_RING_P,
-           "cases": [{"kind": "ring_ops", "name": "ring_ops"},
-                     {"kind": "ring_train", "name": "ring_train"}]}
-    t0 = time.perf_counter()
-    outs = _wait_gang(_gang(job, base, MESH_RING_P), timeout=MESH_GANG_TIMEOUT_S)
-    gang_s = time.perf_counter() - t0
-    ranks = _read_ranks(base, MESH_RING_P)
+    ranks, outs, gang_s = gang["ranks"], gang["outs"], gang["gang_s"]
     P = MESH_RING_P
     ops = {k: v for k, v in ranks[0]["ring_ops"].items() if k != "case_s"}
     for dname, rec in ops.items():
@@ -6314,9 +6866,6 @@ def main() -> int:
         async_launches, _ = timed("async ckpt", phase_async_ckpt, torch, np, smi, tmp,
                                   corpus)
         log(f"[main path] train-mr with the background writer launches: {async_launches}")
-        hl_gang_launches, _ = timed("hl gang", phase_hl_gang, torch, np, smi, tmp)
-        log(f"[main path] HL training across processes (two gloo ranks on the card, "
-            f"summed) launches: {hl_gang_launches}")
         learn_launches, _ = timed("learning", phase_learning, torch, np, smi, tmp)
         log(f"[main path] the learning check (f32) launches: {learn_launches}")
         moe_train_launches, moe_infer_launches, _ = timed("moe", phase_moe, torch, np, smi,
@@ -6332,10 +6881,27 @@ def main() -> int:
                                        MOE_FIXTURE, "resume moe")
         log(f"[main path] MoE training resumed from a JAX scan-layout checkpoint "
             f"launches: {moe_resume_launches}")
-        mesh_launches, _ = timed("mesh tp", phase_mesh_tp, torch, np, smi, tmp, corpus)
+        hl_job = _hl_gang_job(tmp)
+        mesh_launches, _, tp_gang = timed("mesh tp", phase_mesh_tp, torch, np, smi, tmp,
+                                          corpus, hl_job)
+        hl_gang_launches, _ = timed("hl gang", phase_hl_gang, torch, np, smi, tmp, hl_job,
+                                    tp_gang)
+        log(f"[main path] HL training across processes (two gloo ranks on the card, "
+            f"summed) launches: {hl_gang_launches}")
         log(f"[main path] tp training across processes ({MESH_TP} gloo ranks on the card, "
             f"summed) launches: {mesh_launches['tp_training']}; MoE training across "
             f"processes (dp = 2 and ep = 2, summed): {mesh_launches['moe_dist_training']}")
+        pp_launches, _, pp_gang = timed("mesh pp", phase_mesh_pp, torch, np, smi, tmp,
+                                        corpus, tp_gang)
+        del tp_gang
+        ring_dist_launches, _ = timed("mesh ring", phase_mesh_ring, torch, np, smi, pp_gang)
+        del pp_gang
+        log(f"[main path] ring training across processes ({MESH_RING_P} gloo ranks on the "
+            f"card, summed) launches: {ring_dist_launches}")
+        log(f"[main path] pipelined training across processes (ranks summed): GPipe "
+            f"train_mr dp = 2 x pp = 2 {pp_launches['pp_gpipe_training']}; 1F1B "
+            f"{pp_launches['pp_1f1b_training']}; GPipe at the flagship's dropouts "
+            f"{pp_launches['pp_dropout_training']}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,
@@ -6348,10 +6914,6 @@ def main() -> int:
     ring_scan_launches, _ = timed("ring scan", phase_ring_scan, torch, np, sd, smi)
     log(f"[main path] ring training on CUDA graphs (scan_steps=2) launches: "
         f"{ring_scan_launches}")
-    with tempfile.TemporaryDirectory(prefix="univtg_chip_ring_gang_") as tmp:
-        ring_dist_launches, _ = timed("mesh ring", phase_mesh_ring, torch, np, smi, tmp)
-    log(f"[main path] ring training across processes ({MESH_RING_P} gloo ranks on the "
-        f"card, summed) launches: {ring_dist_launches}")
 
     bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib", "flax", "univtg_tpu")]
     if bad:
@@ -6387,7 +6949,8 @@ def main() -> int:
                             "moe_resume_training": moe_resume_launches,
                             "tp_training": mesh_launches["tp_training"],
                             "moe_dist_training": mesh_launches["moe_dist_training"],
-                            "ring_dist_training": ring_dist_launches}, sass)
+                            "ring_dist_training": ring_dist_launches,
+                            **pp_launches}, sass)
     log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
     print(smi)
     print(json.dumps({"kernels": kernels}))

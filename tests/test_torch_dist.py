@@ -392,13 +392,13 @@ def test_elastic_restart_continues_the_uninterrupted_curve(meta, tmp_path):
 
 @pytest.mark.parametrize("field,value,error,match", [
     ("tp", 2, ValueError, r"dp\*pp\*ep\*tp = 1\*1\*1\*2 = 2 devices but the gang has 1"),
-    ("pp", 2, NotImplementedError, "ROADMAP"),
+    ("pp", 2, ValueError, r"cfg.pp=2 requires cfg.model.pipeline_stages == pp \(got 0\)"),
     ("ep", 2, ValueError, "ep=2 needs a MoE model"), ("dp", 3, ValueError, "world"),
 ])
 def test_what_is_still_refused(meta, tmp_path, field, value, error, match):
-    """pp is not ported (ROADMAP named); a mesh of more ranks than the gang
-    has (tp=2 in one process) and ep over a dense model are refused, as
-    JAX's make_mesh and driver refuse them."""
+    """pp without a matching model.pipeline_stages (JAX's driver check), a
+    mesh of more ranks than the gang has (tp=2 in one process) and ep over a
+    dense model are refused, as JAX's make_mesh and driver refuse them."""
     from univtg_tpu_torch.train.driver_vlp import train_vlp
 
     cfg = dataclasses.replace(worker.build_cfg(meta, str(tmp_path / "x")), **{field: value})

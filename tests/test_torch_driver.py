@@ -177,15 +177,15 @@ def test_cli_defaults_to_cuda_for_train_mr():
     ("inject_fault_epoch", 0),
 ])
 def test_unported_driver_options_raise(corpus, field, value, tmp_path):
-    """pp > 1 is not ported (ROADMAP named); dp * tp * ep must be the gang's
-    world size and num_shards its dp, so a one-process run with dp, tp or
-    num_shards 2 raises ValueError, and so does ep = 2 with a dense model
-    (JAX's check, before the mesh); the fault injection is ported: rank 0
-    of a one-process run exits with 3 after epoch 0's log line (in a
-    subprocess here)."""
+    """pp > 1 needs model.pipeline_stages == pp (JAX's check, before the
+    mesh); dp * pp * tp * ep must be the gang's world size and num_shards
+    its dp, so a one-process run with dp, tp or num_shards 2 raises
+    ValueError, and so does ep = 2 with a dense model (JAX's check, before
+    the mesh); the fault injection is ported: rank 0 of a one-process run
+    exits with 3 after epoch 0's log line (in a subprocess here)."""
     cfg = dataclasses.replace(TrainConfig(train_data=_data(corpus)), **{field: value})
     if field == "pp":
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
+        with pytest.raises(ValueError, match=r"cfg.pp=2 requires cfg.model.pipeline_stages"):
             train_mr(cfg, device="cpu")
     elif field == "ep":
         with pytest.raises(ValueError, match="ep=2 needs a MoE model"):

@@ -30,19 +30,21 @@ SMALL = dict(vid_dim=34, txt_dim=16, hidden_dim=64, num_layers=2, num_heads=4,
 MOE = dict(moe_experts=4, moe_top_k=2)
 
 
-@pytest.mark.parametrize("dp,tp,ep,slices", [(2, 2, 1, 1), (2, 1, 2, 1), (2, 2, 2, 1),
-                                             (4, 2, 1, 2)])
-def test_rank_grid_is_jax_device_grid(dp, tp, ep, slices):
-    """Rank r of a gang of dp * tp * ep (hosts of 8 / slices ranks) sits
-    where JAX's make_mesh puts device r: (dp, ep, tp), tp innermost."""
-    world = dp * tp * ep
-    grid = pm.mesh_grid(world, dp, tp, ep, slices, local_world=world // slices)
+@pytest.mark.parametrize("dp,tp,ep,slices,pp", [
+    (2, 2, 1, 1, 1), (2, 1, 2, 1, 1), (2, 2, 2, 1, 1), (4, 2, 1, 2, 1),
+    (2, 1, 1, 1, 2), (1, 2, 1, 1, 4), (2, 1, 2, 1, 2), (2, 1, 1, 2, 2)])
+def test_rank_grid_is_jax_device_grid(dp, tp, ep, slices, pp):
+    """Rank r of a gang of dp * pp * tp * ep (hosts of 8 / slices ranks)
+    sits where JAX's make_mesh puts device r: (dp, pp, ep, tp), tp
+    innermost."""
+    world = dp * tp * ep * pp
+    grid = pm.mesh_grid(world, dp, tp, ep, slices, local_world=world // slices, pp=pp)
     jgrid = np.vectorize(lambda d: d.id)(np.asarray(
-        make_mesh(dp=dp, tp=tp, ep=ep, slices=slices,
+        make_mesh(dp=dp, tp=tp, ep=ep, slices=slices, pp=pp,
                   devices=jax.devices()[:world]).devices))
-    assert grid.shape == (dp, ep, tp)
-    np.testing.assert_array_equal(grid, jgrid.reshape(dp, ep, tp))
-    assert np.argwhere(grid == world - 1)[0].tolist() == [dp - 1, ep - 1, tp - 1]
+    assert grid.shape == (dp, pp, ep, tp)
+    np.testing.assert_array_equal(grid, jgrid.reshape(dp, pp, ep, tp))
+    assert np.argwhere(grid == world - 1)[0].tolist() == [dp - 1, pp - 1, ep - 1, tp - 1]
     assert pm.data_shard(None) == (1, 0)  # one process reads all the data
 
 

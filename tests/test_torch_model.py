@@ -210,14 +210,17 @@ def test_config_json_is_shared_with_the_jax_package():
     assert JaxConfig.from_json(tcfg.to_json()) == jcfg
 
 
-@pytest.mark.parametrize("field,value", [
-    ("pipeline_stages", 2), ("attention_impl", "splash"),
+@pytest.mark.parametrize("field,value,error,match", [
+    ("pipeline_stages", 2, ValueError, "pipeline_stages needs scan_layers=True"),
+    ("attention_impl", "splash", NotImplementedError, "ROADMAP"),
 ])
-def test_unported_config_values_raise(field, value):
+def test_unported_config_values_raise(field, value, error, match):
+    """A pipeline without the scan layout raises JAX's error; an attention
+    impl the port does not have names ROADMAP.md."""
     cfg = ModelConfig(**SMALL, **{field: value})
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(error, match=match):
         check_supported(cfg)
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(error):
         UniVTG(cfg, device="cpu")
 
 

@@ -1,9 +1,11 @@
 """The JAX side of the model-parallel gang tests (tests/test_torch_tp.py,
-tests/test_torch_ep.py) and the gangs they share: the configurations, the
-seeded batches, JAX's init carried over to the port, JAX's train step on
-``make_mesh(dp, tp, ep)`` under ``jax.set_mesh``, and the three gangs (of
-2, 4 and 8 gloo ranks, tests/torch_mesh_worker.py), each launched once per
-test session.
+tests/test_torch_ep.py, tests/test_torch_pipeline.py,
+tests/test_torch_1f1b.py) and the gangs they share: the configurations, the
+seeded batches, JAX's init carried over to the port, JAX's train step (or
+1F1B step) on ``make_mesh(dp, tp, pp=, ep=)`` under ``jax.set_mesh``, and
+the three gangs (of 2, 4 and 8 gloo ranks, tests/torch_mesh_worker.py),
+each launched once per test session. A JAX reference that several tests
+read is computed once per session (``jax_ref``).
 """
 import dataclasses
 import json
@@ -37,6 +39,36 @@ WD, CLIP = 1e-4, 0.1
 STEPS = 3
 RING_SHAPE = dict(B=2, L=32, D=64, H=4)  # tests/test_ring_attention.py's
 RING_RATE, RING_SEED = 0.3, 11
+# the pipeline cases: JAX's tests/test_pipeline*.py model, in the scan layout
+PIPE = dict(DENSE, num_layers=4, scan_layers=True)
+PIPE8 = dict(PIPE, num_layers=8)
+PIPE_B = 8  # a global batch of 8 rows: M = 4 microbatches tile over dp = 2
+DROP = dict(dropout=0.1, droppath=0.1, input_dropout=0.3)
+MEM_MICRO = (2, 4, 8, 16)
+
+
+def pipe_cfg(base: dict, pp: int, n_micro: int, v: int = 1, **kw) -> dict:
+    """``base`` pipelined over ``pp`` stages, ``n_micro`` microbatches, ``v``
+    chunks a stage."""
+    return {**base, "pipeline_stages": pp, "pipeline_microbatches": n_micro,
+            "pipeline_interleave": v, **kw}
+
+
+def tal_bank(C=5, Lc=3, D=16, seed=0):
+    """tests/test_tal_cls.py's class bank: (C, Lc, D) features, all valid."""
+    rng = np.random.default_rng(seed)
+    return (rng.standard_normal((C, Lc, D)).astype(np.float32),
+            np.ones((C, Lc), np.float32))
+
+
+def tal_batches(n=STEPS, B=PIPE_B):
+    """``batches`` with tests/test_tal_cls.py's class targets (cls_idx)."""
+    out = []
+    for mi, tg in batches(n, B=B):
+        cls_idx = np.zeros((B, 5), np.float32)
+        cls_idx[np.arange(B), np.arange(B) % 5] = 1
+        out.append((mi, dict(tg, cls_idx=cls_idx)))
+    return out
 
 
 def batch(seed, B=4, Lv=28, Lt=4, vid_dim=34, txt_dim=16):
@@ -73,18 +105,32 @@ def jax_init(cfg: dict, mi):
     return jax.tree_util.tree_map(np.asarray, params)
 
 
-def jax_run(cfg: dict, mesh_shape, params, data):
-    """JAX's make_train_step (AdamW, the clip) on ``make_mesh(dp, tp, ep)``
-    under ``jax.set_mesh``, the params laid out by ``replicate_params`` and
-    each batch by ``shard_batch``: (every step's metrics, the final params
-    as the port's canonical state dict)."""
-    dp, tp, ep = mesh_shape
-    mesh = make_mesh(dp=dp, tp=tp, ep=ep, devices=jax.devices()[:dp * tp * ep])
+def jax_run(cfg: dict, mesh_shape, params, data, schedule="gpipe", n_micro=0, tal=False):
+    """JAX's make_train_step (AdamW, the clip; with ``schedule`` "1f1b" its
+    make_1f1b_train_step) on ``make_mesh(dp, tp, ep)`` or ``make_mesh(dp,
+    tp, pp=, ep=)`` (``mesh_shape`` (dp, tp, ep) or (dp, tp, ep, pp)) under
+    ``jax.set_mesh``, the params laid out by ``replicate_params`` and each
+    batch by ``shard_batch``; ``tal``: the class bank of ``tal_bank`` as
+    static inputs and the saliency_cls loss: (every step's metrics, the
+    final params as the port's canonical state dict)."""
+    from univtg_tpu.train.steps_1f1b import make_1f1b_train_step
+
+    dp, tp, ep, pp = (tuple(mesh_shape) + (1,))[:4]
+    mesh = make_mesh(dp=dp, tp=tp, pp=pp, ep=ep, devices=jax.devices()[:dp * tp * ep * pp])
     model = JaxUniVTG(JaxConfig(**cfg))
     tx = jsteps.make_optimizer(jschedule.build_schedule(*SCHED), WD, CLIP)
     state = jsteps.TrainState(params=replicate_params(mesh, params),
                               opt_state=tx.init(params), step=np.int32(0))
-    step = jsteps.make_train_step(model, tx, JaxWeights(), donate=False)
+    kw = {}
+    if tal:
+        bank, bank_mask = tal_bank()
+        kw = dict(losses=("spans", "labels", "saliency_cls"),
+                  static_inputs={"src_cls": bank, "src_cls_mask": bank_mask})
+    if schedule == "1f1b":
+        step = make_1f1b_train_step(model, tx, JaxWeights(), n_micro=n_micro, donate=False,
+                                    **kw)
+    else:
+        step = jsteps.make_train_step(model, tx, JaxWeights(), donate=False, **kw)
     metrics = []
     with jax.set_mesh(mesh):
         for mi, tg in data:
@@ -99,6 +145,31 @@ def _port_cfg(cfg):
     from univtg_tpu_torch.models import ModelConfig
 
     return ModelConfig(**cfg)
+
+
+def jax_ref(tmp_path_factory, name: str, make):
+    """``make()`` (a picklable result) computed once per test session,
+    whichever xdist worker asks first; the others load it."""
+    def run(base):
+        path = os.path.join(base, "ref.pt")
+        torch.save(make(), path)
+        return {"path": path}
+
+    return torch.load(mw.once(tmp_path_factory, f"jax_{name}", run)["path"], weights_only=False)
+
+
+def jax_forward(cfg: dict, mesh_shape, params, mi):
+    """JAX's eval forward of ``cfg`` on ``mi`` (the pipeline's when the mesh
+    (dp, pp) carries a matching pp axis, ``parallel/pipeline.py``): the
+    outputs the gangs' forward cases write, as numpy."""
+    dp, pp = mesh_shape
+    mesh = make_mesh(dp=dp, tp=1, pp=pp, devices=jax.devices()[:dp * pp])
+    model = JaxUniVTG(JaxConfig(**cfg))
+    with jax.set_mesh(mesh):
+        out = jax.jit(lambda p, m: model.apply(
+            {"params": p}, m["src_txt"], m["src_txt_mask"], m["src_vid"], m["src_vid_mask"],
+            train=False))(replicate_params(mesh, params), shard_batch(mesh, mi))
+    return {k: np.asarray(out[k]) for k in ("pred_logits", "pred_spans", "saliency_scores")}
 
 
 def assert_trajectory(got: dict, metrics, params, cfg: dict, n_steps=STEPS):
@@ -154,11 +225,19 @@ def _inputs(base):
     made = {}
     dense, ragged = batches(), batches(Lv=27)
     moe = batches(B=8, Lv=16, Lt=6)
-    for name, data in (("dense", dense), ("ragged", ragged), ("moe", moe)):
+    pipe, mem = batches(B=PIPE_B), batches(1, B=max(MEM_MICRO))
+    for name, data in (("dense", dense), ("ragged", ragged), ("moe", moe), ("pipe", pipe),
+                       ("mem", mem), ("tal", tal_batches())):
         made[name] = os.path.join(base, f"{name}_batches.pt")
         torch.save(_tensors(data), made[name])
+    bank, bank_mask = tal_bank()
+    made["tal_bank"] = os.path.join(base, "tal_bank.pt")
+    torch.save({"src_cls": torch.from_numpy(bank), "src_cls_mask": torch.from_numpy(bank_mask)},
+               made["tal_bank"])
     for name, cfg, mi in (("dense_init", DENSE, dense[0][0]), ("moe_init", MOE, moe[0][0]),
-                          ("moe1_init", {**MOE, "num_layers": 1}, moe[0][0])):
+                          ("moe1_init", {**MOE, "num_layers": 1}, moe[0][0]),
+                          ("pipe_init", PIPE, pipe[0][0]), ("pipe8_init", PIPE8, pipe[0][0]),
+                          ("txtpos_init", {**PIPE, "use_txt_pos": True}, pipe[0][0])):
         made[name] = os.path.join(base, f"{name}.pt")
         torch.save(state_dict_from_jax_params(jax_init(cfg, mi), _port_cfg(cfg)), made[name])
     rng = np.random.default_rng(7)
@@ -269,13 +348,79 @@ def _jobs(made, base):
     }
 
 
+def pp_mesh(dp=1, tp=1, ep=1, pp=2):
+    """A worker's [dp, tp, ep, slices, pp] mesh."""
+    return [dp, tp, ep, 1, pp]
+
+
+def _pipe_jobs(made, base):
+    """The pipeline cases of each gang (tests/test_torch_pipeline.py,
+    tests/test_torch_1f1b.py): GPipe ("gp_") and 1F1B ("f1_") steps, the
+    forwards, the saved-input peaks and the drivers."""
+    pd, pi, p8 = made["pipe"], made["pipe_init"], made["pipe8_init"]
+    m, mi, tal = made["moe"], made["moe_init"], made["tal"]
+    golden = os.path.join(GOLDEN, "jax_resume")
+    with open(os.path.join(golden, "expected.json")) as f:
+        resume = json.load(f)
+
+    def f1(name, mesh, cfg, init, data=pd, **kw):
+        return _steps(name, mesh, cfg, init, data, schedule="1f1b", **kw)
+
+    def fwd(name, mesh, cfg):
+        return {"name": name, "kind": "forward", "mesh": mesh, "cfg": cfg, "init": pi,
+                "batches": pd}
+
+    return {
+        2: [fwd("fwd_pp2_m8", pp_mesh(), pipe_cfg(PIPE, 2, 8)),
+            fwd("fwd_pp2_v2", pp_mesh(), pipe_cfg(PIPE, 2, 4, 2)),
+            _steps("gp_pp2", pp_mesh(), pipe_cfg(PIPE, 2, 4), pi, pd),
+            _steps("gp_pp2_v2", pp_mesh(), pipe_cfg(PIPE, 2, 4, 2), pi, pd),
+            _steps("gp_pp2_remat", pp_mesh(), pipe_cfg(PIPE, 2, 4, remat=True), pi, pd),
+            _steps("gp_drop_xla", pp_mesh(), pipe_cfg({**PIPE, **DROP}, 2, 4), pi, pd),
+            _steps("gp_drop_pallas", pp_mesh(),
+                   pipe_cfg({**PIPE, **DROP, "attention_impl": "pallas"}, 2, 4), pi, pd),
+            _steps("gp_moe_m1", pp_mesh(), pipe_cfg(MOE, 2, 1), mi, m),
+            f1("f1_pp2_m8", pp_mesh(), pipe_cfg(PIPE, 2, 8), pi),
+            f1("f1_pp2_m1", pp_mesh(), pipe_cfg(PIPE, 2, 1), pi),
+            f1("f1_pp2_v2", pp_mesh(), pipe_cfg(PIPE8, 2, 4, 2), p8),
+            f1("f1_moe_pp2", pp_mesh(), pipe_cfg(MOE, 2, 4), mi, m),
+            {"name": "mem_pp2", "kind": "mem", "mesh": pp_mesh(), "cfg": pipe_cfg(PIPE, 2, 2),
+             "batches": made["mem"], "micro": list(MEM_MICRO), "sched": list(SCHED)},
+            _steps("resume_jax_pp2", pp_mesh(), pipe_cfg(
+                {**resume["model"], "scan_layers": True}, 2, 2), None,
+                made["resume_batches"], resume=os.path.join(golden, "model_latest.ckpt"),
+                weights=resume["weights"]),
+            {"name": "mr_pp2_1f1b", "kind": "train_mr", "mesh": pp_mesh(),
+             "cfg": pipe_cfg(PIPE, 2, 2, 2), "schedule": "1f1b", "corpus": made["mr"],
+             "init": pi, "sharded_eval": True},
+            {"name": "vlp_pp2", "kind": "train_vlp", "pp": 2, "corpus": made["mr"],
+             "model": {"scan_layers": True, "pipeline_stages": 2}}],
+        4: [fwd("fwd_dp2pp2_m4", pp_mesh(dp=2), pipe_cfg(PIPE, 2, 4)),
+            fwd("fwd_pp4_m4", pp_mesh(pp=4), pipe_cfg(PIPE, 4, 4)),
+            _steps("gp_dp2pp2", pp_mesh(dp=2), pipe_cfg(PIPE, 2, 4), pi, pd),
+            _steps("gp_pp2tp2", pp_mesh(tp=2), pipe_cfg(PIPE, 2, 4), pi, pd),
+            f1("f1_dp2pp2_m4", pp_mesh(dp=2), pipe_cfg(PIPE, 2, 4), pi),
+            f1("f1_pp4_m4", pp_mesh(pp=4), pipe_cfg(PIPE8, 4, 4), p8),
+            f1("f1_txtpos", pp_mesh(dp=2), pipe_cfg({**PIPE, "use_txt_pos": True}, 2, 4),
+               made["txtpos_init"]),
+            f1("f1_pp2tp2", pp_mesh(tp=2), pipe_cfg(PIPE, 2, 4), pi),
+            f1("f1_moe_pp2ep2", pp_mesh(ep=2), pipe_cfg(MOE, 2, 4), mi, m),
+            f1("f1_tal", pp_mesh(dp=2), pipe_cfg(PIPE, 2, 4), pi, tal, tal=made["tal_bank"]),
+            {"name": "mr_dp2pp2", "kind": "train_mr", "mesh": pp_mesh(dp=2),
+             "cfg": pipe_cfg(PIPE, 2, 2), "corpus": made["mr"], "init": pi,
+             "ckpt_infer": True}],
+        8: [_steps("gp_dp2pp2tp2", pp_mesh(dp=2, tp=2), pipe_cfg(PIPE, 2, 4), pi, pd)],
+    }
+
+
 def gang(tmp_path_factory, world: int) -> dict:
     """Run the gang of ``world`` ranks once per session; returns its
     directory and the shared inputs."""
     inputs = mw.once(tmp_path_factory, "inputs", _inputs_made)
 
     def make(base):
-        job = {"cases": _jobs(dict(inputs), base)[world], "out": base}
+        job = {"cases": _jobs(dict(inputs), base)[world]
+               + _pipe_jobs(dict(inputs), base)[world], "out": base}
         outs = mw.wait(mw.launch(job, base, world))
         return {"base": base, "log": outs[0][-20000:]}
 

@@ -5,18 +5,30 @@ launch such gangs.
     python torch_mesh_worker.py <rank> <world> <init_method> <job.json>
 
 ``job.json`` holds ``cases``, run in order by every rank, each on its own
-mesh ``[dp, tp, ep]`` (dp * tp * ep = world; the groups of a grid are made
-once). Kinds:
+mesh ``[dp, tp, ep]`` or ``[dp, tp, ep, 1, pp]`` (dp * pp * tp * ep =
+world; the groups of a grid are made once). Kinds:
   * steps -- the model of ``cfg`` (Moment-DETR with ``md``, replicated)
     from the canonical state dict at
     ``init`` (or ``resume``d with ``resume_all`` from a checkpoint, the JAX
-    package's too), put on the mesh, stepped by ``make_train_step`` over
+    package's too), put on the mesh, stepped by ``make_train_step`` (with
+    ``schedule`` "1f1b" ``make_1f1b_train_step``; ``tal``: the class bank
+    at that path as static inputs and the saliency_cls loss) over
     the global batches at ``batches`` (each dp row its slice); writes every
     step's metrics, the canonical parameters after the last step (gathered
     by every rank), the warnings and the attention dispatches to
-    ``<out>/<name>.pt`` (rank 0) and each rank's metrics to
+    ``<out>/<name>.pt`` (rank 0) and each rank's metrics, with the
+    pipeline's counters and the parameters it holds, to
     ``<out>/<name>_r<rank>.json``; with ``ckpt``, rank 0 saves the gathered
     checkpoint there;
+  * forward -- the model of ``cfg`` from ``init`` on the mesh, in eval, on
+    the global batch's model inputs at ``batches`` (its first), each dp row
+    its slice: the outputs all-gathered over dp to ``<out>/<name>.pt``
+    (rank 0);
+  * mem -- one step of each pipeline schedule at each microbatch count of
+    ``micro`` on the batch at ``batches``: the engines' saved-input peaks
+    to ``<out>/<name>_r<rank>.json``;
+  * train_vlp -- ``train_vlp`` on two corpora specs over the ``corpus``,
+    every step's metrics to ``<out>/<name>/steps_r<rank>.json``;
   * ring -- ``process_ring_attention`` and ``ring_attention_pallas`` (the
     CPU twin) over the tp axis as a ``ProcessRing`` on the (B, L, D) q, k,
     v and mask at ``inputs``, each rank on its block: the outputs and the
@@ -40,7 +52,7 @@ REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 sys.path.insert(0, HERE)
 
-GANG_TIMEOUT = 240
+GANG_TIMEOUT = 480
 
 
 def launch(job: dict, base: str, world: int):
@@ -110,17 +122,18 @@ def run_steps(case, rank, out):
     import torch
 
     from univtg_tpu_torch.models import ModelConfig, UniVTG
-    from univtg_tpu_torch.models.losses import LossWeights
     from univtg_tpu_torch.ops import attention
     from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel import pipeline as pipe
     from univtg_tpu_torch.train import checkpoint as ckpt
     from univtg_tpu_torch.train.schedule import build_schedule
-    from univtg_tpu_torch.train.steps import TrainState, make_optimizer, make_train_step
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer
 
     mesh = pm.make_mesh(*case["mesh"])
     model, step = md_model_and_step(case) if case.get("md") else (
-        UniVTG(ModelConfig(**case["cfg"]), device="cpu", seed=0),
-        make_train_step(LossWeights(**case.get("weights", {}))))
+        UniVTG(ModelConfig(**case["cfg"]), device="cpu", seed=0), None)
+    if step is None:
+        step = _dense_step(case)
     if case.get("init"):
         model.load_state_dict(torch.load(case["init"]))
     (pm.replicate_model if case.get("md") else pm.shard_model)(model, mesh)
@@ -130,6 +143,7 @@ def run_steps(case, rank, out):
     if case.get("resume"):
         ckpt.restore_checkpoint(case["resume"], state)
     before = dict(attention.dispatches)
+    pipe.reset_stats()
     metrics = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
@@ -141,11 +155,80 @@ def run_steps(case, rank, out):
         ckpt.save_checkpoint(case["ckpt"], state, 0, blob=blob)
     with open(os.path.join(out, f"{case['name']}_r{rank}.json"), "w") as f:
         json.dump(metrics, f)
+    held = {"pipe": dict(pipe.stats), "n_params": sum(p.numel() for p in model.parameters()),
+            "keys": sorted(model.state_dict())}
+    with open(os.path.join(out, f"{case['name']}_held_r{rank}.json"), "w") as f:
+        json.dump(held, f)
     if rank == 0:
         torch.save({"metrics": metrics, "params": blob["model"],
                     "warnings": [str(w.message) for w in caught],
                     "dispatches": {k: attention.dispatches[k] - before[k] for k in before}},
                    os.path.join(out, f"{case['name']}.pt"))
+
+
+def _dense_step(case):
+    """The UniVTG train step of a steps case: make_train_step, or with
+    ``schedule`` "1f1b" make_1f1b_train_step (``n_micro``); ``tal``: the
+    class bank at that path as static inputs, the saliency_cls loss."""
+    import torch
+
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.train.steps import make_train_step
+    from univtg_tpu_torch.train.steps_1f1b import make_1f1b_train_step
+
+    weights = LossWeights(**case.get("weights", {}))
+    losses = ("spans", "labels", "saliency_cls") if case.get("tal") else (
+        "spans", "labels", "saliency")
+    static = torch.load(case["tal"]) if case.get("tal") else None
+    if case.get("schedule") == "1f1b":
+        return make_1f1b_train_step(weights, losses, n_micro=case.get("n_micro", 0),
+                                    static_inputs=static)
+    return make_train_step(weights, losses, static_inputs=static)
+
+
+def run_forward(case, rank, out):
+    import torch
+
+    from univtg_tpu_torch.models import ModelConfig, UniVTG
+    from univtg_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(*case["mesh"])
+    model = UniVTG(ModelConfig(**case["cfg"]), device="cpu", seed=0)
+    model.load_state_dict(torch.load(case["init"]))
+    pm.shard_model(model, mesh)
+    mi = dp_slice(torch.load(case["batches"])[0][0], mesh)
+    with torch.no_grad():
+        got = model(mi["src_txt"], mi["src_txt_mask"], mi["src_vid"], mi["src_vid_mask"],
+                    train=False)
+    got = {k: pm.all_gather(got[k], mesh.dp, 0)
+           for k in ("pred_logits", "pred_spans", "saliency_scores")}
+    if rank == 0:
+        torch.save(got, os.path.join(out, f"{case['name']}.pt"))
+
+
+def run_mem(case, rank, out):
+    import torch
+
+    from univtg_tpu_torch.models import ModelConfig, UniVTG
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel import pipeline as pipe
+    from univtg_tpu_torch.train.schedule import build_schedule
+    from univtg_tpu_torch.train.steps import TrainState, make_optimizer
+
+    mesh = pm.make_mesh(*case["mesh"])
+    mi, tg = torch.load(case["batches"])[0]
+    peaks = {}
+    for schedule in ("gpipe", "1f1b"):
+        for M in case["micro"]:
+            cfg = ModelConfig(**{**case["cfg"], "pipeline_microbatches": M})
+            model = pm.shard_model(UniVTG(cfg, device="cpu", seed=0), mesh)
+            state = TrainState(model, make_optimizer(model.parameters(),
+                                                     build_schedule(*case["sched"])))
+            pipe.reset_stats()
+            _dense_step({"schedule": schedule})(state, mi, tg, 1)
+            peaks[f"{schedule}_{M}"] = pipe.stats["saved_peak"]
+    with open(os.path.join(out, f"{case['name']}_r{rank}.json"), "w") as f:
+        json.dump(peaks, f)
 
 
 def md_model_and_step(case):
@@ -201,19 +284,20 @@ def mr_cfg(case, results_dir):
                             q_feat_dim=c["q_dim"], max_q_l=case["cfg"]["max_q_l"],
                             max_v_l=case["cfg"]["max_v_l"])
 
+    mesh = case["mesh"] + [1, 1][len(case["mesh"]) - 3:]
     return TrainConfig(model=ModelConfig(**case["cfg"]), train_data=data(c["train_path"]),
                        eval_data=data(c["val_path"]), results_dir=results_dir, bsz=4,
                        eval_bsz=4, n_epoch=2, eval_epoch=1, lr=1e-3, lr_warmup=1,
                        lr_drop=100, num_io_threads=2, prefetch_depth=0, seed=7,
-                       tp=case["mesh"][1], ep=case["mesh"][2],
+                       tp=mesh[1], ep=mesh[2], pp=mesh[4],
+                       pipeline_schedule=case.get("schedule", "gpipe"),
                        sharded_eval=case.get("sharded_eval", False))
 
 
-def run_train_mr(case, rank, out):
-    from univtg_tpu_torch.train import driver_mr
-
-    steps = []
-    make_step = driver_mr.make_train_step
+def _recorded(module, name, steps):
+    """Wrap ``module.name`` (a step factory) so that every step's metrics
+    go to ``steps``; returns undo."""
+    make_step = getattr(module, name)
 
     def recording(*args, **kw):
         step = make_step(*args, **kw)
@@ -224,13 +308,47 @@ def run_train_mr(case, rank, out):
             return state, metrics
         return run
 
+    setattr(module, name, recording)
+    return lambda: setattr(module, name, make_step)
+
+
+def run_train_mr(case, rank, out):
+    from univtg_tpu_torch.train import driver_mr, steps_1f1b
+
+    steps = []
     base = os.path.join(out, case["name"])
-    driver_mr.make_train_step = recording
+    undo = [_recorded(driver_mr, "make_train_step", steps),
+            _recorded(steps_1f1b, "make_1f1b_train_step", steps)]
     try:
         driver_mr.train_mr(mr_cfg(case, os.path.join(base, f"p{rank}")),
-                           resume=case["init"], device="cpu")
+                           resume=case["init"], device="cpu",
+                           resume_all=case.get("resume_all", False))
     finally:
-        driver_mr.make_train_step = make_step
+        for u in undo:
+            u()
+    with open(os.path.join(base, f"steps_r{rank}.json"), "w") as f:
+        json.dump(steps, f)
+
+
+def run_train_vlp(case, rank, out):
+    import dataclasses
+
+    import torch_dist_worker as dw
+
+    from univtg_tpu_torch.train import driver_mr
+    from univtg_tpu_torch.train.driver_vlp import train_vlp
+
+    steps = []
+    base = os.path.join(out, case["name"])
+    cfg = dw.build_cfg({"corpora": [case["corpus"], case["corpus"]]},
+                       os.path.join(base, f"p{rank}"))
+    cfg = dataclasses.replace(cfg, pp=case["pp"], model=dataclasses.replace(
+        cfg.model, **case["model"]))
+    undo = _recorded(driver_mr, "make_train_step", steps)
+    try:
+        train_vlp(cfg, device="cpu")
+    finally:
+        undo()
     with open(os.path.join(base, f"steps_r{rank}.json"), "w") as f:
         json.dump(steps, f)
 
@@ -256,7 +374,8 @@ def main():
 
     dist.init_gang(init, world, rank, device="cpu")
     kinds = {"steps": run_steps, "ring": run_ring, "hl": run_hl_case,
-             "train_mr": run_train_mr}
+             "train_mr": run_train_mr, "forward": run_forward, "mem": run_mem,
+             "train_vlp": run_train_vlp}
     for case in job["cases"]:
         kinds[case["kind"]](case, rank, job["out"])
     dist.shutdown()

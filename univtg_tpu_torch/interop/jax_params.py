@@ -233,11 +233,17 @@ def state_dict_from_jax(params, cfg) -> dict:
 
 def shard_state_dict_from_jax(params, cfg, coords: dict, sizes: dict) -> dict:
     """The shards of the JAX tree's state_dict that the rank at ``coords``
-    (its dp, ep and tp indices) holds on a mesh of ``sizes``, by the rules
-    of ``parallel/mesh.py``."""
-    from univtg_tpu_torch.parallel.mesh import shard_state_dict
+    (its dp, pp, ep and tp indices) holds on a mesh of ``sizes``, by the
+    rules of ``parallel/mesh.py``: under pp > 1 its stage's layers alone
+    (``mesh.stage_layers``; JAX's checkpoints keep the layers in canonical
+    order, ``parallel/pipeline.permute_pipeline_params`` converts a
+    device-major tree)."""
+    from univtg_tpu_torch.parallel.mesh import shard_state_dict, stage_layers
 
-    return shard_state_dict(state_dict_from_jax(params, cfg), coords, sizes)
+    pp = sizes.get("pp", 1)
+    layers = (stage_layers(cfg.num_layers, pp, cfg.pipeline_interleave, coords["pp"])
+              if pp > 1 else None)
+    return shard_state_dict(state_dict_from_jax(params, cfg), coords, sizes, layers)
 
 
 def checked_state_dict_from_jax(params, cfg, want: dict, what="params") -> dict:

@@ -1,9 +1,8 @@
 """Typed model configuration: the same fields, defaults and JSON as
 ``univtg_tpu/models/config.py``, so one config file drives both packages.
 
-Fields of features that arrive in later slices still parse;
-``check_supported`` names the ones a model built from this config cannot run
-yet.
+``check_supported`` names the values a model built from this config cannot
+run.
 """
 from __future__ import annotations
 
@@ -59,8 +58,15 @@ class ModelConfig:
     # the JAX package runs the layers as one lax.scan over stacked params;
     # here it changes only the layout read from a JAX tree (interop)
     scan_layers: bool = False
-    # the pipeline_* fields: a feature of the JAX package that a later slice
-    # ports; they parse here (the field order is the JAX JSON's)
+    # pipeline parallelism over the encoder layers (parallel/pipeline.py):
+    # pipeline_stages > 1 runs the layers as a pipeline over the pp axis of
+    # the mesh the model is put on (parallel/mesh.shard_model), with
+    # pipeline_microbatches microbatches (0: pipeline_stages) and
+    # pipeline_interleave chunks a stage; needs scan_layers (as in JAX).
+    # Off such a mesh it warns once and runs the layers in order.
+    # pipeline_pre_permuted: JAX's device-major layout flag; the port keeps
+    # a stage's layers under their canonical indices, and refuses the flag
+    # (with interleave > 1) off the pipeline, as JAX does
     pipeline_stages: int = 0
     pipeline_microbatches: int = 0
     pipeline_interleave: int = 1
@@ -93,10 +99,11 @@ class ModelConfig:
 
 
 def check_supported(cfg: ModelConfig) -> None:
-    """Raise for the config values this slice of the port cannot run."""
-    if cfg.pipeline_stages > 0:
-        raise NotImplementedError(
-            "the PyTorch port does not run pipeline_stages>0 yet (ROADMAP.md, queue 1)")
+    """Raise for the config values the port cannot run."""
+    if cfg.pipeline_stages > 1 and not cfg.scan_layers:
+        raise ValueError(
+            "pipeline_stages needs scan_layers=True (the pipeline "
+            "shards the stacked scan parameter layout over pp)")
     if cfg.moe_experts > 1 and cfg.moe_top_k > cfg.moe_experts:
         raise ValueError(f"moe_top_k={cfg.moe_top_k} must be <= "
                          f"moe_experts={cfg.moe_experts}")

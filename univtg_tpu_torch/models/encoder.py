@@ -37,6 +37,16 @@ projects its own L/tp tokens with the whole in_proj and out_proj,
 all-gathered from their shards (their gradients reduce-scattered back).
 The drawn noise is the whole layer's: the "xla" keep uniforms of every
 head, sliced to the rank's, and the flash kernels' hash of the global head.
+
+With ``pipeline_stages`` > 1 on a mesh whose pp axis matches it
+(parallel/mesh.shard_model keeps a stage's layers alone, under their
+canonical indices) the encoder runs parallel/pipeline.pipeline_layers:
+GPipe or interleaved GPipe over the pp ranks, the same layer body on each
+microbatch (its row offset placing its rows in the flash kernels' dropout
+hash). Without such a mesh it gives JAX's one-time warning and runs the
+layers in order; ``pipeline_stages`` > 1 needs ``scan_layers`` (config.py)
+and device-major params (``pipeline_pre_permuted`` with interleave > 1)
+are refused off the pipeline, in JAX's words.
 """
 from __future__ import annotations
 
@@ -110,11 +120,13 @@ class SelfAttention(nn.Module):
         return dropout_noise(self.impl, B, L, L, self.num_heads, self.dropout,
                              generator, x.device, self.ring_for(L))
 
-    def forward(self, qk, v, key_padding_mask, noise, out_bias, seq=False):
+    def forward(self, qk, v, key_padding_mask, noise, out_bias, seq=False, row_off=0):
         """This rank's heads over the whole sequence: (B, L, D) replicated
         inputs, or under ``seq`` token blocks all-gathered (one collective
         for both); the row-parallel output reduced over tp (under seq:
-        reduce-scattered into blocks), then ``out_bias`` added once."""
+        reduce-scattered into blocks), then ``out_bias`` added once.
+        ``row_off``: the batch row the input's first row is (a pipeline's
+        microbatch), for the flash kernels' dropout hash."""
         tp, dt, D = self.mesh.tp, v.dtype, v.shape[-1]
         if seq:
             qk, v = pm.gather_tokens(torch.cat([qk, v], dim=-1), tp).split(D, dim=-1)
@@ -132,7 +144,7 @@ class SelfAttention(nn.Module):
             # attention, as JAX falls back (without tp, use_ring's ring)
             impl="xla" if self.impl in RING_IMPLS and tp.on else self.impl,
             dropout_rate=self.dropout, noise=noise,
-            head_span=(self.num_heads, self.head_off))
+            head_span=(self.num_heads, row_off * self.num_heads + self.head_off))
         if not tp.on:
             return out
         out = pm.scatter_tokens(out, tp) if seq else pm.reduce_from(out, tp)
@@ -235,11 +247,13 @@ class EncoderLayer(nn.Module):
             branch_out = drop_path(branch_out, self.droppath, noise=noise)
         return h + branch_out
 
-    def body(self, x, key_padding_mask, pos, noise, aux: bool = False, seq: bool = False):
+    def body(self, x, key_padding_mask, pos, noise, aux: bool = False, seq: bool = False,
+             row_off: int = 0):
         """The layer on drawn ``noise`` (``noise()``'s, or None): (x, the
         MoE layer's aux or None). On the mesh (the module's docstring) x and
         pos are (B, L, D), or under ``seq`` this rank's (B, L/tp, D) token
-        blocks."""
+        blocks. ``row_off``: the batch row of x's first row (a pipeline's
+        microbatch; its noise is already those rows')."""
         n_attn, n_path1, n_path2 = noise or (None, None, None)
         tp = self.mesh.tp
         ring = self.self_attn.ring_for(key_padding_mask.shape[1])
@@ -261,7 +275,7 @@ class EncoderLayer(nn.Module):
         def attn(h):
             qk = h if pos is None else h + pos
             if ring is None:
-                return self.self_attn(qk, h, key_padding_mask, n_attn, out_b, seq)
+                return self.self_attn(qk, h, key_padding_mask, n_attn, out_b, seq, row_off)
             if not seq:
                 qk, h = pm.split_tokens(qk, tp), pm.split_tokens(h, tp)
             out = self.self_attn.forward_ring(qk, h, key_padding_mask, n_attn, out_b)
@@ -310,9 +324,14 @@ class Encoder(nn.Module):
                  ffn_dim: int, dropout: float = 0.0, droppath: float = 0.0,
                  pre_norm: bool = False, attention_impl: str = "xla",
                  moe_experts: int = 0, moe_top_k: int = 1,
-                 moe_capacity_factor: float = 1.25, remat: bool = False):
+                 moe_capacity_factor: float = 1.25, remat: bool = False,
+                 pipeline=(0, 0, 1, False)):
         super().__init__()
         self.remat = remat
+        self.num_layers = num_layers
+        # (pipeline_stages, pipeline_microbatches, pipeline_interleave,
+        # pipeline_pre_permuted) of the model's config
+        self.pipeline = tuple(pipeline)
         self.layers = nn.ModuleList(
             EncoderLayer(dim, num_heads, ffn_dim, dropout, droppath, pre_norm,
                          attention_impl, moe_experts, moe_top_k, moe_capacity_factor)
@@ -326,14 +345,61 @@ class Encoder(nn.Module):
         """Run the layers on ``mesh`` (``shard_model``), with ``seq_shard``
         as cfg says."""
         self.mesh, self.seq_shard = mesh, cfg.seq_shard
-        for layer in self.layers:
+        for layer in self.stage_layers():
             layer.place(mesh)
+
+    def keep_layers(self, indices):
+        """Hold the layers of ``indices`` alone, keyed by their canonical
+        index (a pipeline stage's: the state-dict names stay
+        ``layers.{i}.*``)."""
+        self.layers = nn.ModuleDict({str(i): self.layers[i] for i in indices})
+
+    def stage_layers(self) -> list:
+        """The layers this module holds, in canonical order."""
+        if isinstance(self.layers, nn.ModuleDict):
+            return list(self.layers.values())
+        return list(self.layers)
+
+    @property
+    def pipelined(self) -> bool:
+        """Whether the layers run as a pipeline over the mesh's pp axis."""
+        from univtg_tpu_torch.parallel.pipeline import pipeline_available
+
+        stages, _, v, _ = self.pipeline
+        return pipeline_available(stages, self.num_layers, v, self.mesh)
+
+    def _refuse_device_major(self):
+        _, _, v, pre_permuted = self.pipeline
+        if pre_permuted and v > 1:
+            raise ValueError(
+                "pipeline_pre_permuted params are stored in device-major "
+                "chunk order; the sequential path would apply layers out of "
+                "order. Activate the pp mesh (pipeline_stages > 1 + "
+                "jax.set_mesh), or convert the params back with "
+                "parallel.pipeline.permute_pipeline_params(..., "
+                "inverse=True) before running off-mesh.")
 
     def forward(self, x, key_padding_mask, pos, generator=None, aux=None):
         """aux: None, or a list that each MoE layer appends its load-balance
-        loss to (training). Under ``seq_shard`` on a mesh the layers run on
-        this rank's token block, the output all-gathered back (JAX's
-        ``seq_constraint`` after each layer)."""
+        loss to (training; under a pipeline one entry, the mean over layers,
+        microbatches and dp shards). Under ``seq_shard`` on a mesh the
+        layers run on this rank's token block, the output all-gathered back
+        (JAX's ``seq_constraint`` after each layer); under a pipeline
+        ``seq_shard`` is off, as in JAX's stage body."""
+        stages, _, v, _ = self.pipeline
+        if self.pipelined:
+            from univtg_tpu_torch.parallel.pipeline import pipeline_layers
+
+            x, aux_mean = pipeline_layers(self, x, key_padding_mask, pos, generator,
+                                          collect_aux=aux is not None)
+            if aux is not None and aux_mean is not None:
+                aux.append(aux_mean)
+            return x if self.norm is None else self.norm(x)
+        self._refuse_device_major()  # before the fallback's warning, as JAX does
+        if stages > 1:
+            from univtg_tpu_torch.parallel.pipeline import warn_pipeline_fallback
+
+            warn_pipeline_fallback(stages, self.num_layers, v, self.mesh)
         seq = pm.seq_active(self.seq_shard, x.shape[1], self.mesh)
         if seq:
             tp = self.mesh.tp

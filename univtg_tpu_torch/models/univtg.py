@@ -69,6 +69,8 @@ class UniVTG(nn.Module):
                 D, cfg.num_layers, cfg.num_heads, cfg.ffn_dim, cfg.dropout,
                 cfg.droppath, cfg.pre_norm, cfg.attention_impl, cfg.moe_experts,
                 cfg.moe_top_k, cfg.moe_capacity_factor, cfg.remat,
+                (cfg.pipeline_stages, cfg.pipeline_microbatches,
+                 cfg.pipeline_interleave, cfg.pipeline_pre_permuted),
             ))
             span_pred_dim = 2 if cfg.span_loss_type == "l1" else cfg.max_v_l * 2
             self.class_embed = ConvHead(D, 1, 3)

@@ -145,7 +145,9 @@ def moe_ffn(x, router, w1, b1, w2, b2, *, top_k: int = 1,
         the global token order (rank-major), the aux over every token. This
         rank keeps its rows of (expert, slot, keep, gate). Only
         probabilities cross the wire: each token's expert output is
-        computed where the token is;
+        computed where the token is. On a pp mesh (parallel/pipeline.py)
+        each (microbatch x dp shard) block routes alone, as JAX's pipelines
+        route: C from the block's N, the aux over its tokens;
       * experts: each rank fills and runs only its E/ep experts' (E/ep, C,
         D) buffer over its F/tp columns; b2 is added once per token (on tp
         rank 0, its gradient all-reduced over tp);
@@ -167,7 +169,7 @@ def moe_ffn(x, router, w1, b1, w2, b2, *, top_k: int = 1,
     mask = None if token_mask is None else token_mask.reshape(n).to(torch.float32)
     probs = torch.softmax(ht.float() @ router.float(), dim=-1)
     off = 0
-    if aux and dp.on:
+    if aux and dp.on and not mesh.pp.on:  # a pipeline routes each block alone
         off = dp.index * n
         probs = pm.gather_live(probs, dp)
         mask = None if mask is None else pm.all_gather(mask, dp, 0)

@@ -202,7 +202,7 @@ def check_replicated(model: torch.nn.Module, optimizer, step: int, mesh=None):
     buffers, optimizer state and step: JAX makes each host's identical
     params global (``replicate_params``); here they must already be equal,
     from the same seed or the same checkpoint. On a ``mesh`` the ranks that
-    hold the same shards (one per dp index, the same (ep, tp) place) are
+    hold the same shards (one per dp index, the same (pp, ep, tp) place) are
     compared. A collective."""
     if _GANG is None:
         return
@@ -214,7 +214,7 @@ def check_replicated(model: torch.nn.Module, optimizer, step: int, mesh=None):
     if mesh is None:
         check_same((step, tensor_digest(tensors)), what)
         return
-    place = (mesh.ep.index, mesh.tp.index)
+    place = (mesh.pp.index, mesh.ep.index, mesh.tp.index)
     blobs = [pickle.loads(b) for b in all_gather_bytes(
         pickle.dumps((place, step, tensor_digest(tensors))))]
     firsts = {}
@@ -222,7 +222,7 @@ def check_replicated(model: torch.nn.Module, optimizer, step: int, mesh=None):
            if firsts.setdefault(pl, value) != value]
     if bad:
         raise ValueError(f"the ranks disagree on {what}: ranks {bad} differ from the "
-                         f"first rank of their (ep, tp) place")
+                         f"first rank of their (pp, ep, tp) place")
 
 
 def _staged(x: torch.Tensor) -> bool:
@@ -238,6 +238,24 @@ def all_reduce(x: torch.Tensor, group=None) -> torch.Tensor:
     y = y.cpu() if _staged(y) else y.clone()
     dist.all_reduce(y, group=group)
     return y.to(x.device)
+
+
+def broadcast(x: torch.Tensor, src: int, group=None) -> torch.Tensor:
+    """Gang rank ``src``'s ``x`` on every rank of ``group`` (None: the gang),
+    as a new tensor of x's shape and dtype (the others pass a tensor of that
+    shape); under gloo a CUDA tensor goes through the host."""
+    y = x.detach().contiguous()
+    y = y.cpu() if _staged(y) else y.clone()
+    dist.broadcast(y, src=src, group=group)
+    return y.to(x.device)
+
+
+def all_gather_objects(obj, group=None) -> list:
+    """Every rank's picklable ``obj`` of ``group`` (None: the gang), in rank
+    order, through the host; a collective."""
+    out = [None] * dist.get_world_size(group)
+    dist.all_gather_object(out, obj, group=group)
+    return out
 
 
 def all_gather(x: torch.Tensor, group=None, dim: int = 0) -> torch.Tensor:

@@ -3,12 +3,18 @@
 ``_MOE_RULES``, ``_spec_for_path``, ``seq_constraint``) over the ranks of a
 gang (parallel/dist.py).
 
-The ranks are laid out row-major into ``(dp, ep, tp)``, tp innermost, as
-JAX lays its devices into ``(dp, pp[, ep], tp)``: rank ``(d * ep + e) * tp +
-t`` sits at (d, e, t). ``slices > 1`` maps the slices onto the hosts of the
-gang (``LOCAL_WORLD_SIZE`` ranks each) and keeps tp and ep inside one, as
+The ranks are laid out row-major into ``(dp, pp, ep, tp)``, tp innermost,
+as JAX lays its devices: rank ``((d * pp + p) * ep + e) * tp + t`` sits at
+(d, p, e, t). ``slices > 1`` maps the slices onto the hosts of the gang
+(``LOCAL_WORLD_SIZE`` ranks each) and keeps pp, tp and ep inside one, as
 ``_select_slice_devices`` does. The batch is sharded over dp alone: the
-ranks of one dp row (its tp and ep ranks) read the same samples.
+ranks of one dp row (its pp, tp and ep ranks) read the same samples.
+
+Under pp (parallel/pipeline.py) a rank holds only its stage's encoder
+layers, under their canonical names; everything else is replicated over
+pp. The state dict, the Adam moments and the grad norm's weights go by
+parameter name, so a stage's optimizer (which holds other indices than its
+neighbour's) gathers into, and cuts from, the one-process layout.
 
 Each rank holds its shard of the encoder's matrices, by JAX's rules read on
 the port's state-dict names (torch's ``(out, in)`` layout turns JAX's
@@ -39,6 +45,7 @@ axes are all of size 1 and whose operators are all identities.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import os
 import re
 import warnings
@@ -53,7 +60,7 @@ from univtg_tpu_torch.parallel import dist
 
 def mesh_grid(world: int, dp: Optional[int] = None, tp: int = 1, ep: int = 1,
               slices: int = 1, local_world: Optional[int] = None, pp: int = 1):
-    """The (dp, ep, tp) array of the ranks of a gang of ``world``, each host
+    """The (dp, pp, ep, tp) array of the ranks of a gang of ``world``, each host
     holding ``local_world`` consecutive ranks (default: one host): JAX's
     ``make_mesh`` device grid with the ranks for devices and the hosts for
     hardware slices. Raises where JAX raises, and where the mesh would leave
@@ -92,7 +99,7 @@ def mesh_grid(world: int, dp: Optional[int] = None, tp: int = 1, ep: int = 1,
                 f"slices={slices} of {per_slice} ranks use {len(chosen)} of the "
                 f"gang's {world}: every rank must sit on the mesh")
         ranks = chosen
-    return np.asarray(ranks).reshape(dp, ep, tp)
+    return np.asarray(ranks).reshape(dp, pp, ep, tp)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -111,37 +118,54 @@ class Axis:
         return self.size > 1
 
 
+def _solo_axis() -> Axis:
+    return Axis(1, 0, None, "")
+
+
 @dataclasses.dataclass(frozen=True)
 class Mesh:
-    """This rank's place on the (dp, ep, tp) mesh and its groups. ``model``
-    is the ranks of this rank's dp row (its tp x ep ranks), which hold the
-    same samples."""
+    """This rank's place on the (dp, pp, ep, tp) mesh and its groups.
+    ``model`` is the tp x ep ranks of this rank's stage in its dp row;
+    ``row`` all the ranks of the dp row (pp x ep x tp; None: ``model``),
+    which hold the same samples; ``grid`` the ranks of each dp row in (pp,
+    ep, tp) order."""
 
     dp: Axis
     ep: Axis
     tp: Axis
     model: Axis
     grid: tuple
+    pp: Axis = dataclasses.field(default_factory=_solo_axis)
+    row: Optional[Axis] = None
 
     def coords(self) -> dict:
-        return {"dp": self.dp.index, "ep": self.ep.index, "tp": self.tp.index}
+        return {"dp": self.dp.index, "pp": self.pp.index, "ep": self.ep.index,
+                "tp": self.tp.index}
 
     def sizes(self) -> dict:
-        return {"dp": self.dp.size, "ep": self.ep.size, "tp": self.tp.size}
+        return {"dp": self.dp.size, "pp": self.pp.size, "ep": self.ep.size,
+                "tp": self.tp.size}
+
+    def _at(self, p: int, e: int, t: int) -> int:
+        return self.grid[self.dp.index][(p * self.ep.size + e) * self.tp.size + t]
 
     def tp_ranks(self) -> tuple:
         """The gang ranks of this rank's tp axis, in tp order."""
-        nt = self.tp.size
-        return self.grid[self.dp.index][self.ep.index * nt:(self.ep.index + 1) * nt]
+        return tuple(self._at(self.pp.index, self.ep.index, t) for t in range(self.tp.size))
+
+    def pp_ranks(self) -> tuple:
+        """The gang ranks of this rank's pp axis, in stage order."""
+        return tuple(self._at(p, self.ep.index, self.tp.index) for p in range(self.pp.size))
+
+    @property
+    def norm_axis(self) -> Axis:
+        """The ranks over which the global grad norm sums: the dp row."""
+        return self.model if self.row is None else self.row
 
     @property
     def sharded(self) -> bool:
-        """Whether any parameter is split over ranks (tp or ep > 1)."""
-        return self.tp.on or self.ep.on
-
-
-def _solo_axis() -> Axis:
-    return Axis(1, 0, None, "")
+        """Whether any parameter is split over ranks (tp, ep or pp > 1)."""
+        return self.tp.on or self.ep.on or self.pp.on
 
 
 # the mesh of a one-process run: every axis of one, every operator a no-op
@@ -155,7 +179,7 @@ dist.on_shutdown(_GROUPS.clear)  # a gang's groups die with it
 def make_mesh(dp: Optional[int] = None, tp: int = 1, ep: int = 1, slices: int = 1,
               pp: int = 1) -> Optional[Mesh]:
     """The mesh over the active gang: this rank's coordinates and the dp,
-    ep, tp and model groups. Every rank must call it, with the same
+    pp, ep, tp, model and row groups. Every rank must call it, with the same
     arguments: each creates every group in the same order, as
     ``torch.distributed.new_group`` requires. Outside a gang a mesh of one
     is None (and any other raises). The groups of a grid are made once per
@@ -170,39 +194,52 @@ def make_mesh(dp: Optional[int] = None, tp: int = 1, ep: int = 1, slices: int = 
     if key not in _GROUPS:
         _GROUPS[key] = _new_groups(grid)
     groups = _GROUPS[key]
-    d, e, t = (int(i[0]) for i in np.nonzero(grid == gang.rank))
+    d, p, e, t = (int(i[0]) for i in np.nonzero(grid == gang.rank))
 
     def axis(name, size, index, at):
         return Axis(size, index, groups[name][at] if size > 1 else None, gang.backend)
 
-    nd, ne, nt = grid.shape
-    return Mesh(dp=axis("dp", nd, d, (e, t)), ep=axis("ep", ne, e, (d, t)),
-                tp=axis("tp", nt, t, (d, e)), model=axis("model", ne * nt, e * nt + t, d),
-                grid=tuple(map(tuple, grid.reshape(nd, -1))))
+    nd, npp, ne, nt = grid.shape
+    return Mesh(dp=axis("dp", nd, d, (p, e, t)), ep=axis("ep", ne, e, (d, p, t)),
+                tp=axis("tp", nt, t, (d, p, e)),
+                model=axis("model", ne * nt, e * nt + t, (d, p)),
+                grid=tuple(map(tuple, grid.reshape(nd, -1))),
+                pp=axis("pp", npp, p, (d, e, t)),
+                row=axis("row", npp * ne * nt, (p * ne + e) * nt + t, d) if npp > 1 else None)
 
 
 def _new_groups(grid):
     """Every group of the grid, created in one order on every rank (a rank
     passes through each ``new_group`` call, member or not)."""
-    nd, ne, nt = grid.shape
-    out = {"dp": {}, "ep": {}, "tp": {}, "model": {}}
+    nd, npp, ne, nt = grid.shape
+    out = {"dp": {}, "pp": {}, "ep": {}, "tp": {}, "model": {}, "row": {}}
 
     def new(ranks):
         return tdist.new_group([int(r) for r in ranks])
 
     for d in range(nd):
+        for p in range(npp):
+            for e in range(ne):
+                if nt > 1:
+                    out["tp"][(d, p, e)] = new(grid[d, p, e, :])
+            for t in range(nt):
+                if ne > 1:
+                    out["ep"][(d, p, t)] = new(grid[d, p, :, t])
+            if ne * nt > 1:
+                out["model"][(d, p)] = new(grid[d, p].ravel())
         for e in range(ne):
-            if nt > 1:
-                out["tp"][(d, e)] = new(grid[d, e, :])
-        for t in range(nt):
-            if ne > 1:
-                out["ep"][(d, t)] = new(grid[d, :, t])
-        if ne * nt > 1:
-            out["model"][d] = new(grid[d].ravel())
-    for e in range(ne):
-        for t in range(nt):
-            if nd > 1:
-                out["dp"][(e, t)] = new(grid[:, e, t])
+            for t in range(nt):
+                if npp > 1:
+                    out["pp"][(d, e, t)] = new(grid[d, :, e, t])
+        if npp > 1 and npp * ne * nt > npp:
+            out["row"][d] = new(grid[d].ravel())
+        elif npp > 1:
+            out["row"][d] = out["pp"][(d, 0, 0)]
+    for p in range(npp):
+        for e in range(ne):
+            for t in range(nt):
+                if nd > 1:
+                    out["dp"][(p, e, t)] = new(grid[:, p, e, t])
     return out
 
 
@@ -217,6 +254,25 @@ def data_shard(mesh: Optional[Mesh]):
 def all_reduce(x, axis: Axis):
     """The sum of ``x`` over the axis (a new tensor)."""
     return dist.all_reduce(x, axis.group) if axis.on else x
+
+
+def all_reduce_many(tensors, axis: Axis) -> list:
+    """The sums over the axis of ``tensors`` (new tensors, one collective
+    per dtype; as they are on an axis of one)."""
+    if not axis.on:
+        return list(tensors)
+    out = list(tensors)
+    by_dtype = {}
+    for i, t in enumerate(tensors):
+        by_dtype.setdefault(t.dtype, []).append(i)
+    for idx in by_dtype.values():
+        flat = all_reduce(torch.cat([tensors[i].reshape(-1) for i in idx]), axis)
+        off = 0
+        for i in idx:
+            n = tensors[i].numel()
+            out[i] = flat[off:off + n].view_as(tensors[i])
+            off += n
+    return out
 
 
 def all_gather(x, axis: Axis, dim: int):
@@ -429,14 +485,25 @@ def gather_tensor(name: str, local, mesh: Mesh, spec=None):
     return out
 
 
+def layer_index(name: str) -> Optional[int]:
+    """The encoder layer a state-dict entry belongs to, or None."""
+    m = _LAYER_INDEX.match(name)
+    return int(m.group(1)) if m else None
+
+
+_LAYER_INDEX = re.compile(r"^transformer\.encoder\.layers\.(\d+)\.")
+
+
 def replicas(name: str, mesh: Mesh) -> int:
-    """How many ranks of a dp row hold the same shard of ``name``."""
+    """How many ranks of a dp row hold the same shard of ``name``: a stage's
+    layers are held by its ep x tp ranks alone, everything else by every
+    stage."""
     split = {axis for _, axis, _ in placement(name)}
     n = 1
     for axis in ("ep", "tp"):
         if axis not in split:
             n *= getattr(mesh, axis).size
-    return n
+    return n if layer_index(name) is not None else n * mesh.pp.size
 
 
 class _GatherParam(torch.autograd.Function):
@@ -469,19 +536,71 @@ OUT_PROJ_SPEC = ((1, "tp", 1),)
 
 # ---- a model on the mesh ----------------------------------------------------
 
-def shard_state_dict(sd: dict, coords: dict, sizes: dict) -> dict:
-    """The rank's shards of a canonical UniVTG state dict (pure)."""
-    return {k: shard_tensor(k, v, coords, sizes) for k, v in sd.items()}
+def stage_layers(num_layers: int, pp: int, interleave: int, stage: int) -> list:
+    """The canonical indices of the layers stage ``stage`` of ``pp`` holds:
+    chunks c = stage + pp * j (j < interleave) of num_layers / (pp *
+    interleave) consecutive layers each, in ascending order."""
+    v = max(1, interleave)
+    n = num_layers // (pp * v)
+    return [c * n + k for c in range(stage, pp * v, pp) for k in range(n)]
 
 
-def gather_state_dict(sd: dict, mesh: Mesh) -> dict:
-    """The canonical state dict from every rank's shards (a collective)."""
-    return {k: gather_tensor(k, v, mesh) for k, v in sd.items()}
+def _held(name: str, layers) -> bool:
+    i = layer_index(name)
+    return i is None or layers is None or i in layers
 
 
-def check_model(cfg, tp: int = 1, ep: int = 1):
-    """Raise ValueError where the model does not tile a mesh of ``tp`` and
-    ``ep`` (the ep checks in the JAX driver's words)."""
+def shard_state_dict(sd: dict, coords: dict, sizes: dict, layers=None) -> dict:
+    """The rank's shards of a canonical UniVTG state dict (pure); ``layers``:
+    the canonical layer indices the rank holds (None: all)."""
+    return {k: shard_tensor(k, v, coords, sizes) for k, v in sd.items()
+            if _held(k, layers)}
+
+
+def _merge_stages(by_name: dict, mesh: Mesh, order) -> dict:
+    """Every stage's entries of ``by_name`` (layer entries differ by stage,
+    the rest are the same everywhere) on every rank of the pp axis, in
+    ``order``; a collective over pp (its tensors through the host)."""
+    if not mesh.pp.on:
+        return by_name
+    own = {k: _to_host(v) for k, v in by_name.items() if layer_index(k) is not None}
+    merged = dict(by_name)
+    for part in dist.all_gather_objects(own, mesh.pp.group):
+        merged.update(part)
+    return {k: merged[k] for k in order if k in merged}
+
+
+def _to_host(v):
+    if isinstance(v, torch.Tensor):
+        return v.detach().to("cpu", copy=True)
+    if isinstance(v, dict):
+        return {k: _to_host(x) for k, x in v.items()}
+    return v
+
+
+def gather_state_dict(sd: dict, mesh: Mesh, order=None) -> dict:
+    """The canonical state dict from every rank's shards (a collective);
+    ``order``: the canonical keys (a stage holds only its layers')."""
+    out = {k: gather_tensor(k, v, mesh) for k, v in sd.items()}
+    return _merge_stages(out, mesh, order or list(out))
+
+
+def check_model(cfg, tp: int = 1, ep: int = 1, pp: int = 1):
+    """Raise ValueError where the model does not tile a mesh of ``tp``, ``ep``
+    and ``pp`` (the ep and pp checks in the JAX driver's words)."""
+    if pp > 1:
+        v = max(1, cfg.pipeline_interleave)
+        if cfg.pipeline_stages != pp:
+            raise ValueError(f"cfg.pp={pp} requires cfg.model.pipeline_stages == pp "
+                             f"(got {cfg.pipeline_stages})")
+        if cfg.num_layers % (pp * v):
+            raise ValueError(f"num_layers={cfg.num_layers} must tile over pp={pp} "
+                             f"stages x pipeline_interleave={v} chunks")
+        if cfg.attention_impl in ("ring", "ring_pallas"):
+            raise ValueError(
+                f"attention_impl={cfg.attention_impl!r} under pp={pp}: a pipeline stage "
+                "runs no ring (the JAX package never puts a ring inside a stage, and the "
+                "ring's process groups are the tp axis); use 'pallas' or 'xla'")
     if cfg.num_heads % tp:
         raise ValueError(f"num_heads={cfg.num_heads} must be a multiple of tp={tp}: "
                          f"each tp rank holds num_heads/tp whole heads")
@@ -508,20 +627,25 @@ def shard_model(model, mesh: Optional[Mesh]):
     parameter becomes this rank's shard and carries its ``placement`` (how
     many ranks of the dp row hold that shard, and the row's axis: the
     global grad norm's weights), and the encoder learns its place
-    (``Encoder.place``). Returns the model. No mesh, or a dense model on a
-    mesh of dp alone (the data-parallel gang of parallel/dist.py), changes
-    nothing."""
+    (``Encoder.place``). On a pp mesh the encoder keeps its stage's layers
+    alone (``stage_layers``; the whole model's names: ``whole_layout``). Returns the
+    model. No mesh, or a dense model on a mesh of dp alone (the
+    data-parallel gang of parallel/dist.py), changes nothing."""
     if mesh is None or not (mesh.sharded or model.cfg.moe_experts > 1):
         return model
-    check_model(model.cfg, mesh.tp.size, mesh.ep.size)
+    check_model(model.cfg, mesh.tp.size, mesh.ep.size, mesh.pp.size)
     model.mesh_sharded = mesh.sharded
+    if mesh.pp.on:
+        model.transformer.encoder.keep_layers(stage_layers(
+            model.cfg.num_layers, mesh.pp.size, model.cfg.pipeline_interleave,
+            mesh.pp.index))
     coords, sizes = mesh.coords(), mesh.sizes()
     for name, p in list(model.named_parameters()):
         mod_name, _, attr = name.rpartition(".")
         mod = model.get_submodule(mod_name)
         new = torch.nn.Parameter(shard_tensor(name, p.data, coords, sizes),
                                  requires_grad=p.requires_grad)
-        new.placement = (replicas(name, mesh), mesh.model)
+        new.placement = (replicas(name, mesh), mesh.norm_axis)
         setattr(mod, attr, new)
     model.mesh = mesh
     model.transformer.encoder.place(mesh, model.cfg)
@@ -555,19 +679,49 @@ def canonical_names(model) -> list:
     return [n for n, p in model.named_parameters() if p.requires_grad]
 
 
-def gather_optimizer_state(opt_sd: dict, names, mesh: Mesh) -> dict:
-    """An AdamW state dict with every moment canonical (a collective)."""
-    state = {i: {k: gather_tensor(names[i], v, mesh) if k.startswith("exp_avg") else v
-                 for k, v in s.items()} for i, s in opt_sd["state"].items()}
-    return {**opt_sd, "state": state}
+@functools.lru_cache(maxsize=None)
+def whole_layout(cfg) -> tuple:
+    """(the trained parameters' names in the one-process optimizer's order,
+    the state-dict keys in order) of the whole UniVTG model of ``cfg``: what
+    a canonical checkpoint holds, of which a pp stage holds its layers'
+    part. Built on the meta device, once per cfg."""
+    from univtg_tpu_torch.models.univtg import UniVTG  # the models import this module
+
+    whole = UniVTG(cfg, device="meta")
+    return tuple(canonical_names(whole)), tuple(whole.state_dict())
 
 
-def shard_optimizer_state(opt_sd: dict, names, mesh: Mesh) -> dict:
-    """A canonical AdamW state dict cut to this rank's shards."""
+def _renumber(opt_sd: dict, state: dict, n: int) -> dict:
+    groups = [{**g, "params": list(range(n))} for g in opt_sd["param_groups"]]
+    return {**opt_sd, "state": state, "param_groups": groups}
+
+
+def gather_optimizer_state(opt_sd: dict, names, mesh: Mesh, whole=None) -> dict:
+    """An AdamW state dict with every moment canonical (a collective); its
+    entries numbered by ``whole`` (the whole model's trained names, which a
+    stage's ``names`` are a part of; None: ``names``)."""
+    by_name = {names[i]: {k: gather_tensor(names[i], v, mesh) if k.startswith("exp_avg")
+                          else v for k, v in s.items()}
+               for i, s in opt_sd["state"].items()}
+    whole = list(whole or names)
+    at = {n: i for i, n in enumerate(whole)}
+    by_name = _merge_stages(by_name, mesh, whole)
+    return _renumber(opt_sd, {at[n]: s for n, s in by_name.items()}, len(whole))
+
+
+def shard_optimizer_state(opt_sd: dict, names, mesh: Mesh, whole=None) -> dict:
+    """A canonical AdamW state dict (numbered by ``whole``, default
+    ``names``) cut to this rank's shards, numbered by ``names``."""
     coords, sizes = mesh.coords(), mesh.sizes()
-    state = {i: {k: shard_tensor(names[int(i)], v, coords, sizes) if k.startswith("exp_avg")
-                 else v for k, v in s.items()} for i, s in opt_sd["state"].items()}
-    return {**opt_sd, "state": state}
+    whole = list(whole or names)
+    at = {n: i for i, n in enumerate(names)}
+    state = {}
+    for i, s in opt_sd["state"].items():
+        name = whole[int(i)]
+        if name in at:
+            state[at[name]] = {k: shard_tensor(name, v, coords, sizes)
+                               if k.startswith("exp_avg") else v for k, v in s.items()}
+    return _renumber(opt_sd, state, len(names))
 
 
 _SEQ_SKIP_WARNED: set = set()

@@ -18,9 +18,11 @@ A checkpoint is canonical whatever wrote it: a model on a mesh
 (parallel/mesh.shard_model) has its parameters and both Adam moments
 gathered from their tp and ep shards into the one-process layout first
 (``host_blob``, a collective: every rank calls it, rank 0 writes; the JAX
-driver's ``_host_state``), and ``restore_checkpoint`` cuts a canonical file
-(or the JAX package's) into the shards of the model it restores into. So a
-checkpoint loads anywhere.
+driver's ``_host_state``; a pipeline stage's layers gathered from every
+stage, the Adam moments by parameter name), and ``restore_checkpoint``
+cuts a canonical file (or the JAX package's) into the shards of the model
+it restores into, a stage taking its own layers. So a checkpoint loads
+anywhere.
 """
 from __future__ import annotations
 
@@ -51,8 +53,10 @@ def host_blob(state, epoch: int, config_json: Optional[str]) -> dict:
     model_sd, opt_sd = state.model.state_dict(), state.optimizer.state_dict()
     mesh = pm.sharded_mesh(state.model)
     if mesh is not None:
-        model_sd = pm.gather_state_dict(model_sd, mesh)
-        opt_sd = pm.gather_optimizer_state(opt_sd, pm.canonical_names(state.model), mesh)
+        names, keys = pm.whole_layout(state.model.cfg)
+        model_sd = pm.gather_state_dict(model_sd, mesh, keys)
+        opt_sd = pm.gather_optimizer_state(opt_sd, pm.canonical_names(state.model), mesh,
+                                           names)
     return {
         "model": _to_cpu(model_sd),
         "optimizer": _to_cpu(opt_sd),
@@ -181,8 +185,11 @@ def restore_checkpoint(path: str, state):
         sd, opt = raw["model"], raw["optimizer"]
         step, epoch = int(raw["step"]), int(raw["epoch"])
     if mesh is not None:
-        sd = pm.shard_state_dict(sd, mesh.coords(), mesh.sizes())
-        opt = pm.shard_optimizer_state(opt, pm.canonical_names(state.model), mesh)
+        held = state.model.state_dict()
+        sd = {k: v for k, v in pm.shard_state_dict(sd, mesh.coords(), mesh.sizes()).items()
+              if k in held}
+        opt = pm.shard_optimizer_state(opt, pm.canonical_names(state.model), mesh,
+                                       pm.whole_layout(state.model.cfg)[0])
     state.model.load_state_dict(sd, strict=True)
     state.optimizer.load_state_dict(opt)
     state.step = step

@@ -34,10 +34,17 @@ sharded model together, submissions all-gathered, rank 0 merging; a MoE
 model there routes each row's eval batch); ``inject_fault_epoch``/
 ``inject_fault_rank`` make one rank exit hard after an epoch, and the gang
 restarts with ``resume`` = rank 0's ``model_latest.ckpt`` and
-``resume_all``. ``pp`` > 1 raises ``NotImplementedError`` naming
-ROADMAP.md. With ``async_checkpoint`` (the default) the checkpoints are
-written by train/checkpoint.AsyncCheckpointer: the state is copied to the
-host at each save and the file written in the background, one write in
+``resume_all``. ``pp`` > 1 runs the encoder as a pipeline over the pp
+ranks of each dp row (``model.pipeline_stages`` = pp, JAX's validations):
+``pipeline_schedule`` "gpipe" through ``make_train_step`` (the model's
+forward contains the pipeline, parallel/pipeline.py), "1f1b" through
+``train/steps_1f1b.make_1f1b_train_step``; evaluation, on rank 0 or
+spread with ``sharded_eval`` over every rank, runs a local non-pipeline
+copy of the model loaded from the gathered canonical parameters, as the
+JAX driver evaluates under several processes. With ``async_checkpoint``
+(the default) the checkpoints are written by
+train/checkpoint.AsyncCheckpointer: the state is copied to the host at
+each save and the file written in the background, one write in
 flight; the driver waits for it before an early stop, a hard exit of
 ``inject_fault_epoch``, and before it returns. ``scan_steps = K > 1``
 stacks K batches of one video-length bucket into one call of ``make_scan_train_step`` (on a card,
@@ -164,13 +171,38 @@ class TrainConfig:
     sharded_eval: bool = False
 
 
+def _check_pipeline(cfg: TrainConfig):
+    """The JAX driver's validations of pp > 1 that are the driver's own, in
+    its words (the stage count and the layers' tiling: ``check_model``)."""
+    if cfg.model_id == "moment_detr":
+        raise ValueError("pipeline parallelism supports model_id='univtg' only")
+    if cfg.model.pipeline_pre_permuted:
+        raise ValueError(
+            "pipeline_pre_permuted is an execution layout the driver manages "
+            "internally (checkpoints/opt.json stay canonical); leave it False")
+    if cfg.pipeline_schedule not in ("gpipe", "1f1b"):
+        raise ValueError(
+            f"pipeline_schedule must be 'gpipe' or '1f1b' "
+            f"(got {cfg.pipeline_schedule!r})")
+    if cfg.pipeline_schedule == "1f1b" and (cfg.model.pre_norm or cfg.scan_steps > 1):
+        raise ValueError(
+            "pipeline_schedule='1f1b' needs pre_norm=False and scan_steps=1")
+    n_micro = cfg.model.pipeline_microbatches or cfg.pp
+    dp = cfg.dp or max(dist.world() // (cfg.pp * cfg.tp * cfg.ep), 1)
+    # bsz is a dp row's; eval_bsz the evaluating rank's, as JAX's global one
+    for name, b, rows in (("bsz", cfg.bsz * dp, cfg.bsz), ("eval_bsz", cfg.eval_bsz,
+                                                          cfg.eval_bsz)):
+        if rows % n_micro != 0 or (b // n_micro) % dp != 0:
+            raise ValueError(
+                f"{name}={b} must split into pipeline_microbatches="
+                f"{n_micro} microbatches that each tile over dp={dp}")
+
+
 def _refuse_unported(cfg: TrainConfig):
     if cfg.pp > 1:
-        raise NotImplementedError(
-            "train_mr of univtg_tpu_torch does not run pp > 1 yet (ROADMAP.md, "
-            "queue 1)")
-    # the JAX driver's ep checks; a Moment-DETR model is not split over tp
-    pm.check_model(cfg.model, cfg.tp if cfg.model_id == "univtg" else 1, cfg.ep)
+        _check_pipeline(cfg)
+    # the JAX driver's ep and pp checks; a Moment-DETR model is not split over tp
+    pm.check_model(cfg.model, cfg.tp if cfg.model_id == "univtg" else 1, cfg.ep, cfg.pp)
     if cfg.model_id not in ("univtg", "moment_detr"):
         raise ValueError(f"unknown model_id {cfg.model_id!r}")
     if cfg.model_id == "moment_detr" and not isinstance(cfg.model, MomentDETRConfig):
@@ -181,11 +213,11 @@ def _refuse_unported(cfg: TrainConfig):
 
 def _place_in_gang(cfg: TrainConfig):
     """(cfg with the gang's data shard, the mesh or None): the ranks on
-    ``make_mesh(dp, tp, ep)``, whose dp * tp * ep must be the world size
-    (dp None means world / (tp * ep): one rank per device), and
-    ``num_shards``/``shard_index`` dp and the rank's dp index (left at 1/0
-    they are filled in)."""
-    mesh = pm.make_mesh(cfg.dp, cfg.tp, cfg.ep)
+    ``make_mesh(dp, tp, ep, pp=pp)``, whose dp * pp * tp * ep must be the
+    world size (dp None means world / (pp * tp * ep): one rank per device),
+    and ``num_shards``/``shard_index`` dp and the rank's dp index (left at
+    1/0 they are filled in)."""
+    mesh = pm.make_mesh(cfg.dp, cfg.tp, cfg.ep, pp=cfg.pp)
     dp, d = pm.data_shard(mesh)
     if (cfg.num_shards, cfg.shard_index) == (1, 0):
         cfg = dataclasses.replace(cfg, num_shards=dp, shard_index=d)
@@ -269,6 +301,7 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
     else:  # JAX's rules split no Moment-DETR leaf
         model = pm.replicate_model(model, mesh)
     sharded = pm.sharded_mesh(model) is not None
+    pipelined = cfg.pp > 1
     schedule = build_schedule(cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma,
                               max(steps_per_epoch, 1))
     state = TrainState(model, make_optimizer(model.parameters(), schedule,
@@ -277,8 +310,15 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
         state, resume_epoch = ckpt.restore_checkpoint(resume, state)
     dist.check_replicated(model, state.optimizer, state.step, pm.model_mesh(model))
     # a sharded model is evaluated on rank 0 by a whole copy, loaded from the
-    # gathered parameters at each evaluation
-    eval_model = build_model(cfg, dev, cfg.seed) if sharded and is_main else model
+    # gathered parameters at each evaluation; a pipelined one by a local
+    # non-pipeline copy, on every rank under sharded_eval
+    eval_model = model
+    if pipelined and (is_main or cfg.sharded_eval):
+        eval_model = UniVTG(dataclasses.replace(cfg.model, pipeline_stages=0,
+                                                pipeline_pre_permuted=False, seq_shard=False),
+                            device=dev, seed=cfg.seed)
+    elif sharded and is_main:
+        eval_model = build_model(cfg, dev, cfg.seed)
 
     def gathered(epoch):
         """The canonical host state, gathered by every rank of a sharded
@@ -294,8 +334,15 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
         eval_step = make_md_eval_step(
             span_loss_type, cfg.eval_data.clip_len if cfg.eval_data else 2.0)
     else:
-        train_step = make_train_step(cfg.weights, tuple(cfg.losses),
-                                     use_gates=cfg.use_gates)
+        if pipelined and cfg.pipeline_schedule == "1f1b":
+            from univtg_tpu_torch.train.steps_1f1b import make_1f1b_train_step
+
+            train_step = make_1f1b_train_step(
+                cfg.weights, tuple(cfg.losses), use_gates=cfg.use_gates,
+                n_micro=cfg.model.pipeline_microbatches or cfg.pp)
+        else:
+            train_step = make_train_step(cfg.weights, tuple(cfg.losses),
+                                         use_gates=cfg.use_gates)
         if cfg.scan_steps > 1:
             scan_step = make_scan_train_step(cfg.weights, tuple(cfg.losses),
                                              use_gates=cfg.use_gates)
@@ -346,8 +393,14 @@ def train_mr(cfg: TrainConfig, resume: Optional[str] = None,
                 metrics = None
                 blob = gathered(epoch)
                 if cfg.sharded_eval and gang:
-                    # every dp row scores its shard; rank 0 merges
-                    metrics = _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch)
+                    # every dp row scores its shard (under pp every rank,
+                    # on its local copy); rank 0 merges
+                    if pipelined:
+                        eval_model.load_state_dict(blob["model"])
+                        metrics = _eval_once_sharded(cfg, eval_model, eval_ds, eval_step,
+                                                     epoch, (dist.rank(), dist.world()))
+                    else:
+                        metrics = _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch)
                 if is_main:
                     if metrics is None:
                         if sharded:
@@ -534,15 +587,16 @@ def _eval_once(cfg, model, eval_ds, eval_step, epoch):
     return _finish_eval(cfg, submission, eval_ds, epoch)
 
 
-def _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch):
-    """Evaluation spread over a gang: every rank scores its stride shard on
-    its own device, the submissions are all-gathered, and rank 0 merges
+def _eval_once_sharded(cfg, model, eval_ds, eval_step, epoch, shard=None):
+    """Evaluation spread over a gang: every rank scores its stride shard
+    (``shard`` = (index, count); default its dp row's) on its own device,
+    the submissions are all-gathered, and rank 0 merges
     them back into dataset order and scores them (the JAX driver's
     ``_eval_once_sharded``). A collective: every rank calls it; the metrics
     on rank 0, None elsewhere. Every rank checks the merge, so a shard that
     went missing raises on all of them, not on rank 0 alone."""
-    sub_local = _run_eval_shard(cfg, model, eval_ds, eval_step,
-                                cfg.shard_index, cfg.num_shards)
+    index, count = shard or (cfg.shard_index, cfg.num_shards)
+    sub_local = _run_eval_shard(cfg, model, eval_ds, eval_step, index, count)
     by_qid = {}
     for blob in dist.all_gather_bytes(json.dumps(sub_local).encode()):
         for row in json.loads(blob):

@@ -227,11 +227,23 @@ def _train_body(state: TrainState, model_inputs, targets, generator, update,
     axis alone: the tp and ep ranks of a dp row hold the same samples, and
     their gradients of the replicated parameters are already whole (the
     model's own collectives made them so); a sum over the gang would count
-    them tp * ep times."""
+    them tp * ep times.
+
+    A pipelined model (a pp mesh, parallel/pipeline.py) runs JAX's
+    (microbatch x dp shard) blocks: the inputs are exchanged over dp
+    (``exchange_blocks``) and the gathered outputs put back in the global
+    batch's order before the loss."""
+    mesh = pm.model_mesh(state.model)
+    order = None
+    if mesh is not None and mesh.pp.on:
+        from univtg_tpu_torch.parallel import pipeline as pipe
+
+        model_inputs, order = pipe.exchange_blocks(
+            model_inputs, mesh, pipe.n_micro_of(state.model.transformer.encoder),
+            model_inputs["src_vid_mask"].shape[0])
     if static_inputs:
         model_inputs = {**model_inputs, **static_inputs}
     state.model.train()
-    mesh = pm.model_mesh(state.model)
     if mesh is None and dist.world() > 1 and getattr(state.model.cfg, "moe_experts", 0) > 1:
         raise ValueError(
             "a MoE model in a gang routes the global batch over its mesh: put it on "
@@ -243,8 +255,12 @@ def _train_body(state: TrainState, model_inputs, targets, generator, update,
         # the MoE aux is the global batch's already, live on every rank
         # through this rank's own router probabilities
         aux = outputs.pop("aux_moe", None)
-        outputs = dist.gather_batch(
-            outputs, B, replicated=("cls_mem_proj",) if static_inputs else (), axis=axis)
+        replicated = ("cls_mem_proj",) if static_inputs else ()
+        outputs = dist.gather_batch(outputs, B, replicated=replicated, axis=axis)
+        if order is not None:  # the blocks' rows back in the global batch's order
+            back = torch.from_numpy(np.argsort(order)).to(outputs["src_vid_mask"].device)
+            outputs = {k: v if k in replicated or v.dim() == 0 else v[back]
+                       for k, v in outputs.items()}
         if aux is not None:
             outputs["aux_moe"] = aux
         targets = dist.gather_batch(targets, B, axis=axis)
@@ -369,7 +385,8 @@ class ScanTrainStep:
     (parallel/dist.py) each step is the global-batch step of
     ``_train_body``: on the CPU the K steps run in order; on a card under
     NCCL the graph captures their all-gathers and all-reduces with them;
-    under gloo on a card it raises (``dist.check_capturable``).
+    under gloo on a card it raises (``dist.check_capturable``), and so does a
+    pipelined model (pp > 1) on a card under NCCL.
     """
 
     def __init__(self, weights, losses, use_gates):
@@ -388,6 +405,12 @@ class ScanTrainStep:
         K = int(next(iter(stacked_mi.values())).shape[0])
         device = next(state.model.parameters()).device
         dist.check_capturable(device)
+        mesh = pm.model_mesh(state.model)
+        if device.type == "cuda" and mesh is not None and mesh.pp.on:
+            raise NotImplementedError(
+                "scan_steps > 1 with pp > 1 on a card: the pipeline posts its stage "
+                "hops from the host tick by tick, which this port does not capture in "
+                "a CUDA graph; run scan_steps=1")
         dist.check_same(dist.shape_signature(stacked_mi, stacked_tg),
                         "the shapes of the scan step's batches")
         if device.type != "cuda":
