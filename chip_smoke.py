@@ -8,11 +8,12 @@ nothing of JAX or of the JAX package. Phases, each raising on failure and
 printing its seconds:
 
   1. device   -- the card's name and power limit; TF32 off for comparisons.
-  2. build    -- nvcc builds every kernel source from csrc/, and the
-                 planted-fault copies of flash_bwd.cu, flash_fwd.cu,
-                 ring_attention.cu and flash_f32.cuh (phase 3b), one
-                 process per source, all
-                 started together; ptxas lines printed. cuobjdump -sass of
+  2. build    -- nvcc builds every kernel source from csrc/, one process
+                 per source, all started together, and beside them, at
+                 FAULT_NICE, the planted-fault copies of flash_bwd.cu,
+                 flash_fwd.cu, ring_attention.cu and flash_f32.cuh (phase
+                 3b, which waits for them after 3d); ptxas lines printed.
+                 cuobjdump -sass of
                  the flash_bwd, flash_fwd, ring_attention and int8_matmul
                  libraries:
                  HGMMA (and HMMA) instructions per kernel beside its
@@ -24,7 +25,7 @@ printing its seconds:
                  at the two training shapes, f32 and bf16, dropout 0 and
                  0.1; kernel, twin and library times, the bound, TFLOP/s
                  and the share of the bound.
-  3b. faults  -- each planted fault must fail the limit that phases 3
+  3b. faults  -- (after 3d) each planted fault must fail the limit that phases 3
                  and 3d hold the real kernels to, at each shape it runs:
                  FAULTS, of flash_bwd.cu's bf16 kernels (a cast to bf16
                  truncated instead of rounded, or the dropout keep left
@@ -99,8 +100,9 @@ printing its seconds:
                  round_multiple=0, before they are rounded to the 2 s clip
                  grid).
   7c. quantize -- `cli quantize` on model_best.ckpt (the int8 tier): the
-                 file's size against the float one; `cli serve` on the int8
-                 file answers /ground; `cli infer-mr` on the dequantized
+                 file's size against the float one; the int8 file served
+                 as `cli serve` builds it answers /ground (in this process:
+                 7r runs the entry point in a subprocess); `cli infer-mr` on the dequantized
                  int8 weights, its metrics printed beside the f32 ones
                  (random weights: printed, not held). No entry point
                  launches int8_matmul, as in the JAX package; the smoke
@@ -117,12 +119,24 @@ printing its seconds:
                  native/src) per evaluation and per batch; the native APs
                  held against the numpy twin's (AP_TOL), whose scoring is
                  timed too; one pass on the native npz reader, its features
-                 held against numpy's on every file (FEAT_TOL) with none
+                 held against numpy's on every EVAL_SUBSET-th file
+                 (FEAT_TOL) with none
                  rejected; the loader's own ms per batch on either reader (once:
                  it reads the same files for both dtypes);
                  where h5py is importable, cli pack-h5 and one pass on the
                  h5 cache with lazy metadata (else printed and not run);
                  and one inference under torch.profiler (the eval cells).
+  7y. reproduce -- the released-run path: a released run at the flagship's
+                 width (the port's state dict under `module.` in upstream's
+                 container, opt.json in upstream's flag names, REPRO_OPT) and
+                 the first N_REPRO queries of 7d's split;
+                 tools/reproduce_model_md.main, f32, "pallas" and "xla",
+                 each under device_trace inside an annotate region (named in
+                 the trace): 4 flash_fwd per eval batch under "pallas" by the
+                 counter and in the trace, none under "xla"; the submissions
+                 at PIPE_TOL before the 2 s rounding, the metrics equal after
+                 it; temporal_nms_torch on the card equal to the host NMS on
+                 every row, eager and replayed from a CUDA graph.
   7e. scan    -- scan_steps on CUDA graphs: `cli train-mr` on phase 7's
                  corpus with scan_steps=2, "pallas", bf16, SCAN_EPOCHS
                  epochs (the group of epoch 0 runs eagerly, epoch 1's is
@@ -182,7 +196,7 @@ printing its seconds:
                  for bit against its eager steps; the gated step's ms with
                  and without the group. (ii) two ranks sharing the card
                  over gloo (the backend rule: NCCL refuses two ranks on one
-                 GPU), each a `chip_smoke.py --dist-worker` subprocess:
+                 GPU), the "vlp_main" case of 7u's gang, held after 7u:
                  train_vlp on vlp_pretrain at full width, B = 64 per rank,
                  "pallas", f32, dropouts 0, DIST_EPOCHS epochs, each
                  evaluated by sharded_eval; the curve held against one
@@ -191,9 +205,12 @@ printing its seconds:
                  equal to a full one of rank 0's latest checkpoint; each
                  rank's step ms, host ms inside the collectives and idle
                  share; the elastic restart at DIST_ELASTIC's smaller
-                 depth (rank 1 exits 3 after DIST_FAULT_EPOCH, the gang resumes from
-                 rank 0's model_latest.ckpt, epoch for epoch equal to an
-                 uninterrupted gang run beside it). (iii) the CLIP teacher's
+                 depth, each gang of it `chip_smoke.py --dist-worker`
+                 subprocesses (rank 1 exits 3 after DIST_FAULT_EPOCH, the
+                 gang resumes from rank 0's model_latest.ckpt, its processes
+                 started beside the faulted gang and joining once it has
+                 ended, epoch for epoch equal to an uninterrupted gang run
+                 beside it). (iii) the CLIP teacher's
                  similarity sweep on the card against the CPU at 512 dims.
                  Each rank writes its launch counts to a file; cuDNN is held
                  deterministic through the phase.
@@ -297,10 +314,11 @@ printing its seconds:
                  batches at TRAIN_TOL, the ranks equal, the canonical
                  model_best.ckpt through one-process `cli infer-mr` with the
                  gang's metrics; make_train_step at 8 x (2048 + 32),
-                 seq_shard off and on, bf16 and f32: ms, peak memory, flash
-                 launches a step (4, each over B x 4 head rows), host ms in
-                 the collectives, per rank; the same step in f32 at dropouts
-                 0, seq_shard off and on, against one process at TRAIN_TOL;
+                 seq_shard off and on, bf16 at the flagship's dropouts and
+                 f32 at dropouts 0: ms, peak memory, flash launches a step
+                 (4, each over B x 4 head rows), host ms in the collectives,
+                 per rank; the f32 step's first step from the seed against
+                 one process at TRAIN_TOL;
                  the flash kernels over heads 4-7
                  of 8 (head_span) with dropout 0.1 against the twin with the
                  same offset.
@@ -363,15 +381,16 @@ printing its seconds:
 
 Each main path is driven with the launch counters set to 0 just before it
 and read just after: serving is phases 4-5, training phase 7's train-mr
-run (its evaluations included), eval phase 7b's bf16 infer-mr run,
+run (its evaluations included), eval phase 7b's bf16 infer-mr run, the
+released-run path phase 7y's "pallas" reproduce_model_md run,
 quantize phase 7c's entry points, ring serving phase 6b's ring dispatches,
 ring training phase 9b's ring_pallas steps, scan training phase 7e's
 train-mr run, HL training phase 7f's train-hl run (its evaluations
 included) and HL inference its "pallas" infer-hl run, QFVS training and
 inference phase 7g's train-qfvs (evaluations included) and "pallas"
 infer-qfvs runs, VLP training phase 7h's train_vlp run (evaluations
-included), VLP training across processes phase 7k's gloo gang's train_vlp
-runs (each rank counts its own, evaluations included; summed) and the NCCL
+included), VLP training across processes phase 7k(ii)'s train_vlp runs in
+7u's gloo gang (each rank counts its own, evaluations included; summed) and the NCCL
 gang of one its train_vlp run, Moment-DETR training phase 7i's two train_mr runs (evaluations
 included) and Moment-DETR inference its reloaded checkpoint's evaluation,
 where no kernel may run, raw-video grounding phase 7j's `cli ground`, `cli
@@ -527,6 +546,9 @@ RING_FAULT_SHAPES, RING_FAULT_P = ("serving_160", "long_video_2080"), 4
 # the bf16 backward kernels, by their names in the SASS and the profiler
 BF16_BWD_KERNELS = ("flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
 # every bf16 (wgmma) kernel, by library: each instantiation must issue HGMMA
+# the planted faults' nvcc runs beside phases 3-3d at this added niceness,
+# so that the timed phases' host threads keep their cores
+FAULT_NICE = 10
 SASS_KERNELS = {"flash_bwd": BF16_BWD_KERNELS,
                 "flash_fwd": ("flash_fwd_kernel_sm90",),
                 "ring_attention": ("ring_block_kernel_sm90",),
@@ -569,7 +591,19 @@ N_VAL = 64  # val items of the training corpus: 2 eval batches of 32
 # QVHighlights' val split (upstream data/highlight_val_release.jsonl): 1550
 # queries, 49 eval batches of 32; phase 7d evaluates one of that size
 N_VAL_FULL = 1550
-EVAL_SUBSET = 5  # 7d times its loader and profiles over every 5th query
+# the released-run path (phase 7y): a released run's opt.json in upstream's
+# flag names at the flagship's width (its v_feat_dim after the TEF bump),
+# scored on the first N_REPRO queries of phase 7d's split, 8 eval batches of 32
+REPRO_OPT = {"dset_name": "qvhighlights", "model_id": "univtg", "v_feat_dim": 2818,
+             "t_feat_dim": 512, "hidden_dim": 1024, "enc_layers": 4, "nheads": 8,
+             "dim_feedforward": 1024, "dropout": 0.1, "droppath": 0.1,
+             "input_dropout": 0.5, "n_input_proj": 2, "span_loss_type": "l1",
+             "max_v_l": 75, "max_q_l": 32, "use_txt_pos": False, "ctx_mode": "video_tef",
+             "clip_length": 2.0, "eval_mode": "add"}
+N_REPRO = 256
+# 7d times its loader, profiles and holds the native reader against numpy
+# over every 5th query (its one native pass reads every file)
+EVAL_SUBSET = 5
 # the train-mr profiler window of phase 7 (profile_steps): 2 of epoch 0's 3 steps
 PROFILE_STEPS = 2
 # the native AP against its numpy twin (both f64; the same operations, in
@@ -621,7 +655,7 @@ FLASH_KERNELS = ("flash_fwd", "flash_bwd_dq", "flash_bwd_dkv")
 # each K is timed over SCAN_TIMED_STEPS steps after its warm-up; train-mr
 # runs SCAN_EPOCHS epochs of 3 steps at K = 2, so epoch 0's group runs
 # eagerly, epoch 1's is captured and replayed, epoch 2's replayed
-SCAN_KS = (1, 2, 4, 8)
+SCAN_KS = (1, 2, 8)  # K = 4 dropped (it read as K = 2 and 8 do)
 SCAN_TIMED_STEPS = 16
 SCAN_EPOCHS = 3
 KEEP_SIGMAS = 4.0  # the kernels' keep rate over a step, against 1 - rate
@@ -653,7 +687,7 @@ QFVS_SHAPES = {"train_qfvs_concept": (20, 200 + 3, 8, 128),
 VLP_PER_TYPE, VLP_VAL, VLP_EPOCHS = 64, 64, 2
 # phase 7k: the gang's epochs, its timed steps, the elastic restart's
 # smaller depth, each gang's time limit and the teacher's sweep
-DIST_EPOCHS, DIST_TIMED_STEPS, DIST_GANG_TIMEOUT_S = 2, 3, 300
+DIST_EPOCHS, DIST_TIMED_STEPS, DIST_GANG_TIMEOUT_S = 1, 3, 300
 DIST_ELASTIC = {"n_epoch": 2, "bsz": 64, "model.num_layers": 1}
 DIST_FAULT_EPOCH = 0  # rank 1 of the elastic gang exits after this epoch
 TEACHER_CLIPS, TEACHER_CONCEPTS, TEACHER_TOL = 150, 1000, 1e-5
@@ -696,7 +730,7 @@ RING_SCAN_K, RING_SCAN_GROUPS, RING_SCAN_TIMED = 2, 3, 2
 # next 2 batches and JAX's metrics of them (tests/torch_golden/make_jax_resume.py)
 RESUME_FIXTURE = os.path.join("tests", "torch_golden", "jax_resume")
 # phase 7m: `cli train-mr` with the background checkpoint writer on and off
-ASYNC_EPOCHS = 2
+ASYNC_EPOCHS = 1  # one evaluation: two saves (latest, best) a run
 # phase 7o: HL in a gang of two gloo ranks sharing the card, per-rank bsz
 HL_GANG_BSZ = 2
 # phase 7p: the planted-signal learning check (tools/validate_synthetic.py) at
@@ -744,7 +778,7 @@ MESH_RING_SHAPE = (8, 2048 + 32, 8, 128)
 # 2, dp = 1, in 7u's gang of MESH_TP ranks. PP_STEPS steps a held case; (d)
 # at PP_LONG_MICRO microbatches, PP_TIMED_STEPS timed steps after one warm
 MESH_PP = MESH_RING_P  # 7v's ring cases run in 7x's gang
-PP_STEPS, PP_TIMED_STEPS, PP_LONG_MICRO = 3, 1, (2, 4, 8)
+PP_STEPS, PP_TIMED_STEPS, PP_LONG_MICRO = 3, 1, (2, 8)
 PP_CASES = (  # (b): (name, [dp, tp, ep, 1, pp] mesh, M, interleave, MoE)
     ("f1b_pp4_m8", [1, 1, 1, 1, 4], 8, 1, False),
     ("f1b_dp2pp2_v2_m4", [2, 1, 1, 1, 2], 4, 2, False),
@@ -752,14 +786,21 @@ PP_CASES = (  # (b): (name, [dp, tp, ep, 1, pp] mesh, M, interleave, MoE)
 )
 
 
+T_START = time.perf_counter()
+PHASE_SECONDS: list = []  # (phase, seconds) in the order run
+
+
 def log(msg: str) -> None:
-    print(msg, flush=True)
+    """A line of the run's log, after the seconds since the process started."""
+    print(f"{time.perf_counter() - T_START:7.1f} {msg}", flush=True)
 
 
 def timed(name, fn, *args):
+    """fn(*args), its seconds logged and kept in PHASE_SECONDS."""
     t0 = time.perf_counter()
     out = fn(*args)
-    log(f"[{name}] phase done in {time.perf_counter() - t0:.1f} s")
+    PHASE_SECONDS.append((name, round(time.perf_counter() - t0, 1)))
+    log(f"[{name}] phase done in {PHASE_SECONDS[-1][1]:.1f} s")
     return out
 
 
@@ -886,25 +927,27 @@ def stage_edits(library, file, edits, out_dir):
     return src
 
 
-def nvcc_staged(src):
-    """nvcc of a staged source (stage_edits) into a library beside it."""
+def nvcc_staged(src, nice=0):
+    """nvcc of a staged source (stage_edits) into a library beside it, at
+    ``nice`` (added to this process's niceness) when given."""
     from univtg_tpu_torch.ops import cuda_build
 
+    import shutil
+
     so = src.with_suffix(".so")
-    subprocess.run([cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
+    prefix = ["nice", "-n", str(nice)] if nice and shutil.which("nice") else []
+    subprocess.run([*prefix, cuda_build.find_nvcc(), *cuda_build.NVCC_FLAGS,
                     "-I", str(cuda_build.CSRC_DIR), "-o", str(so), str(src)],
                    capture_output=True, text=True, check=True)
     return so
 
 
-def _build_fault(name, out_dir):
+def _build_fault(name, out_dir, nice=0):
     """nvcc of csrc/<library>.cu with the planted fault `name`, in
     out_dir/name."""
-    import os
-
     library, _, line, fault = _fault(name)
     return nvcc_staged(stage_edits(library, _fault_file(name), {line: fault},
-                                   os.path.join(out_dir, name)))
+                                   os.path.join(out_dir, name)), nice)
 
 
 def _cuobjdump():
@@ -975,8 +1018,10 @@ def _sass_counts(name):
 
 
 def phase_build(fault_dir):
-    """One nvcc per source and per planted fault, all started together.
-    Returns ({fault name: library path}, the bf16 kernels' SASS counts)."""
+    """One nvcc per source, all started together, and one per planted
+    fault, started with them at FAULT_NICE and left to finish beside phases
+    3-3d (``_fault_builds`` waits for them). Returns ({fault name: its
+    build's future}, the bf16 kernels' SASS counts)."""
     from univtg_tpu_torch.ops import cuda_build, flash_attention as fa, int8_matmul as im
     from univtg_tpu_torch.ops import ring_attention_pallas as rap
 
@@ -987,10 +1032,11 @@ def phase_build(fault_dir):
 
     sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES + rap.KERNEL_SOURCES
     names = [*FAULTS, *F32_FAULTS, *FORWARD_FAULTS, *F32_FORWARD_FAULTS]
-    with concurrent.futures.ThreadPoolExecutor(len(sources) + len(names)) as pool:
-        faults = {n: pool.submit(_build_fault, n, fault_dir) for n in names}
-        seconds = dict(zip(sources, pool.map(build, sources)))
-        faults = {n: f.result() for n, f in faults.items()}
+    pool = concurrent.futures.ThreadPoolExecutor(len(names))
+    faults = {n: pool.submit(_build_fault, n, fault_dir, FAULT_NICE) for n in names}
+    pool.shutdown(wait=False)
+    with concurrent.futures.ThreadPoolExecutor(len(sources)) as sources_pool:
+        seconds = dict(zip(sources, sources_pool.map(build, sources)))
     for name in sources:
         if name in im.KERNEL_SOURCES:
             im._library()
@@ -1003,7 +1049,6 @@ def phase_build(fault_dir):
             if any(w in line for w in ("registers", "spill", "Compiling entry", "arning",
                                        "(C75")):
                 log(f"[build]   {line.strip()}")
-    log(f"[build] planted faults: {', '.join(f'{n} ({_fault_file(n)})' for n in faults)}")
     sass = {}
     for name in SASS_KERNELS:
         sass.update(_sass_counts(name))
@@ -1015,6 +1060,14 @@ def phase_build(fault_dir):
             raise AssertionError(f"{name}: an f32 kernel spills or is missing "
                                  f"(registers, spill stores, spill loads): {f32_fns}")
     return faults, sass
+
+
+def _fault_builds(pending):
+    """The planted faults' libraries by name, once the builds that
+    phase_build started have ended."""
+    faults = {n: f.result() for n, f in pending.items()}
+    log(f"[build] planted faults: {', '.join(f'{n} ({_fault_file(n)})' for n in faults)}")
+    return faults
 
 
 def _attention_inputs(torch, B, L, H, dh, dtype, seed):
@@ -1381,18 +1434,73 @@ def _bwd_within(err, dname):
     return err[1] <= tol["rel"] and (tol["share"] is None or err[2] <= tol["share"])
 
 
+def _train_kernel_times(torch, fa, args, mask, seed, kw, B, L, H, dh, dname, rate):
+    """Each kernel's ms, its twin's, SDPA's, the work and the bound at one
+    training shape, by kernel name."""
+    import torch.nn.functional as F
+
+    qh, kh, vh, maskh, out, lse, doh = args
+    D, BH, es = H * dh, B * H, torch.finfo(getattr(torch, dname)).bits // 8
+    iters = 5 if L > 1000 else 20
+    fwd_ms = cuda_ms(lambda: fa.flash_attention_impl(
+        qh, kh, vh, maskh, dropout_seed=seed, **kw), iters)
+    plain = {
+        "flash_fwd": cuda_ms(lambda: fa.flash_attention_reference(
+            qh, kh, vh, maskh, seed=seed, **kw), iters),
+        "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_reference(
+            *args, seed=seed, **kw), iters),
+        "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_reference(
+            *args, seed=seed, **kw), iters),
+    }
+    kernels, _ = _profile_window(torch, lambda: fa.flash_attention_backward_impl(
+        *args, dropout_seed=seed, **kw), iters)
+    ms = {name: sum(t for kname, t in kernels.items()
+                    if f"{name}_kernel" in kname) / 1e3 / iters
+          for name in ("flash_bwd_dq", "flash_bwd_dkv")}
+    ms["flash_fwd"] = fwd_ms
+
+    q4, k4, v4 = (x.reshape(B, H, L, dh).detach().requires_grad_() for x in (qh, kh, vh))
+    do4 = doh.reshape(B, H, L, dh)
+    bool_mask = mask.bool()[:, None, None, :]
+
+    def sdpa():
+        return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask, dropout_p=rate)
+
+    lib_fwd = cuda_ms(sdpa, iters)
+    lib_both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4), iters)
+
+    n2 = BH * L * L * dh
+    side = 4 * B * L + 8 * BH * L  # mask read; lse (+ delta) read or written
+    work = {
+        "flash_fwd": (4 * n2, 4 * B * L * D * es + 4 * B * L + 4 * BH * L),
+        "flash_bwd_dq": (6 * n2, 5 * B * L * D * es + side),
+        "flash_bwd_dkv": (8 * n2, 6 * B * L * D * es + side),
+    }
+    out = {}
+    for name in FLASH_KERNELS:
+        bound_ms, bound_by = _bound(*work[name], dname)
+        out[name] = {"ms": ms[name], "plain_ms": plain[name],
+                     "library_ms": lib_fwd if name == "flash_fwd" else None,
+                     "flops": work[name][0], "bytes": work[name][1],
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "tflops": work[name][0] / ms[name] / 1e9,
+                     "bound_share": bound_ms / ms[name]}
+        if name != "flash_fwd":
+            out[name].update(pair_ms=ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
+                             pair_library_ms=lib_both - lib_fwd)
+    return out
+
+
 def phase_train_kernels(torch):
     """flash_fwd, flash_bwd_dq and flash_bwd_dkv against their twins at the
     two training shapes and HL's, QFVS's two and VLP's, f32 and bf16, dropout
-    0 and 0.1: each output on
-    its own, relative to the twin's largest value. Kernel times of the
-    backward pair come from torch.profiler (one call launches both); each
-    backward kernel is timed against its own twin. SDPA has no call for dQ
-    or dK/dV alone, so their library_ms is null and pair_library_ms is the
-    pair's yardstick: SDPA forward + backward through autograd minus SDPA
-    forward, beside pair_ms, the two kernels' times summed."""
-    import torch.nn.functional as F
-
+    0 and 0.1: each output on its own, relative to the twin's largest value.
+    At dropout 0 also the times (``_train_kernel_times``): kernel times of
+    the backward pair come from torch.profiler (one call launches both);
+    each backward kernel is timed against its own twin. SDPA has no call
+    for dQ or dK/dV alone, so their library_ms is null and pair_library_ms
+    is the pair's yardstick: SDPA forward + backward through autograd minus
+    SDPA forward, beside pair_ms, the two kernels' times summed."""
     from univtg_tpu_torch.ops import flash_attention as fa
 
     records = []
@@ -1401,7 +1509,6 @@ def phase_train_kernels(torch):
         for dname in ("float32", "bfloat16"):
             for rate in (0.0, 0.1):
                 dtype = getattr(torch, dname)
-                D, BH, es = H * dh, B * H, torch.finfo(dtype).bits // 8
                 args, mask, seed, kw = _train_kernel_inputs(
                     torch, fa, B, L, H, dh, dtype, rate, 100 + len(records))
                 qh, kh, vh, maskh, out, lse, doh = args
@@ -1415,75 +1522,30 @@ def phase_train_kernels(torch):
                 err_lse = (lse - r_lse).abs().max().item()
                 finite = all(torch.isfinite(t).all().item() for t in (out, lse, *grads))
                 del r_out, r_lse, r_dq, r_dk, r_dv
-
-                iters = 5 if L > 1000 else 20
-                fwd_ms = cuda_ms(lambda: fa.flash_attention_impl(
-                    qh, kh, vh, maskh, dropout_seed=seed, **kw), iters)
-                plain = {
-                    "flash_fwd": cuda_ms(lambda: fa.flash_attention_reference(
-                        qh, kh, vh, maskh, seed=seed, **kw), iters),
-                    "flash_bwd_dq": cuda_ms(lambda: fa.flash_bwd_dq_reference(
-                        *args, seed=seed, **kw), iters),
-                    "flash_bwd_dkv": cuda_ms(lambda: fa.flash_bwd_dkv_reference(
-                        *args, seed=seed, **kw), iters),
-                }
-                kernels, _ = _profile_window(torch, lambda: fa.flash_attention_backward_impl(
-                    *args, dropout_seed=seed, **kw), iters)
-                ms = {name: sum(t for kname, t in kernels.items()
-                                if f"{name}_kernel" in kname) / 1e3 / iters
-                      for name in ("flash_bwd_dq", "flash_bwd_dkv")}
-                ms["flash_fwd"] = fwd_ms
-
-                q4, k4, v4 = (x.reshape(B, H, L, dh).detach().requires_grad_()
-                              for x in (qh, kh, vh))
-                do4 = doh.reshape(B, H, L, dh)
-                bool_mask = mask.bool()[:, None, None, :]
-
-                def sdpa():
-                    return F.scaled_dot_product_attention(q4, k4, v4, attn_mask=bool_mask,
-                                                          dropout_p=rate)
-
-                lib_fwd = cuda_ms(sdpa, iters)
-                lib_both = cuda_ms(lambda: torch.autograd.grad(sdpa(), (q4, k4, v4), do4),
-                                   iters)
-
-                n2 = BH * L * L * dh
-                side = 4 * B * L + 8 * BH * L  # mask read; lse (+ delta) read or written
-                work = {
-                    "flash_fwd": (4 * n2, 4 * B * L * D * es + 4 * B * L + 4 * BH * L),
-                    "flash_bwd_dq": (6 * n2, 5 * B * L * D * es + side),
-                    "flash_bwd_dkv": (8 * n2, 6 * B * L * D * es + side),
-                }
+                times = None if rate else _train_kernel_times(
+                    torch, fa, args, mask, seed, kw, B, L, H, dh, dname, rate)
                 outputs = {"flash_fwd": ("out",), "flash_bwd_dq": ("dq",),
                            "flash_bwd_dkv": ("dk", "dv")}
                 for name in FLASH_KERNELS:
-                    bound_ms, bound_by = _bound(*work[name], dname)
                     rec = {"kernel": name, "shape": shape_name, "B": B, "L": L, "H": H,
                            "dh": dh, "dtype": dname, "dropout": rate,
                            "err": max(err[o][0] for o in outputs[name]),
                            **{f"rel_err_{o}": err[o][1] for o in outputs[name]},
                            **{f"differ_{o}": err[o][2] for o in outputs[name]},
-                           "ms": ms[name], "plain_ms": plain[name],
-                           "library_ms": lib_fwd if name == "flash_fwd" else None,
-                           "flops": work[name][0], "bytes": work[name][1],
-                           "bound_ms": bound_ms, "bound_by": bound_by,
-                           "tflops": work[name][0] / ms[name] / 1e9,
-                           "bound_share": bound_ms / ms[name]}
+                           **(times[name] if times else {})}
                     if name == "flash_fwd":
                         ok = err["out"][0] <= TOL[dname]["out"]
                         rec["tol"] = TOL[dname]["out"]
                     else:
                         ok = all(_bwd_within(err[o], dname) for o in outputs[name])
-                        rec.update(tol=BWD_TOL[dname],
-                                   pair_ms=ms["flash_bwd_dq"] + ms["flash_bwd_dkv"],
-                                   pair_library_ms=lib_both - lib_fwd)
+                        rec["tol"] = BWD_TOL[dname]
                     records.append(rec)
                     log(f"[kernels] {json.dumps(rec)}")
                     if not finite or not ok:
                         raise AssertionError(f"{name} disagrees with its twin: {rec}")
                 if err_lse > TOL[dname]["lse"]:
                     raise AssertionError(f"flash_fwd lse disagrees with its twin: {err_lse}")
-                del args, qh, kh, vh, doh, q4, k4, v4, do4, out, lse, grads
+                del args, qh, kh, vh, doh, out, lse, grads
                 torch.cuda.empty_cache()
     return records
 
@@ -2104,43 +2166,229 @@ def phase_eval(torch, np, tmp, corpus, run_dir):
     return path_launches, f32
 
 
-def _serve_once(np, ckpt, tmp, config=None, queries=1):
-    """`cli serve --resume ckpt` (with ``--config``, a ModelConfig JSON, when
-    given) in a subprocess on the card: one video, ``queries`` concurrent
-    /ground requests, then SIGTERM; returns the answer, or the list of
-    answers when queries > 1."""
-    import io
-    import select
-    import signal
+def _released_run(torch, tmp, val_corpus):
+    """A released upstream run at the flagship's full width (REPRO_OPT,
+    random weights from seed 0): the port's UniVTG state dict under DDP's
+    ``module.`` prefixes in upstream's container, opt.json beside it; and a
+    QVHighlights val split of its first N_REPRO queries from phase 7d's
+    synthetic one (2816-d video, 512-d text, up to 75 clips). Returns (ckpt
+    path, corpus)."""
+    from univtg_tpu_torch.interop import config_from_reference_opt
+    from univtg_tpu_torch.models import UniVTG
 
-    err_log = open(os.path.join(tmp, "serve.err"), "w")
+    run_dir = os.path.join(tmp, "released")
+    os.makedirs(run_dir)
+    sd = UniVTG(config_from_reference_opt(REPRO_OPT), device="cuda", seed=0).state_dict()
+    ckpt = os.path.join(run_dir, "model_best.ckpt")
+    torch.save({"model": {f"module.{k}": v.cpu() for k, v in sd.items()}, "optimizer": {},
+                "lr_scheduler": {}, "epoch": 99, "opt": REPRO_OPT}, ckpt)
+    with open(os.path.join(run_dir, "opt.json"), "w") as f:
+        json.dump(REPRO_OPT, f)
+    if (val_corpus["v_dim"] + 2, val_corpus["q_dim"], val_corpus["max_clips"]) != (
+            REPRO_OPT["v_feat_dim"], REPRO_OPT["t_feat_dim"], REPRO_OPT["max_v_l"]):
+        raise AssertionError(f"phase 7d's split is not the flagship's shape: {val_corpus}")
+    val_path = os.path.join(run_dir, "highlight_val_release.jsonl")
+    with open(val_path, "w") as f:
+        f.writelines(json.dumps(row) + "\n"
+                     for row in _jsonl(val_corpus["val_path"])[:N_REPRO])
+    return ckpt, {**val_corpus, "val_path": val_path}
+
+
+def _reproduce(torch, tmp, ckpt, corpus, impl):
+    """tools/reproduce_model_md.main on the released run, f32 ``impl``,
+    under device_trace with the run inside an annotate region: (metrics,
+    submission, seconds, flash_fwd launches by the counter, flash_fwd
+    kernels in the trace, whether the trace names the region)."""
+    import glob
+
+    from univtg_tpu_torch.ops import flash_attention as fa
+    from univtg_tpu_torch.tools import reproduce_model_md
+    from univtg_tpu_torch.utils.profiling import annotate, device_trace
+
+    trace_dir = tempfile.mkdtemp(prefix=f"trace_{impl}_", dir=tmp)
+    region = f"reproduce_model_md_{impl}"
+    before = fa.launches["flash_fwd"]
+    t0 = time.perf_counter()
+    with device_trace(trace_dir), annotate(region):
+        metrics, sub = reproduce_model_md.main([
+            f"model.attention_impl={impl}", "model.compute_dtype=float32",
+            "--resume", ckpt, "--eval-path", corpus["val_path"],
+            "--v-feat-dirs", *corpus["v_feat_dirs"], "--q-feat-dir", corpus["q_feat_dir"],
+            "--out", os.path.join(tmp, f"repro_{impl}.json")])
+        torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = fa.launches["flash_fwd"] - before
+    (trace,) = glob.glob(os.path.join(trace_dir, "*.pt.trace.json"))
+    with open(trace) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = sum(e.get("cat") == "kernel" and "flash_fwd_kernel" in e.get("name", "")
+                  for e in events)
+    named = any(e.get("name") == region for e in events)
+    return metrics, sub, seconds, launches, kernels, named
+
+
+def _device_nms_agrees(torch, rows):
+    """temporal_nms_torch on the card against the host temporal_nms on each
+    row's first 10 windows at 0.7 (apply_nms's call), in f64 as the host
+    computes: eager, and replayed from one CUDA graph captured on static
+    buffers. Returns (rows checked, rows that disagree eager, from the
+    graph)."""
+    from univtg_tpu_torch.core.nms import temporal_nms, temporal_nms_torch
+
+    def kept(idx, mask, windows):
+        return [list(map(float, windows[i])) for i in idx[mask].tolist()]
+
+    n = 10
+    sp = torch.zeros(n, 2, dtype=torch.float64, device="cuda")
+    sc = torch.zeros(n, dtype=torch.float64, device="cuda")
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        temporal_nms_torch(sp, sc, 0.7, n)  # warm up outside the capture
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        g_idx, g_mask = temporal_nms_torch(sp, sc, 0.7, n)
+    bad_eager = bad_graph = 0
+    for row in rows:
+        windows = row["pred_relevant_windows"][:n]
+        want = temporal_nms(windows, nms_thd=0.7, max_after_nms=n)
+        w = torch.tensor(windows, dtype=torch.float64, device="cuda")
+        idx, mask = temporal_nms_torch(w[:, :2], w[:, 2], 0.7, n)
+        bad_eager += kept(idx.cpu(), mask.cpu(), windows) != want
+        sp.copy_(w[:, :2])
+        sc.copy_(w[:, 2])
+        graph.replay()
+        bad_graph += kept(g_idx.cpu(), g_mask.cpu(), windows) != want
+    return len(rows), bad_eager, bad_graph
+
+
+def phase_reproduce(torch, np, card, tmp, val_corpus):
+    """Phase 7y: the released-run path. tools/reproduce_model_md.main on a
+    released run at the flagship's width over the first N_REPRO queries of
+    phase 7d's split (``_released_run``), f32, with
+    ``model.attention_impl=pallas`` (the path: 4 flash_fwd launches per eval
+    batch, by the counter and in a device_trace, whose annotate region must
+    appear by name) and with "xla" (none); the submissions agree at
+    PIPE_TOL (windows as decoded, near-ties by ``_unambiguous_ranks_agree``)
+    and the metrics are equal after the 2 s clip-grid rounding (phase 7b's
+    rule: before it, an f32 difference moves a 4-decimal end by 1e-4 s);
+    the device NMS equals the host's on every row, eager and from a graph.
+    Returns (the path's launches, seconds of the pallas run)."""
+    from univtg_tpu_torch.evals.postprocessing import WindowPostProcessor
+    from univtg_tpu_torch.interop import load_reference_run
+    from univtg_tpu_torch.train.infer_mr import evaluate_submission
+
+    ckpt, corpus = _released_run(torch, tmp, val_corpus)
+    cfg, _ = load_reference_run(ckpt)
+    if (cfg.vid_dim, cfg.hidden_dim, cfg.num_layers, cfg.num_heads) != (2818, 1024, 4, 8):
+        raise AssertionError(f"the released run's opt.json rebuilt {cfg}")
+    batches = -(-N_REPRO // 32)
+    runs = {}
+    for impl in ("pallas", "xla"):
+        for attempt in range(2):  # the profiler has dropped a kernel's record once
+            if impl == "pallas":
+                _reset_launches()  # the released-run path starts here
+            runs[impl] = _reproduce(torch, tmp, ckpt, corpus, impl)
+            if impl == "pallas":
+                path_launches = _launches()  # ... and ends here
+            want = 4 * batches if impl == "pallas" else 0
+            if runs[impl][4] == want or attempt:
+                break
+            log(f"[reproduce] the {impl} trace names flash_fwd {runs[impl][4]} times, not "
+                f"{want}: traced once more")
+        metrics, sub, seconds, launches, traced, named = runs[impl]
+        log(f"[reproduce] {impl} f32: {len(sub)} queries in {seconds:.2f} s with the model "
+            f"build and the trace; flash_fwd launches {launches}, in the trace {traced}; "
+            f"region named {named}; MR-full-mAP {metrics['brief']['MR-full-mAP-key']}, HL "
+            f"Hit1 {metrics['brief']['HL-min-VeryGood-Hit1-key']}, after NMS "
+            f"{metrics['metrics_nms']['MR-full-mAP-key']}")
+        if launches != want or traced != want or not named:
+            raise AssertionError(f"reproduce {impl}: flash_fwd {launches} launches, {traced} "
+                                 f"in the trace, not {want}; region named {named}")
+        if len(sub) != N_REPRO or not all(np.isfinite(v) for v in metrics["brief"].values()):
+            raise AssertionError(f"reproduce {impl}: a bad submission or metrics")
+    (p_metrics, p_sub, p_s, *_), (x_metrics, x_sub, *_) = runs["pallas"], runs["xla"]
+    tol = PIPE_TOL["float32"]
+    worst = max(np.abs(np.asarray(g["pred_relevant_windows"])
+                       - np.asarray(w["pred_relevant_windows"])).max()
+                for g, w in zip(p_sub, x_sub, strict=True))
+    post = WindowPostProcessor(clip_length=corpus["clip_len"],
+                               process_func_names=("round_multiple",))
+    rounded = [evaluate_submission(post([dict(r) for r in s]), _jsonl(corpus["val_path"]))
+               for s in (p_sub, x_sub)]
+    log(f"[reproduce] pallas vs xla: windows and scores differ by at most {worst:.3g} "
+        f"(limits {tol}); metrics equal as the tool scores them (no rounding) "
+        f"{p_metrics['brief'] == x_metrics['brief']}, after the 2 s rounding "
+        f"{rounded[0]['brief'] == rounded[1]['brief']}")
+    if [r["qid"] for r in p_sub] != [r["qid"] for r in x_sub] or not all(
+            _unambiguous_ranks_agree(np, {"topk_windows": g["pred_relevant_windows"]},
+                                     {"topk_windows": w["pred_relevant_windows"]},
+                                     tol["scores"], tol["windows"])
+            for g, w in zip(p_sub, x_sub)):
+        raise AssertionError("reproduce: the flash submission disagrees with xla's")
+    if rounded[0]["brief"] != rounded[1]["brief"]:
+        raise AssertionError(f"reproduce: metrics differ: {rounded[0]['brief']} vs "
+                             f"{rounded[1]['brief']}")
+    n, bad_eager, bad_graph = _device_nms_agrees(torch, p_sub)
+    log(f"[reproduce] temporal_nms_torch on the card vs the host's on {n} rows: "
+        f"{bad_eager} differ eager, {bad_graph} from the CUDA graph")
+    if bad_eager or bad_graph:
+        raise AssertionError("reproduce: the device NMS disagrees with the host's")
+    return path_launches, p_s
+
+
+def _ask_server(np, base, queries):
+    """One 75-clip video PUT to the server at ``base``, then ``queries``
+    concurrent /ground requests; their answers."""
+    import io
+
+    rng = np.random.default_rng(6)
+    buf = io.BytesIO()
+    np.savez(buf, features=rng.standard_normal((75, 2816)).astype(np.float32))
+    req = urllib.request.Request(f"{base}/videos/v", data=buf.getvalue(), method="PUT")
+    with urllib.request.urlopen(req, timeout=120) as r:
+        r.read()
+    bodies = [json.dumps({"video": "v", "query_feats": rng.standard_normal(
+        (9, 512)).astype(np.float32).tolist()}).encode() for _ in range(queries)]
+
+    def ask(body):
+        req = urllib.request.Request(f"{base}/ground", data=body, method="POST")
+        with urllib.request.urlopen(req, timeout=120) as r:
+            return json.loads(r.read())
+
+    with concurrent.futures.ThreadPoolExecutor(queries) as pool:
+        return list(pool.map(ask, bodies))
+
+
+def _start_serve(ckpt, tmp, config=None):
+    """`cli serve --resume ckpt` (with ``--config``, a ModelConfig JSON, when
+    given) started in a subprocess on the card; ``_finish_serve`` asks it."""
     extra = ["--config", config] if config else []
+    err_log = open(os.path.join(tmp, "serve.err"), "w")
     proc = subprocess.Popen(
         [sys.executable, "-m", "univtg_tpu_torch.cli", "serve", "--resume", ckpt,
          "--port", "0", *extra], stdout=subprocess.PIPE, stderr=err_log, text=True,
         env={**os.environ, "PYTHONUNBUFFERED": "1"})
+    err_log.close()  # the child holds its own descriptor
+    return proc
+
+
+def _finish_serve(np, proc, queries=1):
+    """Once the server that ``_start_serve`` started says where it serves:
+    one video, ``queries`` concurrent /ground requests, then SIGTERM; the
+    answer, or the list of answers when queries > 1. The process does not
+    outlive the call."""
+    import select
+    import signal
+
     try:
         ready, _, _ = select.select([proc.stdout], [], [], 300)  # model build
         line = proc.stdout.readline() if ready else ""
         if not line.startswith("serving on http://127.0.0.1:"):
             raise AssertionError(f"cli serve did not start: {line!r}")
-        base = f"http://127.0.0.1:{int(line.split(':')[2].split()[0])}"
-        rng = np.random.default_rng(6)
-        buf = io.BytesIO()
-        np.savez(buf, features=rng.standard_normal((75, 2816)).astype(np.float32))
-        req = urllib.request.Request(f"{base}/videos/v", data=buf.getvalue(), method="PUT")
-        with urllib.request.urlopen(req, timeout=120) as r:
-            r.read()
-        bodies = [json.dumps({"video": "v", "query_feats": rng.standard_normal(
-            (9, 512)).astype(np.float32).tolist()}).encode() for _ in range(queries)]
-
-        def ask(body):
-            req = urllib.request.Request(f"{base}/ground", data=body, method="POST")
-            with urllib.request.urlopen(req, timeout=120) as r:
-                return json.loads(r.read())
-
-        with concurrent.futures.ThreadPoolExecutor(queries) as pool:
-            answers = list(pool.map(ask, bodies))
+        answers = _ask_server(np, f"http://127.0.0.1:{int(line.split(':')[2].split()[0])}",
+                              queries)
         proc.send_signal(signal.SIGTERM)
         if proc.wait(timeout=60) != 0:
             raise AssertionError("cli serve did not drain and exit 0 on SIGTERM")
@@ -2150,7 +2398,25 @@ def _serve_once(np, ckpt, tmp, config=None, queries=1):
             proc.kill()
             proc.wait(timeout=30)
         proc.stdout.close()
-        err_log.close()
+
+
+def _serve_in_process(np, ckpt):
+    """What `cli serve --resume ckpt` builds (the flagship's config, the
+    file through restore_serving_params, eval_mode "add", a GroundingServer
+    on a free port), in this process: one video, one /ground request; the
+    answer. Phase 7r runs the entry point itself in a subprocess."""
+    from univtg_tpu_torch import cli
+    from univtg_tpu_torch.serve import GroundingPipeline, GroundingServer
+    from univtg_tpu_torch.serve.quantize import restore_serving_params
+
+    cfg = cli.flagship_config()
+    pipe = GroundingPipeline(cfg, restore_serving_params(ckpt, cfg), eval_mode="add",
+                             device="cuda")
+    server = GroundingServer(pipe, host="127.0.0.1", port=0).start()
+    try:
+        return _ask_server(np, f"http://127.0.0.1:{server.port}", 1)[0]
+    finally:
+        server.close()
 
 
 def _first_eval_batch(cfg):
@@ -2166,9 +2432,11 @@ def _first_eval_batch(cfg):
 
 
 def phase_quantize(torch, np, tmp, corpus, run_dir, f32_brief):
-    """The int8 tier's entry points: `cli quantize`, the int8 file served by
-    `cli serve`, and `cli infer-mr` on its dequantized weights; none of them
-    launches int8_matmul, as in the JAX package. Then the smoke's own call
+    """The int8 tier's entry points: `cli quantize`, the int8 file served as
+    `cli serve` builds it (its pipeline and server, in this process: phase
+    7r runs the entry point in a subprocess), and `cli infer-mr` on its
+    dequantized weights; none of them launches int8_matmul, as in the JAX
+    package. Then the smoke's own call
     of int8_matmul on the file's first video projection over the first eval
     batch, counted apart. Returns (the entry points' launches, the smoke
     call's launches, the served-layer records)."""
@@ -2199,16 +2467,16 @@ def phase_quantize(torch, np, tmp, corpus, run_dir, f32_brief):
     if not ratio < 0.45:
         raise AssertionError(f"the int8 file is {ratio:.3f} of the float one")
 
-    answer = _serve_once(np, int8_path, tmp)
+    answer = _serve_in_process(np, int8_path)
     _check_result(np, answer, 75)
-    log(f"[quantize] cli serve on the int8 file: /ground top-1 window "
-        f"{answer['top1_window']}")
+    log(f"[quantize] the int8 file served as cli serve builds it (in this process; 7r "
+        f"runs cli serve in its own): /ground top-1 window {answer['top1_window']}")
 
     deq_path = os.path.join(tmp, "model_int8_dequantized.ckpt")
     torch.save({"model": load_quantized(int8_path)}, deq_path)
     int8_brief, _, _, _ = _infer_mr(torch, np, tmp, deq_path, corpus, "int8_f32", "pallas",
                                     "float32")
-    launches = _launches()  # ... and end here (cli serve ran in its own process)
+    launches = _launches()  # ... and end here
     keys = ("MR-full-mAP-key", "MR-full-R1@0.5-key", "MR-full-mIoU-key",
             "HL-min-VeryGood-mAP-key", "HL-min-VeryGood-Hit1-key")
     log(f"[quantize] metrics, f32 weights vs dequantized int8 weights (random "
@@ -2267,12 +2535,12 @@ def _native_dataset(MRDataset, data_cfg):
     return ds
 
 
-def _feature_err(np, ds, ref, ref_query=None):
-    """Largest |difference| of every video and query feature ds reads from
-    ref's (the query's passed through ref_query first, if given), and the
-    count of files compared."""
-    vids = sorted({m["vid"] for m in ref.data})
-    qids = sorted({m["qid"] for m in ref.data})
+def _feature_err(np, ds, ref, ref_query=None, every=1):
+    """Largest |difference| of every ``every``-th video and query feature ds
+    reads from ref's (the query's passed through ref_query first, if given),
+    and the count of files compared."""
+    vids = sorted({m["vid"] for m in ref.data})[::every]
+    qids = sorted({m["qid"] for m in ref.data})[::every]
     pairs = [(a, b, vids) for a, b in zip(ds.v_sources, ref.v_sources, strict=True)]
     pairs.append((ds.q_source, ref.q_source, qids))
     err, n = 0.0, 0
@@ -2327,11 +2595,12 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     native APs of the last pass held against the numpy twin's on the same
     submission (AP_TOL), whose scoring is timed too; one inference pass on
     the native npz reader (UNIVTG_NATIVE_IO=1), whose features are held
-    against numpy's on every file (FEAT_TOL) with no file rejected; the
+    against numpy's on every EVAL_SUBSET-th file (FEAT_TOL), with no file
+    rejected; the
     loader's own ms per batch on either reader; where h5py is importable,
     `cli pack-h5` of the split and one pass on its h5 cache with lazy
     metadata; then one inference under torch.profiler (the eval_qvhighlights
-    cells' [profile] lines). Returns the timings."""
+    cells' [profile] lines). Returns the timings and the split's corpus."""
     from univtg_tpu_torch import cli
     from univtg_tpu_torch.data.features import l2_normalize
     from univtg_tpu_torch.data.mr import MRDataset
@@ -2356,7 +2625,7 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     eval_ds = MRDataset(data_cfg)
     native_ds = _native_dataset(MRDataset, data_cfg)
     t0 = time.perf_counter()
-    feat_err, n_files = _feature_err(np, native_ds, eval_ds)
+    feat_err, n_files = _feature_err(np, native_ds, eval_ds, every=EVAL_SUBSET)
     log(f"[evalsize] native npz reader vs np.load + l2_normalize: {n_files} files, "
         f"max |diff| {feat_err:.3g} (limit {FEAT_TOL}), {reader.rejections} rejected "
         f"({time.perf_counter() - t0:.1f} s)")
@@ -2470,7 +2739,7 @@ def phase_eval_size(torch, np, fa, card, tmp, run_dir, passes=2):
     if reader.rejections:
         raise AssertionError(f"the native reader rejected {reader.rejections} files")
     log(f"[evalsize] ({card}) {json.dumps(timings)}")
-    return timings
+    return timings, corpus
 
 
 def _long_batch(torch, np, B=8, Lv=2048, Lt=32, d_vid=2818, d_txt=512, seed=5):
@@ -3741,16 +4010,18 @@ def dist_worker(job_path, rank, world, port) -> int:
     import torch
 
     from univtg_tpu_torch.parallel import dist
-    from univtg_tpu_torch.train import driver_mr
-    from univtg_tpu_torch.train.driver_vlp import init_distributed, train_vlp
+    from univtg_tpu_torch.train.driver_vlp import init_distributed
 
     with open(job_path) as f:
         job = json.load(f)
+    if job.get("start_after"):  # started early: reach the card, then wait for the file
+        torch.zeros(1, device="cuda")
+        while not os.path.exists(job["start_after"]):
+            time.sleep(0.1)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.deterministic = True
     assert init_distributed(f"127.0.0.1:{port}", world, rank) == (rank, world)
-    gang = dist.active()
     base = job["results"]
     if job["mode"] == "mesh":
         out = mesh_worker(job, rank, world, torch, np)
@@ -3758,6 +4029,24 @@ def dist_worker(job_path, rank, world, port) -> int:
             json.dump(out, f)
         dist.shutdown()
         return 0
+    out = _vlp_rank(job, rank, torch, np)
+    with open(os.path.join(base, f"r{rank}.json"), "w") as f:
+        json.dump(out, f)
+    dist.shutdown()
+    return 0
+
+
+def _vlp_rank(job, rank, torch, np):
+    """One rank of a gang's train_vlp on ``job``'s config (_dist_cfg; its
+    logs in job["results"]/p{rank}), with the launch counters at 0 just
+    before and read just after: its backend, device, seconds, launches and
+    parameters' digest, and in the job's "main" mode its step timings."""
+    from univtg_tpu_torch.parallel import dist
+    from univtg_tpu_torch.train import driver_mr
+    from univtg_tpu_torch.train.driver_vlp import train_vlp
+
+    gang = dist.active()
+    base = job["results"]
     cfg = _dist_cfg(job, os.path.join(base, f"p{rank}"))
     built = []
     build_model = driver_mr.build_model
@@ -3765,27 +4054,29 @@ def dist_worker(job_path, rank, world, port) -> int:
     resume, resume_all = None, False
     if job["mode"] == "resume":  # every rank restarts from rank 0's latest checkpoint
         resume, resume_all = os.path.join(base, "p0", "model_latest.ckpt"), True
-    _reset_launches()  # this rank's share of the main path starts here
-    t0 = time.perf_counter()
-    train_vlp(cfg, resume=resume, resume_all=resume_all)
-    torch.cuda.synchronize()
-    out = {"rank": rank, "backend": gang.backend, "device": str(gang.device),
-           "train_vlp_s": time.perf_counter() - t0, "launches": _launches(),
-           "digest": dist.tensor_digest(built[0].state_dict().values())}
+    try:
+        _reset_launches()  # this rank's share of the main path starts here
+        t0 = time.perf_counter()
+        train_vlp(cfg, resume=resume, resume_all=resume_all)
+        torch.cuda.synchronize()
+        out = {"rank": rank, "backend": gang.backend, "device": str(gang.device),
+               "train_vlp_s": time.perf_counter() - t0, "launches": _launches(),
+               "digest": dist.tensor_digest(built[0].state_dict().values())}
+    finally:
+        driver_mr.build_model = build_model
     if job["mode"] == "main":
         out["step"] = _gang_step_stats(torch, np, cfg, _rank_batches(torch, cfg, 2),
                                        cfg.seed + 1)
-    with open(os.path.join(base, f"r{rank}.json"), "w") as f:
-        json.dump(out, f)
-    dist.shutdown()
-    return 0
+    return out
 
 
-def _gang(job, base, world=2):
-    """Start a gang of ``world`` dist_worker processes for ``job``."""
+def _gang(job, base, world=2, job_dir=None):
+    """Start a gang of ``world`` dist_worker processes for ``job``, its
+    results in ``base`` and its job file in ``job_dir`` (default ``base``)."""
     os.makedirs(base, exist_ok=True)
     job = {**job, "results": base}
-    path = os.path.join(base, "job.json")
+    os.makedirs(job_dir or base, exist_ok=True)
+    path = os.path.join(job_dir or base, "job.json")
     with open(path, "w") as f:
         json.dump(job, f)
     port = _free_port()
@@ -3793,6 +4084,14 @@ def _gang(job, base, world=2):
         [sys.executable, os.path.abspath(__file__), "--dist-worker", path, str(r),
          str(world), str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
         text=True) for r in range(world)]
+
+
+def _kill_gang(procs):
+    """Kill whatever of ``procs`` still runs, and reap it."""
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+            p.communicate()
 
 
 def _wait_gang(procs, rcs=None, timeout=DIST_GANG_TIMEOUT_S):
@@ -3804,10 +4103,7 @@ def _wait_gang(procs, rcs=None, timeout=DIST_GANG_TIMEOUT_S):
         for p in procs:
             outs.append(p.communicate(timeout=timeout)[0])
     finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
+        _kill_gang(procs)
     for r, (p, out) in enumerate(zip(procs, outs)):
         want = 0 if rcs is None else rcs[r]
         if want is not None and p.returncode != want:
@@ -3925,43 +4221,36 @@ def dist_digest(state):
     return dist.tensor_digest(state.model.state_dict().values())
 
 
-def phase_dist(torch, np, card, tmp, specs, val):
-    """7k, training across processes: (i) a NCCL gang of one on the card
-    (_nccl_of_one); (ii) two ranks sharing the card over gloo: train_vlp on
-    vlp_pretrain at full width, B = 64 per rank, "pallas", f32, dropouts 0,
-    DIST_EPOCHS epochs, each evaluated by sharded_eval; the loss curve held
-    against one process on the assembled B = 128 batches at TRAIN_TOL, the
-    ranks' parameter digests equal, the sharded evaluation equal to a full
-    one of rank 0's latest checkpoint; each rank's step ms, collective ms
-    and idle share; the elastic restart at a smaller depth
-    (DIST_ELASTIC); (iii) the CLIP teacher on the card against the CPU at
-    ViT-B/32's text width. Returns (the gang's launches summed over its
-    ranks, the NCCL gang's launches, stats)."""
-    import dataclasses
+def _vlp_gang_case(job, base):
+    """7k(ii) as a case of 7u's gang: train_vlp at B = 64 per rank,
+    DIST_EPOCHS epochs each evaluated by sharded_eval, then the step timings
+    (mode "main"), its logs under ``base``."""
+    return {"kind": "vlp", "name": "vlp_main", "job": {
+        **job, "mode": "main", "results": base,
+        "overrides": {"n_epoch": DIST_EPOCHS, "eval_epoch": 1, "sharded_eval": True}}}
 
+
+def phase_dist_gang(torch, np, card, tmp, tp_gang):
+    """7k(ii), the "vlp_main" case of 7u's gang (``tp_gang``): two ranks
+    sharing the card over gloo, train_vlp on vlp_pretrain at full width, B =
+    64 per rank, "pallas", f32, dropouts 0, DIST_EPOCHS epochs, each
+    evaluated by sharded_eval; the loss curve held against one process on
+    the assembled B = 128 batches at TRAIN_TOL, the ranks' parameter digests
+    equal, the sharded evaluation equal to a full one of rank 0's latest
+    checkpoint; each rank's step ms, collective ms and idle share. Returns
+    (the launches summed over the ranks, stats)."""
     from univtg_tpu_torch.data.mr import MRDataset
     from univtg_tpu_torch.models import UniVTG
-    from univtg_tpu_torch.tools import teacher
     from univtg_tpu_torch.train import checkpoint as ckpt
     from univtg_tpu_torch.train import driver_mr
     from univtg_tpu_torch.train.steps import make_eval_step
 
-    job = {"specs": [dataclasses.asdict(s) for s in specs], "val": val}
+    case = next(c for c in tp_gang["cases"] if c["name"] == "vlp_main")
+    main_job, base = case["job"], case["job"]["results"]
+    ranks = [r["vlp_main"] for r in tp_gang["ranks"]]
     cudnn = torch.backends.cudnn.deterministic
     torch.backends.cudnn.deterministic = True
     try:
-        t0 = time.perf_counter()
-        nccl = _nccl_of_one(torch, np, card, job, tmp)
-        log(f"[dist] (i) in {time.perf_counter() - t0:.1f} s")
-
-        # (ii) two ranks on one card over gloo, with the main path's counts
-        t0 = time.perf_counter()
-        main_job = {**job, "mode": "main", "overrides": {
-            "n_epoch": DIST_EPOCHS, "eval_epoch": 1, "sharded_eval": True}}
-        base = os.path.join(tmp, "dist_main")
-        _wait_gang(_gang(main_job, base))
-        ranks = [json.load(open(os.path.join(base, f"r{r}.json"))) for r in range(2)]
-        gang_s = time.perf_counter() - t0
         launches = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
         cfg = _dist_cfg(main_job, os.path.join(base, "p0"))
         logs = [_train_log(os.path.join(base, f"p{r}")) for r in range(2)]
@@ -3987,8 +4276,8 @@ def phase_dist(torch, np, card, tmp, specs, val):
         log(f"[dist] (ii) gloo gang of 2 ranks on one card ({card}): backends "
             f"{[r['backend'] for r in ranks]} on {[r['device'] for r in ranks]}; train_vlp "
             f"{DIST_EPOCHS} epochs of B = {cfg.bsz} per rank in "
-            f"{[round(r['train_vlp_s'], 2) for r in ranks]} s (gang {gang_s:.1f} s with "
-            f"the processes' start); logged curve {[(l['loss_overall'], l['grad_norm']) for l in logs[0]]} "
+            f"{[round(r['train_vlp_s'], 2) for r in ranks]} s (in 7u's gang); logged "
+            f"curve {[(l['loss_overall'], l['grad_norm']) for l in logs[0]]} "
             f"vs one process on B = {2 * cfg.bsz} {[(c['loss_overall'], c['grad_norm']) for c in curve]}: "
             f"rel {json.dumps(rel)}; rank digests equal {digests_equal} (one process's "
             f"{'equal' if one_digest == ranks[0]['digest'] else 'differs'}); sharded eval "
@@ -4002,6 +4291,26 @@ def phase_dist(torch, np, card, tmp, specs, val):
                                  f"{digests_equal}, sharded vs full eval {eval_bad}")
         if any(launches[k] == 0 for k in FLASH_KERNELS):
             raise AssertionError(f"the gang skipped a flash kernel: {launches}")
+    finally:
+        torch.backends.cudnn.deterministic = cudnn
+    return launches, {"rel": rel, "ranks": ranks}
+
+
+def phase_dist(torch, np, card, tmp, job):
+    """7k, training across processes: (i) a NCCL gang of one on the card
+    (_nccl_of_one); (ii) the two gloo ranks' train_vlp runs as a case of
+    7u's gang and is held by phase_dist_gang; the elastic restart at a
+    smaller depth (DIST_ELASTIC); (iii) the CLIP teacher on the card
+    against the CPU at ViT-B/32's text width. Returns (the NCCL gang's
+    launches, stats)."""
+    from univtg_tpu_torch.tools import teacher
+
+    cudnn = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    try:
+        t0 = time.perf_counter()
+        nccl = _nccl_of_one(torch, np, card, job, tmp)
+        log(f"[dist] (i) in {time.perf_counter() - t0:.1f} s")
 
         # the elastic restart at a smaller depth: A (rank 1 exits after epoch
         # DIST_FAULT_EPOCH) beside C (uninterrupted), then B (A restarted
@@ -4013,13 +4322,26 @@ def phase_dist(torch, np, card, tmp, specs, val):
             **small["overrides"], "inject_fault_epoch": DIST_FAULT_EPOCH,
             "inject_fault_rank": 1}}, base_a)
         gang_c = _gang({**small, "mode": "full"}, base_c)
-        _wait_gang(gang_a, rcs=[None, 3])
-        if gang_a[0].returncode == 0:
-            raise AssertionError("rank 0 of the faulted gang ended as if nothing happened")
-        resumed_from = torch.load(os.path.join(base_a, "p0", "model_latest.ckpt"),
-                                  map_location="cpu", weights_only=True)["epoch"]
-        _wait_gang(_gang({**small, "mode": "resume"}, base_a))
-        _wait_gang(gang_c)
+        # B's processes start now and reach the card while A runs; they join
+        # their gang once A has ended
+        a_ended = os.path.join(tmp, "dist_elastic_a_ended")
+        gang_b = _gang({**small, "mode": "resume", "start_after": a_ended}, base_a,
+                       job_dir=os.path.join(tmp, "dist_elastic_b"))
+        try:
+            _wait_gang(gang_a, rcs=[None, 3])
+            log(f"[dist] (ii) elastic restart: the faulted gang ended after "
+                f"{time.perf_counter() - t0:.1f} s")
+            if gang_a[0].returncode == 0:
+                raise AssertionError("rank 0 of the faulted gang ended as if nothing "
+                                     "happened")
+            resumed_from = torch.load(os.path.join(base_a, "p0", "model_latest.ckpt"),
+                                      map_location="cpu", weights_only=True)["epoch"]
+            with open(a_ended, "w"):
+                pass
+            _wait_gang(gang_b)
+            _wait_gang(gang_c)
+        finally:
+            _kill_gang(gang_b + gang_c)
         got = _train_log(os.path.join(base_a, "p0"))[DIST_FAULT_EPOCH + 1:]
         want = {l["epoch"]: l for l in _train_log(os.path.join(base_c, "p0"))}
         n_epoch = DIST_ELASTIC["n_epoch"]
@@ -4068,7 +4390,7 @@ def phase_dist(torch, np, card, tmp, specs, val):
         f"threshold edge) ({len(rows)} rows, {card_ms:.1f} ms on the card)")
     if sim_err > TEACHER_TOL or not same_concepts or not all(edge) or not rows:
         raise AssertionError("the teacher on the card disagrees with the CPU")
-    return launches, nccl["launches"], {"nccl": nccl, "ranks": ranks, "rel": rel}
+    return nccl["launches"], {"nccl": nccl, "elastic_rel": elastic_rel}
 
 
 def _md_data(corpus, split, span):
@@ -5366,8 +5688,9 @@ def phase_moe(torch, np, card, tmp, corpus, sd):
     epochs each evaluated: 4 launches of each kernel per step and 4 flash_fwd
     per eval batch, loss_moe_aux finite and in (0, E]. Then `cli infer-mr`
     (f32) on the f32 run's model_best.ckpt, `cli quantize` of it and `cli
-    serve` from the int8 file (a subprocess, --config the MoE JSON)
-    answering MOE_SERVE_QUERIES concurrent requests. Held: 3 f32 steps at
+    serve` from the int8 file (a subprocess, --config the MoE JSON, started
+    before the holds below, which run while it builds its model) answering
+    MOE_SERVE_QUERIES concurrent requests. Held (_moe_holds): 3 f32 steps at
     dropouts 0, "pallas" vs "xla" at TRAIN_TOL (loss_moe_aux at the loss's
     limit), a token whose top-2 choice differs between them allowed only
     within MOE_TIE_REL, counted; make_scan_train_step K = 2 replays against
@@ -5380,7 +5703,6 @@ def phase_moe(torch, np, card, tmp, corpus, sd):
 
     from univtg_tpu_torch import cli
     from univtg_tpu_torch.models import UniVTG
-    from univtg_tpu_torch.presets import flagship_model
 
     eval_batches = -(-N_VAL // 32)
     runs = {}
@@ -5425,8 +5747,6 @@ def phase_moe(torch, np, card, tmp, corpus, sd):
 
     best = os.path.join(runs["float32"], "model_best.ckpt")
     _reset_launches()  # the MoE inference and int8 path starts here
-    brief, _, infer_launches, wall = _infer_mr(torch, np, tmp, best, corpus, "moe_f32",
-                                               "pallas", "float32", *MOE_OVERRIDES)
     int8_path = os.path.join(tmp, "moe_int8.ckpt")
     printed = io.StringIO()
     with contextlib.redirect_stdout(printed):
@@ -5435,21 +5755,48 @@ def phase_moe(torch, np, card, tmp, corpus, sd):
     config = os.path.join(tmp, "moe_model.json")
     with open(config, "w") as f:
         f.write(_moe_model(attention_impl="pallas").to_json())
-    t0 = time.perf_counter()
-    answers = _serve_once(np, int8_path, tmp, config=config, queries=MOE_SERVE_QUERIES)
-    serve_s = time.perf_counter() - t0
+    # cli serve builds its model in its own process while this one runs
+    # infer-mr and holds pallas against xla and the replays (checks of bits,
+    # not of time)
+    serve_t0 = time.perf_counter()
+    server = _start_serve(int8_path, tmp, config=config)
+    try:
+        brief, _, infer_launches, wall = _infer_mr(torch, np, tmp, best, corpus, "moe_f32",
+                                                   "pallas", "float32", *MOE_OVERRIDES)
+    except BaseException:
+        _kill_gang([server])
+        raise
+    infer_path = _launches()  # ... and ends here (cli serve counts in its own process)
+    if infer_launches != 4 * eval_batches:
+        _finish_serve(np, server, MOE_SERVE_QUERIES)
+        raise AssertionError(f"MoE infer-mr made {infer_launches} flash_fwd launches")
+    try:
+        _moe_holds(torch, np, corpus)
+    except BaseException:
+        _kill_gang([server])
+        raise
+    answers = _finish_serve(np, server, MOE_SERVE_QUERIES)
+    serve_s = time.perf_counter() - serve_t0
     for answer in answers:
         _check_result(np, answer, 75)
-    infer_path = _launches()  # ... and ends here (cli serve ran in its own process)
     log(f"[moe] cli infer-mr f32: {infer_launches} flash_fwd launches, {wall:.2f} s with "
         f"model build; {printed.getvalue().strip()}; cli serve --config on the int8 file: "
         f"{len(answers)} concurrent answers, top-1 windows "
-        f"{[a['top1_window'] for a in answers]} ({serve_s:.1f} s with start-up); path "
-        f"launches {infer_path}")
-    if infer_launches != 4 * eval_batches:
-        raise AssertionError(f"MoE infer-mr made {infer_launches} flash_fwd launches")
+        f"{[a['top1_window'] for a in answers]} ({serve_s:.1f} s from its start, the "
+        f"holds above run meanwhile); path launches {infer_path}")
 
-    # f32 "pallas" vs "xla", 3 steps at dropouts 0, the routing recorded
+    moe_sd = UniVTG(_moe_model(), device="cpu", seed=0).state_dict()
+    stats = _moe_timings(torch, card, sd, moe_sd, _train_batches(np, corpus, 3))
+    log(f"[moe] ({card}) {json.dumps(stats)}")
+    return launches, infer_path, stats
+
+
+def _moe_holds(torch, np, corpus):
+    """f32 "pallas" against "xla", 3 steps at dropouts 0 with the routing
+    recorded (TRAIN_TOL; a token routed otherwise only within MOE_TIE_REL),
+    then scan replays against eager steps in f32 and bf16 (_hold_replay)."""
+    from univtg_tpu_torch.models import UniVTG
+
     moe_sd = UniVTG(_moe_model(), device="cpu", seed=0).state_dict()
     batches = _train_batches(np, corpus, 3)
     quiet = dict(dropout=0.0, droppath=0.0, input_dropout=0.0)
@@ -5479,6 +5826,12 @@ def phase_moe(torch, np, card, tmp, corpus, sd):
                                               **quiet), moe_sd, batches)
         torch.cuda.empty_cache()
 
+
+def _moe_timings(torch, card, sd, moe_sd, batches):
+    """ms a step of the dense and the MoE flagship, bf16 and f32, K = 1 (one
+    step profiled) and 2."""
+    from univtg_tpu_torch.presets import flagship_model
+
     stats = {}
     for dname in ("bfloat16", "float32"):
         for name, cfg, weights in (
@@ -5500,8 +5853,7 @@ def phase_moe(torch, np, card, tmp, corpus, sd):
                     f"events ({rec['wall_ms']:.2f} wall) over {rec['steps']} steps, peak "
                     f"{rec['peak_gib']:.2f} GiB ({card}){top}")
                 torch.cuda.empty_cache()
-    log(f"[moe] ({card}) {json.dumps(stats)}")
-    return launches, infer_path, stats
+    return stats
 
 
 def phase_remat_long(torch, np, fa, card, corpus, sd):
@@ -5702,10 +6054,11 @@ def _mesh_mr_cfg(job):
 
 def _mesh_long_steps(job, rank, torch, np):
     """7u(ii): make_train_step at 8 x (2048 + 32) on the tp mesh, seq_shard
-    off and on, bf16 and f32, dropouts at the flagship's defaults: ms per
-    step by CUDA events, peak memory, flash launches a step, host ms inside
-    the collectives a step, the loss ("timed"); then one f32 step at dropouts
-    0 each, seq_shard off and on, its loss and grad norm ("exact")."""
+    off and on, bf16 at the flagship's dropouts and f32 at dropouts 0: ms
+    per step by CUDA events, peak memory, flash launches a step, host ms
+    inside the collectives a step, the loss ("timed"); the f32 warm step,
+    the first from the seed, gives the loss and grad norm that the parent
+    holds against one process ("exact")."""
     from univtg_tpu_torch.models.losses import LossWeights
     from univtg_tpu_torch.ops import flash_attention as fa
     from univtg_tpu_torch.parallel import mesh as pm
@@ -5716,11 +6069,13 @@ def _mesh_long_steps(job, rank, torch, np):
     mesh = pm.make_mesh(1, job["tp"], 1)
     mi, tg = _long_batch(torch, np)
     step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
-    out = {}
+    out, exact = {}, {}
     for dname in ("bfloat16", "float32"):
         for seq in (False, True):
             cfg = flagship_model(attention_impl="pallas", compute_dtype=dname,
                                  max_v_l=2048, seq_shard=seq)
+            if dname == "float32":
+                cfg = _exact_long_cfg(seq)
             holder = {"state": _mesh_step_state(torch, cfg, mesh)}
 
             def one():
@@ -5734,6 +6089,9 @@ def _mesh_long_steps(job, rank, torch, np):
                 one()  # the warm step, its collectives timed
             finally:
                 undo()
+            if dname == "float32":  # the first step from the seed, at dropouts 0
+                exact[f"seq{int(seq)}"] = {k: float(holder["m"][k])
+                                           for k in ("loss_overall", "grad_norm")}
             ms = cuda_ms(one, iters=MESH_TIMED_STEPS, warmup=0)
             made = {k: (fa.launches[k] - before[k]) / (MESH_TIMED_STEPS + 1) for k in before}
             peak = torch.cuda.max_memory_allocated() / 2**30
@@ -5742,14 +6100,6 @@ def _mesh_long_steps(job, rank, torch, np):
                 "collective_host_ms": {k: v * 1e3 for k, v in spent.items()},
                 "loss": float(holder["m"]["loss_overall"])}
             del holder
-    # the same step in f32 with every dropout 0, seq_shard off and on: one
-    # step from the seed, held against one process in the parent
-    exact = {}
-    for seq in (False, True):
-        state = _mesh_step_state(torch, _exact_long_cfg(seq), mesh)
-        _, m = step(state, mi, tg, 0)
-        exact[f"seq{int(seq)}"] = {k: float(m[k]) for k in ("loss_overall", "grad_norm")}
-        del state
     return {"timed": out, "exact": exact}
 
 
@@ -6138,6 +6488,8 @@ def mesh_worker(job, rank, world, torch, np):
             out[case["name"]] = _pp_long(job, rank, torch, np)
         elif kind == "hl":
             out[case["name"]] = hl_gang_worker(job, rank, world, torch, np)
+        elif kind == "vlp":
+            out[case["name"]] = _vlp_rank(case["job"], rank, torch, np)
         out[case["name"]]["case_s"] = time.perf_counter() - t0
     return out
 
@@ -6197,7 +6549,7 @@ def _flash_head_offset(torch, fa):
     return out
 
 
-def phase_mesh_tp(torch, np, card, tmp, corpus, hl_job):
+def phase_mesh_tp(torch, np, card, tmp, corpus, hl_job, vlp_job):
     """7u and 7w, in one gang of MESH_TP gloo ranks sharing the card
     (``chip_smoke.py --dist-worker`` mode "mesh"): (i) train_mr at tp =
     MESH_TP on phase 7's corpus (full width, B = 32, f32, "pallas", dropouts
@@ -6205,9 +6557,10 @@ def phase_mesh_tp(torch, np, card, tmp, corpus, hl_job):
     parameters): every step against one process on the same batches at
     TRAIN_TOL, the ranks equal, the canonical checkpoint read by one-process
     `cli infer-mr` with the metrics of the gang's evaluation; (ii) the long
-    step at 8 x (2048 + 32), seq_shard off and on, bf16 and f32 (ms, peak
-    memory, launches, collective host ms per rank), and in f32 at dropouts 0
-    with seq_shard off and on against one process at TRAIN_TOL; (iii) the
+    step at 8 x (2048 + 32), seq_shard off and on, bf16 at the flagship's
+    dropouts and f32 at dropouts 0 (ms, peak memory, launches, collective
+    host ms per rank), the f32 step's first step from the seed against one
+    process at TRAIN_TOL; (iii) the
     flash kernels
     with a head offset against the twin (in this process); 7w: the MoE
     flagship (MOE_OVERRIDES, f32, "pallas", B = 32 global) on dp = 2 and on
@@ -6244,7 +6597,9 @@ def phase_mesh_tp(torch, np, card, tmp, corpus, hl_job):
                       "M": 2, "drop": True},
                      {"kind": "pp_long", "name": "pp_long"},
                      # 7o (phase_hl_gang reads it)
-                     {"kind": "hl", "name": "hl_gang"}], **hl_job}
+                     {"kind": "hl", "name": "hl_gang"},
+                     # 7k(ii) (phase_dist_gang reads it)
+                     _vlp_gang_case(vlp_job, os.path.join(base, "vlp_main"))], **hl_job}
     t0 = time.perf_counter()
     outs = _wait_gang(_gang(job, base, MESH_TP), timeout=MESH_GANG_TIMEOUT_S)
     gang_s = time.perf_counter() - t0
@@ -6365,7 +6720,7 @@ def phase_mesh_tp(torch, np, card, tmp, corpus, hl_job):
                     "head_offset": offset, "gang_s": gang_s},
              "moe": moe_stats},
             {"ranks": ranks, "outs": outs, "pp_init": pp_init, "batches": moe_batches,
-             "moe_init": moe_init})
+             "moe_init": moe_init, "cases": job["cases"]})
 
 
 def _shard_batches(np, corpus, n, bsz, dp):
@@ -6800,12 +7155,13 @@ def main() -> int:
     t_start = time.perf_counter()
     smi = timed("device", phase_device, torch)
     with tempfile.TemporaryDirectory(prefix="univtg_chip_faults_") as fault_dir:
-        faults, sass = timed("build", phase_build, fault_dir)
+        pending, sass = timed("build", phase_build, fault_dir)
         records = timed("kernels", phase_kernels, torch)
         train_records = timed("kernels", phase_train_kernels, torch)
+        int8_records = timed("int8", phase_int8_kernels, torch)
+        ring_records = timed("ring", phase_ring_kernels, torch)
+        faults = timed("fault builds", _fault_builds, pending)
         timed("faults", phase_faults, torch, faults)
-    int8_records = timed("int8", phase_int8_kernels, torch)
-    ring_records = timed("ring", phase_ring_kernels, torch)
 
     _reset_launches()  # the serving main path starts here
     pipe_f32, pipe_bf16, long_items, timings = timed(
@@ -6832,7 +7188,11 @@ def main() -> int:
         log(f"[main path] int8 tier (quantize, serve, infer-mr) launches: "
             f"{quantize_launches}; the smoke's int8_matmul call: {call_launches}")
         # one pass (two until PR 15): the new phases of PR 16 need the time
-        timed("evalsize", phase_eval_size, torch, np, fa, smi, tmp, run_dir, 1)
+        _, val_corpus = timed("evalsize", phase_eval_size, torch, np, fa, smi, tmp, run_dir, 1)
+        repro_launches, _ = timed("reproduce", phase_reproduce, torch, np, smi, tmp,
+                                  val_corpus)
+        log(f"[main path] released-run reproduction (reproduce_model_md, f32 pallas) "
+            f"launches: {repro_launches}")
         scan_launches = timed("scan", phase_scan_train, torch, np, tmp, corpus)
         log(f"[main path] scan training launches: {scan_launches}")
         timed("scan", phase_scan, torch, np, fa, smi, corpus, sd)
@@ -6847,10 +7207,9 @@ def main() -> int:
         vlp_train_launches, _, vlp_specs, vlp_val = timed("vlp", phase_vlp, torch, np,
                                                           smi, tmp)
         log(f"[main path] VLP training launches: {vlp_train_launches}")
-        dist_launches, nccl1_launches, _ = timed("dist", phase_dist, torch, np, smi, tmp,
-                                                 vlp_specs, vlp_val)
-        log(f"[main path] VLP training across processes (two gloo ranks on the card, "
-            f"summed) launches: {dist_launches}; NCCL gang of one: {nccl1_launches}")
+        vlp_job = {"specs": [dataclasses.asdict(s) for s in vlp_specs], "val": vlp_val}
+        nccl1_launches, _ = timed("dist", phase_dist, torch, np, smi, tmp, vlp_job)
+        log(f"[main path] VLP training in a NCCL gang of one launches: {nccl1_launches}")
         md_train_launches, md_infer_launches, _ = timed("md", phase_md, torch, np, smi,
                                                         tmp, corpus)
         log(f"[main path] Moment-DETR training launches: {md_train_launches}; "
@@ -6883,7 +7242,10 @@ def main() -> int:
             f"launches: {moe_resume_launches}")
         hl_job = _hl_gang_job(tmp)
         mesh_launches, _, tp_gang = timed("mesh tp", phase_mesh_tp, torch, np, smi, tmp,
-                                          corpus, hl_job)
+                                          corpus, hl_job, vlp_job)
+        dist_launches, _ = timed("dist gang", phase_dist_gang, torch, np, smi, tmp, tp_gang)
+        log(f"[main path] VLP training across processes (two gloo ranks on the card, "
+            f"summed) launches: {dist_launches}")
         hl_gang_launches, _ = timed("hl gang", phase_hl_gang, torch, np, smi, tmp, hl_job,
                                     tp_gang)
         log(f"[main path] HL training across processes (two gloo ranks on the card, "
@@ -6922,7 +7284,8 @@ def main() -> int:
     kernels = _kernel_line(records, train_records, int8_records + served_records,
                            ring_records,
                            {"serving": serve_launches, "training": train_launches,
-                            "eval": eval_launches, "int8_tier": quantize_launches,
+                            "eval": eval_launches, "reproduce": repro_launches,
+                            "int8_tier": quantize_launches,
                             "int8_smoke_call": call_launches,
                             "ring_serving": ring_serve_launches,
                             "ring_training": ring_train_launches,
@@ -6951,7 +7314,8 @@ def main() -> int:
                             "moe_dist_training": mesh_launches["moe_dist_training"],
                             "ring_dist_training": ring_dist_launches,
                             **pp_launches}, sass)
-    log(f"[done] {time.perf_counter() - t_start:.1f} s in all")
+    log(f"[done] {time.perf_counter() - t_start:.1f} s in all; seconds by phase "
+        f"{json.dumps(PHASE_SECONDS)}")
     print(smi)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

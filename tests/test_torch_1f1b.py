@@ -41,12 +41,12 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def gang2(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 2)
+    return mj.gang(tmp_path_factory, "f1b2")
 
 
 @pytest.fixture(scope="module")
 def gang4(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 4)
+    return mj.gang(tmp_path_factory, "f1b4")
 
 
 def _got(gang, name):

@@ -1,6 +1,6 @@
 """Training across processes on the CPU: gangs of two gloo ranks
 (tests/torch_dist_worker.py, one subprocess each, a ``file://`` store in
-tmp_path, a timeout per gang) against one process and the JAX package.
+tmp_path, a deadline per gang, tests/torch_gang.py) against one process and the JAX package.
 
 (a) the ranks' summed gradients of the global-batch step equal the one-
 process gradients on the whole batch (plain, gated, a rank without
@@ -18,7 +18,6 @@ batches the gang assembles, and ``train_qfvs`` refusing the gang.
 import dataclasses
 import json
 import os
-import subprocess
 import sys
 import warnings
 
@@ -35,30 +34,10 @@ from univtg_tpu_torch.parallel import dist
 HERE = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, HERE)
 import torch_dist_worker as worker  # noqa: E402
+import torch_gang  # noqa: E402
 
 torch.set_num_threads(1)
-GANG_TIMEOUT = 180
-
-
-def _once(tmp_path_factory, name, make):
-    """``make(dir)`` run once per test session, whichever xdist worker asks
-    first (the others wait on a lock and reuse the directory): the shared
-    gangs and corpora are not remade by every worker that runs one of their
-    tests. Returns what ``make`` returned, as JSON."""
-    import fcntl
-
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent  # the session's directory, shared by its workers
-    root = base / "torch_dist"
-    root.mkdir(exist_ok=True)
-    with open(root / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        done = root / name / "done.json"
-        if not done.exists():
-            (root / name).mkdir(exist_ok=True)
-            done.write_text(json.dumps(make(str(root / name))))
-        return json.loads(done.read_text())
+GANG_TIMEOUT = 180  # the whole gang's deadline, from its launch
 
 
 @pytest.fixture(scope="module")
@@ -68,48 +47,25 @@ def meta(tmp_path_factory):
         b = create_synthetic_mr_corpus(os.path.join(root, "b"), n_train=12, n_val=4, seed=32)
         return {"corpora": [a, b], "bsz": 8, "root": root}
 
-    return _once(tmp_path_factory, "corpora", make)
+    return torch_gang.once(tmp_path_factory, "torch_dist", "corpora", make)
 
 
 def _launch(meta, base, mode, world=2, **extra):
-    """Start a gang of ``world`` ranks in ``base``; returns the processes."""
+    """Start a gang of ``world`` ranks in ``base``, their process groups'
+    timeout in the meta file (torch_gang.PG_TIMEOUT_S); returns the
+    torch_gang.Gang."""
     os.makedirs(base, exist_ok=True)
     path = os.path.join(base, f"meta_{mode}.json")
     with open(path, "w") as f:
-        json.dump({**meta, **extra}, f)
+        json.dump({**meta, **extra, "pg_timeout": torch_gang.PG_TIMEOUT_S}, f)
     store = os.path.join(base, f"store_{mode}")
     if os.path.exists(store):  # a FileStore left by a gang that failed
         os.remove(store)
     store = "file://" + store
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    return [subprocess.Popen(
-        [sys.executable, os.path.join(HERE, "torch_dist_worker.py"), str(r), str(world),
-         store, mode, path, base],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(world)]
-
-
-def _kill(procs):
-    for p in procs:
-        if p.poll() is None:
-            p.kill()
-            p.communicate()
-
-
-def _wait(procs, rcs=None):
-    """Wait for the gang (GANG_TIMEOUT), then check each rank's exit code
-    (0 unless ``rcs`` says otherwise); returns the outputs."""
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=GANG_TIMEOUT)[0])
-    finally:
-        _kill(procs)
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        want = 0 if rcs is None else rcs[r]
-        if want is not None:
-            assert p.returncode == want, f"rank {r} exited {p.returncode}:\n{out[-4000:]}"
-    return outs
+    return torch_gang.launch(
+        [[sys.executable, os.path.join(HERE, "torch_dist_worker.py"), str(r), str(world), store,
+          mode, path, base] for r in range(world)],
+        [os.path.join(base, f"rank{r}_{mode}.log") for r in range(world)])
 
 
 def _log(path):
@@ -122,10 +78,10 @@ def _log(path):
 @pytest.fixture(scope="module")
 def gang_grads(meta, tmp_path_factory):
     def make(base):
-        _wait(_launch(meta, base, "grads"))
+        torch_gang.wait(_launch(meta, base, "grads"), GANG_TIMEOUT)
         return base
 
-    base = _once(tmp_path_factory, "grads", make)
+    base = torch_gang.once(tmp_path_factory, "torch_dist", "grads", make)
     return [torch.load(os.path.join(base, f"grads_r{r}.pt")) for r in range(2)]
 
 
@@ -212,7 +168,7 @@ def test_train_vlp_gang_follows_the_jax_global_batch_step(meta, tmp_path):
             want.append({k: float(np.mean([p[k] for p in per])) for k in per[0]} | {
                 "steps": len(per)})
     finally:
-        _wait(procs)
+        torch_gang.wait(procs, GANG_TIMEOUT)
     logs = [_log(os.path.join(base, f"p{r}", "train_log.jsonl")) for r in range(2)]
     assert [line["epoch"] for line in logs[0]] == [0, 1]
     for l0, l1, w in zip(logs[0], logs[1], want, strict=True):
@@ -312,10 +268,10 @@ def test_pad_v_to_cuts_and_clamps_as_jax_does(meta):
 @pytest.fixture(scope="module")
 def evalstop(meta, tmp_path_factory):
     def make(base):
-        _wait(_launch(meta, base, "evalstop"))
+        torch_gang.wait(_launch(meta, base, "evalstop"), GANG_TIMEOUT)
         return base
 
-    return _once(tmp_path_factory, "evalstop", make)
+    return torch_gang.once(tmp_path_factory, "torch_dist", "evalstop", make)
 
 
 def test_sharded_eval_equals_the_full_evaluation(meta, evalstop):
@@ -365,14 +321,14 @@ def test_elastic_restart_continues_the_uninterrupted_curve(meta, tmp_path):
     (rel 1e-6)."""
     results, full = str(tmp_path / "elastic"), str(tmp_path / "full")
     gang_a, gang_c = _launch(meta, results, "elastic"), _launch(meta, full, "full4")
-    outs = _wait(gang_a, rcs=[None, 3])
-    assert gang_a[0].returncode != 0, outs[0][-3000:]
+    outs = torch_gang.wait(gang_a, GANG_TIMEOUT, rcs=[None, 3])
+    assert gang_a.procs[0].returncode != 0, outs[0][-3000:]
     logs_a = _log(os.path.join(results, "p0", "train_log.jsonl"))
     assert [line["epoch"] for line in logs_a] == [0, 1]
     resumed_from = torch.load(os.path.join(results, "p0", "model_latest.ckpt"))["epoch"]
     assert resumed_from in (0, 1)
-    _wait(_launch(meta, results, "resume"))
-    _wait(gang_c)
+    torch_gang.wait(_launch(meta, results, "resume"), GANG_TIMEOUT)
+    torch_gang.wait(gang_c, GANG_TIMEOUT)
     logs_b = _log(os.path.join(results, "p0", "train_log.jsonl"))
     assert [line["epoch"] for line in logs_b[2:]] == list(range(resumed_from + 1, 4))
     by_epoch = {line["epoch"]: line for line in _log(os.path.join(full, "p0",
@@ -404,6 +360,31 @@ def test_what_is_still_refused(meta, tmp_path, field, value, error, match):
     cfg = dataclasses.replace(worker.build_cfg(meta, str(tmp_path / "x")), **{field: value})
     with pytest.raises(error, match=match):
         train_vlp(cfg, device="cpu")
+
+
+def test_a_lost_rank_ends_its_gang_in_seconds(tmp_path):
+    """The harness's two bounds (tests/torch_gang.py): a rank that exits
+    with a code the harness does not expect ends its gang at once, and a
+    rank whose peer never joins fails its rendezvous after the timeout its
+    process group was given (3 s here), not after gloo's 30 minutes."""
+    join = ("import sys, torch_gang, torch.distributed as td\n"
+            "torch_gang.join_with_timeout(3)\n"
+            "td.init_process_group('gloo', init_method=sys.argv[1], world_size=2, rank=0)\n"
+            "td.barrier()\n")
+    env = {"PYTHONPATH": os.pathsep.join([HERE, os.environ.get("PYTHONPATH", "")])}
+    store = "file://" + str(tmp_path / "store")
+    gang = torch_gang.launch([[sys.executable, "-c", join, store],
+                              [sys.executable, "-c", "import sys; sys.exit(3)"]],
+                             [str(tmp_path / "r0.log"), str(tmp_path / "r1.log")], env=env)
+    with pytest.raises(AssertionError, match="rank 1 exited 3"):
+        torch_gang.wait(gang, GANG_TIMEOUT)
+    assert all(p.returncode is not None for p in gang.procs)  # none left running
+    alone = torch_gang.launch(
+        [[sys.executable, "-c", join, "file://" + str(tmp_path / "store2")]],
+        [str(tmp_path / "alone.log")], env=env)
+    out = torch_gang.wait(alone, GANG_TIMEOUT, rcs=[None])[0]
+    assert alone.procs[0].returncode != 0, out
+    assert "imeout" in out or "timed out" in out, out[-2000:]
 
 
 def test_backend_rule_and_scan_under_gloo_on_a_card(tmp_path):
@@ -490,10 +471,10 @@ def hl_gang(meta, tmp_path_factory):
         init = os.path.join(base, "hl_init.pt")
         torch.save(state_dict_from_jax_params(jax.tree_util.tree_map(np.asarray, params),
                                               cfg), init)
-        _wait(_launch({**meta, "hl": hl}, base, "hl", init=init))
+        torch_gang.wait(_launch({**meta, "hl": hl}, base, "hl", init=init), GANG_TIMEOUT)
         return {"base": base, "hl": hl, "init": init}
 
-    made = _once(tmp_path_factory, "hl", make)
+    made = torch_gang.once(tmp_path_factory, "torch_dist", "hl", make)
     made["ranks"] = []
     for r in range(2):
         with open(os.path.join(made["base"], f"p{r}", "hl.json")) as f:

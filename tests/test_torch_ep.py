@@ -32,17 +32,17 @@ TIE = 1e-5
 
 @pytest.fixture(scope="module")
 def gang2(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 2)
+    return mj.gang(tmp_path_factory, "ep2")
 
 
 @pytest.fixture(scope="module")
 def gang4(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 4)
+    return mj.gang(tmp_path_factory, "ep4")
 
 
 @pytest.fixture(scope="module")
 def gang8(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 8)
+    return mj.gang(tmp_path_factory, "w8")
 
 
 def _no_router_near_tie(cfg, init_path):

@@ -45,17 +45,17 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def gang2(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 2)
+    return mj.gang(tmp_path_factory, "pipe2")
 
 
 @pytest.fixture(scope="module")
 def gang4(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 4)
+    return mj.gang(tmp_path_factory, "pipe4")
 
 
 @pytest.fixture(scope="module")
 def gang8(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 8)
+    return mj.gang(tmp_path_factory, "w8")
 
 
 def _got(gang, name):
@@ -89,8 +89,9 @@ def test_schedules_equal_jax(pp, v):
         T = pipe.pipeline_ticks(M, pp, v)
         assert T == jpipe.pipeline_ticks(M, pp, v)
         ts, ss = np.arange(T + 2), np.arange(pp)
-        fn = jax.vmap(jax.vmap(lambda t, s: jpipe.schedule_active(t, s, pp=pp, v=v, n_micro=M),
-                               (None, 0)), (0, None))
+        fn = jax.jit(jax.vmap(jax.vmap(
+            lambda t, s: jpipe.schedule_active(t, s, pp=pp, v=v, n_micro=M), (None, 0)),
+            (0, None)))  # one compile, not an eager dispatch per op
         act, j, m = (np.asarray(a) for a in fn(jnp.asarray(ts), jnp.asarray(ss)))
         seen = {}
         for t in ts:

@@ -257,7 +257,10 @@ def test_port_imports_nothing_of_jax():
         "             'parallel.dist', 'core.kts', 'core.windows', 'tools.codalab',\n"
         "             'tools.teacher', 'tools.plots', 'tools.validate_synthetic',\n"
         "             'train.checkpoint', 'interop.jax_params', 'parallel.ring',\n"
-        "             'ops.moe'):\n"
+        "             'ops.moe', 'parallel.mesh', 'parallel.pipeline',\n"
+        "             'parallel.pipeline_1f1b', 'train.steps_1f1b', 'interop.torch_ckpt',\n"
+        "             'tools.reproduce_model_md', 'core.nms', 'core.spans',\n"
+        "             'native.reader', 'utils.profiling'):\n"
         "    assert 'univtg_tpu_torch.' + name in sys.modules, name\n"
     )
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,

@@ -31,12 +31,12 @@ torch.set_num_threads(1)
 
 @pytest.fixture(scope="module")
 def gang2(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 2)
+    return mj.gang(tmp_path_factory, "tp2")
 
 
 @pytest.fixture(scope="module")
 def gang4(tmp_path_factory):
-    return mj.gang(tmp_path_factory, 4)
+    return mj.gang(tmp_path_factory, "tp4")
 
 
 @pytest.fixture(scope="module")
@@ -134,7 +134,8 @@ def jax_ring():
             out = jring(q, k, v, m, num_heads=mj.RING_SHAPE["H"], mesh=mesh, axis="tp")
             return (out * w).sum(), out
 
-        (_, out), grads = jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True)(q, k, v)
+        (_, out), grads = jax.jit(jax.value_and_grad(loss, argnums=(0, 1, 2), has_aux=True))(
+            q, k, v)  # one compile, not an eager dispatch per op
         return [np.asarray(x) for x in (out, *grads)]
 
     return run

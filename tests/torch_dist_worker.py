@@ -3,8 +3,9 @@ tests/test_torch_dist.py; the port's counterpart of tests/mp_worker.py.
 
     python torch_dist_worker.py <rank> <world> <init_method> <mode> <meta.json> <results_base>
 
-``meta.json`` holds the synthetic corpora (``corpora``) and, for the mode
-"grads", the path of the shared batches. Modes:
+``meta.json`` holds the synthetic corpora (``corpora``), the seconds the
+process group waits (``pg_timeout``, torch_gang.join_with_timeout) and, for
+the mode "grads", the path of the shared batches. Modes:
   * grads -- one global-batch step per case of ``GRAD_CASES`` on this
     rank's half of the case's batch; writes the summed gradients and the
     losses to ``results_base/grads_r{rank}.pt``;
@@ -211,9 +212,12 @@ def main():
         meta = json.load(f)
     base = sys.argv[6]
 
+    import torch_gang
+
     from univtg_tpu_torch.train import driver_mr
     from univtg_tpu_torch.train.driver_vlp import init_distributed, train_vlp
 
+    torch_gang.join_with_timeout(meta["pg_timeout"])
     assert init_distributed(init, world, rank, device="cpu") == (rank, world)
     if mode == "grads":
         out = {name: grads_of(name, meta["corpora"][0], meta["bsz"], rank, world)

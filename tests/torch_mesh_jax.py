@@ -15,6 +15,7 @@ import jax
 import numpy as np
 import torch
 
+import torch_gang
 import torch_mesh_worker as mw
 from univtg_tpu.models import ModelConfig as JaxConfig
 from univtg_tpu.models import UniVTG as JaxUniVTG
@@ -155,7 +156,8 @@ def jax_ref(tmp_path_factory, name: str, make):
         torch.save(make(), path)
         return {"path": path}
 
-    return torch.load(mw.once(tmp_path_factory, f"jax_{name}", run)["path"], weights_only=False)
+    made = torch_gang.once(tmp_path_factory, "torch_mesh", f"jax_{name}", run)
+    return torch.load(made["path"], weights_only=False)
 
 
 def jax_forward(cfg: dict, mesh_shape, params, mi):
@@ -413,19 +415,48 @@ def _pipe_jobs(made, base):
     }
 
 
-def gang(tmp_path_factory, world: int) -> dict:
-    """Run the gang of ``world`` ranks once per session; returns its
-    directory and the shared inputs."""
-    inputs = mw.once(tmp_path_factory, "inputs", _inputs_made)
+# the gang jobs: name -> (world, its cases in order), by test file and world
+# size, so that a test waits only on the cases it reads and xdist runs the
+# jobs side by side; the two 8-rank cases share one gang
+JOBS = {
+    "tp2": (2, ("tp2_xla", "tp2_pallas", "seq_tile", "seq_ragged", "noseq_ragged",
+                "ring_seq", "ring_pallas_tp2", "resume_jax_tp2", "ring_p2", "mr_tp2",
+                "md_tp2", "hl_tp2")),
+    "tp4": (4, ("dp2tp2_xla", "ring_p4", "mr_dp2tp2")),
+    "ep2": (2, ("moe_dp2", "moe_ep2")),
+    "ep4": (4, ("moe_tp2ep2", "moe_tp2ep2_seq")),
+    "pipe2": (2, ("fwd_pp2_m8", "fwd_pp2_v2", "gp_pp2", "gp_pp2_v2", "gp_pp2_remat",
+                  "gp_drop_xla", "gp_drop_pallas", "gp_moe_m1", "resume_jax_pp2",
+                  "mr_pp2_1f1b", "vlp_pp2")),
+    "pipe4": (4, ("fwd_dp2pp2_m4", "fwd_pp4_m4", "gp_dp2pp2", "gp_pp2tp2", "mr_dp2pp2")),
+    "f1b2": (2, ("f1_pp2_m8", "f1_pp2_m1", "f1_pp2_v2", "f1_moe_pp2", "mem_pp2")),
+    "f1b4": (4, ("f1_dp2pp2_m4", "f1_pp4_m4", "f1_txtpos", "f1_pp2tp2", "f1_moe_pp2ep2",
+                 "f1_tal")),
+    "w8": (8, ("moe_dp2ep2tp2", "gp_dp2pp2tp2")),
+}
+
+
+def job_cases(made, base, job):
+    """The cases of gang job ``job`` (JOBS), with their outputs in ``base``."""
+    world, names = JOBS[job]
+    by_name = {}
+    for jobs in (_jobs(made, base), _pipe_jobs(made, base)):
+        for w, cases in jobs.items():
+            by_name.update({c["name"]: (w, c) for c in cases})
+    assert all(by_name[n][0] == world for n in names), job
+    return [by_name[n][1] for n in names]
+
+
+def gang(tmp_path_factory, job: str) -> dict:
+    """Run gang job ``job`` (JOBS) once per session; returns its directory,
+    rank 0's log and the shared inputs."""
+    inputs = torch_gang.once(tmp_path_factory, "torch_mesh", "inputs", _inputs)
 
     def make(base):
-        job = {"cases": _jobs(dict(inputs), base)[world]
-               + _pipe_jobs(dict(inputs), base)[world], "out": base}
-        outs = mw.wait(mw.launch(job, base, world))
+        cases = job_cases(dict(inputs), base, job)
+        outs = torch_gang.wait(mw.launch({"cases": cases, "out": base}, base, JOBS[job][0]),
+                               mw.GANG_TIMEOUT)
         return {"base": base, "log": outs[0][-20000:]}
 
-    return {**mw.once(tmp_path_factory, f"gang{world}", make), "inputs": inputs}
-
-
-def _inputs_made(base):
-    return _inputs(base)
+    return {**torch_gang.once(tmp_path_factory, "torch_mesh", f"gang_{job}", make),
+            "inputs": inputs}

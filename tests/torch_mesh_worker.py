@@ -1,10 +1,12 @@
 """One rank of a model-parallel gang of the port on the CPU (gloo), for
-tests/test_torch_tp.py and tests/test_torch_ep.py, and the helpers that
-launch such gangs.
+tests/test_torch_{tp,ep,pipeline,1f1b}.py, and the helpers that launch
+such gangs (over tests/torch_gang.py).
 
     python torch_mesh_worker.py <rank> <world> <init_method> <job.json>
 
-``job.json`` holds ``cases``, run in order by every rank, each on its own
+``job.json`` holds ``pg_timeout``, the seconds its process groups wait
+(torch_gang.join_with_timeout), and ``cases``, run in order by every rank,
+each on its own
 mesh ``[dp, tp, ep]`` or ``[dp, tp, ep, 1, pp]`` (dp * pp * tp * ep =
 world; the groups of a grid are made once). Kinds:
   * steps -- the model of ``cfg`` (Moment-DETR with ``md``, replicated)
@@ -43,7 +45,6 @@ world; the groups of a grid are made once). Kinds:
 """
 import json
 import os
-import subprocess
 import sys
 import warnings
 
@@ -51,63 +52,26 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 REPO = os.path.dirname(HERE)
 sys.path.insert(0, REPO)
 sys.path.insert(0, HERE)
+import torch_gang  # noqa: E402
 
-GANG_TIMEOUT = 480
+# the whole gang's deadline: a job takes 10-30 s alone on 8 idle cores
+GANG_TIMEOUT = 300
 
 
 def launch(job: dict, base: str, world: int):
-    """Start a gang of ``world`` ranks on ``job``, written to base/job.json;
-    returns the processes."""
+    """Start a gang of ``world`` ranks on ``job``, written to base/job.json
+    with the process groups' timeout (torch_gang.PG_TIMEOUT_S); returns the
+    torch_gang.Gang."""
     os.makedirs(base, exist_ok=True)
     path = os.path.join(base, "job.json")
     with open(path, "w") as f:
-        json.dump(job, f)
+        json.dump({"pg_timeout": torch_gang.PG_TIMEOUT_S, **job}, f)
     store = os.path.join(base, "store")
     if os.path.exists(store):  # a FileStore left by a gang that failed
         os.remove(store)
-    env = {**os.environ, "OMP_NUM_THREADS": "1"}
-    return [subprocess.Popen(
-        [sys.executable, os.path.abspath(__file__), str(r), str(world),
-         "file://" + store, path],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True, env=env)
-        for r in range(world)]
-
-
-def wait(procs):
-    """Wait for the gang (GANG_TIMEOUT each), kill what is left, and check
-    every rank exited 0; returns the outputs."""
-    outs = []
-    try:
-        for p in procs:
-            outs.append(p.communicate(timeout=GANG_TIMEOUT)[0])
-    finally:
-        for p in procs:
-            if p.poll() is None:
-                p.kill()
-                p.communicate()
-    for r, (p, out) in enumerate(zip(procs, outs)):
-        assert p.returncode == 0, f"rank {r} exited {p.returncode}:\n{out[-6000:]}"
-    return outs
-
-
-def once(tmp_path_factory, name, make):
-    """``make(dir)`` run once per test session, whichever xdist worker asks
-    first (the others wait on a lock and reuse the directory); returns what
-    ``make`` returned, as JSON."""
-    import fcntl
-
-    base = tmp_path_factory.getbasetemp()
-    if os.environ.get("PYTEST_XDIST_WORKER"):
-        base = base.parent
-    root = base / "torch_mesh"
-    root.mkdir(exist_ok=True)
-    with open(root / f"{name}.lock", "w") as lock:
-        fcntl.flock(lock, fcntl.LOCK_EX)
-        done = root / name / "done.json"
-        if not done.exists():
-            (root / name).mkdir(exist_ok=True)
-            done.write_text(json.dumps(make(str(root / name))))
-        return json.loads(done.read_text())
+    logs = [os.path.join(base, f"rank{r}.log") for r in range(world)]
+    return torch_gang.launch([[sys.executable, os.path.abspath(__file__), str(r), str(world),
+                               "file://" + store, path] for r in range(world)], logs)
 
 
 def dp_slice(tree, mesh):
@@ -372,6 +336,7 @@ def main():
         job = json.load(f)
     from univtg_tpu_torch.parallel import dist
 
+    torch_gang.join_with_timeout(job["pg_timeout"])
     dist.init_gang(init, world, rank, device="cpu")
     kinds = {"steps": run_steps, "ring": run_ring, "hl": run_hl_case,
              "train_mr": run_train_mr, "forward": run_forward, "mem": run_mem,

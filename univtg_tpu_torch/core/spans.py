@@ -1,6 +1,6 @@
 """Temporal span algebra; counterpart of ``univtg_tpu/core/spans.py``
-(``xx_to_cxw``, ``cxw_to_xx``, ``iou_cross``, ``iou_paired``,
-``giou_cross``, ``giou_paired``).
+(``xx_to_cxw``, ``cxw_to_xx``, ``iou_cross``, ``iou_cross_safe``,
+``iou_paired``, ``giou_cross``, ``giou_paired``, ``intersection_over_pred``).
 
 Span formats: xx = (start, end), cxw = (center, width); the last dim is 2.
 ``torch.maximum``/``torch.minimum`` stand where the reference takes
@@ -78,3 +78,20 @@ def giou_paired(spans1, spans2, eps: float = 1e-12):
                     - torch.minimum(spans1[..., 0], spans2[..., 0]))
     enclose = torch.where(enclose.abs() > eps, enclose, eps)
     return iou - (enclose - union) / enclose
+
+
+def iou_cross_safe(spans1, spans2, eps: float = 1e-12):
+    """``iou_cross`` with a union at or below ``eps`` giving IoU 0 (the
+    mask-safe variant for padded spans) -> (iou, union)."""
+    iou, union = iou_cross(spans1, spans2)
+    return torch.where(union > eps, iou, 0.0), union
+
+
+def intersection_over_pred(gt_spans, pred_spans):
+    """Pairwise intersection over the *prediction* span's length: (..., N,
+    2) ground truth and (..., M, 2) predictions -> (..., N, M). The division
+    is left raw, as the reference leaves it."""
+    left = torch.maximum(gt_spans[..., :, None, 0], pred_spans[..., None, :, 0])
+    right = torch.minimum(gt_spans[..., :, None, 1], pred_spans[..., None, :, 1])
+    inter = _relu(right - left)
+    return inter / (pred_spans[..., None, :, 1] - pred_spans[..., None, :, 0])

@@ -1,15 +1,15 @@
 """Python surface of the native .npz feature reader; after
 ``univtg_tpu/native/reader.py``.
 
-``read_npz(path)`` decodes one per-id feature archive in one ctypes call:
-the C++ side (native/src/feature_reader.cpp) parses the zip, inflates the
-DEFLATE stream, parses the npy header, converts f2/f8 to f32 and fuses the
-row L2 normalization, all with the GIL released. A file it cannot handle
-(zip64, not 2-D, exotic dtypes, corruption) comes back as None, and
-``FeatureSource`` reads it with np.load; ``rejections`` counts them. A
-library that does not build raises (native/build.py). The C++ side reads a
-batch of paths on a thread pool; the JAX module's ``read_npz_batch`` is not
-ported until a loader batches its reads.
+``read_npz_batch(paths)`` decodes many per-id feature archives in one
+ctypes call (``read_npz(path)`` one): the C++ side
+(native/src/feature_reader.cpp) parses the zip, inflates the DEFLATE
+stream, parses the npy header, converts f2/f8 to f32 and fuses the row L2
+normalization, all with the GIL released, on its own thread pool. A file it
+cannot handle (zip64, not 2-D, exotic dtypes, corruption) comes back as
+None, and ``FeatureSource`` reads it with np.load; ``rejections`` counts
+them. A library that does not build raises (native/build.py), where JAX's
+returns None.
 
 Reference semantics being accelerated: np.load(...)[key].astype(float32)
 followed by l2_normalize (main/dataset.py:680-696,
@@ -20,7 +20,7 @@ from __future__ import annotations
 import ctypes
 import os
 import threading
-from typing import Optional
+from typing import List, Optional, Sequence
 
 import numpy as np
 
@@ -39,27 +39,46 @@ def native_io_enabled() -> bool:
     return os.environ.get("UNIVTG_NATIVE_IO", "0") == "1"
 
 
+def read_npz_batch(
+    paths: Sequence[str],
+    key: str = "features",
+    normalize: bool = True,
+    n_threads: int = 8,
+) -> List[Optional[np.ndarray]]:
+    """Read many .npz feature files natively, in one call on the C++ side's
+    thread pool of ``n_threads``: a list aligned with ``paths`` of float32
+    (rows, cols) arrays, or None for each file the reader rejects (not 2-D,
+    zip64, exotic dtype, corruption, missing); ``[]`` for no paths."""
+    global rejections
+    lib = load_feature_reader()
+    if not paths:
+        return []
+    n = len(paths)
+    c_paths = (ctypes.c_char_p * n)(*[p.encode() for p in paths])
+    out_ptrs = (ctypes.POINTER(ctypes.c_float) * n)()
+    out_rows = (ctypes.c_int64 * n)()
+    out_cols = (ctypes.c_int64 * n)()
+    lib.read_npz_batch(c_paths, n, key.encode(), 1 if normalize else 0,
+                       out_ptrs, out_rows, out_cols, n_threads)
+    results: List[Optional[np.ndarray]] = []
+    try:
+        for i in range(n):
+            rows, cols = out_rows[i], out_cols[i]
+            if rows < 0 or not out_ptrs[i]:
+                results.append(None)
+                continue
+            buf = np.ctypeslib.as_array(out_ptrs[i], shape=(int(rows), int(cols)))
+            results.append(np.array(buf, dtype=np.float32))  # own the memory
+    finally:
+        lib.free_feature_buffers(out_ptrs, n)
+    with _count_lock:
+        rejections += sum(r is None for r in results)
+    return results
+
+
 def read_npz(
     path: str, key: str = "features", normalize: bool = True
 ) -> Optional[np.ndarray]:
     """Read one .npz feature file natively: a float32 (rows, cols) array, or
-    None when the reader rejects the file (not 2-D, zip64, exotic dtype,
-    corruption, missing)."""
-    global rejections
-    lib = load_feature_reader()
-    c_paths = (ctypes.c_char_p * 1)(path.encode())
-    out_ptrs = (ctypes.POINTER(ctypes.c_float) * 1)()
-    out_rows = (ctypes.c_int64 * 1)()
-    out_cols = (ctypes.c_int64 * 1)()
-    lib.read_npz_batch(c_paths, 1, key.encode(), 1 if normalize else 0,
-                       out_ptrs, out_rows, out_cols, 1)
-    try:
-        rows, cols = out_rows[0], out_cols[0]
-        if rows < 0 or not out_ptrs[0]:
-            with _count_lock:
-                rejections += 1
-            return None
-        buf = np.ctypeslib.as_array(out_ptrs[0], shape=(int(rows), int(cols)))
-        return np.array(buf, dtype=np.float32)  # own the memory
-    finally:
-        lib.free_feature_buffers(out_ptrs, 1)
+    None when the reader rejects the file."""
+    return read_npz_batch([path], key=key, normalize=normalize, n_threads=1)[0]
