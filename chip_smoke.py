@@ -352,7 +352,18 @@ printing its seconds:
                  holds and no fallback warning; the flash launches are held
                  to GPipe's L M of each kernel a step and pipeline, and
                  1F1B's (L - L / (pp v)) M + L M forwards and L M of each
-                 backward kernel.
+                 backward kernel. (e) in (a)'s gang: a ring inside a stage,
+                 dp 1 x pp 2 x tp 2 (each stage's tp ranks its ring), the
+                 flagship's make_train_step with "ring_pallas" at 8 x (2048
+                 + 32), M = PP_RING_M, dropouts 0: PP_STEPS f32 GPipe steps
+                 against one process's "xla" steps and one f32 1F1B step
+                 against one process's microbatched loss, at TRAIN_TOL; then
+                 bf16 GPipe: ms a step per rank, peak memory, host ms in the
+                 ring's hops and in the stage hops. Every rank launches
+                 PP_RING_TP ring_block + 1 ring_finish per ring call (one per
+                 layer it holds and microbatch forward, and per 1F1B
+                 recompute), no flash kernel, and dispatches nothing but
+                 "ring_pallas".
   8. long     -- the train step at B=8, 2048 clips + 32 tokens, bf16 and
                  f32, "pallas" vs "xla": CUDA-event ms per step, peak
                  memory, 20 launches of each flash kernel over 5 steps.
@@ -409,8 +420,8 @@ processes phase 7u's train_mr gang (each rank counts its own; summed), MoE
 training across processes phase 7w's dp = 2 and ep = 2 steps (summed), ring
 training across processes phase 7v's ring_pallas steps (summed), pipelined
 training phase 7x's train_mr at dp = 2 x pp = 2 (GPipe, rank 0's evaluation
-included), its 1F1B steps and its GPipe steps at the dropouts (each summed
-over the ranks); the smoke's own
+included), its 1F1B steps, its GPipe steps at the dropouts and its ring
+inside a stage's steps (each summed over the ranks); the smoke's own
 int8_matmul call and 7e's keep-rate check are counted apart. Every kernel
 of the other paths must have run there. The last lines
 are the card line of nvidia-smi, one JSON line of per-kernel numbers, and
@@ -784,6 +795,11 @@ PP_CASES = (  # (b): (name, [dp, tp, ep, 1, pp] mesh, M, interleave, MoE)
     ("f1b_dp2pp2_v2_m4", [2, 1, 1, 1, 2], 4, 2, False),
     ("f1b_moe_pp2ep2_m4", [1, 1, 2, 1, 2], 4, 1, True),
 )
+# (e): a ring inside a pipeline stage, in the same gang: dp 1 x pp 2 x tp 2,
+# each stage's tp ranks its ring, "ring_pallas" at MESH_RING_SHAPE's 8 x (2048
+# + 32) tokens (2080 tiles over tp = 2; the flagship's 107 would not), M =
+# PP_RING_M microbatches
+PP_RING_MESH, PP_RING_M, PP_RING_TP = [1, 2, 1, 1, 2], 2, 2
 
 
 T_START = time.perf_counter()
@@ -6229,21 +6245,26 @@ def _mesh_ring_ops(job, rank, torch, np):
     return out
 
 
-def _long_ring_steps(torch, np, impl, mesh):
-    """MESH_RING_STEPS f32 make_train_steps on the long batch from the
-    flagship's seed-0 weights (dropouts 0) on ``mesh`` (None: one process);
-    every step's metrics."""
-    from univtg_tpu_torch.models.losses import LossWeights
+def _long_ring_cfg(impl, dtype="float32", **kw):
+    """The flagship at 8 x (2048 + 32) with ``impl``, dropouts 0."""
     from univtg_tpu_torch.presets import flagship_model
+
+    return flagship_model(attention_impl=impl, compute_dtype=dtype, max_v_l=2048,
+                          dropout=0.0, droppath=0.0, input_dropout=0.0, **kw)
+
+
+def _long_ring_steps(torch, np, impl, mesh, n=MESH_RING_STEPS):
+    """n f32 make_train_steps on the long batch from the flagship's seed-0
+    weights (dropouts 0) on ``mesh`` (None: one process); every step's
+    metrics."""
+    from univtg_tpu_torch.models.losses import LossWeights
     from univtg_tpu_torch.train.steps import make_train_step
 
     mi, tg = _long_batch(torch, np)
     step = make_train_step(LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1))
-    cfg = flagship_model(attention_impl=impl, compute_dtype="float32", max_v_l=2048,
-                         dropout=0.0, droppath=0.0, input_dropout=0.0)
-    state = _mesh_step_state(torch, cfg, mesh)
+    state = _mesh_step_state(torch, _long_ring_cfg(impl), mesh)
     history = []
-    for _ in range(MESH_RING_STEPS):
+    for _ in range(n):
         state, m = step(state, mi, tg, 0)
         history.append({k: float(v) for k, v in m.items()})
     return history
@@ -6463,6 +6484,97 @@ def _pp_long(job, rank, torch, np):
     return out
 
 
+def _ring_calls(layers, M, steps, sched="gpipe", last=False):
+    """The ring calls of a stage holding ``layers`` layers over ``steps``
+    steps of M microbatches: one per layer and microbatch forward; 1F1B adds
+    the backward's recompute, and skips the last stage's dead forward."""
+    runs = 1 if sched == "gpipe" or last else 2
+    return layers * M * steps * runs
+
+
+def _pp_ring(job, rank, torch, np):
+    """7x(e): a ring inside a pipeline stage, dp 1 x pp 2 x tp 2 (each stage's
+    tp ranks its ring): the flagship's make_train_step (the step train_mr
+    runs) with "ring_pallas" at 8 x (2048 + 32), M = PP_RING_M, dropouts 0,
+    from the seed-0 weights: (i) PP_STEPS f32 GPipe steps; (ii) one f32 1F1B
+    step; (iii) bf16 GPipe, timed (_pp_ring_part)."""
+    from univtg_tpu_torch.parallel import mesh as pm
+
+    mesh = pm.make_mesh(*PP_RING_MESH)
+    batch = _long_batch(torch, np)
+    out = {"stage": mesh.pp.index}
+    for part, dname, sched, n in (("f32_gpipe", "float32", "gpipe", PP_STEPS),
+                                  ("f32_1f1b", "float32", "1f1b", 1),
+                                  ("bf16_gpipe", "bfloat16", "gpipe", PP_TIMED_STEPS)):
+        out[part] = _pp_ring_part(torch, mesh, batch, dname, sched, n,
+                                  timed=dname == "bfloat16")
+    return out
+
+
+def _pp_ring_part(torch, mesh, batch, dname, sched, n, timed):
+    """n steps of one 7x(e) part on ``mesh`` from the seed-0 weights. With
+    ``timed``: one warm step first, then ms a step by CUDA events over the n,
+    peak memory and host ms in the stage hops, then one more step with the
+    ring's hops and the mesh's collectives timed. This rank's launches and
+    attention dispatches (counted from 0 before the counted steps, read
+    after them), every step's metrics, the pipeline's counters and the ranks
+    of its layers' rings."""
+    import warnings
+
+    from univtg_tpu_torch.models.losses import LossWeights
+    from univtg_tpu_torch.ops import attention as attn
+    from univtg_tpu_torch.parallel import mesh as pm
+    from univtg_tpu_torch.parallel import pipeline as pipe
+    from univtg_tpu_torch.parallel import ring as ring_mod
+    from univtg_tpu_torch.train.steps import make_train_step
+    from univtg_tpu_torch.train.steps_1f1b import make_1f1b_train_step
+
+    mi, tg = batch
+    weights = LossWeights(b=10, g=1, f=10, s_intra=0.1, s_inter=0.1)
+    cfg = _long_ring_cfg("ring_pallas", dname, scan_layers=True,
+                         pipeline_stages=PP_RING_MESH[4], pipeline_microbatches=PP_RING_M)
+    holder = {"state": _mesh_step_state(torch, cfg, mesh)}
+    step = (make_train_step(weights) if sched == "gpipe"
+            else make_1f1b_train_step(weights, n_micro=PP_RING_M))
+    history, rec = [], {}
+
+    def one():
+        holder["state"], m = step(holder["state"], mi, tg, 0)
+        history.append({k: float(v) for k, v in m.items()})
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        if timed:
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats()
+            one()  # warm, not counted
+        pipe.reset_stats()
+        _reset_launches()  # this rank's share of the part's path starts here
+        if timed:
+            rec["ms"] = cuda_ms(one, iters=n, warmup=0)
+            rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+            rec["stage_hop_host_ms_a_step"] = pipe.stats["hop_s"] * 1e3 / n
+            spent, undo = _timed_mesh_collectives(torch, pm, ring_mod)
+            try:
+                one()
+            finally:
+                undo()
+            rec["ring_hop_host_ms_a_step"] = (spent.get("hop_post", 0.0)
+                                              + spent.get("hop_wait", 0.0)) * 1e3
+            rec["collective_host_ms_a_step"] = {k: v * 1e3 for k, v in spent.items()}
+            n += 1
+        else:
+            for _ in range(n):
+                one()
+        torch.cuda.synchronize()
+        rec["launches"] = _launches()  # ... and ends here
+        rec["dispatches"] = dict(attn.dispatches)
+    model = holder["state"].model
+    rec.update(steps=history[-n:], n_steps=n, **_pp_counters(torch, pipe, model, caught),
+               ring_ranks=[list(layer.self_attn.ring.ranks)
+                           for layer in model.transformer.encoder.stage_layers()])
+    return rec
+
 def mesh_worker(job, rank, world, torch, np):
     """One rank of a phase-7u/7v/7w/7x gang (``chip_smoke.py --dist-worker``
     with mode "mesh"): the job's cases in order, each on its own mesh."""
@@ -6486,6 +6598,8 @@ def mesh_worker(job, rank, world, torch, np):
             out[case["name"]] = _pp_steps(job, case, rank, torch, np)
         elif kind == "pp_long":
             out[case["name"]] = _pp_long(job, rank, torch, np)
+        elif kind == "pp_ring":
+            out[case["name"]] = _pp_ring(job, rank, torch, np)
         elif kind == "hl":
             out[case["name"]] = hl_gang_worker(job, rank, world, torch, np)
         elif kind == "vlp":
@@ -6863,6 +6977,7 @@ def phase_mesh_pp(torch, np, card, tmp, corpus, tp_gang):
            "cases": [{"kind": "pp_train_mr", "name": "pp_train_mr"}] + [
                {"kind": "pp_steps", "name": n, "mesh": mesh, "M": M, "v": v, "moe": moe}
                for n, mesh, M, v, moe in PP_CASES]
+           + [{"kind": "pp_ring", "name": "pp_ring"}]
            # 7v's, checked by phase_mesh_ring
            + [{"kind": "ring_ops", "name": "ring_ops"},
               {"kind": "ring_train", "name": "ring_train"}]}
@@ -7005,8 +7120,94 @@ def phase_mesh_pp(torch, np, card, tmp, corpus, tp_gang):
         if not all(np.isfinite(rec["loss"]) for rec in recs) or made != wanted:
             raise AssertionError(f"the long pipelined step {key}: {recs}")
     stats["d"] = long
+    launches["pp_ring_training"], stats["e"] = _pp_ring_holds(torch, np, card, ranks, outs)
     log(f"[mesh pp] ({card}) {json.dumps(stats)}")
     return launches, stats, {"ranks": ranks, "outs": outs, "gang_s": gang_s}
+
+
+def _pp_ring_holds(torch, np, card, ranks, outs):
+    """7x(e)'s holds on the gang's ranks: each rank's rings are its stage's
+    tp ranks and it fell back nowhere; each part's ring calls ran
+    "ring_pallas" alone, PP_RING_TP ring_block + 1 ring_finish each, no flash
+    kernel; the f32 GPipe steps against one process's "xla" steps and the
+    1F1B step against one process's microbatched loss, at TRAIN_TOL; the
+    bf16 timings logged. Returns (the launches summed over the ranks and
+    parts, stats)."""
+    from univtg_tpu_torch.models import UniVTG
+    from univtg_tpu_torch.parallel.mesh import mesh_grid
+
+    world = len(ranks)
+    grid = mesh_grid(world, PP_RING_MESH[0], PP_RING_TP, 1, 1, world, PP_RING_MESH[4])
+    stage_ranks = [[int(r) for r in grid[0, st, 0]] for st in range(PP_RING_MESH[4])]
+    layers = 4 // PP_RING_MESH[4]
+    total, stats = {}, {}
+    for part in ("f32_gpipe", "f32_1f1b", "bf16_gpipe"):
+        recs = [r["pp_ring"][part] for r in ranks]
+        for r, rec in zip(ranks, recs):
+            st = r["pp_ring"]["stage"]
+            calls = _ring_calls(layers, PP_RING_M, rec["n_steps"], part.split("_")[1],
+                                st == PP_RING_MESH[4] - 1)
+            want_d = {k: 0 for k in rec["dispatches"]}
+            want_d["ring_pallas"] = calls
+            want_l = {k: 0 for k in rec["launches"]}
+            want_l.update(ring_block=PP_RING_TP * calls, ring_finish=calls)
+            if (rec["fallback"] or rec["dispatches"] != want_d or rec["launches"] != want_l
+                    or rec["ring_ranks"] != [stage_ranks[st]] * layers
+                    or r["rank"] not in stage_ranks[st] or rec["layers"] not in [
+                        _stage_layers(4, PP_RING_MESH[4], 1, s)
+                        for s in range(PP_RING_MESH[4])]):
+                raise AssertionError(
+                    f"7x(e) {part}: rank {r['rank']} (stage {st}) did not run its ring "
+                    f"inside the stage as planned: dispatches {rec['dispatches']} (want "
+                    f"{want_d}), launches {rec['launches']} (want {want_l}), rings "
+                    f"{rec['ring_ranks']}, layers {rec['layers']}, fallback "
+                    f"{rec['fallback']}\n{outs[0][-3000:]}")
+            for k, v in rec["launches"].items():
+                total[k] = total.get(k, 0) + v
+        same = all(rec["steps"] == recs[0]["steps"] for rec in recs)
+        per_rank = [{k: rec["launches"][k] for k in ("ring_block", "ring_finish")}
+                    for rec in recs]
+        stats[part] = {"launches_per_rank": per_rank, "ranks_equal": same,
+                       "pipe_per_rank": [rec["pipe"] for rec in recs]}
+        if part == "bf16_gpipe":
+            stats[part].update({k: [rec[k] for rec in recs] for k in (
+                "ms", "peak_gib", "stage_hop_host_ms_a_step", "ring_hop_host_ms_a_step",
+                "collective_host_ms_a_step")})
+            losses = [s["loss_overall"] for rec in recs for s in rec["steps"]]
+            log(f"[mesh pp] (e) bf16 GPipe, ring_pallas inside each stage, dp 1 x pp 2 x tp "
+                f"2, M = {PP_RING_M}, 8 x (2048 + 32) ({card}): ms a step per rank "
+                f"{[round(x, 1) for x in stats[part]['ms']]}, peak GiB "
+                f"{[round(x, 2) for x in stats[part]['peak_gib']]}, host ms a step in the "
+                f"ring's hops {[round(x, 1) for x in stats[part]['ring_hop_host_ms_a_step']]}"
+                f" and in the stage hops "
+                f"{[round(x, 1) for x in stats[part]['stage_hop_host_ms_a_step']]}; "
+                f"launches per rank {per_rank}; ranks equal {same}")
+            if not same or not all(np.isfinite(losses)):
+                raise AssertionError(f"7x(e) bf16: {stats[part]}")
+            continue
+        cfg = _long_ring_cfg("xla")
+        if part == "f32_gpipe":
+            want = _long_ring_steps(torch, np, "xla", None, PP_STEPS)
+            ref = 'one process\'s "xla" steps'
+        else:
+            mi, tg = _long_batch(torch, np)
+            sd = UniVTG(cfg, device="cuda", seed=0).state_dict()
+            batch = {"model_inputs": {k: v.cpu().numpy() for k, v in mi.items()},
+                     "targets": {k: v.cpu().numpy() for k, v in tg.items()}}
+            want = _microbatched_steps(torch, cfg, sd, [batch], PP_RING_M)
+            del sd
+            ref = "one process's microbatched loss"
+        rel = _rel_steps(recs[0]["steps"], want)
+        stats[part]["rel"] = rel
+        log(f"[mesh pp] (e) {part}: ring_pallas inside each stage, dp 1 x pp 2 x tp 2 "
+            f"(rings {stage_ranks}), M = {PP_RING_M}, 8 x (2048 + 32) ({card}): ranks equal "
+            f"{same}; vs {ref} rel per step {rel} (limits {TRAIN_TOL}); launches per rank "
+            f"{per_rank}; (ticks, hops) per rank "
+            f"{[(rec['pipe']['ticks'], rec['pipe']['hops']) for rec in recs]}")
+        if not same or len(recs[0]["steps"]) != len(want) or not _within_train_tol(rel):
+            raise AssertionError(f"7x(e) {part} leaves the one-process curve: {stats[part]}"
+                                 f"\n{outs[0][-3000:]}")
+    return total, stats
 
 
 def phase_mesh_ring(torch, np, card, gang):
@@ -7263,7 +7464,8 @@ def main() -> int:
         log(f"[main path] pipelined training across processes (ranks summed): GPipe "
             f"train_mr dp = 2 x pp = 2 {pp_launches['pp_gpipe_training']}; 1F1B "
             f"{pp_launches['pp_1f1b_training']}; GPipe at the flagship's dropouts "
-            f"{pp_launches['pp_dropout_training']}")
+            f"{pp_launches['pp_dropout_training']}; a ring inside each stage (GPipe and "
+            f"1F1B, dp 1 x pp 2 x tp 2) {pp_launches['pp_ring_training']}")
         long_state, long_batch, long_stats = timed("long", phase_long_train, torch, np,
                                                    fa, sd, smi)
         timed("profile", phase_train_profile, torch, np, fa, smi, corpus, sd,

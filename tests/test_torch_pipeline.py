@@ -297,9 +297,10 @@ def test_flash_twin_with_a_row_offset_is_the_whole_twin_sliced(rows, off, rate):
 
 # ---- the drivers -------------------------------------------------------------
 
-def _mr_want(g, name, dp, jcfg, schedule="gpipe", n_micro=0):
-    """JAX's step (GPipe, or 1F1B) on make_mesh(dp, pp=2) over the batches
-    the gang's dp rows read (the Loader's shards concatenated), 2 epochs."""
+def _mr_want(g, name, dp, jcfg, schedule="gpipe", n_micro=0, tp=1):
+    """JAX's step (GPipe, or 1F1B) on make_mesh(dp, tp, pp=2) over the
+    batches the gang's dp rows read (the Loader's shards concatenated), 2
+    epochs."""
     import torch_mesh_worker as mw
 
     from univtg_tpu.data.collate import collate_mr as jcollate
@@ -319,7 +320,7 @@ def _mr_want(g, name, dp, jcfg, schedule="gpipe", n_micro=0):
     loaders = [JLoader(ds, cfg.bsz, lambda items, pad_batch_to: jcollate(
         items, jdata.max_q_l, jdata.max_v_l, pad_batch_to), shuffle=True, seed=cfg.seed,
         num_threads=2, shard_index=d, num_shards=dp) for d in range(dp)]
-    mesh = make_mesh(dp=dp, pp=2, tp=1, devices=jax.devices()[:2 * dp])
+    mesh = make_mesh(dp=dp, pp=2, tp=tp, devices=jax.devices()[:2 * dp * tp])
     params = mj.jax_init(mj.PIPE, mj.batch(0)[0])
     tx = jsteps.make_optimizer(jschedule.build_schedule(
         cfg.lr, cfg.lr_warmup, cfg.lr_drop, cfg.lr_gamma, len(loaders[0])), cfg.wd,
@@ -498,11 +499,13 @@ def test_pipeline_stages_needs_scan_layers():
     ({"pipeline_schedule": "1f1b", "scan_steps": 2}, "and scan_steps=1"),
     ({"bsz": 3}, "bsz=3 must split into pipeline_microbatches=2"),
     ({"eval_bsz": 5}, "eval_bsz=5 must split into pipeline_microbatches=2"),
-    ({"model.attention_impl": "ring_pallas"}, "a pipeline stage runs no ring"),
+    ({"model.attention_impl": "ring_pallas", "pipeline_schedule": "1f1b", "scan_steps": 2},
+     "and scan_steps=1"),
 ])
 def test_driver_validations_raise_in_jax_words(tmp_path, change, match):
     """train_mr's pp > 1 validations, before any data is read (the JAX
-    driver's, and the port's ring refusal)."""
+    driver's): a ring impl passes them (test_train_mr_runs_ring_pallas_in_a_
+    pipeline_stage), and with scan_steps > 1 under pp it still raises."""
     from univtg_tpu_torch.train.driver_mr import TrainConfig, train_mr
 
     model = ModelConfig(**SMALL, scan_layers=True, pipeline_stages=2)
@@ -517,3 +520,22 @@ def test_driver_validations_raise_in_jax_words(tmp_path, change, match):
                          "results_dir": str(tmp_path / "run"), **top})
     with pytest.raises(ValueError, match=match):
         train_mr(cfg, device="cpu")
+
+
+def test_train_mr_runs_ring_pallas_in_a_pipeline_stage(gang4):
+    """train_mr at dp = 1 x pp = 2 x tp = 2 (GPipe, 2 microbatches) with
+    "ring_pallas" passes the pp validations (once the port refused a ring
+    inside a stage) and runs every training attention call on the kernel's
+    twin over the stage's process ring: 2 epochs from JAX's init, every step
+    against JAX's GPipe step on the same make_mesh(dp=1, tp=2, pp=2) ("xla":
+    JAX's "ring_pallas" inside a GPipe stage aborts XLA on the CPU, and its
+    "ring" there doubles two heads' gradients, ROADMAP.md queue 3); the
+    checkpoint canonical, its one-process evaluation the gang's."""
+    name = "mr_pp2tp2_ring_pallas"
+    cfg, want = _mr_want(gang4, name, 1, mj.pipe_cfg(mj.PIPE, 2, 2), tp=2)
+    check_driver_run(gang4, name, 4, cfg, want)
+    for r in range(4):
+        with open(os.path.join(gang4["base"], name, f"dispatches_r{r}.json")) as f:
+            made = json.load(f)
+        # 2 layers a stage x 2 microbatches a step, all on the ring
+        assert made == {**{k: 0 for k in made}, "ring_pallas": 2 * 2 * len(want)}, (r, made)

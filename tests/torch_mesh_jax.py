@@ -43,6 +43,9 @@ RING_RATE, RING_SEED = 0.3, 11
 # the pipeline cases: JAX's tests/test_pipeline*.py model, in the scan layout
 PIPE = dict(DENSE, num_layers=4, scan_layers=True)
 PIPE8 = dict(PIPE, num_layers=8)
+RING = {"attention_impl": "ring"}
+RING_PALLAS = {"attention_impl": "ring_pallas"}
+RING_STEPS = 2  # the steps of a ring-inside-a-stage case
 PIPE_B = 8  # a global batch of 8 rows: M = 4 microbatches tile over dp = 2
 DROP = dict(dropout=0.1, droppath=0.1, input_dropout=0.3)
 MEM_MICRO = (2, 4, 8, 16)
@@ -357,9 +360,13 @@ def pp_mesh(dp=1, tp=1, ep=1, pp=2):
 
 def _pipe_jobs(made, base):
     """The pipeline cases of each gang (tests/test_torch_pipeline.py,
-    tests/test_torch_1f1b.py): GPipe ("gp_") and 1F1B ("f1_") steps, the
-    forwards, the saved-input peaks and the drivers."""
+    tests/test_torch_1f1b.py, tests/test_torch_pipe_ring.py): GPipe ("gp_")
+    and 1F1B ("f1_") steps, the forwards, the saved-input peaks, the
+    drivers, and a ring inside a stage (pp = 2 x tp = 2, its tp ranks the
+    ring)."""
     pd, pi, p8 = made["pipe"], made["pipe_init"], made["pipe8_init"]
+    ring = {"kind": "ring", "inputs": made["ring"], "heads": RING_SHAPE["H"],
+            "rate": RING_RATE, "seed": RING_SEED}
     m, mi, tal = made["moe"], made["moe_init"], made["tal"]
     golden = os.path.join(GOLDEN, "jax_resume")
     with open(os.path.join(golden, "expected.json")) as f:
@@ -408,9 +415,26 @@ def _pipe_jobs(made, base):
             f1("f1_pp2tp2", pp_mesh(tp=2), pipe_cfg(PIPE, 2, 4), pi),
             f1("f1_moe_pp2ep2", pp_mesh(ep=2), pipe_cfg(MOE, 2, 4), mi, m),
             f1("f1_tal", pp_mesh(dp=2), pipe_cfg(PIPE, 2, 4), pi, tal, tal=made["tal_bank"]),
+            f1("f1_pp2tp2_ring", pp_mesh(tp=2), pipe_cfg({**PIPE, **RING}, 2, 4), pi,
+               steps=RING_STEPS),
             {"name": "mr_dp2pp2", "kind": "train_mr", "mesh": pp_mesh(dp=2),
              "cfg": pipe_cfg(PIPE, 2, 2), "corpus": made["mr"], "init": pi,
-             "ckpt_infer": True}],
+             "ckpt_infer": True},
+            _steps("gp_pp2tp2_ring", pp_mesh(tp=2), pipe_cfg({**PIPE, **RING}, 2, 4), pi, pd,
+                   steps=RING_STEPS),
+            _steps("gp_pp2tp2_v2_ring", pp_mesh(tp=2), pipe_cfg({**PIPE8, **RING}, 2, 4, 2),
+                   p8, pd, steps=RING_STEPS),
+            _steps("ring_pallas_pp2tp2", pp_mesh(tp=2),
+                   pipe_cfg({**PIPE, **RING_PALLAS}, 2, 4), pi, pd, steps=RING_STEPS),
+            _steps("gp_drop_ring_pp2tp2", pp_mesh(tp=2),
+                   pipe_cfg({**PIPE, **DROP, **RING}, 2, 4), pi, pd, steps=RING_STEPS),
+            {**ring, "name": "ring_rows_pp2tp2", "mesh": pp_mesh(tp=2), "rows": [1, 2]},
+            {"name": "mr_pp2tp2_ring_pallas", "kind": "train_mr", "mesh": pp_mesh(tp=2),
+             "cfg": pipe_cfg({**PIPE, **RING_PALLAS}, 2, 2), "corpus": made["mr"],
+             "init": pi},
+            {"name": "vlp_pp2tp2_ring", "kind": "train_vlp", "pp": 2, "tp": 2,
+             "corpus": made["mr"],
+             "model": {"scan_layers": True, "pipeline_stages": 2, **RING}}],
         8: [_steps("gp_dp2pp2tp2", pp_mesh(dp=2, tp=2), pipe_cfg(PIPE, 2, 4), pi, pd)],
     }
 
@@ -428,10 +452,13 @@ JOBS = {
     "pipe2": (2, ("fwd_pp2_m8", "fwd_pp2_v2", "gp_pp2", "gp_pp2_v2", "gp_pp2_remat",
                   "gp_drop_xla", "gp_drop_pallas", "gp_moe_m1", "resume_jax_pp2",
                   "mr_pp2_1f1b", "vlp_pp2")),
-    "pipe4": (4, ("fwd_dp2pp2_m4", "fwd_pp4_m4", "gp_dp2pp2", "gp_pp2tp2", "mr_dp2pp2")),
+    "pipe4": (4, ("fwd_dp2pp2_m4", "fwd_pp4_m4", "gp_dp2pp2", "gp_pp2tp2", "mr_dp2pp2",
+                  "gp_pp2tp2_ring", "gp_pp2tp2_v2_ring", "ring_pallas_pp2tp2",
+                  "gp_drop_ring_pp2tp2", "ring_rows_pp2tp2", "mr_pp2tp2_ring_pallas",
+                  "vlp_pp2tp2_ring")),
     "f1b2": (2, ("f1_pp2_m8", "f1_pp2_m1", "f1_pp2_v2", "f1_moe_pp2", "mem_pp2")),
     "f1b4": (4, ("f1_dp2pp2_m4", "f1_pp4_m4", "f1_txtpos", "f1_pp2tp2", "f1_moe_pp2ep2",
-                 "f1_tal")),
+                 "f1_tal", "f1_pp2tp2_ring")),
     "w8": (8, ("moe_dp2ep2tp2", "gp_dp2pp2tp2")),
 }
 

@@ -18,9 +18,11 @@ world; the groups of a grid are made once). Kinds:
     the global batches at ``batches`` (each dp row its slice); writes every
     step's metrics, the canonical parameters after the last step (gathered
     by every rank), the warnings and the attention dispatches to
-    ``<out>/<name>.pt`` (rank 0) and each rank's metrics, with the
-    pipeline's counters and the parameters it holds, to
-    ``<out>/<name>_r<rank>.json``; with ``ckpt``, rank 0 saves the gathered
+    ``<out>/<name>.pt`` (rank 0) and each rank's metrics to
+    ``<out>/<name>_r<rank>.json``, with the pipeline's counters, the
+    parameters it holds, its attention dispatches and its layers' process
+    ring ranks to ``<out>/<name>_held_r<rank>.json``; ``steps``: the first
+    that many batches only; with ``ckpt``, rank 0 saves the gathered
     checkpoint there;
   * forward -- the model of ``cfg`` from ``init`` on the mesh, in eval, on
     the global batch's model inputs at ``batches`` (its first), each dp row
@@ -35,13 +37,17 @@ world; the groups of a grid are made once). Kinds:
     CPU twin) over the tp axis as a ``ProcessRing`` on the (B, L, D) q, k,
     v and mask at ``inputs``, each rank on its block: the outputs and the
     gradients of ``sum(out * w)`` all-gathered, and the dropout output at
-    ``rate``/``seed``, to ``<out>/<name>.pt`` (rank 0);
+    ``rate``/``seed``, and with ``rows`` [r, r + n) that dropout output of
+    those batch rows alone at ``row_off`` r, to ``<out>/<name>.pt`` (rank 0);
   * hl -- ``train_hl`` through ``torch_dist_worker.run_hl`` with ``tp`` set
     (dp = world / tp), into ``<out>/p<rank>``;
   * train_mr -- ``train_mr`` (the config of ``mr_cfg``) from the weights
     at ``init`` (weights only, loaded whole before the model is put on
-    the mesh), every step's metrics to ``<out>/<name>/steps_r<rank>.json``;
-    its logs and checkpoints in ``<out>/<name>/p<rank>``.
+    the mesh), every step's metrics to ``<out>/<name>/steps_r<rank>.json``
+    and the attention dispatches of its steps to
+    ``<out>/<name>/dispatches_r<rank>.json``; its logs and checkpoints in
+    ``<out>/<name>/p<rank>``; train_vlp likewise, with ``tp`` and the
+    ``model`` fields set.
 """
 import json
 import os
@@ -111,7 +117,7 @@ def run_steps(case, rank, out):
     metrics = []
     with warnings.catch_warnings(record=True) as caught:
         warnings.simplefilter("always")
-        for mi, tg in torch.load(case["batches"]):
+        for mi, tg in torch.load(case["batches"])[:case.get("steps")]:
             state, m = step(state, dp_slice(mi, mesh), dp_slice(tg, mesh), case["seed"])
             metrics.append({k: float(v) for k, v in m.items()})
     blob = ckpt.host_blob(state, 0, None)
@@ -119,14 +125,18 @@ def run_steps(case, rank, out):
         ckpt.save_checkpoint(case["ckpt"], state, 0, blob=blob)
     with open(os.path.join(out, f"{case['name']}_r{rank}.json"), "w") as f:
         json.dump(metrics, f)
+    made = {k: attention.dispatches[k] - before[k] for k in before}
+    rings = [] if case.get("md") else [
+        layer.self_attn.ring for layer in model.transformer.encoder.stage_layers()]
     held = {"pipe": dict(pipe.stats), "n_params": sum(p.numel() for p in model.parameters()),
-            "keys": sorted(model.state_dict())}
+            "keys": sorted(model.state_dict()), "dispatches": made,
+            "ring_ranks": [None if r is None else list(r.ranks) for r in rings]}
     with open(os.path.join(out, f"{case['name']}_held_r{rank}.json"), "w") as f:
         json.dump(held, f)
     if rank == 0:
         torch.save({"metrics": metrics, "params": blob["model"],
                     "warnings": [str(w.message) for w in caught],
-                    "dispatches": {k: attention.dispatches[k] - before[k] for k in before}},
+                    "dispatches": made},
                    os.path.join(out, f"{case['name']}.pt"))
 
 
@@ -228,6 +238,12 @@ def run_ring(case, rank, out):
     o = process_ring_attention(q, k, v, mask, num_heads=H, ring=ring,
                                dropout_rate=case["rate"], dropout_seed=seed)
     res["dropout"] = pm.all_gather(o, mesh.tp, 1)
+    if case.get("rows"):
+        r0, r1 = case["rows"]
+        o = process_ring_attention(q[r0:r1], k[r0:r1], v[r0:r1], mask[r0:r1], num_heads=H,
+                                   ring=ring, dropout_rate=case["rate"], dropout_seed=seed,
+                                   row_off=r0)
+        res["dropout_rows"] = pm.all_gather(o, mesh.tp, 1)
     if rank == 0:
         torch.save(res, os.path.join(out, f"{case['name']}.pt"))
 
@@ -258,17 +274,23 @@ def mr_cfg(case, results_dir):
                        sharded_eval=case.get("sharded_eval", False))
 
 
-def _recorded(module, name, steps):
+def _recorded(module, name, steps, dispatches):
     """Wrap ``module.name`` (a step factory) so that every step's metrics
-    go to ``steps``; returns undo."""
+    go to ``steps`` and the attention dispatches of its steps are added up
+    in ``dispatches``; returns undo."""
+    from univtg_tpu_torch.ops import attention
+
     make_step = getattr(module, name)
 
     def recording(*args, **kw):
         step = make_step(*args, **kw)
 
         def run(state, mi, tg, seed):
+            before = dict(attention.dispatches)
             state, metrics = step(state, mi, tg, seed)
             steps.append({k: float(v) for k, v in metrics.items()})
+            for k, n in attention.dispatches.items():
+                dispatches[k] = dispatches.get(k, 0) + n - before[k]
             return state, metrics
         return run
 
@@ -279,10 +301,10 @@ def _recorded(module, name, steps):
 def run_train_mr(case, rank, out):
     from univtg_tpu_torch.train import driver_mr, steps_1f1b
 
-    steps = []
+    steps, made = [], {}
     base = os.path.join(out, case["name"])
-    undo = [_recorded(driver_mr, "make_train_step", steps),
-            _recorded(steps_1f1b, "make_1f1b_train_step", steps)]
+    undo = [_recorded(driver_mr, "make_train_step", steps, made),
+            _recorded(steps_1f1b, "make_1f1b_train_step", steps, made)]
     try:
         driver_mr.train_mr(mr_cfg(case, os.path.join(base, f"p{rank}")),
                            resume=case["init"], device="cpu",
@@ -290,8 +312,14 @@ def run_train_mr(case, rank, out):
     finally:
         for u in undo:
             u()
+    _write_steps(base, rank, steps, made)
+
+
+def _write_steps(base, rank, steps, dispatches):
     with open(os.path.join(base, f"steps_r{rank}.json"), "w") as f:
         json.dump(steps, f)
+    with open(os.path.join(base, f"dispatches_r{rank}.json"), "w") as f:
+        json.dump(dispatches, f)
 
 
 def run_train_vlp(case, rank, out):
@@ -302,19 +330,18 @@ def run_train_vlp(case, rank, out):
     from univtg_tpu_torch.train import driver_mr
     from univtg_tpu_torch.train.driver_vlp import train_vlp
 
-    steps = []
+    steps, made = [], {}
     base = os.path.join(out, case["name"])
     cfg = dw.build_cfg({"corpora": [case["corpus"], case["corpus"]]},
                        os.path.join(base, f"p{rank}"))
-    cfg = dataclasses.replace(cfg, pp=case["pp"], model=dataclasses.replace(
-        cfg.model, **case["model"]))
-    undo = _recorded(driver_mr, "make_train_step", steps)
+    cfg = dataclasses.replace(cfg, pp=case["pp"], tp=case.get("tp", 1),
+                              model=dataclasses.replace(cfg.model, **case["model"]))
+    undo = _recorded(driver_mr, "make_train_step", steps, made)
     try:
         train_vlp(cfg, device="cpu")
     finally:
         undo()
-    with open(os.path.join(base, f"steps_r{rank}.json"), "w") as f:
-        json.dump(steps, f)
+    _write_steps(base, rank, steps, made)
 
 
 def run_hl_case(case, rank, out):

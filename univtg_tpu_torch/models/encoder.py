@@ -42,8 +42,13 @@ With ``pipeline_stages`` > 1 on a mesh whose pp axis matches it
 (parallel/mesh.shard_model keeps a stage's layers alone, under their
 canonical indices) the encoder runs parallel/pipeline.pipeline_layers:
 GPipe or interleaved GPipe over the pp ranks, the same layer body on each
-microbatch (its row offset placing its rows in the flash kernels' dropout
-hash). Without such a mesh it gives JAX's one-time warning and runs the
+microbatch (its row offset placing its rows in the dropout hash of the flash
+kernels and of the ring). A ring impl runs inside a stage too: the stage's
+tp ranks (``mesh.tp_ranks()`` on a pp mesh) are its ring, and the layer
+body, called on whole (B/M, L, D) microbatches (no ``seq`` under a
+pipeline), cuts each into its tp token blocks and gathers the ring's output
+back, so the stage's hops carry whole activations as without a ring.
+Without such a mesh it gives JAX's one-time warning and runs the
 layers in order; ``pipeline_stages`` > 1 needs ``scan_layers`` (config.py)
 and device-major params (``pipeline_pre_permuted`` with interleave > 1)
 are refused off the pipeline, in JAX's words.
@@ -98,7 +103,7 @@ class SelfAttention(nn.Module):
 
     def place(self, mesh):
         """This rank's heads on the mesh, and its process ring (the tp
-        axis) under a ring impl."""
+        axis: on a pp mesh this stage's tp ranks) under a ring impl."""
         self.mesh = mesh
         self.heads_local = self.num_heads // mesh.tp.size
         self.head_off = mesh.tp.index * self.heads_local
@@ -150,9 +155,11 @@ class SelfAttention(nn.Module):
         out = pm.scatter_tokens(out, tp) if seq else pm.reduce_from(out, tp)
         return out + out_bias.to(out.dtype)
 
-    def forward_ring(self, qk, v, key_padding_mask, noise, out_bias):
+    def forward_ring(self, qk, v, key_padding_mask, noise, out_bias, row_off=0):
         """Attention over the process ring on this rank's token blocks, the
-        projections whole (all-gathered from their tp shards)."""
+        projections whole (all-gathered from their tp shards). ``row_off``:
+        the batch row the input's first row is (a pipeline's microbatch),
+        for the ring's dropout hash."""
         m, dt = self.mesh, v.dtype
         ring = self.ring
         mask = key_padding_mask.chunk(ring.size, dim=1)[ring.rank]
@@ -163,7 +170,7 @@ class SelfAttention(nn.Module):
             out_weight=pm.gather_param(self.out_proj.weight, pm.OUT_PROJ_SPEC, m).to(dt),
             out_bias=out_bias.to(dt), num_heads=self.num_heads,
             key_padding_mask=mask, impl=self.impl, dropout_rate=self.dropout,
-            noise=noise, ring=ring)
+            noise=noise, ring=ring, row_off=row_off)
 
 class MoEFFN(nn.Module):
     """The expert bank of one layer (ops/moe.py), its stacked weights in the
@@ -253,7 +260,8 @@ class EncoderLayer(nn.Module):
         MoE layer's aux or None). On the mesh (the module's docstring) x and
         pos are (B, L, D), or under ``seq`` this rank's (B, L/tp, D) token
         blocks. ``row_off``: the batch row of x's first row (a pipeline's
-        microbatch; its noise is already those rows')."""
+        microbatch; its noise is already those rows', or the one seed that
+        the flash kernels and the ring hash with the rows placed)."""
         n_attn, n_path1, n_path2 = noise or (None, None, None)
         tp = self.mesh.tp
         ring = self.self_attn.ring_for(key_padding_mask.shape[1])
@@ -278,7 +286,7 @@ class EncoderLayer(nn.Module):
                 return self.self_attn(qk, h, key_padding_mask, n_attn, out_b, seq, row_off)
             if not seq:
                 qk, h = pm.split_tokens(qk, tp), pm.split_tokens(h, tp)
-            out = self.self_attn.forward_ring(qk, h, key_padding_mask, n_attn, out_b)
+            out = self.self_attn.forward_ring(qk, h, key_padding_mask, n_attn, out_b, row_off)
             return out if seq else pm.gather_replicated(out, tp)
 
         def ffn(h):

@@ -123,7 +123,7 @@ def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
                         out_weight, out_bias, num_heads: int,
                         key_padding_mask=None, impl: str = "xla",
                         dropout_rate: float = 0.0, generator=None, noise=None,
-                        head_span=(0, 0), ring=None):
+                        head_span=(0, 0), ring=None, row_off: int = 0):
     """Full MHA with the packed torch-layout projection.
 
     q_in, k_in, v_in: (B, L, D) (q and k usually carry +pos).
@@ -136,6 +136,8 @@ def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
     ``head_span`` (the layer's heads, the first of them here) places a
     rank's heads in the flash kernels' dropout hash. ``ring``: a process
     ring (parallel/ring.ProcessRing) whose blocks q_in, k_in and v_in are.
+    ``row_off``: the batch row of q_in's first row (a pipeline's
+    microbatch) in the ring's dropout hash.
     """
     E = in_proj_weight.shape[0] // 3
     q = F.linear(q_in, in_proj_weight[:E], in_proj_bias[:E])
@@ -159,7 +161,7 @@ def multihead_attention(q_in, k_in, v_in, *, in_proj_weight, in_proj_bias,
     elif impl == "ring":
         plain = process_ring_attention if isinstance(ring, ProcessRing) else ring_attention
         out = plain(q, k, v, key_padding_mask, num_heads=num_heads, ring=ring,
-                    dropout_rate=dropout_rate, dropout_seed=seed)
+                    dropout_rate=dropout_rate, dropout_seed=seed, row_off=row_off)
     else:
         bias = None
         if key_padding_mask is not None:

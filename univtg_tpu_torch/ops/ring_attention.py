@@ -11,6 +11,10 @@ which is how the ring kernel's backward recomputes
 Attention dropout hashes GLOBAL (b, h, q, k) coordinates
 (``dropout_keep_mask``), so the sharded result equals a single-device run
 with the same mask whatever P is. Its bits are the JAX package's exactly.
+``row_off`` places a call's batch rows in the hash (a pipeline's microbatch
+of rows [row_off, row_off + B) of the step's batch), so a microbatch drops
+what the whole batch's call drops on those rows; 0, the default, is the JAX
+package's hash.
 
 Across processes (a ``parallel.ring.ProcessRing``, the tp axis of a mesh)
 each process holds only its own block of q, k, v and mask rows and passes
@@ -35,11 +39,14 @@ NEG_INF = -1e30
 
 
 def dropout_keep_mask(seed, rate: float, shape, q_off: int, k_off: int,
-                      device=None):
+                      device=None, row_off: int = 0):
     """(B, H, Lq, Lk) float32 multiplier, 0 or 1/(1-rate): the JAX package's
     ``dropout_keep_mask`` bit for bit, its uint32 arithmetic in int64
     masked to 32 bits. ``seed``: an int or a one-element integer tensor;
-    q_off/k_off: the global index of the first query and key."""
+    q_off/k_off: the global index of the first query and key; row_off: the
+    global index of the first batch row, so that the mask of rows [r, r +
+    B) is rows r.. of the mask over a larger batch (0: the JAX package's,
+    whose rows start at 0)."""
     if isinstance(seed, torch.Tensor):
         device = seed.device if device is None else device
         s = seed.reshape(()).to(device=device, dtype=torch.int64)
@@ -54,7 +61,7 @@ def dropout_keep_mask(seed, rate: float, shape, q_off: int, k_off: int,
         return (i & _M32).reshape(view)
 
     x = ((s & _M32)
-         ^ _mul32(iota(B, 0), 0x9E3779B1)
+         ^ _mul32(iota(B, 0, row_off), 0x9E3779B1)
          ^ _mul32(iota(H, 1), 0x85EBCA6B)
          ^ _mul32(iota(Lq, 2, q_off), 0xC2B2AE35)
          ^ _mul32(iota(Lk, 3, k_off), 0x27D4EB2F))
@@ -72,7 +79,7 @@ def _split(x, H):
 
 
 def _ring_block(carry, k, v, mask, qh, num_heads, dropout_rate=0.0,
-                dropout_seed=None, q_off=0, k_off=0):
+                dropout_seed=None, q_off=0, k_off=0, row_off=0):
     """One ring step: fold the (k, v, mask) block into (m, l, acc).
 
     qh: (B, H, Lq, dh) f32 queries, already scaled; k, v: (B, Lk, D);
@@ -89,13 +96,13 @@ def _ring_block(carry, k, v, mask, qh, num_heads, dropout_rate=0.0,
     l_new = l * alpha + p.sum(dim=-1, keepdim=True)
     if dropout_rate > 0.0:
         p = p * dropout_keep_mask(dropout_seed, dropout_rate, tuple(p.shape),
-                                  q_off, k_off, device=p.device)
+                                  q_off, k_off, device=p.device, row_off=row_off)
     acc_new = acc * alpha + torch.einsum("bhqk,bhkd->bhqd", p, vh)
     return m_new, l_new, acc_new
 
 
 def _ring_attention_local(r, q_shards, k_shards, v_shards, m_shards, devices,
-                          num_heads, dropout_rate, dropout_seed):
+                          num_heads, dropout_rate, dropout_seed, row_off=0):
     """Rank r's output (B, Lq_loc, D): its queries against every block, in
     the ring's order (block (r - t) mod P at step t), on its device."""
     P = len(devices)
@@ -113,7 +120,8 @@ def _ring_attention_local(r, q_shards, k_shards, v_shards, m_shards, devices,
         k, v, mask = (x[src].to(dev) for x in (k_shards, v_shards, m_shards))
         m, l, acc = _ring_block(
             (m, l, acc), k, v, mask, qh, H, dropout_rate=dropout_rate,
-            dropout_seed=dropout_seed, q_off=r * Lq, k_off=src * k.shape[1])
+            dropout_seed=dropout_seed, q_off=r * Lq, k_off=src * k.shape[1],
+            row_off=row_off)
     out = acc / torch.clamp_min(l, 1e-30)
     return out.transpose(1, 2).reshape(B, Lq, D).to(q.dtype)
 
@@ -133,12 +141,13 @@ class _Hop(torch.autograd.Function):
 
 
 def process_ring_attention(q, k, v, key_padding_mask, *, num_heads: int, ring,
-                           dropout_rate: float = 0.0, dropout_seed=None):
+                           dropout_rate: float = 0.0, dropout_seed=None, row_off: int = 0):
     """This process's output block (B, L/P, D) of attention over a
     ``ProcessRing``: q, k, v its (B, L/P, D) block, key_padding_mask its
-    (B, L/P) rows (1 = valid). Differentiable; the same step order and f32
-    block update as the one-process ring, so the result is that ring's
-    block bit for bit."""
+    (B, L/P) rows (1 = valid), ``row_off`` the batch row of their first row
+    in the dropout hash. Differentiable; the same step order and f32 block
+    update as the one-process ring, so the result is that ring's block bit
+    for bit."""
     from univtg_tpu_torch.parallel.mesh import all_gather
 
     if q.dim() != 3 or k.shape != q.shape or v.shape != q.shape:
@@ -164,7 +173,7 @@ def process_ring_attention(q, k, v, key_padding_mask, *, num_heads: int, ring,
         m, l, acc = _ring_block((m, l, acc), kb, vb, masks[src], qh, H,
                                 dropout_rate=float(dropout_rate),
                                 dropout_seed=dropout_seed, q_off=r * Lb,
-                                k_off=src * Lb)
+                                k_off=src * Lb, row_off=row_off)
         if t < P - 1:
             kv = _Hop.apply(kv, ring)
     out = acc / torch.clamp_min(l, 1e-30)
@@ -194,13 +203,14 @@ def check_ring_operands(q, k, v, mask, num_heads, ring):
 
 
 def ring_attention(q, k, v, key_padding_mask, *, num_heads: int, ring,
-                   dropout_rate: float = 0.0, dropout_seed=None):
+                   dropout_rate: float = 0.0, dropout_seed=None, row_off: int = 0):
     """Context-parallel attention, differentiable, in plain torch.
 
     q, k, v: (B, L, D) post-projection, L a multiple of ``ring.size``;
     key_padding_mask: (B, L), 1 = valid (None: all valid). dropout_rate > 0
     needs ``dropout_seed`` (an int or a one-element int32 tensor) and drops
-    probabilities by ``dropout_keep_mask`` over global coordinates.
+    probabilities by ``dropout_keep_mask`` over global coordinates, the
+    batch rows from ``row_off``.
     Returns (B, L, D) on q's device.
     """
     if key_padding_mask is None:
@@ -211,6 +221,6 @@ def ring_attention(q, k, v, key_padding_mask, *, num_heads: int, ring,
         raise ValueError("ring_attention(dropout_rate>0) requires dropout_seed")
     shards = [x.split(L_loc, dim=1) for x in (q, k, v, key_padding_mask)]
     outs = [_ring_attention_local(r, *shards, ring.devices, num_heads,
-                                  float(dropout_rate), dropout_seed).to(q.device)
+                                  float(dropout_rate), dropout_seed, row_off).to(q.device)
             for r in range(ring.size)]
     return torch.cat(outs, dim=1)

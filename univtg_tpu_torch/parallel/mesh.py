@@ -596,11 +596,6 @@ def check_model(cfg, tp: int = 1, ep: int = 1, pp: int = 1):
         if cfg.num_layers % (pp * v):
             raise ValueError(f"num_layers={cfg.num_layers} must tile over pp={pp} "
                              f"stages x pipeline_interleave={v} chunks")
-        if cfg.attention_impl in ("ring", "ring_pallas"):
-            raise ValueError(
-                f"attention_impl={cfg.attention_impl!r} under pp={pp}: a pipeline stage "
-                "runs no ring (the JAX package never puts a ring inside a stage, and the "
-                "ring's process groups are the tp axis); use 'pallas' or 'xla'")
     if cfg.num_heads % tp:
         raise ValueError(f"num_heads={cfg.num_heads} must be a multiple of tp={tp}: "
                          f"each tp rank holds num_heads/tp whole heads")

@@ -48,9 +48,17 @@ the hops stay outside the recompute.
 Randomness is the port's (ROADMAP.md, "Dropout bits"): every rank of a dp
 row draws each layer's noise for its whole batch, in layer order, from the
 step's shared generator (as one process draws it), keeps its own layers'
-noise and gives each microbatch its rows; the flash kernels hash the
-microbatch's rows through ``row_off``. So a pipelined step equals the
-port's one-process step from the same seed, dropouts on.
+noise and gives each microbatch its rows; where the noise is one int32 seed
+("pallas", "ring") the flash kernels and the ring hash the microbatch's rows
+through ``row_off``. So a pipelined step equals the port's one-process step
+from the same seed, dropouts on, with a ring inside a stage too.
+
+A ring impl inside a stage runs over the stage's tp ranks (each layer's
+``ProcessRing``, models/encoder.py); its hops are point-to-point operations
+on the tp group, posted and waited for inside a chunk's body, so they never
+interleave with the stage hops of ``StageLink.exchange`` (the pp group,
+posted after the chunk). Every tp rank of a stage runs the same schedule,
+so the ring's hops, forward and backward, pair up in the same order.
 
 A MoE layer routes each (microbatch x dp shard) block alone, as JAX's
 pipelines do (``ops/moe.moe_ffn`` on a pp mesh); the aux is the mean over
@@ -301,7 +309,8 @@ def _rows(t, m: int, mb: int):
 
 def _noise_rows(noise, m: int, mb: int, batch: int):
     """A layer's drawn noise, cut to microbatch m's rows (an int32 seed
-    stays whole: the flash kernels place the rows by ``row_off``)."""
+    stays whole: the flash kernels and the ring place the rows by
+    ``row_off``)."""
     if noise is None:
         return None
     return tuple(None if n is None else

@@ -45,7 +45,11 @@ because XLA puts the tp and ep collectives of ``lax.cond`` branches under
 control flow that diverges across devices. The port needs none: the tp and
 ep ranks of a stage run the same schedule, so their collectives are called
 in the same order, whatever the other stages do
-(tests/test_torch_1f1b.py runs pp = 2 x tp = 2 and pp = 2 x ep = 2).
+(tests/test_torch_1f1b.py runs pp = 2 x tp = 2, with "xla" and with the tp
+ranks as a ring, and pp = 2 x ep = 2). A ring inside a stage is recomputed
+in the backward with its hops and its dropout seed, as its forward ran: the
+saved slots hold the whole (B/M, L, D) chunk inputs, and the ring's output
+is gathered back to whole microbatches inside the layer.
 """
 from __future__ import annotations
 
