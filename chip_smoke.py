@@ -11,8 +11,10 @@ printing its seconds:
   2. build    -- nvcc builds every kernel source from csrc/, one process
                  per source, all started together, and beside them, at
                  FAULT_NICE, the planted-fault copies of flash_bwd.cu,
-                 flash_fwd.cu, ring_attention.cu and flash_f32.cuh (phase
-                 3b, which waits for them after 3d); ptxas lines printed.
+                 flash_fwd.cu, ring_attention.cu, flash_f32.cuh and
+                 int8_matmul.cu (phase 3b, which waits for them after 3d);
+                 ptxas lines printed; fails if ptxas reports a spill for
+                 an f32 (CUDA-core) kernel of F32_KERNELS.
                  cuobjdump -sass of
                  the flash_bwd, flash_fwd, ring_attention and int8_matmul
                  libraries:
@@ -38,11 +40,14 @@ printing its seconds:
                  alone) at 2 x 160 and 8 x 2080, P = 4; F32_FORWARD_FAULTS,
                  of the f32 loop that the forward and ring block share
                  (flash_f32.cuh: acc not rescaled, the keep left out, every
-                 ring launch taking the `first` branch), at the same shapes.
+                 ring launch taking the `first` branch), at the same shapes;
+                 INT8_FAULTS, of the f32 int8_matmul (the last chunk of K of
+                 each split skipped), held to INT8_TOL at every f32 shape of
+                 INT8_SHAPES.
   3c. int8    -- int8_matmul against its twin at K=2818, N=1024 (the first
-                 video projection): M=128, 4096 (one qvhighlights_bf16
-                 dispatch) and 16384 (one long_video_bf16 dispatch) in
-                 bf16, M=128 and 4096 in f32; two calls on one input give
+                 video projection): M=128, 2400 (one eval batch of 32 x 75
+                 clips), 4096 (one qvhighlights_bf16 dispatch) and 16384
+                 (one long_video_bf16 dispatch), bf16 and f32; two calls on one input give
                  the same bits; kernel, twin and cuBLAS (F.linear on the
                  dequantized weight) times, eager and replayed from a CUDA
                  graph, and the bound; at M=128 also the kernel and cuBLAS
@@ -109,7 +114,9 @@ printing its seconds:
                  calls it once itself on the int8 file's input_vid_proj.0
                  weight over the LayerNorm'ed video of the first eval batch
                  (M = 32 x 75), held against its twin and against F.linear
-                 with the weight as served.
+                 with the weight as served; the call launches the product
+                 once and, where the plan splits K (in f32 at M = 2400),
+                 the split sum once.
   7d. evalsize -- evaluation at the size of QVHighlights' val split
                  (N_VAL_FULL queries of 75 clips, synthetic), bf16 (its
                  f32 pass cut to pay for phases 7u-7x),
@@ -554,6 +561,20 @@ F32_FORWARD_FAULTS = {
 # the ring shapes (RING_SHAPES names) and ring size of ring_p_lo_dropped and
 # ring_state_ignored_f32
 RING_FAULT_SHAPES, RING_FAULT_P = ("serving_160", "long_video_2080"), 4
+# planted fault of csrc/int8_matmul.cu's f32 (CUDA-core) kernel, as
+# FORWARD_FAULTS: each split's last chunk of K left out of the product (at
+# M = 4096 and 16384, one split, that is K's last 2 of 2818; at M = 128 and
+# 2400, 6 and 15 chunks of 32 a split, every split's last). Built and
+# required to fail INT8_TOL["float32"] at each f32 shape of INT8_SHAPES;
+# tests/test_torch_int8.py checks on every run that the line is in
+# int8_matmul.cu exactly once, in the f32 kernel.
+INT8_FAULTS = {
+    "int8_last_chunk_skipped_f32": (
+        "int8_matmul", "out",
+        "    product(acc, Xs + (t % STAGES) * X_TILE, Ws + (t & 1) * W_TILE, ty, tx);",
+        "    if (t + 1 < nk)\n"
+        "      product(acc, Xs + (t % STAGES) * X_TILE, Ws + (t & 1) * W_TILE, ty, tx);"),
+}
 # the bf16 backward kernels, by their names in the SASS and the profiler
 BF16_BWD_KERNELS = ("flash_bwd_dq_kernel_sm90", "flash_bwd_dkv_kernel_sm90")
 # every bf16 (wgmma) kernel, by library: each instantiation must issue HGMMA
@@ -564,11 +585,13 @@ SASS_KERNELS = {"flash_bwd": BF16_BWD_KERNELS,
                 "flash_fwd": ("flash_fwd_kernel_sm90",),
                 "ring_attention": ("ring_block_kernel_sm90",),
                 "int8_matmul": ("int8_matmul_kernel_sm90",)}
-# the f32 (CUDA-core) attention kernels, by library: ptxas must report no
-# spill for any instantiation (their register tiles are sized to fit)
+# the f32 (CUDA-core) kernels, by library: the attention kernels and the
+# int8 dequant-matmul's; ptxas must report no spill for any instantiation
+# (their register tiles are sized to fit)
 F32_KERNELS = {"flash_bwd": ("flash_bwd_dq_kernel", "flash_bwd_dkv_kernel"),
                "flash_fwd": ("flash_fwd_kernel",),
-               "ring_attention": ("ring_block_kernel",)}
+               "ring_attention": ("ring_block_kernel",),
+               "int8_matmul": ("int8_matmul_f32_kernel",)}
 # the f32 train step on the flash kernels vs on plain attention (same
 # weights, same batches, dropouts 0): per-step loss and grad norm
 TRAIN_TOL = {"loss": 1e-4, "grad_norm": 1e-3}
@@ -590,13 +613,17 @@ PIPE_TOL = {
 INT8_TOL = {"float32": {"rel": 1e-5, "share": None},
             "bfloat16": {"rel": 8e-3, "share": 1e-2}}
 INT8_K, INT8_N = 2818, 1024  # input_vid_proj.0: 2818 -> 1024
+# the kernels an int8_matmul call launches: the product, and the sum of the
+# splits where the plan splits K (each counted in int8_matmul.launches)
+INT8_KERNELS = ("int8_matmul", "int8_matmul_split_sum")
 # copies of the weight that the cold-L2 timing at M=128 goes through, one a
 # call: 32 x 2.9 MB of int8 (x 5.8 MB of bf16 for cuBLAS) > the 50 MB L2
 INT8_COLD_M, INT8_COLD_COPIES = 128, 32
 INT8_SHAPES = {  # name -> (M, dtypes)
     "serving_128": (128, ("bfloat16", "float32")),
+    "eval_batch": (32 * 75, ("bfloat16", "float32")),
     "qvhighlights_dispatch": (32 * 128, ("bfloat16", "float32")),
-    "long_video_dispatch": (8 * 2048, ("bfloat16",)),
+    "long_video_dispatch": (8 * 2048, ("bfloat16", "float32")),
 }
 N_VAL = 64  # val items of the training corpus: 2 eval batches of 32
 # QVHighlights' val split (upstream data/highlight_val_release.jsonl): 1550
@@ -907,11 +934,11 @@ def phase_device(torch):
 
 def _fault(name):
     """(library, output, line as written, line with the fault) of a planted
-    fault of FAULTS or F32_FAULTS (flash_bwd.cu), FORWARD_FAULTS or
-    F32_FORWARD_FAULTS."""
+    fault of FAULTS or F32_FAULTS (flash_bwd.cu), FORWARD_FAULTS,
+    F32_FORWARD_FAULTS or INT8_FAULTS."""
     if name in FAULTS or name in F32_FAULTS:
         return ("flash_bwd", *{**FAULTS, **F32_FAULTS}[name])
-    return {**FORWARD_FAULTS, **F32_FORWARD_FAULTS}[name]
+    return {**FORWARD_FAULTS, **F32_FORWARD_FAULTS, **INT8_FAULTS}[name]
 
 
 def _fault_file(name):
@@ -1047,7 +1074,7 @@ def phase_build(fault_dir):
         return time.perf_counter() - t0
 
     sources = fa.KERNEL_SOURCES + im.KERNEL_SOURCES + rap.KERNEL_SOURCES
-    names = [*FAULTS, *F32_FAULTS, *FORWARD_FAULTS, *F32_FORWARD_FAULTS]
+    names = [*FAULTS, *F32_FAULTS, *FORWARD_FAULTS, *F32_FORWARD_FAULTS, *INT8_FAULTS]
     pool = concurrent.futures.ThreadPoolExecutor(len(names))
     faults = {n: pool.submit(_build_fault, n, fault_dir, FAULT_NICE) for n in names}
     pool.shutdown(wait=False)
@@ -1573,10 +1600,11 @@ def phase_faults(torch, faults):
     BWD_TOL["float32"]) and the forward's FORWARD_FAULTS and
     F32_FORWARD_FAULTS (TOL) at the two training shapes with dropout 0.1,
     the ring's (RING_TOL, bf16 and f32) at RING_FAULT_SHAPES with P =
-    RING_FAULT_P."""
+    RING_FAULT_P, and INT8_FAULTS (INT8_TOL["float32"]) at each f32 shape
+    of INT8_SHAPES."""
     import ctypes
 
-    from univtg_tpu_torch.ops import cuda_build, flash_attention as fa
+    from univtg_tpu_torch.ops import cuda_build, flash_attention as fa, int8_matmul as im
     from univtg_tpu_torch.ops import ring_attention_pallas as rap
     from univtg_tpu_torch.parallel import RingGroup
 
@@ -1663,6 +1691,22 @@ def phase_faults(torch, faults):
                     f"(limits {RING_TOL[dname]})")
             del q, k, v, mask, want, got
             torch.cuda.empty_cache()
+    g = torch.Generator(device="cuda").manual_seed(960)
+    w_q = torch.randint(-127, 128, (INT8_K, INT8_N), device="cuda", generator=g,
+                        dtype=torch.int8)
+    scale = torch.rand(INT8_N, device="cuda", generator=g) * 1e-3 + 1e-4
+    for shape_name, (M, dnames) in INT8_SHAPES.items():
+        if "float32" not in dnames:
+            continue
+        x = torch.randn(M, INT8_K, device="cuda", generator=g)
+        want = im.int8_matmul_reference(x, w_q, scale)
+        for name in INT8_FAULTS:
+            err = _errs(run_with(name, lambda: im.int8_matmul(x, w_q, scale)), want)
+            caught[(name, shape_name)] = not _int8_within(err, "float32")
+            log(f"[faults] {name} at {shape_name} (M={M}) f32: out max abs err "
+                f"{err[0]:.3g}, rel {err[1]:.3g} (limit {INT8_TOL['float32']})")
+        del x, want
+    torch.cuda.empty_cache()
     missed = [k for k, hit in caught.items() if not hit]
     if missed:
         raise AssertionError(f"planted faults within their limits: {missed}")
@@ -2523,8 +2567,13 @@ def phase_quantize(torch, np, tmp, corpus, run_dir, f32_brief):
         f"(M={x.shape[0]}): against F.linear with the weight as served, max abs "
         f"{err[0]:.3g}, rel {err[1]:.3g} (limit {INT8_TOL['float32']['rel']}); launches "
         f"{call_launches}")
-    if call_launches["int8_matmul"] != 1:
-        raise AssertionError("the int8_matmul call did not launch the kernel once")
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    split = im._plan(x.shape[0], w_q.shape[1], x.shape[1], sms, torch.float32).splits > 1
+    want = {k: 0 for k in call_launches}
+    want.update(int8_matmul=1, int8_matmul_split_sum=int(split))
+    if call_launches != want:
+        raise AssertionError(f"the int8_matmul call launched {call_launches}, not the "
+                             f"product once and {'the split sum once' if split else 'no split sum'}")
     if not _int8_within(err, "float32") or not got.abs().max() > 0:
         raise AssertionError("int8_matmul disagrees with the layer as served")
     # the same layer against its twin and timed, off the call's count
@@ -7265,8 +7314,9 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
     kernel's numbers at the long shape, dropout 0 (``f32``).
     ``launches`` sums the paths of by_path, ``launches_by_path`` splits them;
     for int8_matmul that is the smoke's own call alone, which
-    ``launches_note`` says; ring_attention counts its two kernels,
-    ring_block and ring_finish, split in ``launches_by_kernel``."""
+    ``launches_note`` says; int8_matmul and ring_attention count their two
+    kernels each (the product and int8_matmul_split_sum; ring_block and
+    ring_finish), split in ``launches_by_kernel``."""
     out = []
     for name, (source, replaces) in KERNEL_NOTES.items():
         if name == "ring_attention":
@@ -7307,9 +7357,11 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
         errs += [r["err"] for r in mine]
         if name == "int8_matmul":
             mine = records_int8
+        kinds = INT8_KERNELS if name == "int8_matmul" else (name,)
         entry = {"name": name, "route": "cuda", "source": source, "replaces": replaces,
-                 "launches": sum(path[name] for path in by_path.values()),
-                 "launches_by_path": {p: path[name] for p, path in by_path.items()},
+                 "launches": sum(path[k] for path in by_path.values() for k in kinds),
+                 "launches_by_path": {p: sum(path[k] for k in kinds)
+                                      for p, path in by_path.items()},
                  "max_abs_err": max(errs), "ms": head["ms"], "plain_ms": head["plain_ms"],
                  "bound_ms": head["bound_ms"], "bound_by": head["bound_by"],
                  "library_ms": head["library_ms"]}
@@ -7317,7 +7369,10 @@ def _kernel_line(records_serving, records_train, records_int8, records_ring, by_
             entry.update(launches_note=(
                 "no entry point of the port launches int8_matmul, as in the JAX "
                 "package: the count is the smoke's own call on the int8 file's "
-                "input_vid_proj.0 weight over one eval batch"),
+                "input_vid_proj.0 weight over one eval batch, the product and, "
+                "where the plan splits K, the split sum"),
+                launches_by_kernel={k: sum(path[k] for path in by_path.values())
+                                    for k in INT8_KERNELS},
                 max_rel_err=max(r["rel_err"] for r in mine), by_shape=[
                 {k: r[k] for k in ("shape", "M", "dtype", "ms", "plain_ms", "library_ms",
                                    "bound_ms", "bound_by")} for r in mine])

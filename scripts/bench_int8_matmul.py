@@ -1,29 +1,34 @@
 #!/usr/bin/env python3
-"""Time the bf16 int8_matmul kernel against other versions of its source
-and other tilings, and hold each against its twin.
+"""Time the int8_matmul kernel of one dtype against other versions of its
+source and other tilings, and hold each against its twin.
 
-    python3 scripts/bench_int8_matmul.py [--variant NAME=PATH ...]
+    python3 scripts/bench_int8_matmul.py [--dtype bfloat16|float32]
+                                         [--variant NAME=PATH ...]
                                          [--plan NAME=BLOCK_N,SPLITS[,VARIANT] ...]
 
 Builds univtg_tpu_torch/csrc/int8_matmul.cu as written and each variant
-source PATH (another int8_matmul.cu; its headers from csrc/). A plan
-override NAME=BLOCK_N,SPLITS runs the source as written (or the variant
-VARIANT) with that tiling in place of ops/int8_matmul.py:_plan (SPLITS
-runs of whole 64-deep stages). Turns go as written, each variant and plan in order, the same in
-reverse, as written again, so that a drift of the card shows. Each turn,
+source PATH (another int8_matmul.cu; its headers from csrc/; e.g.
+scripts/int8_matmul_f32_64x64.cu, the earlier f32 kernel, with --dtype
+float32). A plan override NAME=BLOCK_N,SPLITS runs the source as written
+(or the variant VARIANT) with that tiling in place of
+ops/int8_matmul.py:_plan (SPLITS runs of whole chunks, 64 deep in bf16 and
+32 in f32). Turns go as written, each variant and plan in order, the same
+in reverse, as written again, so that a drift of the card shows. Each turn,
 at K = 2818 (or --k), N = 1024 (chip_smoke.INT8_K, INT8_N) and M = 128,
-2400, 4096, 16384, in bf16: the kernel against its twin (max abs, rel,
-share that differs, within chip_smoke.INT8_TOL or not, and whether a second
-call gives the same bits; a variant outside the limits is reported, not
-raised, so planted faults can be read), CUDA-event ms of back-to-back
-eager calls and per call replayed from a CUDA graph (device time without
-the host's cost per call), and at M = 128 both with the weight cold in L2
-(each call on the next of 32 copies, 93 MB of int8), as chip_smoke.py
-phase 3c times them (chip_smoke.graph_ms, cold_ms). cuBLAS (F.linear on
-the dequantized bf16 weight) is timed the same ways once per call of the
-script; each line carries the bound. Prints one JSON line per (turn,
-shape) and the card's name and power limit. Needs a CUDA card and nvcc;
-imports nothing of JAX.
+2400, 4096, 16384, in --dtype (bf16 by default): the kernel against its
+twin (max abs, rel, share that differs, within chip_smoke.INT8_TOL or not,
+and whether a second call gives the same bits; a variant outside the limits
+is reported, not raised, so planted faults can be read), CUDA-event ms of
+back-to-back eager calls and per call replayed from a CUDA graph (device
+time without the host's cost per call), and at M = 128 both with the
+weight cold in L2 (each call on the next of 32 copies, 93 MB of int8), as
+chip_smoke.py phase 3c times them (chip_smoke.graph_ms, cold_ms). cuBLAS
+(F.linear on the dequantized weight in the dtype; TF32 off, as
+chip_smoke.phase_device sets it) is timed the same ways once per call of
+the script; each line carries the bound, its share and the card. Prints
+ptxas's registers and spill bytes of every kernel of each build, one JSON
+line per (turn, shape) and the card's name and power limit. Needs a CUDA
+card and nvcc; imports nothing of JAX.
 """
 from __future__ import annotations
 
@@ -56,13 +61,13 @@ def _build(name, path, out_dir):
     return so, cs._ptxas_stats(proc.stdout + proc.stderr)
 
 
-def _inputs(torch, K):
+def _inputs(torch, K, dtype):
     g = torch.Generator(device="cuda").manual_seed(8)
     w = torch.randn(K, cs.INT8_N, device="cuda", generator=g) * 0.02
     scale = w.abs().amax(0, keepdim=True) / 127.0
     w_q = torch.clamp(torch.round(w / scale), -127, 127).to(torch.int8)
-    w_lib = (w_q.float() * scale).t().contiguous().to(torch.bfloat16)
-    xs = {M: torch.randn(M, K, device="cuda", generator=g).to(torch.bfloat16)
+    w_lib = (w_q.float() * scale).t().contiguous().to(dtype)
+    xs = {M: torch.randn(M, K, device="cuda", generator=g).to(dtype)
           for M in M_SIZES}
     return xs, w_q, scale, w_lib
 
@@ -90,11 +95,13 @@ def _turn(torch, im, turn, xs, w_q, scale, cold, card):
         torch.cuda.synchronize()
         err = cs._errs(got, want)
         K, N = w_q.shape
-        bound_ms, bound_by = cs._bound(2 * M * K * N, M * K * 2 + K * N + 4 * N + M * N * 2,
-                                       "bfloat16")
-        rec = {"turn": turn, "M": M, "plan": list(im._plan(M, N, K)),
+        dname, es = str(x.dtype).removeprefix("torch."), x.element_size()
+        bound_ms, bound_by = cs._bound(2 * M * K * N, M * K * es + K * N + 4 * N + M * N * es,
+                                       dname)
+        rec = {"turn": turn, "M": M, "dtype": dname,
+               "plan": list(im._plan(M, N, K, im._SMS, x.dtype)),
                "max_abs": err[0], "rel": err[1], "differ": err[2],
-               "within_tol": cs._int8_within(err, "bfloat16"),
+               "within_tol": cs._int8_within(err, dname),
                "bit_equal_repeat": bool(torch.equal(got, again)),
                "ms": cs.cuda_ms(lambda: im.int8_matmul(x, w_q, scale), 10 if M > 8192 else 50),
                "graph_ms": cs.graph_ms(torch, lambda: im.int8_matmul(x, w_q, scale)),
@@ -103,6 +110,7 @@ def _turn(torch, im, turn, xs, w_q, scale, cold, card):
             rec["cold_ms"], rec["cold_graph_ms"] = cs.cold_ms(
                 torch, lambda w: im.int8_matmul(x, w, scale), cold)
         rec["tflops"] = 2 * M * K * N / rec["graph_ms"] / 1e9
+        rec["share_of_bound"] = bound_ms / rec["graph_ms"]
         print(json.dumps(rec), flush=True)
 
 
@@ -115,6 +123,8 @@ def main() -> int:
                         help="a tiling run on the kept source (or a variant) in place of _plan")
     parser.add_argument("--k", type=int, default=cs.INT8_K,
                         help="the depth K (default the flagship's 2818)")
+    parser.add_argument("--dtype", choices=("bfloat16", "float32"), default="bfloat16",
+                        help="x's dtype: the kernel timed (default bfloat16)")
     opts = parser.parse_args()
 
     import torch
@@ -143,10 +153,10 @@ def main() -> int:
             if so:
                 libs[name] = ctypes.CDLL(str(so))
             for fn, (reg, st, ld) in stats.items():
-                if "sm90" in fn:
-                    print(json.dumps({"variant": name, "function": fn, "registers": reg,
-                                      "spill_stores": st, "spill_loads": ld}), flush=True)
-        xs, w_q, scale, w_lib = _inputs(torch, opts.k)
+                print(json.dumps({"variant": name, "function": fn, "registers": reg,
+                                  "spill_stores": st, "spill_loads": ld}), flush=True)
+        dtype = getattr(torch, opts.dtype)
+        xs, w_q, scale, w_lib = _inputs(torch, opts.k, dtype)
         cold = [w_q.clone() for _ in range(cs.INT8_COLD_COPIES)]
         _library_rows(torch, xs, w_lib, card)
         order = [*variants, *plans]
@@ -157,8 +167,8 @@ def main() -> int:
                 if turn in plans:
                     block_n, splits, source = plans[turn]
                     cuda_build._libraries["int8_matmul"] = libs[source]
-                    im._plan = (lambda M, N, K, sms=0, b=block_n, s=splits: im.Plan(
-                        b, s, -(-im._cdiv(K, im._BLOCK_K) // s)))
+                    im._plan = (lambda M, N, K, sms=0, dtype=dtype, b=block_n, s=splits: im.Plan(
+                        b, s, -(-im._cdiv(K, im._depth(dtype)) // s)))
                 else:
                     cuda_build._libraries["int8_matmul"] = libs[turn]
                     im._plan = plan

@@ -7,12 +7,14 @@ held against the twin on the card (``cuda`` marker). The JAX side is
 imported per test, so the card's tests also run on a host that has torch and
 no JAX."""
 import functools
+import importlib.util
+from pathlib import Path
 
 import numpy as np
 import pytest
 import torch
 
-from univtg_tpu_torch.ops import int8_matmul as im
+from univtg_tpu_torch.ops import cuda_build, int8_matmul as im
 
 torch.set_num_threads(1)
 # the flagship's first video projection: 2818 -> 1024
@@ -96,10 +98,10 @@ def test_twin_matches_pallas_int8_bf16(M, K, N):
     assert rel <= BF16_REL and share <= BF16_SHARE, (rel, share)
 
 
-def _split_ranges(plan, K):
+def _split_ranges(plan, K, depth=64):
     """The [start, end) range of K that each split of ``plan`` sums, as the
-    bf16 kernel takes them (split s from 64 * k_tiles * s)."""
-    step = plan.k_tiles * 64
+    kernel takes them (split s from depth * k_tiles * s: bf16 64, f32 32)."""
+    step = plan.k_tiles * depth
     return [(s * step, min(K, (s + 1) * step)) for s in range(plan.splits)]
 
 
@@ -170,6 +172,95 @@ def test_plan_splits_an_eval_batch_into_whole_waves():
     assert im._plan(2400, FLAGSHIP_N, FLAGSHIP_K) == im.Plan(256, 3, 15)
 
 
+def _f32_kernel_order(x, w_q, scale):
+    """The f32 kernel's arithmetic on the CPU: each weight dequantized in
+    f32 (w_q * scale, the twin's rounding), each split of the plan summed
+    in f32, and the splits added in their order."""
+    M, K = x.shape
+    w = w_q.float() * scale.reshape(1, -1)
+    total = None
+    for a, b in _split_ranges(im._plan(M, w_q.shape[1], K, dtype=torch.float32), K, 32):
+        part = x[:, a:b] @ w[a:b]
+        total = part if total is None else total + part
+    return total
+
+
+@pytest.mark.parametrize("M,K,N", [(48, 72, 96), (37, 130, 300),
+                                   (128, FLAGSHIP_K, FLAGSHIP_N)])
+def test_f32_kernel_order_matches_pallas_int8_f32(M, K, N):
+    """The plan's splits summed apart and added in order, as the f32 kernel
+    does, stay within the f32 limit of the Pallas kernel."""
+    x, w_q, scale = _operands(10, M, K, N)
+    import jax.numpy as jnp
+
+    blocks = dict(block_m=64, block_n=256) if M > 64 else {}
+    want = _pallas_int8(jnp.asarray(x), w_q, scale, **blocks)
+    assert im._plan(M, N, K, dtype=torch.float32).splits > 1
+    got = _f32_kernel_order(torch.from_numpy(x), torch.from_numpy(w_q),
+                            torch.from_numpy(scale))
+    rel, _ = _rel_share(got.numpy(), want)
+    assert rel <= F32_REL, rel
+
+
+@pytest.mark.parametrize("M,K,N", [(1, 129, 300), (128, FLAGSHIP_K, FLAGSHIP_N),
+                                   (2400, FLAGSHIP_K, FLAGSHIP_N), (37, 33, 8),
+                                   (5, 4097, 2048), (300, 31, 130)])
+def test_f32_plan_splits_cover_k_exactly_once(M, K, N):
+    plan = im._plan(M, N, K, dtype=torch.float32)
+    ranges = _split_ranges(plan, K, 32)
+    assert plan.block_n == 128 and len(ranges) == plan.splits
+    assert ranges[0][0] == 0 and ranges[-1][1] == K
+    for (a, b), (c, _) in zip(ranges, ranges[1:] + [(K, K)]):
+        assert a < b and b == c, ranges  # non-empty, and the next starts here
+        assert (b - a) % 32 == 0 or b == K, ranges  # whole chunks but the last
+
+
+@pytest.mark.parametrize("M", [1, 128])
+def test_f32_plan_fills_the_card_at_serving_batches(M):
+    """The f32 kernel's 128 x 128 tiles make 8 blocks at a serving batch:
+    K is split so that the blocks cover at least 90 % of the 132 SMs in
+    one wave."""
+    plan = im._plan(M, FLAGSHIP_N, FLAGSHIP_K, dtype=torch.float32)
+    blocks = -(-M // 128) * -(-FLAGSHIP_N // 128) * plan.splits
+    assert plan.splits > 1 and 0.9 * 132 <= blocks <= 132, (plan, blocks)
+
+
+@pytest.mark.parametrize("M", [4096, 16384])
+def test_f32_plan_needs_no_split_at_dispatch_batches(M):
+    """From M = 4096 up (256 tiles of 128 x 128, 1.94 waves) no split
+    gains: the f32 kernel sums all of K in one block, with no workspace."""
+    plan = im._plan(M, FLAGSHIP_N, FLAGSHIP_K, dtype=torch.float32)
+    assert plan == im.Plan(128, 1, -(-FLAGSHIP_K // 32))
+
+
+def test_f32_plan_splits_an_eval_batch_into_whole_waves():
+    """M = 2400 gives 152 tiles for 132 SMs, two waves of 89 chunks where
+    the second is nearly empty; six splits of 15 chunks make 912 blocks in
+    seven waves of 15."""
+    assert im._plan(2400, FLAGSHIP_N, FLAGSHIP_K, dtype=torch.float32) == im.Plan(128, 6, 15)
+
+
+def _chip_smoke():
+    path = Path(__file__).resolve().parent.parent / "chip_smoke.py"
+    spec = importlib.util.spec_from_file_location("chip_smoke", path)
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def test_planted_f32_fault_quotes_int8_matmul_once():
+    """chip_smoke.py plants its int8 fault by replacing one line of
+    csrc/int8_matmul.cu: the line must be there exactly once, in the f32
+    kernel, or the smoke's fault phase tests nothing (or the wrong kernel)."""
+    faults = _chip_smoke().INT8_FAULTS
+    assert set(faults) == {"int8_last_chunk_skipped_f32"}
+    library, output, line, fault = faults["int8_last_chunk_skipped_f32"]
+    assert library == "int8_matmul" and output == "out" and line != fault
+    text = (cuda_build.CSRC_DIR / "int8_matmul.cu").read_text()
+    assert text.count(line) == 1, line
+    assert text.index("namespace i8f32 {") < text.index(line) < text.index("namespace sm90 {")
+
+
 def test_kernel_layout_of_a_torch_linear_weight():
     """A Linear weight (N, K) with per-row scales goes in transposed, and
     the product equals F.linear with the dequantized weight."""
@@ -204,6 +295,34 @@ def test_cpu_tensor_takes_the_twin_and_launches_nothing():
     assert im.launches["int8_matmul"] == before
 
 
+def test_cpu_tensor_launches_neither_kernel():
+    """The twin on the CPU counts no launch of the product or of the split
+    sum, even at a batch where the card's plan splits K."""
+    before = dict(im.launches)
+    assert im._plan(128, FLAGSHIP_N, FLAGSHIP_K, dtype=torch.float32).splits > 1
+    x, w_q, scale = _operands(15, 128, FLAGSHIP_K, 8)
+    im.int8_matmul(torch.from_numpy(x), torch.from_numpy(w_q), torch.from_numpy(scale))
+    assert im.launches == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [128, 2400, 4096])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cuda_call_counts_each_kernel_it_launches(cuda_device, M, dtype):
+    """One call counts one launch of the product and, where the plan splits
+    K, one of the split sum."""
+    x, w_q, scale = _operands(16, M, FLAGSHIP_K, FLAGSHIP_N)
+    x = torch.from_numpy(x).to(cuda_device, getattr(torch, dtype))
+    w_q, scale = torch.from_numpy(w_q).to(cuda_device), torch.from_numpy(scale).to(cuda_device)
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    split = im._plan(M, FLAGSHIP_N, FLAGSHIP_K, sms, x.dtype).splits > 1
+    before = dict(im.launches)
+    im.int8_matmul(x, w_q, scale)
+    torch.cuda.synchronize()
+    assert im.launches == {"int8_matmul": before["int8_matmul"] + 1,
+                           "int8_matmul_split_sum": before["int8_matmul_split_sum"] + split}
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("M,K,N", [(37, 130, 300), (128, FLAGSHIP_K, FLAGSHIP_N),
                                    (2400, FLAGSHIP_K, FLAGSHIP_N)])
@@ -236,7 +355,10 @@ def _cuda_check(x, w_q, scale):
     assert im.launches["int8_matmul"] == before + 1
     assert got.dtype == x.dtype and got.shape == want.shape and torch.isfinite(got).all()
     rel, share = _rel_share(got.float().cpu().numpy(), want.float().cpu().numpy())
-    assert rel <= BF16_REL and share <= BF16_SHARE, (rel, share)
+    if x.dtype == torch.float32:
+        assert rel <= F32_REL, rel
+    else:
+        assert rel <= BF16_REL and share <= BF16_SHARE, (rel, share)
     return got
 
 
@@ -300,3 +422,69 @@ def test_cuda_kernel_repeats_its_bits(cuda_device, M, dtype):
     w_q, scale = torch.from_numpy(w_q).to(cuda_device), torch.from_numpy(scale).to(cuda_device)
     first = im.int8_matmul(x, w_q, scale)
     assert torch.equal(first, im.int8_matmul(x, w_q, scale))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M,K,N", [
+    (37, 129, 300),                  # odd K: x one float a copy
+    (64, 1024, 256),                 # 16-byte-aligned rows of x and w_q: 8 bytes a copy
+    (130, 258, 300),                 # K % 2 == 0: 8 bytes; N % 16 != 0: shifted w_q
+    (70, 96, 301),                   # odd N
+    (1, FLAGSHIP_K, FLAGSHIP_N),     # M = 1, split K
+    (300, 130, 520),                 # two 128-row tiles and a ragged third
+], ids=["odd_k", "aligned_rows", "k_even_n_300", "odd_n", "m_1", "ragged_m"])
+def test_cuda_f32_kernel_at_ragged_shapes(cuda_device, M, K, N):
+    torch.backends.cuda.matmul.allow_tf32 = False  # the twin's product in f32
+    x, w_q, scale = _operands(11, M, K, N)
+    _cuda_check(torch.from_numpy(x).to(cuda_device),
+                torch.from_numpy(w_q).to(cuda_device),
+                torch.from_numpy(scale).to(cuda_device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("offset", [1, 2])
+def test_cuda_f32_kernel_reads_x_off_a_16_byte_boundary(cuda_device, offset):
+    """x's data starts 4 (one float a copy) or 8 bytes (8-byte copies) past
+    a 16-byte boundary: no copy, the kernel reads it in place."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    M, K, N = 96, FLAGSHIP_K, 256
+    x, w_q, scale = _operands(12, M, K, N)
+    flat = torch.zeros(M * K + offset, dtype=torch.float32, device=cuda_device)
+    flat[offset:] = torch.from_numpy(x).reshape(-1).to(cuda_device)
+    xv = flat[offset:].view(M, K)
+    assert xv.is_contiguous() and xv.data_ptr() % 16 == 4 * offset
+    _cuda_check(xv, torch.from_numpy(w_q).to(cuda_device),
+                torch.from_numpy(scale).to(cuda_device))
+
+
+@pytest.mark.cuda
+def test_cuda_f32_kernel_takes_all_256_int8_values(cuda_device):
+    """One-hot rows of x pick single weights: every int8 value, converted
+    and scaled, gives the twin's bits."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    K, N = 256, 96
+    k, n = np.meshgrid(np.arange(K), np.arange(N), indexing="ij")
+    w_q = torch.from_numpy(((k + 7 * n) % 256 - 128).astype(np.int8)).to(cuda_device)
+    scale = torch.from_numpy(np.random.default_rng(13).uniform(1e-3, 2.0, N)
+                             .astype(np.float32)).to(cuda_device)
+    x = torch.eye(K, dtype=torch.float32, device=cuda_device)
+    got = im.int8_matmul(x, w_q, scale)
+    want = im.int8_matmul_reference(x, w_q, scale)
+    assert sorted(set(w_q[:, 0].tolist())) == list(range(-128, 128))
+    assert torch.equal(got, want)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("M", [1, 128, 2400])
+def test_cuda_f32_kernel_repeats_its_bits_with_splits(cuda_device, M):
+    """The f32 plan splits K at these batches on the card, and the split sum
+    adds the splits in a fixed order, with no atomics: three calls on the
+    same input give the same bits."""
+    sms = torch.cuda.get_device_properties(cuda_device).multi_processor_count
+    assert im._plan(M, FLAGSHIP_N, FLAGSHIP_K, sms, torch.float32).splits > 1
+    x, w_q, scale = _operands(14, M, FLAGSHIP_K, FLAGSHIP_N)
+    x = torch.from_numpy(x).to(cuda_device)
+    w_q, scale = torch.from_numpy(w_q).to(cuda_device), torch.from_numpy(scale).to(cuda_device)
+    first = im.int8_matmul(x, w_q, scale)
+    for _ in range(2):
+        assert torch.equal(first, im.int8_matmul(x, w_q, scale))

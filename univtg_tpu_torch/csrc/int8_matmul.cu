@@ -9,10 +9,12 @@
 // serve/quantize.py). The sum runs in f32 and the result is rounded to x's
 // dtype once, at the store.
 //
-// Bound on the card: at serving batches (M = 128) the bytes, and of those the
-// int8 weight (K * N) dominates, which is the whole point of storing it in
-// int8; from M ~ 4096 up the operations (2 * M * K * N). So no kernel writes
-// a dequantized copy of the weight to device memory.
+// Bound on the card: in bf16, at serving batches (M = 128) the bytes, and of
+// those the int8 weight (K * N) dominates, which is the whole point of
+// storing it in int8; from M ~ 4096 up the operations (2 * M * K * N). In
+// f32 the operations at every M (67 TFLOP/s of FFMA against 989 of bf16
+// wgmma). So no kernel writes a dequantized copy of the weight to device
+// memory.
 //
 // The dtype picks the design; this is a dispatch, not a fallback:
 //
@@ -47,17 +49,48 @@
 //   Where the tiles alone leave SMs idle (serving batches) the wrapper's plan
 //   (ops/int8_matmul.py:_plan) splits K: split s takes k_tiles stages from
 //   64 * k_tiles * s and writes its f32 partial sums to a workspace, and
-//   int8_matmul_split_sum adds the splits in their order, scales and rounds.
+//   int8_matmul_split_sum<bf16> adds the splits in their order, scales and
+//   rounds.
 //   No atomics: the same input gives the same bits on every run.
 //
-// f32 -- CUDA cores (int8_matmul_kernel<float>): TF32 would miss the f32
-// limit (rel 1e-5), as for the f32 flash kernels. One block of 256 threads
-// per 64 x 64 output tile; a loop over K in chunks of 32, each chunk of x
-// and of w_q staged through shared memory as f32 (the int8 weight converted
-// and scaled as it is staged, w * scale[n] as the reference multiplies);
-// each thread owns a 4 x 4 patch of outputs, rows ty + 16 i and columns
-// tx + 16 j, and accumulates it with scalar FMAs. Ragged edges are masked in
-// the kernel, so the wrapper pads nothing.
+// f32 -- CUDA cores (int8_matmul_f32_kernel<VEC, WA>), in plain f32 FFMA:
+// TF32 would miss the f32 limit (rel 1e-5), as for the f32 flash kernels.
+// The SGEMM recipe of csrc/flash_f32.cuh. A block of 256 threads owns a
+// 128 x 128 tile of out and runs one per SM; each thread keeps an 8 x 8
+// register tile, rows ty + 16 i and columns tx + 16 j, fed by float4 reads
+// along K: per 4 of K, 8 rows of the x tile and 8 of the w_q^T tile, 256
+// FFMA per 16 LDS.128, which balances shared memory against the FMA pipes
+// (flash_f32.cuh's reckoning). Both tiles are K-major rows of 32 floats,
+// chunk c of row r at chunk c ^ (r % 8) (f32::chunk_at); a warp is 4 x 8
+// threads, so a quarter warp reads one x row (a broadcast) and 8 w_q^T rows
+// of distinct r % 8.
+//   K runs in 32-deep chunks through three stages filled by cp.async, one
+//   barrier a chunk: chunk t + 2 copies while chunk t is computed, x
+//   straight into its f32 tile, VEC floats a copy (2 where every row of x
+//   starts on 8 bytes, as at the flagship's K = 2818 whose rows are 11272
+//   bytes apart, else 1); w_q as raw bytes, the aligned
+//   16-byte blocks that cover each row's 128 columns (8 where every row is
+//   16-byte aligned, WA, then XOR-placed by k / 4 so that the convert's
+//   reads hit distinct banks; else 9, shifted as they are read). Before
+//   chunk t's product each thread converts 16 bytes of chunk t + 1's raw
+//   stage into the second w_q^T tile: a word of each of 4 rows of K, each
+//   byte v put into the mantissa of 2^23 + 128 and 2^23 + 128 subtracted
+//   (v exactly), times scale[n], 4 float4 stores. ptxas must report no
+//   spill for any instantiation (chip_smoke.py, phase 2).
+//   Scale per weight, as the twin: v * scale[n] is the twin's own f32
+//   rounding, so the kernel sums the twin's terms and only the order of the
+//   sum differs. Where K is not split the order is the twin's too (one FMA
+//   chain over k), and the f32 outputs read bit-equal to the twin's on the
+//   H100 at M = 4096 and 16384 (PERF.md section 6); the scale applied to the
+//   sum instead read rel 3.5e-6 there, a third of the limit.
+//   Where the tiles alone leave SMs idle (M = 128: 8 tiles; M = 2400: 152
+//   for 132 SMs) the plan (ops/int8_matmul.py:_plan) splits K into runs of
+//   whole chunks, each split's f32 sums go to the workspace, and
+//   int8_matmul_split_sum<float> adds them in their order (with no scale:
+//   the terms hold it). No atomics: the same input gives the same bits on
+//   every run.
+//   Ragged edges need no copy: rows past M and elements past K are zeros,
+//   and w_q's bytes past N reach only columns of out that are not stored.
 //
 // Built by univtg_tpu_torch/ops/cuda_build.py:
 //   nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared
@@ -68,111 +101,324 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-#include "flash_sm90.cuh"
+#include "flash_f32.cuh"
 
 namespace {
 
-// ---------------------------------------------------------------------------
-// f32: CUDA cores
+// Both kernels' tiling from the wrapper's plan: block_n columns a block (f32:
+// 128; bf16: 64, 128 or 256), K in `splits` runs of k_tiles chunks (f32: 32
+// deep; bf16: 64-deep stages).
+struct Plan {
+  int block_n, splits, k_tiles;
+};
 
-constexpr int BLOCK_M = 64;   // output rows per block
-constexpr int BLOCK_N = 64;   // output columns per block
-constexpr int BLOCK_K = 32;   // depth of one staged chunk
-constexpr int THREADS = 256;  // 16 x 16 threads, a 4 x 4 patch each
-constexpr int PATCH = 4;
-constexpr int LDX = BLOCK_M + 1;  // x chunk stored k-major, padded
-
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_f32(float x);
-template <>
-__device__ __forceinline__ float from_f32<float>(float x) {
-  return x;
+// Whether the plan's splits of a K of kt chunks each hold at least one chunk
+// and together hold all, with a workspace where they are more than one.
+bool plan_ok(Plan p, int kt, const float* partial) {
+  return p.splits >= 1 && p.k_tiles >= 1 && (long long)p.splits * p.k_tiles >= kt &&
+         (long long)(p.splits - 1) * p.k_tiles < kt && (p.splits == 1 || partial);
 }
 
+// Every row of a (rows, stride) matrix of `size`-byte elements at ptr starts
+// on a 16-byte boundary.
+bool rows_aligned(const void* ptr, int stride, int size) {
+  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
+         (size_t)stride * size % 16 == 0;
+}
+
+// out = T((partial[0] + partial[1] + ... + partial[splits - 1]) * scale),
+// the splits added in their order; scale null: the partial sums hold it.
 template <typename T>
-__global__ void __launch_bounds__(THREADS)
-int8_matmul_kernel(const T* __restrict__ x, const int8_t* __restrict__ w,
-                   const float* __restrict__ scale, T* __restrict__ out,
-                   int M, int N, int K) {
-  __shared__ float Xs[BLOCK_K * LDX];      // Xs[k][m]
-  __shared__ float Ws[BLOCK_K * BLOCK_N];  // Ws[k][n], dequantized
-
-  const int tid = threadIdx.x;
-  const int tx = tid % 16;
-  const int ty = tid / 16;
-  const int m0 = blockIdx.y * BLOCK_M;
-  const int n0 = blockIdx.x * BLOCK_N;
-
-  // the weight column this thread stages is the same in every chunk
-  const int wn = tid % BLOCK_N;
-  const float s = n0 + wn < N ? scale[n0 + wn] : 0.f;
-
-  float acc[PATCH][PATCH];
-#pragma unroll
-  for (int i = 0; i < PATCH; ++i)
-#pragma unroll
-    for (int j = 0; j < PATCH; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += BLOCK_K) {
-    // x chunk: 64 rows x 32 k, consecutive threads on consecutive k
-#pragma unroll
-    for (int e = 0; e < BLOCK_M * BLOCK_K / THREADS; ++e) {
-      const int idx = tid + e * THREADS;
-      const int r = idx / BLOCK_K, c = idx % BLOCK_K;
-      const int m = m0 + r, k = k0 + c;
-      Xs[c * LDX + r] = (m < M && k < K) ? to_f32(x[(size_t)m * K + k]) : 0.f;
-    }
-    // w chunk: 32 k x 64 n, consecutive threads on consecutive n
-#pragma unroll
-    for (int e = 0; e < BLOCK_K * BLOCK_N / THREADS; ++e) {
-      const int idx = tid + e * THREADS;
-      const int r = idx / BLOCK_N;
-      const int n = n0 + wn, k = k0 + r;
-      Ws[r * BLOCK_N + wn] =
-          (n < N && k < K) ? (float)w[(size_t)k * N + n] * s : 0.f;
-    }
-    __syncthreads();
-
-#pragma unroll 8
-    for (int kk = 0; kk < BLOCK_K; ++kk) {
-      float a[PATCH], b[PATCH];
-#pragma unroll
-      for (int i = 0; i < PATCH; ++i) a[i] = Xs[kk * LDX + ty + 16 * i];
-#pragma unroll
-      for (int j = 0; j < PATCH; ++j) b[j] = Ws[kk * BLOCK_N + tx + 16 * j];
-#pragma unroll
-      for (int i = 0; i < PATCH; ++i)
-#pragma unroll
-        for (int j = 0; j < PATCH; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < PATCH; ++i) {
-    const int m = m0 + ty + 16 * i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < PATCH; ++j) {
-      const int n = n0 + tx + 16 * j;
-      if (n < N) out[(size_t)m * N + n] = from_f32<T>(acc[i][j]);
-    }
+__global__ void int8_matmul_split_sum(const float* __restrict__ partial,
+                                      const float* __restrict__ scale,
+                                      T* __restrict__ out, int M, int N,
+                                      int splits) {
+  const size_t MN = (size_t)M * N;
+  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
+       i += (size_t)gridDim.x * blockDim.x) {
+    float s = 0.f;
+    for (int p = 0; p < splits; ++p) s += partial[p * MN + i];
+    out[i] = flash::from_f32<T>(scale ? s * __ldg(scale + i % N) : s);
   }
 }
 
 template <typename T>
-cudaError_t launch(const void* x, const void* w, const float* scale,
-                   void* out, int M, int N, int K, cudaStream_t stream) {
-  const dim3 grid((N + BLOCK_N - 1) / BLOCK_N, (M + BLOCK_M - 1) / BLOCK_M);
-  int8_matmul_kernel<T><<<grid, THREADS, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const int8_t*>(w), scale,
-      static_cast<T*>(out), M, N, K);
+cudaError_t launch_split_sum(const float* partial, const float* scale, T* out,
+                             int M, int N, int splits, cudaStream_t stream) {
+  const long long blocks = ((long long)M * N + 255) / 256;  // grid-stride
+  int8_matmul_split_sum<T><<<(unsigned)(blocks < 4096 ? blocks : 4096), 256,
+                             0, stream>>>(partial, scale, out, M, N, splits);
   return cudaGetLastError();
 }
 
 }  // namespace
+
+// ---------------------------------------------------------------------------
+// f32: CUDA cores
+
+namespace i8f32 {
+
+using f32::chunk_at;
+using f32::ld4;
+using f32::st4;
+
+constexpr int THREADS = 256;       // 8 warps of 4 x 8 threads
+constexpr int RS = THREADS / 16;   // a thread's 8 x 8 tile: rows ty + RS i
+                                   // (ty < RS), columns tx + 16 j (tx < 16)
+constexpr int BM = 8 * RS, BN = 128;  // the block's tile of out
+constexpr int BK = 32;             // depth of one chunk
+constexpr int STAGES = 3;          // x and raw w_q stages: chunks t .. t + 2
+constexpr int X_TILE = BM * BK;    // floats of one x stage
+constexpr int W_TILE = BN * BK;    // floats of one w_q^T tile
+constexpr int W_ROW = BN + 16;     // bytes of a raw w_q row: 8 blocks, or 9
+constexpr int W_RAW = BK * W_ROW;  // bytes of one raw w_q stage
+// the x stages, two w_q^T tiles, the raw w_q stages: 95744 bytes
+constexpr size_t SMEM =
+    sizeof(float) * (STAGES * X_TILE + 2 * W_TILE) + STAGES * W_RAW;
+
+// cp.async of BYTES (4, 8 or 16) from src to the shared address dst, or
+// zeros where `ok` is false (no global read).
+template <int BYTES>
+__device__ __forceinline__ void cp_async(uint32_t dst, const void* src,
+                                         bool ok) {
+  if constexpr (BYTES == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+                 "l"(src), "r"(ok ? 16 : 0)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+                 "l"(src), "n"(BYTES), "r"(ok ? BYTES : 0)
+                 : "memory");
+}
+
+// Elements [k0, k0 + BK) of x's rows [m0, m0 + BM) into the x tile at xs
+// (row r's elements 4c .. 4c + 3 at chunk_at<BK>(r, c)), VEC floats a copy:
+// every row of x starts on a 4 VEC-byte boundary and K % VEC == 0, so a
+// copy holds elements all inside K or all past it. Rows past M and elements
+// past K are zeros. Consecutive threads copy consecutive elements of a row.
+template <int VEC>
+__device__ __forceinline__ void copy_x(float* xs, const float* x, int M,
+                                       int K, int m0, int k0) {
+  constexpr int PER_ROW = BK / VEC, ROWS = THREADS / PER_ROW;
+  static_assert(ROWS % 8 == 0, "a thread's rows share their swizzle");
+  const int col = threadIdx.x % PER_ROW * VEC, r = threadIdx.x / PER_ROW;
+  const int k = k0 + col;
+  const uint32_t d =
+      sm90::smem_u32(xs + chunk_at<BK>(r, col >> 2) + (col & 3));
+#pragma unroll
+  for (int it = 0; it < BM / ROWS; ++it) {
+    const int m = m0 + r + it * ROWS;
+    const bool ok = m < M && k < K;
+    cp_async<4 * VEC>(d + 4 * it * ROWS * BK, ok ? x + (size_t)m * K + k : x,
+                      ok);
+  }
+}
+
+// Rows [k0, k0 + BK) of w_q, bytes [n0, n0 + BN) of each, into the raw stage
+// at wr: row r at W_ROW r, as the aligned 16-byte blocks that cover the row
+// (no row needs an aligned start). WA (every row 16-byte aligned): its 8
+// blocks, block i at position i ^ (r / 4 % 8), so that convert's 32 lanes
+// read 32 distinct banks; else its 9 blocks in order. A block is read only
+// where it holds bytes of the row inside N (an aligned block never crosses
+// a page), else zeros, and rows past K are zeros. Bytes past N are not
+// masked: they reach only columns of out that are not stored.
+template <bool WA>
+__device__ __forceinline__ void copy_w(uint32_t wr, const int8_t* w, int N,
+                                       int K, int n0, int k0) {
+  constexpr int WB = WA ? 8 : 9;  // blocks a row
+#pragma unroll
+  for (int it = 0; it < (BK * WB + THREADS - 1) / THREADS; ++it) {
+    const int e = threadIdx.x + it * THREADS;
+    if (e >= BK * WB) break;
+    const int r = e / WB, i = e % WB;
+    const int k = k0 + r;
+    const uintptr_t a =
+        reinterpret_cast<uintptr_t>(w + (size_t)(k < K ? k : 0) * N + n0);
+    const uintptr_t b = (a & ~(uintptr_t)15) + 16 * i;
+    const bool ok = k < K && b < a + (N - n0);
+    cp_async<16>(wr + r * W_ROW + 16 * (WA ? i ^ ((r >> 2) & 7) : i),
+                 ok ? reinterpret_cast<const void*>(b) : w, ok);
+  }
+}
+
+// The raw stage at wr (chunk k0) into the w_q^T tile at ws: row n holds
+// w_q[k0 + k][n0 + n] * scale[n0 + n] for k in [0, BK), elements 4c ..
+// 4c + 3 at chunk_at<BK>(n, c) (columns past N hold garbage, never stored).
+// Thread p takes rows 4c .. 4c + 3 of K (c = p % 8) and columns 4g .. 4g + 3
+// (g = p / 8): one word of each row, 16 conversions, 4 float4 stores; a
+// quarter warp stores chunks c = 0..7 of one row, at distinct positions.
+template <bool WA>
+__device__ __forceinline__ void convert(float* ws, const uint8_t* wr,
+                                        const int8_t* w,
+                                        const float* __restrict__ scale, int N,
+                                        int n0, int k0) {
+  static_assert(THREADS == 8 * (BN / 4), "one word of 4 rows a thread");
+  const int c = threadIdx.x & 7, g = threadIdx.x >> 3;
+  uint32_t word[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const uint8_t* row = wr + (4 * c + e) * W_ROW;
+    if constexpr (WA) {
+      word[e] = *reinterpret_cast<const uint32_t*>(row + 16 * ((g >> 2) ^ c) +
+                                                   4 * (g & 3));
+    } else {  // bytes 4g .. 4g + 3 of the row start `off` bytes into it
+      const int off = (int)(reinterpret_cast<uintptr_t>(
+                                w + (size_t)(k0 + 4 * c + e) * N + n0) & 15);
+      const uint32_t* q = reinterpret_cast<const uint32_t*>(row) + (off >> 2) + g;
+      word[e] = __funnelshift_r(q[0], q[1], 8 * (off & 3));
+    }
+    word[e] ^= 0x80808080u;  // each byte v + 128
+  }
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const int n = n0 + 4 * g + q;
+    const float sc = n < N ? __ldg(scale + n) : 0.f;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 4; ++e)  // 2^23 + 128 + v, less 2^23 + 128
+      v[e] = (__uint_as_float(__byte_perm(word[e], 0x4B000000u, 0x7540 | q)) -
+              8388736.f) * sc;
+    st4(ws + chunk_at<BK>(4 * g + q, c), v);
+  }
+}
+
+// acc[i][j] += the chunk's x tile row ty + RS i . w_q^T tile row tx + 16 j.
+__device__ __forceinline__ void product(float (&acc)[8][8], const float* xs,
+                                        const float* ws, int ty, int tx) {
+  static_assert(RS % 8 == 0, "rows ty + RS i share ty's swizzle");
+  const float* a0 = xs + ty * BK;
+  const float* b0 = ws + tx * BK;
+#pragma unroll
+  for (int c = 0; c < BK / 4; ++c) {
+    const int oa = (c ^ (ty & 7)) << 2, ob = (c ^ (tx & 7)) << 2;
+    float a[8][4], b[8][4];
+#pragma unroll
+    for (int i = 0; i < 8; ++i) ld4(a[i], a0 + RS * i * BK + oa);
+#pragma unroll
+    for (int j = 0; j < 8; ++j) ld4(b[j], b0 + 16 * j * BK + ob);
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+#pragma unroll
+      for (int i = 0; i < 8; ++i)
+#pragma unroll
+        for (int j = 0; j < 8; ++j) acc[i][j] = fmaf(a[i][e], b[j][e], acc[i][j]);
+  }
+}
+
+// One BM x BN tile of out (blockIdx.x: the tile, N tiles fastest, so the
+// blocks that share x's rows run together) over the chunks [k_tiles *
+// blockIdx.y, k_tiles * (blockIdx.y + 1)) of K. partial null: out = the
+// sum; else the sum goes to partial[blockIdx.y]. One barrier a chunk: at
+// the top of step t, chunk t's w_q^T tile is complete and chunk t + 1's
+// copies have landed; step t starts chunk t + 2's copies into stage
+// (t + 2) % 3 (chunk t - 1's, free), converts chunk t + 1's raw w_q into
+// w_q^T tile (t + 1) % 2 (chunk t - 1's, free), takes chunk t's product,
+// waits for its own copies and meets the others at the barrier. A warp's
+// 4 x 8 threads read 4 x rows and 8 w_q^T rows a load.
+template <int VEC, bool WA>
+__global__ void __launch_bounds__(THREADS, 1)
+int8_matmul_f32_kernel(const float* __restrict__ x,
+                       const int8_t* __restrict__ w,
+                       const float* __restrict__ scale,
+                       float* __restrict__ out, float* __restrict__ partial,
+                       int M, int N, int K, int k_tiles) {
+  extern __shared__ float4 smem4[];
+  float* const Xs = reinterpret_cast<float*>(smem4);  // STAGES x stages
+  float* const Ws = Xs + STAGES * X_TILE;              // two w_q^T tiles
+  const uint8_t* const Wr = reinterpret_cast<uint8_t*>(Ws + 2 * W_TILE);
+  const uint32_t wr = sm90::smem_u32(Wr);              // STAGES raw stages
+
+  const int n_tiles = (N + BN - 1) / BN;
+  const int n0 = (blockIdx.x % n_tiles) * BN;
+  const int m0 = (blockIdx.x / n_tiles) * BM;
+  const int kt0 = blockIdx.y * k_tiles;
+  const int nk = min(k_tiles, (K + BK - 1) / BK - kt0);  // >= 1
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int tx = (lane & 7) + 8 * (warp & 1), ty = (lane >> 3) + 4 * (warp >> 1);
+
+  auto load = [&](int t) {
+    if (t < nk) {
+      copy_x<VEC>(Xs + (t % STAGES) * X_TILE, x, M, K, m0, (kt0 + t) * BK);
+      copy_w<WA>(wr + (t % STAGES) * W_RAW, w, N, K, n0, (kt0 + t) * BK);
+    }
+    sm90::cp_commit();
+  };
+
+  float acc[8][8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i)
+#pragma unroll
+    for (int j = 0; j < 8; ++j) acc[i][j] = 0.f;
+
+  load(0);
+  load(1);
+  asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+  __syncthreads();  // chunk 0 is in
+  convert<WA>(Ws, Wr, w, scale, N, n0, kt0 * BK);
+  f32::cp_wait_all();
+  __syncthreads();  // chunk 0's w_q^T tile is complete, chunk 1 is in
+  for (int t = 0; t < nk; ++t) {
+    load(t + 2);
+    if (t + 1 < nk)
+      convert<WA>(Ws + ((t + 1) & 1) * W_TILE, Wr + ((t + 1) % STAGES) * W_RAW,
+                  w, scale, N, n0, (kt0 + t + 1) * BK);
+    product(acc, Xs + (t % STAGES) * X_TILE, Ws + (t & 1) * W_TILE, ty, tx);
+    f32::cp_wait_all();
+    __syncthreads();
+  }
+
+  float* const dst = partial ? partial + (size_t)blockIdx.y * M * N : out;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) {
+    const int n = n0 + tx + 16 * j;
+    if (n >= N) continue;
+#pragma unroll
+    for (int i = 0; i < 8; ++i) {
+      const int m = m0 + ty + RS * i;
+      if (m < M) dst[(size_t)m * N + n] = acc[i][j];
+    }
+  }
+}
+
+template <int VEC, bool WA>
+cudaError_t launch_tile(const void* x, const void* w, const float* scale,
+                        void* out, float* partial, int M, int N, int K, Plan p,
+                        cudaStream_t stream) {
+  const auto kernel = int8_matmul_f32_kernel<VEC, WA>;
+  cudaError_t err = sm90::allow_smem(kernel, SMEM);
+  if (err != cudaSuccess) return err;
+  const long long tiles = (long long)((M + BM - 1) / BM) * ((N + BN - 1) / BN);
+  if (tiles > 0x7fffffff || p.splits > 65535) return cudaErrorInvalidValue;
+  kernel<<<dim3((unsigned)tiles, p.splits), THREADS, SMEM, stream>>>(
+      static_cast<const float*>(x), static_cast<const int8_t*>(w), scale,
+      static_cast<float*>(out), p.splits > 1 ? partial : nullptr, M, N, K,
+      p.k_tiles);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || p.splits == 1) return err;
+  return launch_split_sum<float>(partial, nullptr, static_cast<float*>(out),
+                                 M, N, p.splits, stream);
+}
+
+template <int VEC>
+cudaError_t launch_vec(bool wa, const void* x, const void* w,
+                       const float* scale, void* out, float* partial, int M,
+                       int N, int K, Plan p, cudaStream_t stream) {
+  return wa ? launch_tile<VEC, true>(x, w, scale, out, partial, M, N, K, p, stream)
+            : launch_tile<VEC, false>(x, w, scale, out, partial, M, N, K, p, stream);
+}
+
+cudaError_t launch(const void* x, const void* w, const float* scale,
+                   void* out, float* partial, int M, int N, int K, Plan p,
+                   cudaStream_t stream) {
+  if (p.block_n != BN || !plan_ok(p, (K + BK - 1) / BK, partial))
+    return cudaErrorInvalidValue;
+  const bool wa = rows_aligned(w, N, 1);
+  if (reinterpret_cast<uintptr_t>(x) % 8 == 0 && K % 2 == 0)
+    return launch_vec<2>(wa, x, w, scale, out, partial, M, N, K, p, stream);
+  return launch_vec<1>(wa, x, w, scale, out, partial, M, N, K, p, stream);
+}
+
+}  // namespace i8f32
 
 // ---------------------------------------------------------------------------
 // bf16: tensor cores
@@ -479,25 +725,6 @@ int8_matmul_kernel_sm90(const bf16* __restrict__ x,
     }
 }
 
-// out = bf16((partial[0] + partial[1] + ... + partial[splits - 1]) * scale),
-// the splits added in their order.
-__global__ void int8_matmul_split_sum(const float* __restrict__ partial,
-                                      const float* __restrict__ scale,
-                                      bf16* __restrict__ out, int M, int N,
-                                      int splits) {
-  const size_t MN = (size_t)M * N;
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < MN;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int p = 0; p < splits; ++p) s += partial[p * MN + i];
-    out[i] = __float2bfloat16(s * __ldg(scale + i % N));
-  }
-}
-
-struct Plan {
-  int block_n, splits, k_tiles;
-};
-
 template <int BN, bool XA, bool WA>
 cudaError_t launch_tile(const void* x, const void* w, const float* scale,
                         void* out, float* partial, int M, int N, int K, Plan p,
@@ -515,11 +742,8 @@ cudaError_t launch_tile(const void* x, const void* w, const float* scale,
           p.k_tiles);
   err = cudaGetLastError();
   if (err != cudaSuccess || p.splits == 1) return err;
-  const long long blocks = ((long long)M * N + 255) / 256;  // grid-stride
-  int8_matmul_split_sum<<<(unsigned)(blocks < 4096 ? blocks : 4096), 256, 0,
-                          stream>>>(partial, scale, static_cast<bf16*>(out),
-                                    M, N, p.splits);
-  return cudaGetLastError();
+  return launch_split_sum(partial, scale, static_cast<bf16*>(out), M, N,
+                          p.splits, stream);
 }
 
 template <int BN>
@@ -539,22 +763,10 @@ cudaError_t launch_bn(bool xa, bool wa, const void* x, const void* w,
                                        stream);
 }
 
-// Every row of a (rows, stride) matrix of `size`-byte elements at ptr starts
-// on a 16-byte boundary.
-bool rows_aligned(const void* ptr, int stride, int size) {
-  return reinterpret_cast<uintptr_t>(ptr) % 16 == 0 &&
-         (size_t)stride * size % 16 == 0;
-}
-
 cudaError_t launch_bf16(const void* x, const void* w, const float* scale,
                         void* out, float* partial, int M, int N, int K, Plan p,
                         cudaStream_t stream) {
-  const int kt = (K + I8_BK - 1) / I8_BK;
-  // every split holds at least one stage, and together they hold all
-  if (p.splits < 1 || p.k_tiles < 1 || (long long)p.splits * p.k_tiles < kt ||
-      (long long)(p.splits - 1) * p.k_tiles >= kt ||
-      (p.splits > 1 && !partial))
-    return cudaErrorInvalidValue;
+  if (!plan_ok(p, (K + I8_BK - 1) / I8_BK, partial)) return cudaErrorInvalidValue;
   const bool xa = rows_aligned(x, K, 2), wa = rows_aligned(w, N, 1);
   if (p.block_n == 256)
     return launch_bn<256>(xa, wa, x, w, scale, out, partial, M, N, K, p,
@@ -573,10 +785,11 @@ cudaError_t launch_bf16(const void* x, const void* w, const float* scale,
 extern "C" {
 
 // x (M, K), w (K, N) int8, scale (N,) f32 and out (M, N), all dense and
-// row-major; x and out share the dtype: 0 = float32 (CUDA cores), 1 =
-// bfloat16 (wgmma, after the plan: block_n 64, 128 or 256 columns a block, K in
-// `splits` runs of k_tiles 64-deep stages, each split non-empty; with
-// splits > 1, partial is an f32 workspace of splits * M * N). Returns a
+// row-major; x and out share the dtype: 0 = float32 (CUDA cores; the plan's
+// block_n 128, K in `splits` runs of k_tiles 32-deep chunks), 1 = bfloat16
+// (wgmma; block_n 64, 128 or 256 columns a block, K in `splits` runs of
+// k_tiles 64-deep stages); each split non-empty, and with splits > 1,
+// partial is an f32 workspace of splits * M * N. Returns a
 // cudaError_t; 0 on success. Launches on `stream`, allocates nothing and
 // does not synchronise.
 int univtg_int8_matmul(const void* x, const void* w, const void* scale,
@@ -585,13 +798,10 @@ int univtg_int8_matmul(const void* x, const void* w, const void* scale,
   const float* s = static_cast<const float*>(scale);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (M <= 0 || N <= 0 || K <= 0) return (int)cudaErrorInvalidValue;
-  if (dtype == 0) {
-    if ((M + BLOCK_M - 1) / BLOCK_M > 65535) return (int)cudaErrorInvalidValue;
-    return (int)launch<float>(x, w, s, out, M, N, K, st);
-  }
-  if (dtype == 1)
-    return (int)sm90::launch_bf16(x, w, s, out, static_cast<float*>(partial),
-                                  M, N, K, {block_n, splits, k_tiles}, st);
+  const Plan p{block_n, splits, k_tiles};
+  float* ws = static_cast<float*>(partial);
+  if (dtype == 0) return (int)i8f32::launch(x, w, s, out, ws, M, N, K, p, st);
+  if (dtype == 1) return (int)sm90::launch_bf16(x, w, s, out, ws, M, N, K, p, st);
   return (int)cudaErrorInvalidValue;
 }
 
